@@ -1,0 +1,114 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain C interface. At first use it is
+compiled with ``nvcc`` into ``build/horovod_tpu_torch/lib<name>_<hash>.so``
+(the hash covers the source and the flags, so an edited source builds
+anew) and loaded with ``ctypes``. Several sources build in parallel, one
+``nvcc`` each, all started together. A failed build raises; nothing
+falls back to a CPU path.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable, List, Sequence
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "horovod_tpu_torch"
+SOURCES = ("decode_attention",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found (PATH or /usr/local/cuda/bin): the CUDA "
+            "kernels of horovod_tpu_torch build from source at first use")
+    return path
+
+
+def target(name: str) -> Path:
+    """Content-addressed path of the shared library built from ``name``."""
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def log_path(name: str) -> Path:
+    """The compiler's output of the last build of ``name`` (ptxas
+    register and spill report)."""
+    return BUILD_DIR / f"{name}.log"
+
+
+def build_all(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
+    """Compile every source in ``names`` that is not built yet, one
+    ``nvcc`` each, all started together; return name -> library path."""
+    names = list(names)
+    with _lock:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        jobs: List[tuple] = []
+        for name in names:
+            so = target(name)
+            if so.exists():
+                continue
+            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+            cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                   str(CSRC / f"{name}.cu")]
+            jobs.append((name, so, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        errors = []
+        for name, so, tmp, proc in jobs:
+            output, _ = proc.communicate()
+            log_path(name).write_text(output)
+            if proc.returncode != 0:
+                errors.append(f"{name}.cu: nvcc exited {proc.returncode}\n"
+                              f"{output}")
+            else:
+                os.replace(tmp, so)
+        if errors:
+            raise RuntimeError("building the CUDA kernels failed:\n"
+                               + "\n".join(errors))
+    return {name: target(name) for name in names}
+
+
+def library(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use, with
+    ``argtypes`` set from ``signatures`` (function -> ctypes types; each
+    C entry point returns an int error code, which
+    :func:`check` turns into an exception)."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    path = build_all([name])[name]
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(path))
+            for fn, argtypes in signatures.items():
+                getattr(lib, fn).argtypes = list(argtypes)
+                getattr(lib, fn).restype = ctypes.c_int
+            lib.hvd_error_string.argtypes = [ctypes.c_int]
+            lib.hvd_error_string.restype = ctypes.c_char_p
+            _libs[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, fn: str, code: int) -> None:
+    """Raise if a C entry point reported an error (a refused launch
+    never runs, and a later synchronize would not report it)."""
+    if code != 0:
+        msg = lib.hvd_error_string(code).decode(errors="replace")
+        raise RuntimeError(f"{fn} failed: CUDA error {code} ({msg})")

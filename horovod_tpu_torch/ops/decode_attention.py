@@ -1,0 +1,289 @@
+"""Decode-step attention over the KV cache (single-token queries): the
+counterpart of ``horovod_tpu/ops/decode_attention.py``.
+
+Same signatures and layouts as the JAX module: q ``(B, 1, H, D)``; a
+row-flat contiguous cache ``(B, L, Hkv*D)`` or a paged pool
+``(N, block_size, Hkv*D)`` addressed through ``(B, T)`` int32 block
+tables with per-sequence positions ``(B,)``.
+
+Routing: a CUDA tensor always goes to the hand-written kernel in
+``csrc/decode_attention.cu`` (built at first use by ``_build``), and the
+call raises if the kernel cannot take it — there is no fallback. Only
+CPU tensors take the plain versions (``decode_attention_plain``,
+``paged_decode_attention_plain``), which repeat the kernel's arithmetic
+in torch; the CPU tests hold those against the JAX package, and
+``chip_smoke.py`` holds the kernels against them on the card.
+
+``LAUNCHES`` counts kernel launches per wrapper (one per launch, and
+nowhere else), so a run can show its main path went through the
+kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional
+
+import torch
+
+from . import _build
+from .attention import NEG_INF
+
+#: Kernel launches per wrapper since the last :func:`reset_launch_counts`.
+LAUNCHES: Dict[str, int] = {"decode_attention": 0,
+                            "paged_decode_attention": 0}
+
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_KERNEL_WIDTHS = (64, 128)
+_KERNEL_GROUPS = (1, 2, 4, 8)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    # q, k_cache, v_cache, out, b, h, hkv, d, window, cache_index, scale,
+    # dtype, stream
+    "hvd_decode_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                             _I, _P),
+    # q, k_pool, v_pool, out, tables, lens, b, h, hkv, d, table_slots,
+    # block_size, scale, dtype, stream
+    "hvd_paged_decode_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                   _I, _I, _F, _I, _P),
+}
+
+
+def reset_launch_counts() -> None:
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+
+
+def _on_card(*tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on one CUDA device (the kernel runs),
+    False when all lie on the CPU (the plain version runs); anything
+    else raises."""
+    devices = {t.device for t in tensors}
+    if all(d.type == "cpu" for d in devices):
+        return False
+    if len(devices) == 1:
+        (device,) = devices
+        if device.type == "cuda":
+            return True
+    raise ValueError(
+        "decode attention needs all its tensors on one device, got "
+        + ", ".join(sorted(str(d) for d in devices)))
+
+
+def _check_kernel_operands(name, q, k, v, group: int) -> None:
+    d = q.shape[-1]
+    if q.dtype not in _KERNEL_DTYPES or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise TypeError(
+            f"{name}: the CUDA kernel takes float32 or bfloat16 with q and "
+            f"the cache in one dtype, got q {q.dtype}, k {k.dtype}, "
+            f"v {v.dtype}")
+    if d not in _KERNEL_WIDTHS:
+        raise ValueError(
+            f"{name}: the CUDA kernel takes head_dim in {_KERNEL_WIDTHS}, "
+            f"got {d}")
+    if group not in _KERNEL_GROUPS:
+        raise ValueError(
+            f"{name}: the CUDA kernel takes H/Hkv in {_KERNEL_GROUPS}, "
+            f"got {group}")
+    for label, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(
+                f"{name}: {label} must be contiguous and 16-byte aligned "
+                "for the kernel's vector loads")
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _attend_plain(q, k4, v4, lens, scale):
+    """The kernels' arithmetic in torch: (q·k) in f32 times ``scale``,
+    keys at positions <= lens[i], softmax in f32, p rounded to V's dtype
+    before P·V, ``acc / max(l, 1e-30)`` in q's dtype. ``k4``/``v4``:
+    (B, L, Hkv, D) windows; ``lens``: (B,) int64."""
+    b, _, h, d = q.shape
+    window, hkv = k4.shape[1], k4.shape[2]
+    qg = q.reshape(b, hkv, h // hkv, d).float()
+    s = torch.einsum("bhgd,blhd->bhgl", qg, k4.float()) * scale
+    valid = (torch.arange(window, device=q.device)[None, :]
+             <= lens[:, None])[:, None, None, :]
+    s = s.masked_fill(~valid, NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True)).masked_fill(~valid, 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("bhgl,blhd->bhgd", p.to(v4.dtype).float(),
+                       v4.float())
+    return (acc / l.clamp_min(1e-30)).reshape(b, 1, h, d).to(q.dtype)
+
+
+def _check_decode(name, q, k_cache, v_cache, num_kv_heads):
+    b, s, h, d = q.shape
+    if s != 1:
+        raise ValueError(f"{name} is single-token (s={s})")
+    f = k_cache.shape[-1]
+    if h % num_kv_heads or f != num_kv_heads * d:
+        raise ValueError(
+            f"H ({h}) must be a multiple of Hkv ({num_kv_heads}) and the "
+            f"flat cache width ({f}) must equal Hkv*D ({num_kv_heads * d})")
+    if v_cache.shape != k_cache.shape:
+        raise ValueError(
+            f"k/v caches disagree: {tuple(k_cache.shape)} vs "
+            f"{tuple(v_cache.shape)}")
+
+
+def decode_attention_plain(q, k_cache, v_cache, cache_index, num_kv_heads,
+                           sm_scale=None):
+    """Plain torch version of :func:`decode_attention` (the CPU path, and
+    the yardstick ``chip_smoke.py`` holds the kernel against)."""
+    _check_decode("decode_attention", q, k_cache, v_cache, num_kv_heads)
+    b, _, _, d = q.shape
+    L = k_cache.shape[1]
+    scale = sm_scale if sm_scale is not None else 1.0 / (d ** 0.5)
+    lens = torch.full((b,), int(cache_index), dtype=torch.int64,
+                      device=q.device)
+    return _attend_plain(q, k_cache.view(b, L, num_kv_heads, d),
+                         v_cache.view(b, L, num_kv_heads, d), lens, scale)
+
+
+def decode_attention(q, k_cache, v_cache, cache_index, num_kv_heads,
+                     sm_scale=None):
+    """Masked single-token attention over the FLAT cache window.
+
+    ``q``: (B, 1, H, D); ``k_cache``/``v_cache``: (B, L, Hkv*D);
+    ``cache_index``: the query's global position (an int) — keys at
+    positions <= it attend (the new row must already be written).
+    Returns (B, 1, H, D). CUDA tensors run the kernel that replaces
+    ``_decode_kernel`` of ``horovod_tpu/ops/decode_attention.py``."""
+    _check_decode("decode_attention", q, k_cache, v_cache, num_kv_heads)
+    if not _on_card(q, k_cache, v_cache):
+        return decode_attention_plain(q, k_cache, v_cache, cache_index,
+                                      num_kv_heads, sm_scale)
+    b, _, h, d = q.shape
+    _check_kernel_operands("decode_attention", q, k_cache, v_cache,
+                           h // num_kv_heads)
+    scale = sm_scale if sm_scale is not None else 1.0 / (d ** 0.5)
+    out = torch.empty_like(q)
+    if b == 0:
+        return out
+    lib = _build.library("decode_attention", _SIGNATURES)
+    code = lib.hvd_decode_attention(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        out.data_ptr(), b, h, num_kv_heads, d, k_cache.shape[1],
+        int(cache_index), float(scale), _KERNEL_DTYPES[q.dtype],
+        _stream(q.device))
+    _build.check(lib, "hvd_decode_attention", code)
+    LAUNCHES["decode_attention"] += 1
+    return out
+
+
+def _check_paged(q, k_pool, v_pool, block_tables, context_lens,
+                 num_kv_heads):
+    _check_decode("paged_decode_attention", q, k_pool, v_pool, num_kv_heads)
+    b = q.shape[0]
+    if block_tables.shape[0] != b or tuple(context_lens.shape) != (b,):
+        raise ValueError(
+            f"block_tables {tuple(block_tables.shape)} / context_lens "
+            f"{tuple(context_lens.shape)} do not cover the batch ({b})")
+
+
+def paged_decode_attention_plain(q, k_pool, v_pool, block_tables,
+                                 context_lens, num_kv_heads, sm_scale=None):
+    """Plain torch version of :func:`paged_decode_attention`: gather each
+    sequence's blocks into its logical window, then the kernels'
+    arithmetic."""
+    _check_paged(q, k_pool, v_pool, block_tables, context_lens,
+                 num_kv_heads)
+    b, _, _, d = q.shape
+    block_size = k_pool.shape[1]
+    window = block_tables.shape[1] * block_size
+    scale = sm_scale if sm_scale is not None else 1.0 / (d ** 0.5)
+    tables = block_tables.long()
+    k_win = k_pool[tables].reshape(b, window, num_kv_heads, d)
+    v_win = v_pool[tables].reshape(b, window, num_kv_heads, d)
+    return _attend_plain(q, k_win, v_win, context_lens.long(), scale)
+
+
+def paged_decode_attention(q, k_pool, v_pool, block_tables, context_lens,
+                           num_kv_heads, sm_scale=None):
+    """Single-token attention over a PAGED cache (the vLLM layout on the
+    row-flat GQA cache). ``k_pool``/``v_pool``: (N, block_size, Hkv*D),
+    block 0 the null block; ``block_tables``: (B, T) int — sequence i's
+    logical block t is physical block ``block_tables[i, t]``;
+    ``context_lens``: (B,) int — keys at positions <= lens[i] attend (the
+    new row must already be written, see :func:`paged_cache_write`).
+    Returns (B, 1, H, D). CUDA tensors run the kernel that replaces
+    ``_paged_decode_kernel`` of ``horovod_tpu/ops/decode_attention.py``."""
+    _check_paged(q, k_pool, v_pool, block_tables, context_lens,
+                 num_kv_heads)
+    if not _on_card(q, k_pool, v_pool, block_tables, context_lens):
+        return paged_decode_attention_plain(q, k_pool, v_pool, block_tables,
+                                            context_lens, num_kv_heads,
+                                            sm_scale)
+    b, _, h, d = q.shape
+    _check_kernel_operands("paged_decode_attention", q, k_pool, v_pool,
+                           h // num_kv_heads)
+    scale = sm_scale if sm_scale is not None else 1.0 / (d ** 0.5)
+    tables = block_tables.to(torch.int32).contiguous()
+    lens = context_lens.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    if b == 0:
+        return out
+    lib = _build.library("decode_attention", _SIGNATURES)
+    code = lib.hvd_paged_decode_attention(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), out.data_ptr(),
+        tables.data_ptr(), lens.data_ptr(), b, h, num_kv_heads, d,
+        tables.shape[1], k_pool.shape[1], float(scale),
+        _KERNEL_DTYPES[q.dtype], _stream(q.device))
+    _build.check(lib, "hvd_paged_decode_attention", code)
+    LAUNCHES["paged_decode_attention"] += 1
+    return out
+
+
+def paged_gather_attention(q, k_pool, v_pool, block_tables, context_lens,
+                           num_kv_heads, sm_scale: Optional[float] = None):
+    """The einsum path for the paged layout (``decode_kernel_disabled()``):
+    gather each sequence's blocks into a contiguous window, then the
+    masked einsum with the per-sequence causal bound — softmax in f32
+    with ``finfo(f32).min`` masking, probabilities cast to q's dtype.
+    Same semantics as :func:`paged_decode_attention`; plain torch on any
+    device."""
+    b, s, h, d = q.shape
+    if s != 1:
+        raise ValueError(f"paged_gather_attention is single-token (s={s})")
+    hkv = num_kv_heads
+    block_size = k_pool.shape[1]
+    scale = sm_scale if sm_scale is not None else 1.0 / (d ** 0.5)
+    window = block_tables.shape[1] * block_size
+    tables = block_tables.long()
+    k_win = k_pool[tables].reshape(b, window, hkv, d)
+    v_win = v_pool[tables].reshape(b, window, hkv, d)
+    qg = q.reshape(b, s, hkv, h // hkv, d)
+    logits = torch.einsum("bshgd,blhd->bshgl", qg, k_win).float() * scale
+    mask = (torch.arange(window, device=q.device)[None, :]
+            <= context_lens.long()[:, None])
+    logits = logits.masked_fill(~mask[:, None, None, None, :],
+                                torch.finfo(torch.float32).min)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bshgl,blhd->bshgd", probs, v_win).reshape(
+        b, s, h, d)
+
+
+def paged_cache_write(k_pool, v_pool, k_new, v_new, block_tables,
+                      context_lens):
+    """Write each sequence's fresh K/V row (position ``context_lens[i]``)
+    into its block, IN PLACE (``index_put_``; the JAX version donates the
+    pool and XLA makes the same update in place): rows land at
+    ``(block_tables[i, lens // bs], lens % bs)``. ``k_new``/``v_new``:
+    (B, 1, Hkv, D) in the pool dtype. Inactive batch slots point at the
+    null block with lens 0 — their write lands there, harmless and masked
+    everywhere. Returns ``(k_pool, v_pool)``."""
+    b = k_new.shape[0]
+    block_size = k_pool.shape[1]
+    lens = context_lens.long()
+    blk = block_tables.long()[torch.arange(b, device=lens.device),
+                              lens // block_size]
+    off = lens % block_size
+    k_pool.index_put_((blk, off), k_new.reshape(b, -1))
+    v_pool.index_put_((blk, off), v_new.reshape(b, -1))
+    return k_pool, v_pool
