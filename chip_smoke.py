@@ -4,9 +4,11 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``horovod_tpu_torch/csrc`` with
-``nvcc`` and runs every phase on ``cuda``; any failure exits non-zero:
+``nvcc`` (one process per source, started together) and runs every phase
+on ``cuda``; any failure exits non-zero:
 
-1. the card's name and power limit (``nvidia-smi``) and the build time;
+1. the card's name and power limit (``nvidia-smi``), the build time and
+   ptxas's register and spill report per kernel instantiation;
 2. each decode kernel against its plain torch version, in float32 and
    bfloat16, at the serving slice's attention shape (Llama-300M: H=16,
    Hkv=8, D=64, b=8, window 256, paged block 16) and at Llama-8B's
@@ -22,9 +24,29 @@ Builds the port's CUDA kernels from ``horovod_tpu_torch/csrc`` with
 4. ``ServingEngine`` at Llama-300M in float32 over 12 mixed requests:
    each request's tokens equal ``generate()`` alone, and the paged
    kernel launched 16 x steps times;
-5. the same engine in bfloat16, timed: tokens/s, TTFT p50, TPOT p50.
+5. the same engine in bfloat16, timed: tokens/s, TTFT p50, TPOT p50;
+6. the three flash-attention kernels (forward, dq, dk/dv) against their
+   plain versions in float32 and bfloat16 on four cases: the training
+   slice's shape (b=8, S=1024, H=16, Hkv=8, D=64, causal), a key-masked
+   causal case at an awkward length with a fully masked row, causal with
+   sq=256 < sk=1024, and Llama-8B's width (b=1, S=4096, H=32, Hkv=8,
+   D=128). float32 at TOL; bfloat16 at SCALED_TOL (each output held to
+   its own magnitude), and faults planted in the plain outputs (the last
+   key or query tile skipped) must fail that check. Times as in 2; the
+   yardstick is
+   ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
+   forward and its forward+backward minus forward;
+7. ``init()`` under a launcher environment of size 1: a real NCCL group
+   on ``cuda:0``; collectives on card tensors return their inputs;
+8. training parity at Llama-300M full size in float32: two SGD steps
+   through the kernels equal two through ``use_flash=False`` (loss and
+   every weight), with 16 launches per kernel per step;
+9. the training example (``horovod_tpu_torch.examples.llama_training``)
+   in bfloat16, seq 1024, batch 8, AdamW, 10 timed steps: tokens/s, step
+   ms, falling loss, peak memory, and one profiled step's device split.
 
-The line before the last is one JSON object with each kernel's numbers;
+Phases 3-5 and 9 are the main paths: the launch counts in the kernels'
+JSON line come from them. The line before the last is that JSON object;
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -32,6 +54,9 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import re
+import socket
 import statistics
 import subprocess
 import sys
@@ -43,10 +68,24 @@ PEAK_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 TOL = {"float32": dict(atol=2e-5, rtol=1e-4),
        "bfloat16": dict(atol=1e-2, rtol=1e-2)}
-SOURCE = "horovod_tpu_torch/csrc/decode_attention.cu"
+# bfloat16 flash outputs (forward and gradients) are far smaller than
+# TOL's atol at these shapes, so each is held to its own scale: every
+# element within REL of (its own magnitude + the tensor's RMS), and the
+# mean error within REL / 2 of the mean magnitude. REL is five bf16 ulps.
+SCALED_TOL = dict(rel=2e-2, of="|ref| + rms(ref)", mean_rel=1e-2)
+SOURCES = {
+    "decode_attention": "horovod_tpu_torch/csrc/decode_attention.cu",
+    "paged_decode_attention": "horovod_tpu_torch/csrc/decode_attention.cu",
+    "flash_forward": "horovod_tpu_torch/csrc/flash_attention.cu",
+    "flash_backward_dq": "horovod_tpu_torch/csrc/flash_attention.cu",
+    "flash_backward_dkdv": "horovod_tpu_torch/csrc/flash_attention.cu",
+}
 REPLACES = {
     "decode_attention": "horovod_tpu/ops/decode_attention.py:47",
     "paged_decode_attention": "horovod_tpu/ops/decode_attention.py:217",
+    "flash_forward": "horovod_tpu/ops/attention.py:125",
+    "flash_backward_dq": "horovod_tpu/ops/attention.py:296",
+    "flash_backward_dkdv": "horovod_tpu/ops/attention.py:343",
 }
 LAYERS = 16                          # Llama-300M
 
@@ -108,6 +147,33 @@ def compare(got, want, dtype: str, what: str):
             f"{what}: kernel disagrees with plain (max abs {max_abs:.3g}, "
             f"max rel {max_rel:.3g}, tolerance {tol})")
     return max_abs, max_rel
+
+
+def compare_scaled(got, want, what: str, check: bool = True):
+    """``got`` against ``want`` at :data:`SCALED_TOL`. Returns the max abs
+    error, the reference's RMS and max, the mean error over the mean
+    magnitude, and ``worst``: the largest error over its limit (above 1
+    fails). ``check=False`` only measures."""
+    import torch
+
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    ref = want.abs()
+    rms = float(want.pow(2).mean().sqrt())
+    limit = SCALED_TOL["rel"] * (ref + rms)
+    stats = {"max_abs": float(err.max()), "ref_rms": rms,
+             "ref_max": float(ref.max()),
+             "mean_err_over_mean_ref": float(err.mean())
+             / max(float(ref.mean()), 1e-30),
+             "worst": float((err / limit.clamp_min(1e-30)).max())}
+    bad = (not bool(torch.isfinite(got).all()) or stats["worst"] > 1
+           or stats["mean_err_over_mean_ref"] > SCALED_TOL["mean_rel"])
+    if check and bad:
+        raise AssertionError(
+            f"{what}: kernel disagrees with plain ({json.dumps(stats)}, "
+            f"tolerance {SCALED_TOL})")
+    stats["fails"] = bad
+    return stats
 
 
 # ---------------------------------------------------------------------------
@@ -422,14 +488,403 @@ def profile_decode_steps(model, scfg, steps: int = 20):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Build report
+
+
+def ptxas_report(name: str):
+    """(kernel instantiation, registers line, spill line) from the ptxas
+    output of ``name``'s last build, the instantiation read off the
+    mangled entry name (``flash_fwd_kernel<bf16,64>``)."""
+    from horovod_tpu_torch.ops import _build
+
+    rows, label, spill = [], None, ""
+    for line in _build.log_path(name).read_text().splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            mangled = entry.group(1)
+            kernel = re.search(
+                r"((?:bf16|f32)_(?:fwd|dq|dkdv)_kernel|decode_kernel)I",
+                mangled)
+            dtype = "bf16" if "__nv_bfloat16" in mangled else "f32"
+            ints = re.findall(r"Li(\d+)E", mangled)
+            label = (f"{kernel.group(1) if kernel else mangled}"
+                     f"<{','.join([dtype] + ints)}>")
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line and label:
+            rows.append((label, line.split(":", 1)[-1].strip(), spill))
+            label, spill = None, ""
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: flash-attention kernels against their plain versions
+
+
+def flash_cases():
+    """(label, b, sq, sk, h, hkv, d, masked): every case is causal."""
+    return [("slice", 8, 1024, 1024, 16, 8, 64, False),
+            ("masked", 2, 333, 333, 16, 8, 64, True),
+            ("sq256_sk1024", 8, 256, 1024, 16, 8, 64, False),
+            ("llama8b", 1, 4096, 4096, 32, 8, 128, False)]
+
+
+def planted_faults(A, q, k, v, g, p_out, p_lse, delta, got, tile=64):
+    """Show that the bf16 check catches a kernel that drops work: out and
+    dq from the plain versions with the last key tile skipped (masked
+    out), dk and dv with the last query tile skipped (its p zeroed by an
+    lse of +1e30). Each must fail :func:`compare_scaled` against the true
+    plain output; returns each fault's ``worst`` (above 1 fails)."""
+    import torch
+
+    b, sq, sk = q.shape[0], q.shape[1], k.shape[1]
+    drop_keys = torch.ones(b, sk, dtype=torch.bool, device=q.device)
+    drop_keys[:, sk - tile:] = False
+    f_out, _ = A.flash_attention_forward_plain(q, k, v, drop_keys, True)
+    f_dq = A.flash_backward_dq_plain(q, k, v, drop_keys, g, p_lse, delta,
+                                     True)
+    lse_f = p_lse.clone()
+    lse_f[..., sq - tile:] = 1e30
+    f_dk, f_dv = A.flash_backward_dkdv_plain(q, k, v, None, g, lse_f, delta,
+                                             True)
+    worst = {}
+    for key, faulty in (("out", f_out), ("dq", f_dq), ("dk", f_dk),
+                        ("dv", f_dv)):
+        stats = compare_scaled(faulty, got[key][1], "planted", check=False)
+        if not stats["fails"]:
+            raise AssertionError(
+                f"planted fault in {key} (last {tile}-row tile skipped) "
+                f"passes the bf16 check: {json.dumps(stats)}")
+        worst[key] = stats["worst"]
+    log(f"planted faults (last {tile}-row tile skipped, bf16 slice shape) "
+        f"fail the check: worst error/limit {json.dumps(worst)}")
+    return worst
+
+
+def check_flash(device, flush):
+    import torch
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.ops import attention as A
+
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        item = torch.tensor([], dtype=dtype).element_size()
+        for label, b, sq, sk, h, hkv, d, masked in flash_cases():
+            gen = torch.Generator(device=device).manual_seed(0)
+
+            def randn(*shape):
+                return (torch.randn(*shape, generator=gen, device=device)
+                        * 0.5).to(dtype)
+
+            q, k, v, g = (randn(b, sq, h, d), randn(b, sk, hkv, d),
+                          randn(b, sk, hkv, d), randn(b, sq, h, d))
+            mask = None
+            if masked:
+                mask = torch.rand(b, sk, generator=gen, device=device) > 0.3
+                mask[:, 0] = True
+                mask[0, 0] = False      # query row 0 of batch 0: no key
+            what = f"flash {label} {dname}"
+            out, lse = A._flash_forward(q, k, v, mask, True)
+            p_out, p_lse = A.flash_attention_forward_plain(q, k, v, mask,
+                                                           True)
+            delta = A.flash_delta(p_out, g)
+            dq = A.flash_backward_dq(q, k, v, mask, g, p_lse, delta, True)
+            dk, dv = A.flash_backward_dkdv(q, k, v, mask, g, p_lse, delta,
+                                           True)
+            p_dq = A.flash_backward_dq_plain(q, k, v, mask, g, p_lse, delta,
+                                             True)
+            p_dk, p_dv = A.flash_backward_dkdv_plain(q, k, v, mask, g, p_lse,
+                                                     delta, True)
+            torch.cuda.synchronize()
+            got = {"out": (out, p_out), "dq": (dq, p_dq), "dk": (dk, p_dk),
+                   "dv": (dv, p_dv)}
+            if dtype == torch.float32:
+                errs = {key: {"max_abs": compare(a, b, dname,
+                                                 f"{what} {key}")[0]}
+                        for key, (a, b) in got.items()}
+            else:
+                errs = {key: compare_scaled(a, b, f"{what} {key}")
+                        for key, (a, b) in got.items()}
+            errs["lse"] = {"max_abs": compare(lse, p_lse, "float32",
+                                              f"{what} lse")[0]}
+            planted = None
+            if label == "slice" and dtype == torch.bfloat16:
+                planted = planted_faults(A, q, k, v, g, p_out, p_lse, delta,
+                                         got)
+            if masked and (bool(out[0, 0].ne(0).any())
+                           or float(lse[0, 0, 0]) > -1e29
+                           or bool(dq[0, 0].ne(0).any())):
+                raise AssertionError(
+                    f"{what}: the fully masked row is not zero "
+                    f"(lse {float(lse[0, 0, 0])})")
+
+            # The work this run's data needs: allowed (query, key) pairs.
+            qi = torch.arange(sq, device=device)[:, None] + (sk - sq)
+            allowed = (torch.arange(sk, device=device)[None, :] <= qi)[None]
+            if mask is not None:
+                allowed = allowed & mask[:, None, :]
+            pairs = int(allowed.expand(b, sq, sk).sum()) * h
+            q_bytes, kv_bytes = q.numel() * item, k.numel() * item
+            stats = 4 * b * h * sq
+            extra = 0 if mask is None else mask.numel()
+            fwd_bound = bound(2 * q_bytes + 2 * kv_bytes + stats + extra,
+                              4 * d * pairs, dname)
+            dq_bound = bound(3 * q_bytes + 2 * kv_bytes + 2 * stats + extra,
+                             6 * d * pairs, dname)
+            dkdv_bound = bound(2 * q_bytes + 4 * kv_bytes + 2 * stats
+                               + extra, 8 * d * pairs, dname)
+            times = {
+                "flash_forward": time_ms(
+                    lambda: A._flash_forward(q, k, v, mask, True), flush),
+                "flash_backward_dq": time_ms(
+                    lambda: A.flash_backward_dq(q, k, v, mask, g, p_lse,
+                                                delta, True), flush),
+                "flash_backward_dkdv": time_ms(
+                    lambda: A.flash_backward_dkdv(q, k, v, mask, g, p_lse,
+                                                  delta, True), flush)}
+            plain = {
+                "flash_forward": time_ms(
+                    lambda: A.flash_attention_forward_plain(q, k, v, mask,
+                                                            True),
+                    flush, repeats=10),
+                "flash_backward_dq": time_ms(
+                    lambda: A.flash_backward_dq_plain(q, k, v, mask, g,
+                                                      p_lse, delta, True),
+                    flush, repeats=10),
+                "flash_backward_dkdv": time_ms(
+                    lambda: A.flash_backward_dkdv_plain(q, k, v, mask, g,
+                                                        p_lse, delta, True),
+                    flush, repeats=10)}
+            sdpa_fwd = sdpa_bwd = None
+            if mask is None and sq == sk:
+                # The yardstick (the port never calls it): causal SDPA on
+                # the same inputs in (B, H, S, D), forward, and forward +
+                # backward minus forward.
+                qt, kt, vt, gt = (x.transpose(1, 2).contiguous()
+                                  for x in (q, k, v, g))
+                qr, kr, vr = (x.detach().requires_grad_()
+                              for x in (qt, kt, vt))
+
+                def sdpa():
+                    return F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True, enable_gqa=True)
+
+                def sdpa_fb():
+                    o = F.scaled_dot_product_attention(
+                        qr, kr, vr, is_causal=True, enable_gqa=True)
+                    return torch.autograd.grad(o, (qr, kr, vr), gt)
+
+                sdpa_fwd = time_ms(sdpa, flush, repeats=10)
+                sdpa_bwd = time_ms(sdpa_fb, flush, repeats=10) - sdpa_fwd
+            row = dict(case=label, dtype=dname, shape=[b, sq, sk, h, hkv, d],
+                       pairs=pairs,
+                       max_abs_err={key: e["max_abs"]
+                                    for key, e in errs.items()},
+                       errors=errs, planted_faults=planted,
+                       tolerance=(TOL[dname] if dtype == torch.float32
+                                  else SCALED_TOL), ms=times, plain_ms=plain,
+                       bound_ms={"flash_forward": fwd_bound[0],
+                                 "flash_backward_dq": dq_bound[0],
+                                 "flash_backward_dkdv": dkdv_bound[0]},
+                       bound_by={"flash_forward": fwd_bound[1],
+                                 "flash_backward_dq": dq_bound[1],
+                                 "flash_backward_dkdv": dkdv_bound[1]},
+                       sdpa_fwd_ms=sdpa_fwd, sdpa_bwd_ms=sdpa_bwd)
+            log(f"flash {json.dumps(row)}")
+            results[(label, dname)] = row
+            del q, k, v, g, out, lse, p_out, p_lse, dq, dk, dv, got
+            torch.cuda.empty_cache()
+    return results
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: collectives on the card
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_collectives():
+    """``init()`` under a launcher environment of size 1 builds an NCCL
+    group on ``cuda:0``; the collectives are the identity there."""
+    import torch
+    import torch.distributed as dist
+
+    import horovod_tpu_torch as hvd
+
+    os.environ.update(HOROVOD_RANK="0", HOROVOD_SIZE="1",
+                      HOROVOD_LOCAL_RANK="0", HOROVOD_LOCAL_SIZE="1",
+                      HOROVOD_CONTROLLER_ADDR=f"127.0.0.1:{free_port()}")
+    hvd.init()
+    if not dist.is_initialized() or dist.get_backend() != "nccl" \
+            or hvd.device() != torch.device("cuda", 0):
+        raise AssertionError(
+            f"init: no NCCL group on cuda:0 (initialized "
+            f"{dist.is_initialized()}, device {hvd.device()})")
+    x = torch.arange(1024, dtype=torch.float32, device=hvd.device())
+    raw = x.clone()
+    dist.all_reduce(raw)                     # the group itself runs
+    outs = {"allreduce": hvd.allreduce(x), "allgather": hvd.allgather(x),
+            "broadcast": hvd.broadcast(x, 0),
+            "allreduce_async": hvd.synchronize(hvd.allreduce_async(x)),
+            "nccl all_reduce": raw}
+    hvd.barrier()
+    torch.cuda.synchronize()
+    for name, out in outs.items():
+        if not torch.equal(out, x):
+            raise AssertionError(f"{name} at size 1 is not the identity")
+    log(f"collectives: NCCL group of size 1 on {hvd.device()}; "
+        f"{', '.join(outs)} return their inputs")
+
+
+# ---------------------------------------------------------------------------
+# Phases 8-9: training
+
+
+def run_training_parity(steps: int = 2):
+    """Llama-300M f32 at seq 1024, batch 8: ``steps`` SGD steps through
+    the flash kernels against as many through ``use_flash=False`` from the
+    same weights and batch."""
+    import torch
+
+    from horovod_tpu_torch.examples import llama_training as ex
+    from horovod_tpu_torch.models.llama import LLAMA_300M
+    from horovod_tpu_torch.ops import attention as A
+
+    cfg = dataclasses.replace(LLAMA_300M, dtype=torch.float32)
+    ids = ex.batch_ids(cfg, 8, 1024, "cuda")
+    loss_fn = ex.make_loss_fn(0)
+    runs = {}
+    for use_flash in (True, False):
+        model = ex.make_model(cfg, no_flash=not use_flash, device="cuda")
+        opt = ex.make_optimizer("sgd", model)
+        losses = []
+        for step in range(steps):
+            A.reset_launch_counts()
+            losses.append(float(ex.train_step(model, opt, ids, loss_fn)))
+            want = LAYERS if use_flash else 0
+            if set(A.LAUNCHES.values()) != {want}:
+                raise AssertionError(
+                    f"training step {step} (use_flash={use_flash}): flash "
+                    f"launches {A.LAUNCHES}, expected {want} each")
+        runs[use_flash] = (model, losses)
+        del opt
+    (kmodel, klosses), (pmodel, plosses) = runs[True], runs[False]
+    for a, b in zip(klosses, plosses):
+        if not np.isfinite(a) or abs(a - b) > 1e-4 * abs(b):
+            raise AssertionError(
+                f"training parity: losses {klosses} vs {plosses}")
+    worst = 0.0
+    with torch.no_grad():
+        for (name, p), (_, r) in zip(kmodel.named_parameters(),
+                                     pmodel.named_parameters()):
+            worst = max(worst, float((p - r).abs().max()))
+            compare(p, r, "float32", f"training parity weight {name}")
+    log(f"training parity: llama300m f32 seq 1024 b=8, {steps} SGD steps; "
+        f"losses kernel {klosses} vs plain {plosses}; every weight within "
+        f"{TOL['float32']} (max abs diff {worst:.3g}); flash launches "
+        f"{LAYERS} per kernel per step")
+    del kmodel, pmodel, runs
+    torch.cuda.empty_cache()
+    return {"losses_kernel": klosses, "losses_plain": plosses,
+            "max_abs_weight_diff": worst}
+
+
+def run_training_timed(card: str):
+    """The training example's main path, bf16, seq 1024, batch 8, AdamW,
+    10 timed steps; returns its numbers and the flash launch counts of
+    the run."""
+    import torch
+
+    from horovod_tpu_torch.examples import llama_training as ex
+    from horovod_tpu_torch.ops import attention as A
+
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launch_counts()
+    out = ex.main(["--model", "300m", "--seq-len", "1024",
+                   "--batch-size", "8", "--num-iters", "10"])
+    torch.cuda.synchronize()
+    launches = dict(A.LAUNCHES)
+    losses = out["losses"]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"training: loss did not fall: {losses}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    numbers = {"tokens_per_s": out["tokens_per_s"],
+               "step_ms": out["step_ms"], "losses": losses,
+               "peak_memory_gib": peak, "flash_launches": launches}
+    log(f"training bf16 llama300m seq 1024 b=8 adamw: "
+        f"{out['tokens_per_s']:.1f} tokens/s, step {out['step_ms']:.3f} ms, "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, peak memory "
+        f"{peak:.2f} GiB, flash launches {launches} over 11 steps [{card}]")
+    numbers["step_profile"] = profile_training_step(out, out["step_ms"])
+    return numbers
+
+
+def profile_training_step(out, step_ms: float, steps: int = 2):
+    """Where a bf16 training step's device time goes: matrix products,
+    the three flash kernels, everything else; the kernel count. Two
+    shares: the idle share of the profiled window (device busy time
+    against that window's own wall time, which the profiler's per-launch
+    host cost stretches), and busy time over the step's wall time without
+    the profiler (``step_ms``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from horovod_tpu_torch.examples import llama_training as ex
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            ex.train_step(out["model"], out["optimizer"], out["ids"],
+                          out["loss_fn"])
+        torch.cuda.synchronize()
+        profiled_ms = (time.perf_counter() - t0) * 1e3 / steps
+    split = {"flash": 0.0, "matmul": 0.0, "other": 0.0}
+    kernels = 0
+    for ev in prof.key_averages():
+        if not str(ev.device_type).endswith("CUDA"):
+            continue
+        kernels += ev.count
+        name = ev.key.lower()
+        if re.search(r"(bf16|f32)_(fwd|dq|dkdv)_kernel", name):
+            key = "flash"
+        elif any(t in name for t in ("nvjet", "gemm", "gemv", "cutlass",
+                                     "xmma")):
+            key = "matmul"
+        else:
+            key = "other"
+        split[key] += ev.self_device_time_total
+    busy_ms = sum(split.values()) / steps / 1e3
+    result = {"step_ms": step_ms, "step_ms_profiled": profiled_ms,
+              "kernels_per_step": kernels / steps,
+              "device_busy_ms_per_step": busy_ms,
+              "device_idle_share": (1 - busy_ms / profiled_ms) if busy_ms
+              else None,
+              "device_busy_over_unprofiled_step": busy_ms / step_ms}
+    result.update({f"{k}_ms_per_step": v / steps / 1e3
+                   for k, v in split.items()})
+    log(f"training step profile (bf16, {steps} steps): {json.dumps(result)}")
+    return result
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    import horovod_tpu_torch as hvd
     from horovod_tpu_torch.models.llama import LLAMA_300M
     from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.ops import attention as flash_ops
 
     device = torch.device("cuda")
     card = card_line()
@@ -438,10 +893,11 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     t0 = time.perf_counter()
     _build.build_all()
-    log(f"kernel build: {time.perf_counter() - t0:.1f} s")
-    for line in _build.log_path("decode_attention").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    log(f"kernel build ({len(_build.SOURCES)} sources in parallel): "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name in _build.SOURCES:
+        for kernel, regs, spill in ptxas_report(name):
+            log(f"  ptxas {name}.cu {kernel}: {regs}; {spill}")
 
     # float32 parity runs in full float32: no TF32 anywhere.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -451,7 +907,10 @@ def main() -> int:
 
     flush_buf = torch.empty(64 << 20, dtype=torch.int32, device=device)
     results = check_kernels(device, flush_buf.zero_)
+    flash_results = check_flash(device, flush_buf.zero_)
     del flush_buf
+
+    run_collectives()
 
     cfg32 = dataclasses.replace(LLAMA_300M, dtype=torch.float32)
     model, gen_launches = run_generate(cfg32)
@@ -459,19 +918,44 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     serving_numbers = run_engine_timing(card)
+    torch.cuda.empty_cache()
+
+    parity = run_training_parity()
+    training = run_training_timed(card)
+    hvd.shutdown()
 
     launches = {"decode_attention": gen_launches,
-                "paged_decode_attention": paged_launches}
+                "paged_decode_attention": paged_launches,
+                **training["flash_launches"]}
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the main paths never ran: "
+                             f"{launches}")
     kernels = []
     for name in ("decode_attention", "paged_decode_attention"):
         row = results[(name, "llama300m", "bfloat16")]
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    row = flash_results[("slice", "bfloat16")]
+    errs = row["max_abs_err"]
+    flash_errs = {"flash_forward": errs["out"],
+                  "flash_backward_dq": errs["dq"],
+                  "flash_backward_dkdv": max(errs["dk"], errs["dv"])}
+    for name in flash_ops.LAUNCHES:
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": flash_errs[name], "ms": row["ms"][name],
+            "plain_ms": row["plain_ms"][name],
+            "bound_ms": row["bound_ms"][name],
+            "bound_by": row["bound_by"][name],
+            "library_ms": (row["sdpa_fwd_ms"] if name == "flash_forward"
+                           else None)})
     log(f"serving: {json.dumps(serving_numbers)}")
+    log(f"training: {json.dumps({'parity': parity, **training})}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

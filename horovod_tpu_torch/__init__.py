@@ -8,6 +8,12 @@ of ``horovod_tpu`` (host modules it needs are copied, not imported).
 Slice 1 is the serving path: ``models.llama`` (``LlamaLM``,
 ``generate``) and ``serving`` (``ServingEngine``, ``serve``) over the
 hand-written Hopper decode kernels in ``csrc/decode_attention.cu``.
+Slice 2 is training: ``init``/``rank``/``size``, the collectives and
+``DistributedOptimizer`` (re-exported here from ``.torch``, so
+``import horovod_tpu_torch as hvd`` reads like ``import horovod_tpu as
+hvd``), ``models.llama``'s losses and remat, and flash attention over
+the kernels in ``csrc/flash_attention.cu``
+(``examples/llama_training.py``).
 
 Entry points take ``device=None``, which means ``cuda``: without a card
 they raise unless the caller asks for ``device="cpu"`` explicitly.
@@ -17,21 +23,26 @@ from __future__ import annotations
 
 from typing import Union
 
-import torch
+# Imported under another name: the ``.torch`` subpackage below becomes
+# this package's attribute ``torch``.
+import torch as _torch
 
 __version__ = "0.1.0"
 
-DeviceLike = Union[str, torch.device, None]
+DeviceLike = Union[str, _torch.device, None]
 
 
-def default_device(device: DeviceLike = None) -> torch.device:
+def default_device(device: DeviceLike = None) -> _torch.device:
     """Resolve an entry point's ``device`` argument. ``None`` means the
     current CUDA device; with no card that raises — the CPU is used only
     when the caller names it, never as a silent fallback."""
     if device is None:
-        if not torch.cuda.is_available():
+        if not _torch.cuda.is_available():
             raise RuntimeError(
                 "horovod_tpu_torch: no CUDA device is available; pass "
                 "device='cpu' explicitly to run on the CPU")
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device(device)
+        return _torch.device("cuda", _torch.cuda.current_device())
+    return _torch.device(device)
+
+
+from .torch import *  # noqa: E402,F401,F403

@@ -1,7 +1,9 @@
 """Environment knobs the port reads — its own copy of the accessors in
-``horovod_tpu/common/config.py`` that the serving slice needs (the port
-imports nothing of ``horovod_tpu``). Same variable names, same parsing:
-unset/empty/garbage falls back to the default, one place per knob."""
+``horovod_tpu/common/config.py`` that the serving and training slices
+need (the port imports nothing of ``horovod_tpu``). Same variable names,
+same parsing: unset/empty/garbage falls back to the default, one place
+per knob. ``HOROVOD_RENDEZVOUS_FILE`` is the port's own: a FileStore
+rendezvous for ``torch.distributed``."""
 
 from __future__ import annotations
 
@@ -91,3 +93,17 @@ def _env_int(name: str, default: int) -> int:
         return int(val)
     except ValueError:
         return default
+
+
+def controller_addr() -> Optional[str]:
+    """``HOROVOD_CONTROLLER_ADDR``: ``host:port`` of the job's rendezvous
+    (rank 0 listens there); None when unset. The port builds its
+    ``torch.distributed`` process group on it."""
+    return os.environ.get("HOROVOD_CONTROLLER_ADDR") or None
+
+
+def rendezvous_file() -> Optional[str]:
+    """``HOROVOD_RENDEZVOUS_FILE``: a shared file path for a
+    ``torch.distributed.FileStore`` rendezvous instead of TCP (tests and
+    single-host jobs that want no port); None when unset."""
+    return os.environ.get("HOROVOD_RENDEZVOUS_FILE") or None

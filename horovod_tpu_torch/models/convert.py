@@ -1,14 +1,18 @@
 """Weights across the two packages: the JAX ``LlamaLM`` parameter tree,
-given as nested dicts of numpy arrays, into the port's ``LlamaLM``.
+given as nested dicts of numpy arrays, into the port's ``LlamaLM``
+(``llama_from_flax``) and back (``llama_to_flax``, from the parameters or
+from their gradients, so the two packages compare leaf by leaf).
 
 Every leaf is mapped; a missing key, a wrong shape or a leaf nothing
-maps raises. Weights land in the port's storage dtypes (dense kernels
-in the compute dtype — the cast flax makes at every call, made once).
+maps raises. Weights land in the port's storage dtypes: with
+``param_dtype=None`` dense kernels in the compute dtype (the cast flax
+makes at every call, made once), with ``param_dtype=torch.float32`` all
+f32 and trainable.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,14 +30,46 @@ def _leaves(tree, prefix=()) -> List[Tuple[str, ...]]:
     return [prefix]
 
 
-def llama_from_flax(params_np: Dict, cfg: LlamaConfig,
-                    device: DeviceLike = None) -> LlamaLM:
-    """``params_np``: ``variables["params"]`` of the JAX ``LlamaLM`` with
-    numpy leaves (``jax.tree_util.tree_map(np.asarray, ...)``);
-    ``cfg``: the port's config of the same model."""
-    model = LlamaLM(cfg, device=device)
+def _mapping(model: LlamaLM) -> Iterator[
+        Tuple[torch.nn.Parameter, Tuple[str, ...], Tuple[int, ...]]]:
+    """(port parameter, JAX tree path, JAX leaf shape) for every leaf."""
+    cfg = model.config
     hd = cfg.dim // cfg.num_heads
     h, hkv = cfg.num_heads, cfg.num_kv_heads
+    yield (model.tok_embeddings, ("tok_embeddings", "embedding"),
+           (cfg.vocab_size, cfg.dim))
+    for i, block in enumerate(model.layers):
+        layer = f"layer_{i}"
+        attn = block.attention
+        yield (block.attention_norm.scale, (layer, "attention_norm", "scale"),
+               (cfg.dim,))
+        yield attn.wq, (layer, "attention", "wq", "kernel"), (cfg.dim, h, hd)
+        yield (attn.wk, (layer, "attention", "wk", "kernel"),
+               (cfg.dim, hkv, hd))
+        yield (attn.wv, (layer, "attention", "wv", "kernel"),
+               (cfg.dim, hkv, hd))
+        yield attn.wo, (layer, "attention", "wo", "kernel"), (h, hd, cfg.dim)
+        yield block.ffn_norm.scale, (layer, "ffn_norm", "scale"), (cfg.dim,)
+        yield (block.w_gate, (layer, "w_gate", "kernel"),
+               (cfg.dim, cfg.ffn_hidden))
+        yield (block.w_up, (layer, "w_up", "kernel"),
+               (cfg.dim, cfg.ffn_hidden))
+        yield (block.w_down, (layer, "w_down", "kernel"),
+               (cfg.ffn_hidden, cfg.dim))
+    yield model.final_norm.scale, ("final_norm", "scale"), (cfg.dim,)
+    yield model.lm_head, ("lm_head", "kernel"), (cfg.dim, cfg.vocab_size)
+
+
+def llama_from_flax(params_np: Dict, cfg: LlamaConfig,
+                    device: DeviceLike = None,
+                    attention_fn: Optional[Callable] = None,
+                    param_dtype: Optional[torch.dtype] = None) -> LlamaLM:
+    """``params_np``: ``variables["params"]`` of the JAX ``LlamaLM`` with
+    numpy leaves (``jax.tree_util.tree_map(np.asarray, ...)``);
+    ``cfg``: the port's config of the same model; ``attention_fn`` and
+    ``param_dtype`` as for ``LlamaLM``."""
+    model = LlamaLM(cfg, device=device, attention_fn=attention_fn,
+                    param_dtype=param_dtype)
     used = set()
 
     def put(param: torch.nn.Parameter, path: Tuple[str, ...],
@@ -54,27 +90,8 @@ def llama_from_flax(params_np: Dict, cfg: LlamaConfig,
                 np.array(arr, dtype=np.float32)).reshape(param.shape))
         used.add(path)
 
-    put(model.tok_embeddings, ("tok_embeddings", "embedding"),
-        (cfg.vocab_size, cfg.dim))
-    for i, block in enumerate(model.layers):
-        layer = f"layer_{i}"
-        attn = block.attention
-        put(block.attention_norm.scale, (layer, "attention_norm", "scale"),
-            (cfg.dim,))
-        put(attn.wq, (layer, "attention", "wq", "kernel"), (cfg.dim, h, hd))
-        put(attn.wk, (layer, "attention", "wk", "kernel"),
-            (cfg.dim, hkv, hd))
-        put(attn.wv, (layer, "attention", "wv", "kernel"),
-            (cfg.dim, hkv, hd))
-        put(attn.wo, (layer, "attention", "wo", "kernel"), (h, hd, cfg.dim))
-        put(block.ffn_norm.scale, (layer, "ffn_norm", "scale"), (cfg.dim,))
-        put(block.w_gate, (layer, "w_gate", "kernel"),
-            (cfg.dim, cfg.ffn_hidden))
-        put(block.w_up, (layer, "w_up", "kernel"), (cfg.dim, cfg.ffn_hidden))
-        put(block.w_down, (layer, "w_down", "kernel"),
-            (cfg.ffn_hidden, cfg.dim))
-    put(model.final_norm.scale, ("final_norm", "scale"), (cfg.dim,))
-    put(model.lm_head, ("lm_head", "kernel"), (cfg.dim, cfg.vocab_size))
+    for param, path, shape in _mapping(model):
+        put(param, path, shape)
     extra = sorted("/".join(p) for p in _leaves(params_np)
                    if p not in used)
     if extra:
@@ -83,3 +100,22 @@ def llama_from_flax(params_np: Dict, cfg: LlamaConfig,
             f"{' ...' if len(extra) > 8 else ''} (does cfg match the "
             "checkpoint?)")
     return model
+
+
+def llama_to_flax(model: LlamaLM, grads: bool = False) -> Dict:
+    """The JAX ``LlamaLM`` parameter tree of ``model`` as nested dicts of
+    float32 numpy arrays in the JAX shapes: the parameters, or with
+    ``grads=True`` their ``.grad`` (zeros where a parameter has none,
+    as ``jax.grad`` reports an unused leaf)."""
+    tree: Dict = {}
+    for param, path, shape in _mapping(model):
+        t = param.grad if grads else param
+        if t is None:
+            arr = np.zeros(shape, np.float32)
+        else:
+            arr = t.detach().float().cpu().numpy().reshape(shape)
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = arr
+    return tree

@@ -1,12 +1,20 @@
 """Decoder-only transformer LM (Llama-style: RMSNorm, rotary embeddings,
-SwiGLU, grouped-query attention) — the serving slice of
-``horovod_tpu/models/llama.py`` in PyTorch.
+SwiGLU, grouped-query attention) — ``horovod_tpu/models/llama.py`` in
+PyTorch: the serving and training slices.
 
-``LlamaLM`` is an ``nn.Module`` that owns its weights. Dense weights keep
-the JAX kernels' ``(in, out)`` layout and are stored in the compute dtype
-(flax's ``Dense(dtype=bf16, param_dtype=f32)`` casts its f32 kernel to
-bf16 at every call; casting once at load gives the same values). Norm
-scales and the embedding table stay f32, as the numerics below need.
+``LlamaLM`` is an ``nn.Module`` that owns its weights; dense weights keep
+the JAX kernels' ``(in, out)`` layout. Two storages, chosen by
+``param_dtype`` (flax's argument of that name):
+
+* ``param_dtype=None`` (serving): dense weights stored in the compute
+  dtype, no gradients. flax's ``Dense(dtype=bf16, param_dtype=f32)``
+  casts its f32 kernel to bf16 at every call; casting once at load gives
+  the same values and the decode step no cast launches.
+* ``param_dtype=torch.float32`` (training): every parameter f32 and
+  trainable, cast to the compute dtype at each use, as flax does — the
+  gradients and the optimizer update run on f32, as in the JAX package.
+
+Norm scales and the embedding table are f32 in both.
 
 Numerics mirrored from the JAX module: RMSNorm is an all-f32 chain then
 a cast; RoPE angles are f32 and applied in the activation dtype; the
@@ -15,10 +23,16 @@ f32 with ``finfo(f32).min`` masking and cast the probabilities to q's
 dtype. Single-token cached attention runs the hand-written decode
 kernels (``ops.decode_attention``) unless ``decode_kernel_disabled()``.
 
+Training: the ``attention_fn`` seam (``ops.attention.make_attention_fn``
+plugs the flash kernels in; K/V are repeated only for fns without
+``supports_gqa``), ``LlamaConfig.remat`` (``torch.utils.checkpoint`` per
+block), ``return_hidden``, and the losses ``token_nll``,
+``causal_lm_loss`` and ``chunked_causal_lm_loss``.
+
 Ported here: the single-device decode paths (paged, contiguous kernel,
-prefill at index 0, general einsum) and ``generate``. The TP paths
-(``kernel_tp``, ``sharded_*``) and the training surface (remat, losses)
-wait for later slices.
+prefill at index 0, general einsum), ``generate`` and the training
+surface above. The TP paths (``kernel_tp``, ``sharded_*``) and the
+sequence-parallel loss wait for later slices.
 """
 
 from __future__ import annotations
@@ -27,15 +41,16 @@ import contextlib
 import dataclasses
 import functools
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .. import DeviceLike, default_device
-from ..ops.attention import reference_attention
+from ..ops.attention import reference_attention, repeat_kv
 from ..ops.decode_attention import (
     decode_attention,
     paged_cache_write,
@@ -58,6 +73,10 @@ class LlamaConfig:
     dtype: torch.dtype = torch.bfloat16
     # lm_head compute dtype; None = model dtype.
     head_dtype: Optional[torch.dtype] = None
+    # Recompute each block's activations in the backward pass
+    # (torch.utils.checkpoint): live activations drop from O(layers) to
+    # O(1) layers' worth for ~1/3 extra FLOPs.
+    remat: bool = False
 
 
 LLAMA_8B = LlamaConfig()
@@ -69,22 +88,27 @@ LLAMA_TINY = LlamaConfig(vocab_size=512, dim=64, num_layers=2, num_heads=4,
                          num_kv_heads=2, ffn_hidden=128, max_seq_len=256)
 
 
-def _param(shape, dtype, std: Optional[float], generator):
+def _param(shape, dtype, std: Optional[float], generator,
+           param_dtype: Optional[torch.dtype] = None):
     """A parameter drawn from N(0, std^2) on the CPU generator (so a seed
-    gives the same weights on every device), or ones when std is None."""
+    gives the same weights on every device), or ones when std is None.
+    Stored in ``param_dtype`` and trainable when one is given (training),
+    else in ``dtype`` without gradients (serving)."""
     if std is None:
         data = torch.ones(shape, dtype=torch.float32)
     else:
         data = torch.randn(shape, generator=generator) * std
-    return nn.Parameter(data.to(dtype), requires_grad=False)
+    return nn.Parameter(data.to(param_dtype or dtype),
+                        requires_grad=param_dtype is not None)
 
 
 class RMSNorm(nn.Module):
-    def __init__(self, dim: int, eps: float, dtype: torch.dtype):
+    def __init__(self, dim: int, eps: float, dtype: torch.dtype,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.eps = eps
         self.dtype = dtype
-        self.scale = _param((dim,), torch.float32, None, None)
+        self.scale = _param((dim,), torch.float32, None, None, param_dtype)
 
     def forward(self, x):
         # All-f32 chain, then the cast (llama.py RMSNorm).
@@ -238,19 +262,23 @@ def _cached_attention(q, k, v, cache, cache_index):
 
 
 class LlamaAttention(nn.Module):
-    def __init__(self, cfg: LlamaConfig, generator):
+    def __init__(self, cfg: LlamaConfig, generator,
+                 attention_fn: Optional[Callable] = None,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.config = cfg
+        self.attention_fn = attention_fn
         head_dim = cfg.dim // cfg.num_heads
         std = cfg.dim ** -0.5
         self.wq = _param((cfg.dim, cfg.num_heads * head_dim), cfg.dtype, std,
-                         generator)
+                         generator, param_dtype)
         self.wk = _param((cfg.dim, cfg.num_kv_heads * head_dim), cfg.dtype,
-                         std, generator)
+                         std, generator, param_dtype)
         self.wv = _param((cfg.dim, cfg.num_kv_heads * head_dim), cfg.dtype,
-                         std, generator)
+                         std, generator, param_dtype)
         self.wo = _param((cfg.num_heads * head_dim, cfg.dim), cfg.dtype,
-                         (cfg.num_heads * head_dim) ** -0.5, generator)
+                         (cfg.num_heads * head_dim) ** -0.5, generator,
+                         param_dtype)
 
     def forward(self, x, positions=None, cache=None, cache_index=None):
         """``cache``/``cache_index``: decoding mode (see
@@ -258,59 +286,82 @@ class LlamaAttention(nn.Module):
         cfg = self.config
         b, s, _ = x.shape
         hd = cfg.dim // cfg.num_heads
-        q = rotary_embedding((x @ self.wq).view(b, s, cfg.num_heads, hd),
-                             cfg.rope_theta, positions)
-        k = rotary_embedding((x @ self.wk).view(b, s, cfg.num_kv_heads, hd),
-                             cfg.rope_theta, positions)
-        v = (x @ self.wv).view(b, s, cfg.num_kv_heads, hd)
+        dt = cfg.dtype
+        q = rotary_embedding(
+            (x @ self.wq.to(dt)).view(b, s, cfg.num_heads, hd),
+            cfg.rope_theta, positions)
+        k = rotary_embedding(
+            (x @ self.wk.to(dt)).view(b, s, cfg.num_kv_heads, hd),
+            cfg.rope_theta, positions)
+        v = (x @ self.wv.to(dt)).view(b, s, cfg.num_kv_heads, hd)
         if cache is not None:
             ctx = _cached_attention(q, k, v, cache, cache_index)
         else:
-            ctx = reference_attention(q, k, v, causal=True)
-        return ctx.reshape(b, s, cfg.num_heads * hd) @ self.wo
+            fn = self.attention_fn
+            if fn is not None and not getattr(fn, "supports_gqa", False):
+                k, v = repeat_kv(q, k, v)
+            if fn is not None:
+                ctx = fn(q, k, v, None)
+            else:
+                ctx = reference_attention(q, k, v, causal=True)
+        return ctx.reshape(b, s, cfg.num_heads * hd) @ self.wo.to(dt)
 
 
 class LlamaBlock(nn.Module):
-    def __init__(self, cfg: LlamaConfig, generator):
+    def __init__(self, cfg: LlamaConfig, generator,
+                 attention_fn: Optional[Callable] = None,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.attention_norm = RMSNorm(cfg.dim, cfg.norm_eps, cfg.dtype)
-        self.attention = LlamaAttention(cfg, generator)
-        self.ffn_norm = RMSNorm(cfg.dim, cfg.norm_eps, cfg.dtype)
+        self.dtype = cfg.dtype
+        self.attention_norm = RMSNorm(cfg.dim, cfg.norm_eps, cfg.dtype,
+                                      param_dtype)
+        self.attention = LlamaAttention(cfg, generator, attention_fn,
+                                        param_dtype)
+        self.ffn_norm = RMSNorm(cfg.dim, cfg.norm_eps, cfg.dtype,
+                                param_dtype)
         self.w_gate = _param((cfg.dim, cfg.ffn_hidden), cfg.dtype,
-                             cfg.dim ** -0.5, generator)
+                             cfg.dim ** -0.5, generator, param_dtype)
         self.w_up = _param((cfg.dim, cfg.ffn_hidden), cfg.dtype,
-                           cfg.dim ** -0.5, generator)
+                           cfg.dim ** -0.5, generator, param_dtype)
         self.w_down = _param((cfg.ffn_hidden, cfg.dim), cfg.dtype,
-                             cfg.ffn_hidden ** -0.5, generator)
+                             cfg.ffn_hidden ** -0.5, generator, param_dtype)
 
     def forward(self, x, positions=None, cache=None, cache_index=None):
         x = x + self.attention(self.attention_norm(x), positions, cache,
                                cache_index)
         h = self.ffn_norm(x)
-        gated = F.silu(h @ self.w_gate) * (h @ self.w_up)
-        return x + gated @ self.w_down
+        dt = self.dtype
+        gated = F.silu(h @ self.w_gate.to(dt)) * (h @ self.w_up.to(dt))
+        return x + gated @ self.w_down.to(dt)
 
 
 class LlamaLM(nn.Module):
     """Causal LM: embeddings + blocks + untied output head, owning its
     weights (random from ``seed`` on a CPU generator; load real ones with
     ``models.convert.llama_from_flax``). ``device=None`` means CUDA and
-    raises without a card."""
+    raises without a card. ``attention_fn``: the no-cache attention, as
+    in the JAX package (None = ``reference_attention``, causal).
+    ``param_dtype``: None for serving storage, ``torch.float32`` to
+    train (see the module doc)."""
 
     def __init__(self, config: LlamaConfig, device: DeviceLike = None,
-                 seed: int = 0):
+                 seed: int = 0, attention_fn: Optional[Callable] = None,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         device = default_device(device)
         self.config = cfg = config
         gen = torch.Generator().manual_seed(seed)
         self.tok_embeddings = _param((cfg.vocab_size, cfg.dim),
-                                     torch.float32, cfg.dim ** -0.5, gen)
+                                     torch.float32, cfg.dim ** -0.5, gen,
+                                     param_dtype)
         self.layers = nn.ModuleList(
-            [LlamaBlock(cfg, gen) for _ in range(cfg.num_layers)])
-        self.final_norm = RMSNorm(cfg.dim, cfg.norm_eps, cfg.dtype)
+            [LlamaBlock(cfg, gen, attention_fn, param_dtype)
+             for _ in range(cfg.num_layers)])
+        self.final_norm = RMSNorm(cfg.dim, cfg.norm_eps, cfg.dtype,
+                                  param_dtype)
         self.lm_head = _param((cfg.dim, cfg.vocab_size),
                               cfg.head_dtype or cfg.dtype, cfg.dim ** -0.5,
-                              gen)
+                              gen, param_dtype)
         self.to(device)
 
     @property
@@ -318,12 +369,14 @@ class LlamaLM(nn.Module):
         return self.tok_embeddings.device
 
     def forward(self, input_ids, positions=None, cache=None,
-                cache_index=None):
+                cache_index=None, return_hidden: bool = False):
         """``input_ids`` (B, S). ``positions``: global token positions,
         default 0..S-1, or ``cache_index + 0..S-1`` in decoding mode
         (``cache_index`` an int, or a (B,) tensor of per-sequence
         positions for the paged cache). Returns logits, or
-        ``(logits, cache)`` when a cache is given (updated in place)."""
+        ``(logits, cache)`` when a cache is given (updated in place).
+        ``return_hidden``: skip the lm_head and return the final-norm
+        hidden states (B, S, dim), for :func:`chunked_causal_lm_loss`."""
         cfg = self.config
         if cache is not None and positions is None:
             steps = torch.arange(input_ids.shape[1], device=input_ids.device)
@@ -332,12 +385,19 @@ class LlamaLM(nn.Module):
             else:
                 positions = int(cache_index) + steps
         x = F.embedding(input_ids, self.tok_embeddings).to(cfg.dtype)
+        remat = cfg.remat and cache is None and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
-            x = layer(x, positions,
-                      None if cache is None else cache[f"layer_{i}"],
-                      cache_index)
+            if remat:
+                x = checkpoint(layer, x, positions, use_reentrant=False)
+            else:
+                x = layer(x, positions,
+                          None if cache is None else cache[f"layer_{i}"],
+                          cache_index)
         x = self.final_norm(x)
-        logits = x.to(self.lm_head.dtype) @ self.lm_head
+        if return_hidden:
+            return x
+        head = cfg.head_dtype or cfg.dtype
+        logits = x.to(head) @ self.lm_head.to(head)
         return logits if cache is None else (logits, cache)
 
 
@@ -408,3 +468,46 @@ def generate(model: LlamaLM, prompt_ids, max_new_tokens: int,
             token = pick_tokens(logits[:, -1], temperature, generator)
             new.append(token)
         return torch.cat([prompt, torch.stack(new, dim=1)], dim=1)
+
+
+def token_nll(logits, targets):
+    """Per-token negative log-likelihood, ``lse(logits) - logits[target]``:
+    the target logit is gathered before the f32 upcast, the logsumexp
+    runs in f32."""
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    target_logit = torch.gather(logits, -1, targets[..., None].long())[
+        ..., 0].float()
+    return lse - target_logit
+
+
+def causal_lm_loss(logits, input_ids):
+    """Next-token cross entropy (shifted)."""
+    return token_nll(logits[:, :-1], input_ids[:, 1:]).mean()
+
+
+def chunked_causal_lm_loss(hidden, head_kernel, input_ids,
+                           num_chunks: int = 8):
+    """:func:`causal_lm_loss` with the lm_head fused in, one sequence
+    chunk at a time under ``torch.utils.checkpoint``: the (B, S, V) logits
+    and their gradient never exist whole. ``hidden``: ``model(ids,
+    return_hidden=True)``; ``head_kernel``: ``model.lm_head`` (dim, V),
+    cast to the hidden dtype."""
+    b, s, _ = hidden.shape
+    if s % num_chunks:
+        raise ValueError(
+            f"chunked_causal_lm_loss: seq len {s} must be divisible by "
+            f"num_chunks {num_chunks}")
+    c = s // num_chunks
+    # Shifted targets over the full sequence; the last position wraps to
+    # a garbage target and is dropped below.
+    targets = torch.cat([input_ids[:, 1:], input_ids[:, :1]], dim=1)
+    w = head_kernel.to(hidden.dtype)
+
+    def chunk_nll(h_c, t_c):
+        return token_nll(h_c @ w, t_c)
+
+    nll = torch.cat([
+        checkpoint(chunk_nll, hidden[:, i * c:(i + 1) * c],
+                   targets[:, i * c:(i + 1) * c], use_reentrant=False)
+        for i in range(num_chunks)], dim=1)
+    return nll[:, :-1].mean()

@@ -6,6 +6,9 @@ compiled with ``nvcc`` into ``build/horovod_tpu_torch/lib<name>_<hash>.so``
 anew) and loaded with ``ctypes``. Several sources build in parallel, one
 ``nvcc`` each, all started together. A failed build raises; nothing
 falls back to a CPU path.
+
+The wrappers of both kernel modules share the routing rule
+(:func:`on_card`) and the operand checks (:func:`check_operands`) below.
 """
 
 from __future__ import annotations
@@ -19,9 +22,11 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable, List, Sequence
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "horovod_tpu_torch"
-SOURCES = ("decode_attention",)
+SOURCES = ("decode_attention", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -104,6 +109,59 @@ def library(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
             lib.hvd_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
     return lib
+
+
+def on_card(name: str, *tensors: torch.Tensor) -> bool:
+    """The wrappers' routing rule: True when every tensor lies on one CUDA
+    device (the kernel runs), False when all lie on the CPU (the plain
+    version runs); anything else raises."""
+    devices = {t.device for t in tensors}
+    if all(d.type == "cpu" for d in devices):
+        return False
+    if len(devices) == 1:
+        (device,) = devices
+        if device.type == "cuda":
+            return True
+    raise ValueError(
+        f"{name} needs all its tensors on one device, got "
+        + ", ".join(sorted(str(d) for d in devices)))
+
+
+KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+KERNEL_WIDTHS = (64, 128)
+KERNEL_GROUPS = (1, 2, 4, 8)
+
+
+def check_operands(name: str, group: int, **tensors: torch.Tensor) -> None:
+    """Raise unless the attention kernels take these operands: float32 or
+    bfloat16 in one dtype, head_dim (the last dim) in ``KERNEL_WIDTHS``,
+    H/Hkv in ``KERNEL_GROUPS``, contiguous and 16-byte aligned."""
+    dtypes = {t.dtype for t in tensors.values()}
+    if len(dtypes) != 1 or not dtypes <= set(KERNEL_DTYPES):
+        raise TypeError(
+            f"{name}: the CUDA kernel takes float32 or bfloat16 with all "
+            "operands in one dtype, got "
+            + ", ".join(f"{k} {t.dtype}" for k, t in tensors.items()))
+    d = next(iter(tensors.values())).shape[-1]
+    if d not in KERNEL_WIDTHS:
+        raise ValueError(
+            f"{name}: the CUDA kernel takes head_dim in {KERNEL_WIDTHS}, "
+            f"got {d}")
+    if group not in KERNEL_GROUPS:
+        raise ValueError(
+            f"{name}: the CUDA kernel takes H/Hkv in {KERNEL_GROUPS}, "
+            f"got {group}")
+    for label, t in tensors.items():
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(
+                f"{name}: {label} must be contiguous and 16-byte aligned "
+                "for the kernel's vector loads")
+
+
+def stream(device: torch.device) -> int:
+    """The current CUDA stream of ``device`` as the int a C entry point
+    takes."""
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def check(lib: ctypes.CDLL, fn: str, code: int) -> None:

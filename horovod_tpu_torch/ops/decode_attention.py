@@ -33,10 +33,6 @@ from .attention import NEG_INF
 LAUNCHES: Dict[str, int] = {"decode_attention": 0,
                             "paged_decode_attention": 0}
 
-_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_KERNEL_WIDTHS = (64, 128)
-_KERNEL_GROUPS = (1, 2, 4, 8)
-
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # q, k_cache, v_cache, out, b, h, hkv, d, window, cache_index, scale,
@@ -53,49 +49,6 @@ _SIGNATURES = {
 def reset_launch_counts() -> None:
     for key in LAUNCHES:
         LAUNCHES[key] = 0
-
-
-def _on_card(*tensors: torch.Tensor) -> bool:
-    """True when every tensor lies on one CUDA device (the kernel runs),
-    False when all lie on the CPU (the plain version runs); anything
-    else raises."""
-    devices = {t.device for t in tensors}
-    if all(d.type == "cpu" for d in devices):
-        return False
-    if len(devices) == 1:
-        (device,) = devices
-        if device.type == "cuda":
-            return True
-    raise ValueError(
-        "decode attention needs all its tensors on one device, got "
-        + ", ".join(sorted(str(d) for d in devices)))
-
-
-def _check_kernel_operands(name, q, k, v, group: int) -> None:
-    d = q.shape[-1]
-    if q.dtype not in _KERNEL_DTYPES or k.dtype != q.dtype \
-            or v.dtype != q.dtype:
-        raise TypeError(
-            f"{name}: the CUDA kernel takes float32 or bfloat16 with q and "
-            f"the cache in one dtype, got q {q.dtype}, k {k.dtype}, "
-            f"v {v.dtype}")
-    if d not in _KERNEL_WIDTHS:
-        raise ValueError(
-            f"{name}: the CUDA kernel takes head_dim in {_KERNEL_WIDTHS}, "
-            f"got {d}")
-    if group not in _KERNEL_GROUPS:
-        raise ValueError(
-            f"{name}: the CUDA kernel takes H/Hkv in {_KERNEL_GROUPS}, "
-            f"got {group}")
-    for label, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(
-                f"{name}: {label} must be contiguous and 16-byte aligned "
-                "for the kernel's vector loads")
-
-
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
 
 
 def _attend_plain(q, k4, v4, lens, scale):
@@ -156,12 +109,12 @@ def decode_attention(q, k_cache, v_cache, cache_index, num_kv_heads,
     Returns (B, 1, H, D). CUDA tensors run the kernel that replaces
     ``_decode_kernel`` of ``horovod_tpu/ops/decode_attention.py``."""
     _check_decode("decode_attention", q, k_cache, v_cache, num_kv_heads)
-    if not _on_card(q, k_cache, v_cache):
+    if not _build.on_card("decode attention", q, k_cache, v_cache):
         return decode_attention_plain(q, k_cache, v_cache, cache_index,
                                       num_kv_heads, sm_scale)
     b, _, h, d = q.shape
-    _check_kernel_operands("decode_attention", q, k_cache, v_cache,
-                           h // num_kv_heads)
+    _build.check_operands("decode_attention", h // num_kv_heads, q=q,
+                          k=k_cache, v=v_cache)
     scale = sm_scale if sm_scale is not None else 1.0 / (d ** 0.5)
     out = torch.empty_like(q)
     if b == 0:
@@ -170,8 +123,8 @@ def decode_attention(q, k_cache, v_cache, cache_index, num_kv_heads,
     code = lib.hvd_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         out.data_ptr(), b, h, num_kv_heads, d, k_cache.shape[1],
-        int(cache_index), float(scale), _KERNEL_DTYPES[q.dtype],
-        _stream(q.device))
+        int(cache_index), float(scale), _build.KERNEL_DTYPES[q.dtype],
+        _build.stream(q.device))
     _build.check(lib, "hvd_decode_attention", code)
     LAUNCHES["decode_attention"] += 1
     return out
@@ -216,13 +169,14 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, context_lens,
     ``_paged_decode_kernel`` of ``horovod_tpu/ops/decode_attention.py``."""
     _check_paged(q, k_pool, v_pool, block_tables, context_lens,
                  num_kv_heads)
-    if not _on_card(q, k_pool, v_pool, block_tables, context_lens):
+    if not _build.on_card("decode attention", q, k_pool, v_pool,
+                          block_tables, context_lens):
         return paged_decode_attention_plain(q, k_pool, v_pool, block_tables,
                                             context_lens, num_kv_heads,
                                             sm_scale)
     b, _, h, d = q.shape
-    _check_kernel_operands("paged_decode_attention", q, k_pool, v_pool,
-                           h // num_kv_heads)
+    _build.check_operands("paged_decode_attention", h // num_kv_heads, q=q,
+                          k=k_pool, v=v_pool)
     scale = sm_scale if sm_scale is not None else 1.0 / (d ** 0.5)
     tables = block_tables.to(torch.int32).contiguous()
     lens = context_lens.to(torch.int32).contiguous()
@@ -234,7 +188,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, context_lens,
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), out.data_ptr(),
         tables.data_ptr(), lens.data_ptr(), b, h, num_kv_heads, d,
         tables.shape[1], k_pool.shape[1], float(scale),
-        _KERNEL_DTYPES[q.dtype], _stream(q.device))
+        _build.KERNEL_DTYPES[q.dtype], _build.stream(q.device))
     _build.check(lib, "hvd_paged_decode_attention", code)
     LAUNCHES["paged_decode_attention"] += 1
     return out

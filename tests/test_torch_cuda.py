@@ -1,5 +1,5 @@
-"""The port's CUDA decode kernels on a card, held against their plain
-torch versions. Every test here is marked ``cuda`` and skips without a
+"""The port's CUDA kernels (decode and flash attention) on a card, held
+against their plain torch versions. Every test here is marked ``cuda`` and skips without a
 card; the file imports neither JAX nor ``horovod_tpu``, so on a machine
 with a card and no JAX it runs on its own:
 
@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from horovod_tpu_torch.models import llama
+from horovod_tpu_torch.ops import attention as flash
 from horovod_tpu_torch.ops import decode_attention as ops
 
 # float32: only the reduction order differs from the plain version.
@@ -21,6 +22,19 @@ F32_TOL = dict(atol=2e-5, rtol=1e-4)
 # p is rounded to bf16 against a running max (kernel) or the final max
 # (plain version), so the two may land one ulp apart on either rounding.
 BF16_TOL = dict(atol=1e-2, rtol=1e-2)
+# bfloat16 flash outputs are mostly far below BF16_TOL's atol, so each is
+# held to its own scale: within 2e-2 of (|want| + rms(want)) elementwise.
+FLASH_BF16_REL = 2e-2
+
+
+def _assert_flash_close(got, want, dtype):
+    got, want = got.float(), want.float()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, **F32_TOL)
+        return
+    rms = float(want.pow(2).mean().sqrt())
+    torch.testing.assert_close(got, want, rtol=FLASH_BF16_REL,
+                               atol=FLASH_BF16_REL * rms)
 
 
 @pytest.fixture
@@ -134,3 +148,86 @@ def test_generate_through_the_kernel_equals_einsum_path(cuda_device):
     with llama.decode_kernel_disabled():
         einsum = llama.generate(model, prompt, max_new_tokens=6)
     assert torch.equal(tokens, einsum)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "b,sq,sk,h,hkv,d,causal,masked",
+    [(2, 128, 128, 16, 8, 64, True, False),
+     (2, 197, 197, 4, 2, 64, False, True),      # awkward length, key mask
+     (1, 64, 300, 8, 1, 128, True, False),      # causal, sq < sk
+     (2, 96, 40, 4, 4, 64, True, True)])        # sq > sk: dead rows
+def test_flash_kernels_match_plain(cuda_device, dtype, b, sq, sk, h, hkv, d,
+                                   causal, masked):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    q = _randn(gen, cuda_device, dtype, b, sq, h, d)
+    k = _randn(gen, cuda_device, dtype, b, sk, hkv, d)
+    v = _randn(gen, cuda_device, dtype, b, sk, hkv, d)
+    g = _randn(gen, cuda_device, dtype, b, sq, h, d)
+    mask = None
+    if masked:
+        mask = torch.rand(b, sk, generator=gen, device=cuda_device) > 0.3
+        mask[0, 0] = False
+    flash.reset_launch_counts()
+    out, lse = flash._flash_forward(q, k, v, mask, causal)
+    want_out, want_lse = flash.flash_attention_forward_plain(q, k, v, mask,
+                                                             causal)
+    delta = flash.flash_delta(want_out, g)
+    dq = flash.flash_backward_dq(q, k, v, mask, g, want_lse, delta, causal)
+    dk, dv = flash.flash_backward_dkdv(q, k, v, mask, g, want_lse, delta,
+                                       causal)
+    torch.cuda.synchronize()
+    assert flash.LAUNCHES == {"flash_forward": 1, "flash_backward_dq": 1,
+                              "flash_backward_dkdv": 1}
+    _assert_flash_close(out, want_out, dtype)
+    torch.testing.assert_close(lse, want_lse, **F32_TOL)
+    want_dq = flash.flash_backward_dq_plain(q, k, v, mask, g, want_lse,
+                                            delta, causal)
+    want_dk, want_dv = flash.flash_backward_dkdv_plain(
+        q, k, v, mask, g, want_lse, delta, causal)
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        _assert_flash_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+def test_flash_wrappers_refuse_what_the_kernels_cannot_take(cuda_device):
+    q = torch.zeros((1, 8, 4, 16), device=cuda_device)       # D=16
+    with pytest.raises(ValueError, match="head_dim"):
+        flash.flash_attention(q, q[:, :, :2], q[:, :, :2])
+    q = torch.zeros((1, 8, 3, 64), device=cuda_device)       # group 3
+    with pytest.raises(ValueError, match="H/Hkv"):
+        flash.flash_attention(q, q[:, :, :1], q[:, :, :1])
+    q = torch.zeros((1, 8, 4, 64), dtype=torch.float16, device=cuda_device)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash.flash_attention(q, q[:, :, :2].contiguous(),
+                              q[:, :, :2].contiguous())
+
+
+@pytest.mark.cuda
+def test_training_step_runs_the_flash_kernels_per_layer(cuda_device):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(llama.LLAMA_TINY, dim=256, num_heads=4,
+                              num_kv_heads=2, ffn_hidden=512,
+                              dtype=torch.float32)
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (2, 64))).to(cuda_device)
+    grads = []
+    for use_flash in (True, False):
+        model = llama.LlamaLM(
+            cfg, seed=0, param_dtype=torch.float32,
+            attention_fn=flash.make_attention_fn(causal=True,
+                                                 use_flash=use_flash))
+        flash.reset_launch_counts()
+        loss = llama.causal_lm_loss(model(ids), ids)
+        loss.backward()
+        torch.cuda.synchronize()
+        want = cfg.num_layers if use_flash else 0
+        assert flash.LAUNCHES == {"flash_forward": want,
+                                  "flash_backward_dq": want,
+                                  "flash_backward_dkdv": want}
+        grads.append([p.grad for p in model.parameters()])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=2e-5, rtol=1e-4)

@@ -226,6 +226,12 @@ def test_port_imports_no_jax_or_reference_package():
         "import horovod_tpu_torch\n"
         "import horovod_tpu_torch.common.config\n"
         "import horovod_tpu_torch.common.hvd_logging\n"
+        "import horovod_tpu_torch.common.topology\n"
+        "import horovod_tpu_torch.common.basics\n"
+        "import horovod_tpu_torch.torch\n"
+        "import horovod_tpu_torch.torch.mpi_ops\n"
+        "import horovod_tpu_torch.torch.compression\n"
+        "import horovod_tpu_torch.examples.llama_training\n"
         "import horovod_tpu_torch.ops.attention\n"
         "import horovod_tpu_torch.ops.decode_attention\n"
         "import horovod_tpu_torch.models.llama\n"
