@@ -26,16 +26,19 @@ on ``cuda``; any failure exits non-zero:
    kernel launched 16 x steps times;
 5. the same engine in bfloat16, timed: tokens/s, TTFT p50, TPOT p50;
 6. the three flash-attention kernels (forward, dq, dk/dv) against their
-   plain versions in float32 and bfloat16 on four cases: the training
+   plain versions in float32 and bfloat16 on five cases: the training
    slice's shape (b=8, S=1024, H=16, Hkv=8, D=64, causal), a key-masked
    causal case at an awkward length with a fully masked row, causal with
-   sq=256 < sk=1024, and Llama-8B's width (b=1, S=4096, H=32, Hkv=8,
-   D=128). float32 at TOL; bfloat16 at SCALED_TOL (each output held to
-   its own magnitude), and faults planted in the plain outputs (the last
-   key or query tile skipped) must fail that check. Times as in 2; the
-   yardstick is
-   ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
-   forward and its forward+backward minus forward;
+   sq=256 < sk=1024, Llama-8B's width (b=1, S=4096, H=32, Hkv=8, D=128),
+   and the TMA kernels' edges (b=3, sq=197, sk=261: ragged last tiles and
+   a diagonal offset of 64, H=16 over Hkv=2, D=128, key mask with a fully
+   masked row). float32 at TOL; bfloat16 at SCALED_TOL (each output held
+   to its own magnitude), and faults planted in the plain outputs (the
+   last key or query tile skipped) must fail that check. Times as in 2;
+   the yardstick is
+   ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``:
+   its forward, and its backward alone (``autograd.grad`` on a saved
+   forward), which covers dq and dk/dv together;
 7. ``init()`` under a launcher environment of size 1: a real NCCL group
    on ``cuda:0``; collectives on card tensors return their inputs;
 8. training parity at Llama-300M full size in float32: two SGD steps
@@ -495,7 +498,7 @@ def profile_decode_steps(model, scfg, steps: int = 20):
 def ptxas_report(name: str):
     """(kernel instantiation, registers line, spill line) from the ptxas
     output of ``name``'s last build, the instantiation read off the
-    mangled entry name (``flash_fwd_kernel<bf16,64>``)."""
+    mangled entry name (``bf16_fwd_tma_kernel<bf16,64>``)."""
     from horovod_tpu_torch.ops import _build
 
     rows, label, spill = [], None, ""
@@ -504,7 +507,7 @@ def ptxas_report(name: str):
         if entry:
             mangled = entry.group(1)
             kernel = re.search(
-                r"((?:bf16|f32)_(?:fwd|dq|dkdv)_kernel|decode_kernel)I",
+                r"((?:bf16|f32)_(?:fwd|dq|dkdv)(?:_tma)?_kernel|decode_kernel)I",
                 mangled)
             dtype = "bf16" if "__nv_bfloat16" in mangled else "f32"
             ints = re.findall(r"Li(\d+)E", mangled)
@@ -527,7 +530,8 @@ def flash_cases():
     return [("slice", 8, 1024, 1024, 16, 8, 64, False),
             ("masked", 2, 333, 333, 16, 8, 64, True),
             ("sq256_sk1024", 8, 256, 1024, 16, 8, 64, False),
-            ("llama8b", 1, 4096, 4096, 32, 8, 128, False)]
+            ("llama8b", 1, 4096, 4096, 32, 8, 128, False),
+            ("edge", 3, 197, 261, 16, 2, 128, True)]
 
 
 def planted_faults(A, q, k, v, g, p_out, p_lse, delta, got, tile=64):
@@ -585,7 +589,8 @@ def check_flash(device, flush):
             if masked:
                 mask = torch.rand(b, sk, generator=gen, device=device) > 0.3
                 mask[:, 0] = True
-                mask[0, 0] = False      # query row 0 of batch 0: no key
+                # Query row 0 of batch 0 attends keys <= sk - sq: none.
+                mask[0, :sk - sq + 1] = False
             what = f"flash {label} {dname}"
             out, lse = A._flash_forward(q, k, v, mask, True)
             p_out, p_lse = A.flash_attention_forward_plain(q, k, v, mask,
@@ -661,8 +666,8 @@ def check_flash(device, flush):
             sdpa_fwd = sdpa_bwd = None
             if mask is None and sq == sk:
                 # The yardstick (the port never calls it): causal SDPA on
-                # the same inputs in (B, H, S, D), forward, and forward +
-                # backward minus forward.
+                # the same inputs in (B, H, S, D): its forward, and its
+                # backward alone on one saved forward (dq, dk and dv).
                 qt, kt, vt, gt = (x.transpose(1, 2).contiguous()
                                   for x in (q, k, v, g))
                 qr, kr, vr = (x.detach().requires_grad_()
@@ -672,13 +677,16 @@ def check_flash(device, flush):
                     return F.scaled_dot_product_attention(
                         qt, kt, vt, is_causal=True, enable_gqa=True)
 
-                def sdpa_fb():
-                    o = F.scaled_dot_product_attention(
-                        qr, kr, vr, is_causal=True, enable_gqa=True)
-                    return torch.autograd.grad(o, (qr, kr, vr), gt)
+                o_saved = F.scaled_dot_product_attention(
+                    qr, kr, vr, is_causal=True, enable_gqa=True)
+
+                def sdpa_bwd_only():
+                    return torch.autograd.grad(o_saved, (qr, kr, vr), gt,
+                                               retain_graph=True)
 
                 sdpa_fwd = time_ms(sdpa, flush, repeats=10)
-                sdpa_bwd = time_ms(sdpa_fb, flush, repeats=10) - sdpa_fwd
+                sdpa_bwd = time_ms(sdpa_bwd_only, flush, repeats=10)
+                del o_saved
             row = dict(case=label, dtype=dname, shape=[b, sq, sk, h, hkv, d],
                        pairs=pairs,
                        max_abs_err={key: e["max_abs"]
@@ -854,7 +862,7 @@ def profile_training_step(out, step_ms: float, steps: int = 2):
             continue
         kernels += ev.count
         name = ev.key.lower()
-        if re.search(r"(bf16|f32)_(fwd|dq|dkdv)_kernel", name):
+        if re.search(r"(bf16|f32)_(fwd|dq|dkdv)(_tma)?_kernel", name):
             key = "flash"
         elif any(t in name for t in ("nvjet", "gemm", "gemv", "cutlass",
                                      "xmma")):
@@ -871,6 +879,10 @@ def profile_training_step(out, step_ms: float, steps: int = 2):
               "device_busy_over_unprofiled_step": busy_ms / step_ms}
     result.update({f"{k}_ms_per_step": v / steps / 1e3
                    for k, v in split.items()})
+    if not result["flash_ms_per_step"] > 0:
+        raise AssertionError(
+            "training profile: no device time matched the flash kernels' "
+            f"names: {json.dumps(result)}")
     log(f"training step profile (bf16, {steps} steps): {json.dumps(result)}")
     return result
 

@@ -1,4 +1,4 @@
-// FlashAttention-2 forward and backward for Hopper (sm_90a).
+// FlashAttention forward and backward for Hopper (sm_90a).
 //
 // Replaces the three Pallas kernels of the JAX package:
 //   * hvd_flash_forward       <- horovod_tpu/ops/attention.py::_flash_kernel
@@ -9,7 +9,7 @@
 // query head h reads K/V head h / (H / Hkv); lse and delta (B*H, Sq) f32):
 //   forward: s = (q . k) * scale in f32, an online softmax over key tiles,
 //            p rounded to V's dtype before P.V, out = acc / max(l, 1e-30) in
-//            q's dtype, lse = m + log(max(l, 1e-30));
+//            q's dtype, lse = m + log(max(l, 1e-30)) in natural-log units;
 //   dq:      p = exp(s - lse), ds = p * (dO . v - delta), dq = scale * sum ds k
 //            with ds rounded to K's dtype;
 //   dkdv:    dv = sum p^T dO (p rounded to dO's dtype), dk = scale * sum ds^T q
@@ -19,9 +19,8 @@
 // holds it, and, when causal, j <= i + (Sk - Sq) (the decode convention).
 // Disallowed entries are zeroed explicitly, never left to exp(-1e30): a row
 // with no allowed key gives zeros and lse = -1e30 + log(1e-30), and its
-// gradients are zero. Rows and keys past Sq / Sk are bounds-checked, so any
-// length works without padding. Key tiles wholly above the causal diagonal
-// are skipped.
+// gradients are zero. Any Sq and Sk work without padding. Key (or query)
+// tiles wholly on the far side of the causal diagonal are skipped.
 //
 // What bounds them: at the training slice's shape (bf16, B=8, S=1024, H=16,
 // Hkv=8, D=64, causal) the work is ~4, ~6 and ~8 * D operations per allowed
@@ -29,30 +28,47 @@
 // traffic, far above the H100's ~295 operations per byte, so the tensor
 // cores' rate is the roofline.
 //
-// Design (simple first): a block of four warps owns 64 rows (queries for
-// the forward and dq, keys for dkdv), 16 per warp, and streams tiles of the
-// other operand through shared memory. Every product a warp needs reads only
-// its own 16 rows and the shared tile, so between two tile loads a warp runs
-// alone: scores, the softmax or gradient elementwise pass, then the second
-// product. Two paths:
-//   * bfloat16: mma.sync m16n8k16 on the tensor cores, FA-2 style. Scores
-//     and accumulators stay in registers; the score fragments are repacked
-//     as the A operand of the second product (P.V, dS.K, P^T.dO, dS^T.Q), so
-//     P and dS never touch shared memory. Operands load with ldmatrix.
-//   * float32: FMA loops over shared memory (no TF32, so float32 stays
-//     float32), with the scores and P in a per-warp scratch tile and the
-//     accumulators in shared memory.
+// bfloat16 forward and dk/dv (the training path's two largest): built for
+// that roofline. A block is a producer warpgroup and two or three consumer
+// warpgroups. One producer thread issues TMA loads of whole tiles (4-D
+// tensor maps over the (B, S, heads, D) layout, zero-filled past S) into a
+// ring of shared-memory stages guarded by mbarriers, so loads overlap the
+// math. Each consumer owns 64 rows and runs every product as wgmma (the only
+// path to the full tensor-core rate): both operands from shared memory for
+// the scores, and the score fragment repacked to bf16 as the register A
+// operand of the second product (P.V, P^T.dO, dS^T.Q), B read MN-major.
+// Accumulators live in registers the producer gave up (setmaxnreg). The
+// softmax runs in one FFMA and one ex2 per score, log2(e) folded into the
+// scale; masking runs only on the tiles that need it (a key mask, the
+// diagonal, the ragged last key tile). Forward: 192 query rows per block at
+// D = 64 (three consumers, which the exponentials need), 128 at D = 128,
+// 128-key K/V tiles, the longest causal query tiles launched first. dk/dv:
+// 128 keys per block, 64-row Q/dO tiles with their lse and delta slices.
+//
+// bfloat16 dq (the simple design; the next to move onto the same pipeline):
+// a block of four warps owns 64 query rows, 16 per warp, and streams 64-row
+// K/V tiles through shared memory with synchronous loads; mma.sync m16n8k16
+// with the score fragments repacked in registers (FA-2 style), operands
+// through ldmatrix.
+//
+// float32 (parity, not the bf16 main path): FMA loops over shared memory (no
+// TF32, so float32 stays float32), with the scores and P in a per-warp
+// scratch tile and the accumulators in shared memory.
+//
 // The TPU kernels' tile sizes (512 / 1024, chosen for v5e VMEM) and their
-// head-folding transposes have no counterpart here. Not yet done: cp.async /
-// TMA pipelining of the tile loads, wgmma, and a persistent grid.
+// head-folding transposes have no counterpart here.
 //
 // Plain C interface, loaded with ctypes: every entry point returns
 // cudaGetLastError() after its launch (0 = launched) or cudaErrorInvalidValue
 // for a shape it does not take.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -527,33 +543,29 @@ f32_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: mma.sync m16n8k16 with register-resident accumulators (FA-2)
+// bfloat16 dq: mma.sync m16n8k16 with register-resident accumulators (FA-2)
 //
 // A warp's 16 x 64 score tile lives in registers as eight m16n8 f32
 // fragments: thread t holds rows t/4 and t/4 + 8, columns 2(t%4) and
 // 2(t%4) + 1 of each 8-column block. That layout is also the A operand
-// layout of the next m16n8k16 product once packed to bf16 pairs, so P (or
-// dS) never leaves the registers. Operands come from shared memory through
+// layout of the next m16n8k16 product once packed to bf16 pairs, so dS
+// never leaves the registers. Operands come from shared memory through
 // ldmatrix (row pitch padded by 16 bytes: the eight rows of each 8x8 matrix
-// then fall in distinct banks); the B operand of P.V, dS.K, P^T.dO and
-// dS^T.Q is read with ldmatrix.trans.
+// then fall in distinct banks); the B operand of dS.K is read with
+// ldmatrix.trans.
 
-constexpr int kTile = 64;   // streamed tile rows, bf16 path
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+constexpr int kTile = 64;   // streamed tile rows, bf16 dq
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
+               : "r"(sm90::smem_u32(p)));
 }
 
 __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const __nv_bfloat16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
+               : "r"(sm90::smem_u32(p)));
 }
 
 // c += a * b for one m16n8k16 tile, f32 accumulation.
@@ -566,13 +578,8 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // s (16 x N) = A (16 x K rows at `a`, pitch lda) * B^T, B being N rows of K
-// at `b` (pitch ldb): the scores Q K^T, dO V^T, K Q^T and V dO^T.
+// at `b` (pitch ldb): the scores Q K^T and dO V^T.
 template <int N, int K>
 __device__ __forceinline__ void warp_scores(float (&s)[N / 8][4], const __nv_bfloat16* a,
                                             int lda, const __nv_bfloat16* b, int ldb) {
@@ -595,7 +602,7 @@ __device__ __forceinline__ void warp_scores(float (&s)[N / 8][4], const __nv_bfl
 }
 
 // acc (16 x N) += P (16 x K, the f32 fragments p rounded to bf16 here) * B,
-// B being K rows of N at `b` (pitch ldb): P V, dS K, P^T dO and dS^T Q.
+// B being K rows of N at `b` (pitch ldb): dS K.
 template <int N, int K>
 __device__ __forceinline__ void warp_accumulate(float (&acc)[N / 8][4],
                                                 const float (&p)[K / 8][4],
@@ -603,10 +610,10 @@ __device__ __forceinline__ void warp_accumulate(float (&acc)[N / 8][4],
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int kk = 0; kk < K / 16; ++kk) {
-    const uint32_t af[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
-                            pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-                            pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                            pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+    const uint32_t af[4] = {sm90::pack_bf16x2(p[2 * kk][0], p[2 * kk][1]),
+                            sm90::pack_bf16x2(p[2 * kk][2], p[2 * kk][3]),
+                            sm90::pack_bf16x2(p[2 * kk + 1][0], p[2 * kk + 1][1]),
+                            sm90::pack_bf16x2(p[2 * kk + 1][2], p[2 * kk + 1][3])};
 #pragma unroll
     for (int np = 0; np < N / 16; ++np) {
       uint32_t bf[4];
@@ -641,103 +648,6 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4], float m
 
 __host__ __device__ constexpr size_t bf16_tile_bytes(int d) {
   return align128((size_t)kRows * (d + 8) * sizeof(__nv_bfloat16));
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-bf16_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ mask,
-                __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int sq, int sk, int h,
-                int hkv, float scale, int causal) {
-  constexpr int LD = D + 8;
-  constexpr int NT = kTile / 8;
-  extern __shared__ __align__(128) char smem[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem + bf16_tile_bytes(D));
-  __nv_bfloat16* sV = reinterpret_cast<__nv_bfloat16*>(smem + 2 * bf16_tile_bytes(D));
-  const int bh = blockIdx.y;
-  const int b = bh / h;
-  const int head = bh % h;
-  const int kvh = head / (h / hkv);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int q0 = blockIdx.x * kRows;
-  const int off = sk - sq;
-  const int row_lo = q0 + warp * 16 + lane / 4;
-
-  load_rows<__nv_bfloat16, D, kRows>(sQ, LD, q, b, sq, h, head, q0);
-  const __nv_bfloat16* Qw = sQ + warp * 16 * LD;
-  float o[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.f, 0.f};
-
-  const int tiles = live_key_tiles(q0, kRows, kTile, sk, off, causal);
-  for (int t = 0; t < tiles; ++t) {
-    const int k0 = t * kTile;
-    __syncthreads();
-    load_rows<__nv_bfloat16, D, kTile>(sK, LD, k, b, sk, hkv, kvh, k0);
-    load_rows<__nv_bfloat16, D, kTile>(sV, LD, v, b, sk, hkv, kvh, k0);
-    __syncthreads();
-    float s[NT][4];
-    warp_scores<kTile, D>(s, Qw, LD, sK, LD);
-
-    uint32_t ok_bits = 0;   // bit 4 * n + i: fragment entry s[n][i] allowed
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = k0 + n * 8 + (lane % 4) * 2 + (i & 1);
-        const int row = row_lo + (i / 2) * 8;
-        const bool ok = col < sk && (mask == nullptr || mask[(size_t)b * sk + col]) &&
-                        (!causal || col <= row + off);
-        ok_bits |= (uint32_t)ok << (4 * n + i);
-        s[n][i] = ok ? s[n][i] * scale : kNegInf;
-        mx[i / 2] = fmaxf(mx[i / 2], s[n][i]);
-      }
-    }
-    float alpha[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      alpha[r] = expf(m[r] - m_new);
-      m[r] = m_new;
-    }
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        s[n][i] = (ok_bits >> (4 * n + i)) & 1u ? expf(s[n][i] - m[i / 2]) : 0.f;
-        sum[i / 2] += s[n][i];
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
-      l[r] = l[r] * alpha[r] + sum[r];
-    }
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
-    }
-    warp_accumulate<D, kTile>(o, s, sV, LD);
-  }
-
-  const float den_lo = fmaxf(l[0], 1e-30f);
-  const float den_hi = fmaxf(l[1], 1e-30f);
-  store_rows<D>(o, 1.f / den_lo, 1.f / den_hi, out, b, sq, h, head, row_lo);
-  if (lane % 4 == 0) {
-    if (row_lo < sq) lse[(size_t)bh * sq + row_lo] = m[0] + logf(den_lo);
-    if (row_lo + 8 < sq) lse[(size_t)bh * sq + row_lo + 8] = m[1] + logf(den_hi);
-  }
 }
 
 template <int D>
@@ -807,92 +717,485 @@ bf16_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
   store_rows<D>(acc, scale, scale, dq, b, sq, h, head, row_lo);
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16 forward and dk/dv: TMA ring + wgmma, warp-specialised (Hopper)
+//
+// A block is two or three consumer warpgroups and one producer warpgroup
+// after them. Each consumer owns 64 rows (queries in the forward, keys in
+// dk/dv) and runs the wgmma products and the elementwise work on them. The
+// producer gives back its registers and one thread issues every TMA load
+// into a ring of shared-memory stages, each guarded by a full / empty
+// mbarrier pair; in dk/dv its first warp also stages the lse and delta
+// slices beside each query tile. Tiles arrive as the 128-byte swizzle the
+// wgmma descriptors read (sm90.cuh), from 4-D tensor maps over (B, S, heads,
+// D): a box that runs past S is zero-filled.
+
+constexpr int kProducerRegs = 24;
+
+// Registers a consumer thread may take once the producer has given its own
+// back: the block's share of the register file (65,536 / threads, rounded
+// down to 8) less the producer's, spread over the consumers.
+__host__ __device__ constexpr int consumer_regs(int wgs) {
+  return ((65536 / (128 * (wgs + 1))) / 8 * 8 * (wgs + 1) - kProducerRegs) / wgs / 8 * 8;
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024u - (sm90::smem_u32(p) & 1023u)) & 1023u);
+}
+
+// Shared memory of the forward: the block's query rows, then the stages of
+// 128-key K and V tiles, then the barriers. At D = 64 the softmax's
+// exponentials weigh as much as the products, so three consumers share the
+// tensor cores (192 query rows); at D = 128 the accumulators need two
+// consumers' register budget (128 rows).
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-bf16_dkdv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ mask,
-                 const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-                 const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
-                 __nv_bfloat16* __restrict__ dv, int sq, int sk, int h, int hkv, float scale,
-                 int causal) {
-  constexpr int LD = D + 8;
-  constexpr int NT = kTile / 8;
-  extern __shared__ __align__(128) char smem[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sV = reinterpret_cast<__nv_bfloat16*>(smem + bf16_tile_bytes(D));
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem + 2 * bf16_tile_bytes(D));
-  __nv_bfloat16* sdO = reinterpret_cast<__nv_bfloat16*>(smem + 3 * bf16_tile_bytes(D));
-  float* sL = reinterpret_cast<float*>(smem + 4 * bf16_tile_bytes(D));
-  float* sDelta = sL + kTile;
-  const int b = blockIdx.y / hkv;
-  const int kvh = blockIdx.y % hkv;
-  const int group = h / hkv;
-  const int warp = threadIdx.x / 32;
+struct FwdTiles {
+  static constexpr int kWgs = D == 64 ? 3 : 2;
+  static constexpr int kThreads = 128 * (kWgs + 1);
+  static constexpr int kRows = 64 * kWgs;
+  static constexpr int kKeys = 128;
+  static constexpr int kStages = D == 64 ? 4 : 3;
+  static constexpr uint32_t kQBytes = kRows * D * 2;
+  static constexpr uint32_t kKVBytes = kKeys * D * 2;   // one K or V tile
+  __host__ __device__ static constexpr uint32_t k(int s) { return kQBytes + 2 * s * kKVBytes; }
+  __host__ __device__ static constexpr uint32_t v(int s) { return k(s) + kKVBytes; }
+  static constexpr uint32_t kBarriers = kQBytes + 2 * kStages * kKVBytes;
+  static constexpr size_t kSmem = kBarriers + 8 * (1 + 2 * kStages) + 1024;   // + alignment
+};
+
+// S (64 rows x BN keys) = Q . K^T for one warpgroup: Q rows at `q_addr`
+// (chunk pitch BM rows), the K tile at `k_addr`; both K-major.
+template <int D, int BM, int BN>
+__device__ __forceinline__ void issue_scores(float (&sc)[BN / 2], uint32_t q_addr,
+                                             uint32_t k_addr) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t col = (kk % 4) * 32;
+    sm90::wgmma_ss<BN>(sc, sm90::desc(q_addr + (kk / 4) * BM * 128 + col, 16, 1024),
+                       sm90::desc(k_addr + (kk / 4) * BN * 128 + col, 16, 1024), kk > 0);
+  }
+}
+
+// O (64 x D) += P (registers) . V, the V tile at `v_addr` read MN-major.
+template <int D, int BN>
+__device__ __forceinline__ void issue_values(float (&o)[D / 2], const uint32_t (&pa)[BN / 16][4],
+                                             uint32_t v_addr) {
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk) {
+    sm90::wgmma_rs<D>(o, pa[kk], sm90::desc(v_addr + kk * 16 * 128, BN * 128, 1024));
+  }
+}
+
+// One tile of the online softmax, in place: the raw scores `sc` of keys k0 ..
+// k0 + BN - 1 become p = exp2(s * scale_log2 - m) against the rows' new
+// running max m (log2 units), one FFMA and one exp2 each; l gains this
+// thread's share of their sum and `alpha` is the factor that rescales the
+// rows' earlier sums. Masking runs only where some entry is disallowed: a
+// key mask, the ragged last tile (its zero-filled keys), the tiles on the
+// diagonal. Disallowed p are exactly 0.
+template <int BN>
+__device__ __forceinline__ void online_softmax(float (&sc)[BN / 2], float (&m)[2], float (&l)[2],
+                                               float (&alpha)[2], float scale_log2, int k0,
+                                               const uint8_t* __restrict__ mask, int b, int sk,
+                                               int row_lo, int off, int causal, int r0) {
   const int lane = threadIdx.x % 32;
-  const int k0 = blockIdx.x * kRows;
-  const int off = sk - sq;
-  const int key_lo = k0 + warp * 16 + lane / 4;
-
-  load_rows<__nv_bfloat16, D, kRows>(sK, LD, k, b, sk, hkv, kvh, k0);
-  load_rows<__nv_bfloat16, D, kRows>(sV, LD, v, b, sk, hkv, kvh, k0);
-  const __nv_bfloat16* Kw = sK + warp * 16 * LD;
-  const __nv_bfloat16* Vw = sV + warp * 16 * LD;
-  bool key_ok[2];
+  // With c = |scale_log2| the max of s * c is c times the max of s; a
+  // negative scale flips the scores first.
+  if (scale_log2 < 0.f) {
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = key_lo + r * 8;
-    key_ok[r] = key < sk && (mask == nullptr || mask[(size_t)b * sk + key]);
+    for (int i = 0; i < BN / 2; ++i) sc[i] = -sc[i];
   }
-  float acc_k[D / 8][4], acc_v[D / 8][4];
+  const float c = fabsf(scale_log2);
+  if (mask != nullptr || k0 + BN > sk || (causal && k0 + BN - 1 > r0 + off)) {
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    acc_k[n][0] = acc_k[n][1] = acc_k[n][2] = acc_k[n][3] = 0.f;
-    acc_v[n][0] = acc_v[n][1] = acc_v[n][2] = acc_v[n][3] = 0.f;
-  }
-
-  // Query tiles whose last row reaches this block's first key under causal.
-  const int q_tiles = (sq + kTile - 1) / kTile;
-  int qt_first = 0;
-  if (causal) {
-    const int need = k0 - off - kTile + 1;
-    qt_first = need <= 0 ? 0 : (need + kTile - 1) / kTile;
-  }
-  for (int g = 0; g < group; ++g) {
-    const int head = kvh * group + g;
-    const size_t bh = (size_t)b * h + head;
-    for (int qt = qt_first; qt < q_tiles; ++qt) {
-      const int q0 = qt * kTile;
-      __syncthreads();
-      load_rows<__nv_bfloat16, D, kTile>(sQ, LD, q, b, sq, h, head, q0);
-      load_rows<__nv_bfloat16, D, kTile>(sdO, LD, dout, b, sq, h, head, q0);
-      for (int i = threadIdx.x; i < kTile; i += kThreads) {
-        const int row = q0 + i;
-        sL[i] = row < sq ? lse[bh * sq + row] : 0.f;
-        sDelta[i] = row < sq ? delta[bh * sq + row] : 0.f;
-      }
-      __syncthreads();
-      float st[NT][4], dpt[NT][4];
-      warp_scores<kTile, D>(st, Kw, LD, sQ, LD);    // s^T: keys x queries
-      warp_scores<kTile, D>(dpt, Vw, LD, sdO, LD);  // dp^T
+    for (int j = 0; j < BN / 8; ++j) {
 #pragma unroll
-      for (int n = 0; n < NT; ++n) {
+      for (int cc = 0; cc < 2; ++cc) {
+        const int col = k0 + 8 * j + 2 * (lane % 4) + cc;
+        const bool key_ok = col < sk && (mask == nullptr || mask[(size_t)b * sk + col]);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int qi = n * 8 + (lane % 4) * 2 + (i & 1);
-          const int row = q0 + qi;
-          const int key = key_lo + (i / 2) * 8;
-          const bool ok = key_ok[i / 2] && row < sq && (!causal || key <= row + off);
-          const float p = ok ? expf(st[n][i] * scale - sL[qi]) : 0.f;
-          dpt[n][i] = p * (dpt[n][i] - sDelta[qi]);
-          st[n][i] = p;
+        for (int i = 0; i < 2; ++i) {
+          if (!key_ok || (causal && col > row_lo + 8 * i + off)) {
+            sc[4 * j + 2 * i + cc] = -INFINITY;
+          }
         }
       }
-      warp_accumulate<D, kTile>(acc_v, st, sdO, LD);
-      warp_accumulate<D, kTile>(acc_k, dpt, sQ, LD);
     }
   }
-  store_rows<D>(acc_k, scale, scale, dk, b, sk, hkv, kvh, key_lo);
-  store_rows<D>(acc_v, 1.f, 1.f, dv, b, sk, hkv, kvh, key_lo);
+  float mu[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * i], sc[4 * j + 2 * i + 1]));
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    mx = fmaxf(m[i], mx * c);
+    mu[i] = mx == -INFINITY ? 0.f : mx;   // no allowed key yet: every p is 0
+    alpha[i] = sm90::exp2_ftz(m[i] - mu[i]);
+    m[i] = mx;
+  }
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      // Disallowed entries: exp2(-inf) = 0.
+      sc[4 * j + e] = sm90::exp2_ftz(fmaf(sc[4 * j + e], c, -mu[e / 2]));
+      sum[e / 2] += sc[4 * j + e];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + sum[i];
+}
+
+// One block per (b * h, 64 * kWgs query rows), the last query tiles first: under
+// causal they have the most key tiles, so the grid's tail is the short ones.
+template <int D>
+__global__ void __launch_bounds__(FwdTiles<D>::kThreads, 1)
+bf16_fwd_tma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const uint8_t* __restrict__ mask,
+                    __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int sq, int sk,
+                    int h, int hkv, float scale_log2, int causal) {
+  using T = FwdTiles<D>;
+  constexpr int BM = T::kRows;
+  constexpr int BN = T::kKeys;
+  constexpr int S = T::kStages;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + T::kBarriers);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + S;
+
+  const int bh = blockIdx.x;
+  const int b = bh / h;
+  const int head = bh % h;
+  const int kvh = head / (h / hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;
+  const int off = sk - sq;
+  const int tiles = live_key_tiles(q0, BM, BN, sk, off, causal);
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    sm90::tma_prefetch(&tq);
+    sm90::tma_prefetch(&tk);
+    sm90::tma_prefetch(&tv);
+    sm90::mbar_init(q_full, 1);
+    for (int s = 0; s < S; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 128 * T::kWgs);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == T::kWgs) {
+    sm90::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 128 * T::kWgs) {
+      sm90::mbar_arrive_expect_tx(q_full, T::kQBytes);
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c) {
+        sm90::tma_load_4d(smem + c * BM * 128, &tq, q_full, 64 * c, head, q0, b);
+      }
+      for (int t = 0; t < tiles; ++t) {
+        const int s = t % S;
+        sm90::mbar_wait(&empty[s], ((t / S) & 1) ^ 1);
+        sm90::mbar_arrive_expect_tx(&full[s], 2 * T::kKVBytes);
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c) {
+          sm90::tma_load_4d(smem + T::k(s) + c * BN * 128, &tk, &full[s], 64 * c, kvh, t * BN, b);
+          sm90::tma_load_4d(smem + T::v(s) + c * BN * 128, &tv, &full[s], 64 * c, kvh, t * BN, b);
+        }
+      }
+    }
+  } else {
+    sm90::setmaxnreg_inc<consumer_regs(T::kWgs)>();
+    const int tid = threadIdx.x % 128;
+    const int lane = tid % 32;
+    const int r0 = q0 + 64 * wg;                          // this warpgroup's first row
+    const int row_lo = r0 + 16 * (tid / 32) + lane / 4;   // this thread's rows: +0, +8
+    const uint32_t base = sm90::smem_u32(smem);
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY};   // running max, log2 units
+    float l[2] = {0.f, 0.f};               // this thread's share of the row sums
+
+    const uint32_t q_addr = base + wg * 64 * 128;
+    sm90::mbar_wait(q_full, 0);
+    for (int t = 0; t < tiles; ++t) {
+      const int s = t % S;
+      const int k0 = t * BN;
+      sm90::mbar_wait(&full[s], (t / S) & 1);
+      // A tile wholly above this warpgroup's diagonal adds nothing.
+      if (!causal || k0 <= r0 + 63 + off) {
+        float sc[BN / 2], alpha[2];
+        sm90::wgmma_fence();
+        issue_scores<D, BM, BN>(sc, q_addr, base + T::k(s));
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(sc);
+        online_softmax<BN>(sc, m, l, alpha, scale_log2, k0, mask, b, sk, row_lo, off, causal, r0);
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[4 * j + e] *= alpha[e / 2];
+        }
+        uint32_t pa[BN / 16][4];
+        sm90::pack_a<BN>(pa, sc);
+        sm90::wgmma_fence();
+        issue_values<D, BN>(o, pa, base + T::v(s));
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(o);
+      }
+      sm90::mbar_arrive(&empty[s]);
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+      const int row = row_lo + 8 * i;
+      if (row >= sq) continue;
+      const bool dead = l[i] == 0.f;   // no allowed key: zeros, lse = -1e30 + log(1e-30)
+      const float inv = dead ? 0.f : 1.f / l[i];
+      __nv_bfloat16* dst = out + (((size_t)b * sq + row) * h + head) * D + 2 * (lane % 4);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+            __floats2bfloat162_rn(o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);
+      }
+      if (lane % 4 == 0) {
+        lse[(size_t)bh * sq + row] = dead ? kNegInf + logf(1e-30f) : m[i] * kLn2 + logf(l[i]);
+      }
+    }
+  }
+}
+
+// Shared memory of dk/dv: the block's 128 K and V rows, then the stages of
+// 64-row Q and dO tiles with their lse (times log2 e) and delta slices, then
+// the barriers.
+template <int D>
+struct DkdvTiles {
+  static constexpr int kWgs = 2;
+  static constexpr int kThreads = 128 * (kWgs + 1);
+  static constexpr int kKeys = 64 * kWgs;
+  static constexpr int kRows = 64;
+  static constexpr int kStages = D == 64 ? 4 : 3;
+  static constexpr uint32_t kKVBytes = kKeys * D * 2;      // K or V
+  static constexpr uint32_t kQBytes = kRows * D * 2;       // one Q or dO tile
+  static constexpr uint32_t kStageBytes = 2 * kQBytes + 1024;
+  __host__ __device__ static constexpr uint32_t stage(int s) {
+    return 2 * kKVBytes + s * kStageBytes;
+  }
+  static constexpr uint32_t kBarriers = 2 * kKVBytes + kStages * kStageBytes;
+  static constexpr size_t kSmem = kBarriers + 8 * (1 + 2 * kStages) + 1024;
+};
+
+// One block per (b, kv head, 128 keys), sweeping every query head of the
+// group and every query tile that reaches its keys, in a fixed order: dk and
+// dv are summed in wgmma accumulators and written once, no atomics.
+template <int D>
+__global__ void __launch_bounds__(DkdvTiles<D>::kThreads, 1)
+bf16_dkdv_tma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tdo, const uint8_t* __restrict__ mask,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int sq,
+                     int sk, int h, int hkv, float scale, int causal) {
+  using T = DkdvTiles<D>;
+  constexpr int BN = T::kKeys;
+  constexpr int BM = T::kRows;
+  constexpr int S = T::kStages;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + T::kBarriers);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + S;
+
+  const int b = blockIdx.x / hkv;
+  const int kvh = blockIdx.x % hkv;
+  const int group = h / hkv;
+  const int k0 = blockIdx.y * BN;
+  const int off = sk - sq;
+  // Query tiles whose last row reaches this block's first key under causal.
+  const int q_tiles = (sq + BM - 1) / BM;
+  int qt_first = 0;
+  if (causal) {
+    const int need = k0 - off - BM + 1;
+    qt_first = need <= 0 ? 0 : min(q_tiles, (need + BM - 1) / BM);
+  }
+  const int per_head = q_tiles - qt_first;
+  const int iters = group * per_head;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    sm90::tma_prefetch(&tq);
+    sm90::tma_prefetch(&tk);
+    sm90::tma_prefetch(&tv);
+    sm90::tma_prefetch(&tdo);
+    sm90::mbar_init(kv_full, 1);
+    for (int s = 0; s < S; ++s) {
+      sm90::mbar_init(&full[s], 32);
+      sm90::mbar_init(&empty[s], 128 * T::kWgs);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == T::kWgs) {
+    sm90::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x / 32 == 4 * T::kWgs) {
+      const int lane = threadIdx.x % 32;
+      if (lane == 0) {
+        sm90::mbar_arrive_expect_tx(kv_full, 2 * T::kKVBytes);
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c) {
+          sm90::tma_load_4d(smem + c * BN * 128, &tk, kv_full, 64 * c, kvh, k0, b);
+          sm90::tma_load_4d(smem + T::kKVBytes + c * BN * 128, &tv, kv_full, 64 * c, kvh, k0, b);
+        }
+      }
+      for (int it = 0; it < iters; ++it) {
+        const int s = it % S;
+        const int head = kvh * group + it / per_head;
+        const int q0 = (qt_first + it % per_head) * BM;
+        uint8_t* stage = smem + T::stage(s);
+        float* s_lse = reinterpret_cast<float*>(stage + 2 * T::kQBytes);
+        sm90::mbar_wait(&empty[s], ((it / S) & 1) ^ 1);
+        // Rows past Sq get lse = +inf (p = 0) and delta = 0.
+        const size_t row0 = ((size_t)b * h + head) * sq;
+        for (int i = lane; i < BM; i += 32) {
+          const bool in = q0 + i < sq;
+          s_lse[i] = in ? lse[row0 + q0 + i] * kLog2e : INFINITY;
+          s_lse[BM + i] = in ? delta[row0 + q0 + i] : 0.f;
+        }
+        if (lane == 0) {
+          sm90::mbar_arrive_expect_tx(&full[s], 2 * T::kQBytes);
+#pragma unroll
+          for (int c = 0; c < D / 64; ++c) {
+            sm90::tma_load_4d(stage + c * BM * 128, &tq, &full[s], 64 * c, head, q0, b);
+            sm90::tma_load_4d(stage + T::kQBytes + c * BM * 128, &tdo, &full[s], 64 * c, head,
+                              q0, b);
+          }
+        } else {
+          sm90::mbar_arrive(&full[s]);
+        }
+      }
+    }
+  } else {
+    sm90::setmaxnreg_inc<consumer_regs(T::kWgs)>();
+    const int tid = threadIdx.x % 128;
+    const int lane = tid % 32;
+    const int kw = k0 + 64 * wg;                          // this warpgroup's first key
+    const int key_lo = kw + 16 * (tid / 32) + lane / 4;   // this thread's keys: +0, +8
+    const float scale_log2 = scale * kLog2e;
+    const uint32_t base = sm90::smem_u32(smem);
+    const uint32_t k_addr = base + wg * 64 * 128;
+    const uint32_t v_addr = k_addr + T::kKVBytes;
+    bool key_ok[2] = {true, true};
+    if (mask != nullptr) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        key_ok[i] = key_lo + 8 * i < sk && mask[(size_t)b * sk + key_lo + 8 * i];
+      }
+    }
+    float acc_k[D / 2], acc_v[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+
+    sm90::mbar_wait(kv_full, 0);
+    for (int it = 0; it < iters; ++it) {
+      const int s = it % S;
+      const int q0 = (qt_first + it % per_head) * BM;
+      sm90::mbar_wait(&full[s], (it / S) & 1);
+      // A query tile whose every row lies before this warpgroup's first key
+      // (under causal) adds nothing.
+      if (!causal || kw <= q0 + BM - 1 + off) {
+        const uint32_t q_addr = base + T::stage(s);
+        const uint32_t do_addr = q_addr + T::kQBytes;
+        const float* s_lse = reinterpret_cast<const float*>(smem + T::stage(s) + 2 * T::kQBytes);
+        const float* s_delta = s_lse + BM;
+        float st[BM / 2], dpt[BM / 2];   // s^T and dp^T: keys x queries
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t col = (kk / 4) * BN * 128 + (kk % 4) * 32;
+          const uint32_t qcol = (kk / 4) * BM * 128 + (kk % 4) * 32;
+          sm90::wgmma_ss<BM>(st, sm90::desc(k_addr + col, 16, 1024),
+                             sm90::desc(q_addr + qcol, 16, 1024), kk > 0);
+        }
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t col = (kk / 4) * BN * 128 + (kk % 4) * 32;
+          const uint32_t qcol = (kk / 4) * BM * 128 + (kk % 4) * 32;
+          sm90::wgmma_ss<BM>(dpt, sm90::desc(v_addr + col, 16, 1024),
+                             sm90::desc(do_addr + qcol, 16, 1024), kk > 0);
+        }
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(st);
+        sm90::fence_regs(dpt);
+
+        const bool masked = mask != nullptr || (causal && kw + 63 > q0 + off);
+#pragma unroll
+        for (int j = 0; j < BM / 8; ++j) {
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int qi = 8 * j + 2 * (lane % 4) + c;
+            const float lse_l2 = s_lse[qi];
+            const float dl = s_delta[qi];
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              const int e = 4 * j + 2 * i + c;
+              float p = sm90::exp2_ftz(fmaf(st[e], scale_log2, -lse_l2));
+              if (masked) {
+                const bool ok = key_ok[i] && (!causal || key_lo + 8 * i <= q0 + qi + off);
+                p = ok ? p : 0.f;
+              }
+              dpt[e] = p * (dpt[e] - dl);
+              st[e] = p;
+            }
+          }
+        }
+        uint32_t pa[BM / 16][4], da[BM / 16][4];
+        sm90::pack_a<BM>(pa, st);
+        sm90::pack_a<BM>(da, dpt);
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BM / 16; ++kk) {
+          sm90::wgmma_rs<D>(acc_v, pa[kk], sm90::desc(do_addr + kk * 16 * 128, BM * 128, 1024));
+        }
+#pragma unroll
+        for (int kk = 0; kk < BM / 16; ++kk) {
+          sm90::wgmma_rs<D>(acc_k, da[kk], sm90::desc(q_addr + kk * 16 * 128, BM * 128, 1024));
+        }
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(acc_k);
+        sm90::fence_regs(acc_v);
+      }
+      sm90::mbar_arrive(&empty[s]);
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int key = key_lo + 8 * i;
+      if (key >= sk) continue;
+      const size_t at = (((size_t)b * sk + key) * hkv + kvh) * D + 2 * (lane % 4);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(dk + at + 8 * j) = __floats2bfloat162_rn(
+            acc_k[4 * j + 2 * i] * scale, acc_k[4 * j + 2 * i + 1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + at + 8 * j) =
+            __floats2bfloat162_rn(acc_v[4 * j + 2 * i], acc_v[4 * j + 2 * i + 1]);
+      }
+    }
+  }
 }
 
 struct Args {
@@ -951,35 +1254,85 @@ cudaError_t launch_f32(Kind kind, const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled, looked up in libcuda at run time (no -lcuda link).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess) {
+      p = nullptr;
+    }
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A 4-D tensor map over x (B, S, NH, D) bf16, innermost first (D, NH, S, B),
+// whose boxes are 64 columns x 1 head x `rows` rows x 1 sequence with the
+// 128-byte swizzle. A box that runs past S arrives zero-filled: it never reads
+// the next sequence's rows.
+bool rows_map(CUtensorMap* map, const void* x, int b, int s, int nh, int d, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)nh, (cuuint64_t)s, (cuuint64_t)b};
+  const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)nh * d * 2,
+                                 (cuuint64_t)s * nh * d * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int D>
 cudaError_t launch_bf16(Kind kind, const Args& a, cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
-  const bf16* q = static_cast<const bf16*>(a.q);
-  const bf16* k = static_cast<const bf16*>(a.k);
-  const bf16* v = static_cast<const bf16*>(a.v);
-  const bf16* dout = static_cast<const bf16*>(a.dout);
-  const size_t tile = bf16_tile_bytes(D);
   cudaError_t err;
   if (kind == kForward) {
-    const size_t bytes = 3 * tile;
-    if ((err = prepare(bf16_fwd_kernel<D>, bytes)) != cudaSuccess) return err;
-    const dim3 grid((a.sq + kRows - 1) / kRows, a.b * a.h);
-    bf16_fwd_kernel<D><<<grid, kThreads, bytes, stream>>>(
-        q, k, v, a.mask, static_cast<bf16*>(a.out0), a.lse_out, a.sq, a.sk, a.h, a.hkv,
-        a.scale, a.causal);
+    using T = FwdTiles<D>;
+    const dim3 grid(a.b * a.h, (a.sq + T::kRows - 1) / T::kRows);
+    CUtensorMap tq, tk, tv;
+    if (grid.y > 65535 || !rows_map(&tq, a.q, a.b, a.sq, a.h, D, T::kRows) ||
+        !rows_map(&tk, a.k, a.b, a.sk, a.hkv, D, T::kKeys) ||
+        !rows_map(&tv, a.v, a.b, a.sk, a.hkv, D, T::kKeys)) {
+      return cudaErrorInvalidValue;
+    }
+    if ((err = prepare(bf16_fwd_tma_kernel<D>, T::kSmem)) != cudaSuccess) return err;
+    bf16_fwd_tma_kernel<D><<<grid, T::kThreads, T::kSmem, stream>>>(
+        tq, tk, tv, a.mask, static_cast<bf16*>(a.out0), a.lse_out, a.sq, a.sk, a.h, a.hkv,
+        a.scale * kLog2e, a.causal);
   } else if (kind == kDq) {
-    const size_t bytes = 4 * tile;
+    const bf16* q = static_cast<const bf16*>(a.q);
+    const bf16* k = static_cast<const bf16*>(a.k);
+    const bf16* v = static_cast<const bf16*>(a.v);
+    const bf16* dout = static_cast<const bf16*>(a.dout);
+    const size_t bytes = 4 * bf16_tile_bytes(D);
     if ((err = prepare(bf16_dq_kernel<D>, bytes)) != cudaSuccess) return err;
     const dim3 grid((a.sq + kRows - 1) / kRows, a.b * a.h);
     bf16_dq_kernel<D><<<grid, kThreads, bytes, stream>>>(
         q, k, v, a.mask, dout, a.lse_in, a.delta, static_cast<bf16*>(a.out0), a.sq, a.sk, a.h,
         a.hkv, a.scale, a.causal);
   } else {
-    const size_t bytes = 4 * tile + 2 * align128(kTile * sizeof(float));
-    if ((err = prepare(bf16_dkdv_kernel<D>, bytes)) != cudaSuccess) return err;
-    const dim3 grid((a.sk + kRows - 1) / kRows, a.b * a.hkv);
-    bf16_dkdv_kernel<D><<<grid, kThreads, bytes, stream>>>(
-        q, k, v, a.mask, dout, a.lse_in, a.delta, static_cast<bf16*>(a.out0),
+    using T = DkdvTiles<D>;
+    const dim3 grid(a.b * a.hkv, (a.sk + T::kKeys - 1) / T::kKeys);
+    CUtensorMap tq, tk, tv, tdo;
+    if (grid.y > 65535 || !rows_map(&tq, a.q, a.b, a.sq, a.h, D, T::kRows) ||
+        !rows_map(&tdo, a.dout, a.b, a.sq, a.h, D, T::kRows) ||
+        !rows_map(&tk, a.k, a.b, a.sk, a.hkv, D, T::kKeys) ||
+        !rows_map(&tv, a.v, a.b, a.sk, a.hkv, D, T::kKeys)) {
+      return cudaErrorInvalidValue;
+    }
+    if ((err = prepare(bf16_dkdv_tma_kernel<D>, T::kSmem)) != cudaSuccess) return err;
+    bf16_dkdv_tma_kernel<D><<<grid, T::kThreads, T::kSmem, stream>>>(
+        tq, tk, tv, tdo, a.mask, a.lse_in, a.delta, static_cast<bf16*>(a.out0),
         static_cast<bf16*>(a.out1), a.sq, a.sk, a.h, a.hkv, a.scale, a.causal);
   }
   return cudaGetLastError();

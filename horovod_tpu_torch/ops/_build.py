@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. At first use it is
 compiled with ``nvcc`` into ``build/horovod_tpu_torch/lib<name>_<hash>.so``
-(the hash covers the source and the flags, so an edited source builds
-anew) and loaded with ``ctypes``. Several sources build in parallel, one
+(the hash covers the source, every ``csrc`` header it includes and the
+flags, so an edited source or header builds anew) and loaded with
+``ctypes``. Several sources build in parallel, one
 ``nvcc`` each, all started together. A failed build raises; nothing
 falls back to a CPU path.
 
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -43,12 +45,32 @@ def nvcc() -> str:
     return path
 
 
+_QUOTED_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def inputs(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and every header it includes with quotes, the
+    headers' own includes too, in the order first met."""
+    found: List[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found or not path.exists():
+            continue
+        found.append(path)
+        todo += [(path.parent / inc).resolve()
+                 for inc in _QUOTED_INCLUDE.findall(path.read_text())]
+    return found
+
+
 def target(name: str) -> Path:
-    """Content-addressed path of the shared library built from ``name``."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    """Content-addressed path of the shared library built from ``name``:
+    the hash covers every file of :func:`inputs` and ``NVCC_FLAGS``."""
+    digest = hashlib.sha256()
+    for path in inputs(name):
+        digest.update(path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:12]}.so"
 
 
 def log_path(name: str) -> Path:

@@ -24,8 +24,11 @@ Sq and Sk work without padding: the kernels bounds-check, which gives what
 the JAX package's auto-pad path gives. ``HOROVOD_FLASH_XLA_BWD`` (the JAX
 package's rematerialised backward) is not ported. The JAX package's
 ``block_q``/``block_k`` (tiles chosen for TPU VMEM) have no counterpart:
-the kernels fix their own tiles (64 query rows per block; 64-row streamed
-tiles in bf16, 32 in f32).
+the kernels fix their own tiles. bfloat16 forward and dk/dv are Hopper
+kernels (TMA loads, wgmma) that read q/k/v/dO through tensor maps, so
+their operands must be contiguous and 16-byte aligned, as the wrappers
+check; bfloat16 dq and the float32 kernels stream 64-row (bf16) or 32-row
+(f32) tiles.
 """
 
 from __future__ import annotations

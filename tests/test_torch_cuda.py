@@ -158,7 +158,16 @@ def test_generate_through_the_kernel_equals_einsum_path(cuda_device):
     [(2, 128, 128, 16, 8, 64, True, False),
      (2, 197, 197, 4, 2, 64, False, True),      # awkward length, key mask
      (1, 64, 300, 8, 1, 128, True, False),      # causal, sq < sk
-     (2, 96, 40, 4, 4, 64, True, True)])        # sq > sk: dead rows
+     (2, 96, 40, 4, 4, 64, True, True),         # sq > sk: dead rows
+     # The TMA kernels' edges: tiles of 128 keys (64-row query tiles in
+     # dk/dv) whose boxes run past S must read zeros, never the next
+     # sequence's rows; a diagonal offset that is no multiple of a tile puts
+     # two tiles on the diagonal.
+     (3, 197, 197, 8, 4, 64, True, False),      # b=3, Sk % 128 != 0
+     (2, 100, 261, 4, 2, 64, True, False),      # sq < sk, offset 161
+     (2, 300, 133, 4, 1, 128, True, False),     # sq > sk, offset -167
+     (3, 197, 261, 16, 2, 128, True, True),     # group 8, D=128, key mask
+     (2, 70, 1, 4, 2, 64, False, False)])       # a single key
 def test_flash_kernels_match_plain(cuda_device, dtype, b, sq, sk, h, hkv, d,
                                    causal, masked):
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -170,7 +179,8 @@ def test_flash_kernels_match_plain(cuda_device, dtype, b, sq, sk, h, hkv, d,
     mask = None
     if masked:
         mask = torch.rand(b, sk, generator=gen, device=cuda_device) > 0.3
-        mask[0, 0] = False
+        # Under causal, query row 0 of batch 0 then has no allowed key.
+        mask[0, :max(sk - sq, 0) + 1] = False
     flash.reset_launch_counts()
     out, lse = flash._flash_forward(q, k, v, mask, causal)
     want_out, want_lse = flash.flash_attention_forward_plain(q, k, v, mask,
@@ -184,12 +194,23 @@ def test_flash_kernels_match_plain(cuda_device, dtype, b, sq, sk, h, hkv, d,
                               "flash_backward_dkdv": 1}
     _assert_flash_close(out, want_out, dtype)
     torch.testing.assert_close(lse, want_lse, **F32_TOL)
+    if masked and causal:
+        assert not bool(out[0, 0].ne(0).any())
+        assert float(lse[0, 0, 0]) <= -1e29
     want_dq = flash.flash_backward_dq_plain(q, k, v, mask, g, want_lse,
                                             delta, causal)
     want_dk, want_dv = flash.flash_backward_dkdv_plain(
         q, k, v, mask, g, want_lse, delta, causal)
-    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
-        _assert_flash_close(got, want, dtype)
+    if sk == 1:
+        # One key: p = 1 and ds = dp - delta = 0, so the exact dq and dk are
+        # 0 and both sides are f32 rounding noise, held at F32_TOL's atol.
+        for t in (dq, want_dq, dk, want_dk):
+            torch.testing.assert_close(t.float(), torch.zeros_like(t.float()),
+                                       atol=F32_TOL["atol"], rtol=0)
+        _assert_flash_close(dv, want_dv, dtype)
+    else:
+        for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+            _assert_flash_close(got, want, dtype)
 
 
 @pytest.mark.cuda
