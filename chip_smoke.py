@@ -16,7 +16,11 @@ on ``cuda``; any failure exits non-zero:
    against the identity table, bitwise. Times (CUDA events, median over
    launches, L2 flushed before each) of the kernel, the plain version and
    ``scaled_dot_product_attention`` on the gathered window (a yardstick
-   only; the port never calls it), beside the memory/compute bound;
+   only; the port never calls it), beside the memory/compute bound. The
+   split window's edges: group 8 at D=128 over a window that is no
+   multiple of the chunk, bounds on and around the chunk edges, against
+   the plain versions, scrambled against identity tables and a wider
+   table against a narrower one, bitwise;
 3. ``generate()`` at Llama-300M full width and depth in float32
    (TF32 off), b=8, prompt 128, 32 new tokens: tokens equal those of
    ``decode_kernel_disabled()``, and the contiguous kernel launched
@@ -91,6 +95,9 @@ REPLACES = {
     "flash_backward_dkdv": "horovod_tpu/ops/attention.py:343",
 }
 LAYERS = 16                          # Llama-300M
+# Kernel names as ptxas and the profiler report them.
+FLASH_KERNELS = r"(?:bf16|f32)_(?:fwd|dq|dkdv)(?:_tma)?_kernel"
+DECODE_KERNELS = r"decode_(?:combine_)?kernel"
 
 
 def log(msg: str) -> None:
@@ -197,6 +204,22 @@ def kernel_cases():
                     lens=[0, 15, 511, 1023, 2047, 3000, 4000, 4095]))
 
 
+def paged_pool(k, v, tables, bs, slots):
+    """Scatter logical windows (B, L, F) into a pool through the first
+    ``L / bs`` slots of ``tables``; every other block (the null block 0
+    among them) holds garbage that must never reach a sum."""
+    import torch
+
+    b, window, f = k.shape
+    used = tables[:, :window // bs].reshape(-1).long()
+    kp = torch.full((int(tables.max()) + 1, bs, f), 9.0, dtype=k.dtype,
+                    device=k.device)
+    vp = torch.full_like(kp, -9.0)
+    kp[used] = k.reshape(-1, bs, f)
+    vp[used] = v.reshape(-1, bs, f)
+    return kp, vp
+
+
 def check_kernels(device, flush):
     import torch
     import torch.nn.functional as F
@@ -260,15 +283,8 @@ def check_kernels(device, flush):
         tables = order.view(b, slots).to(torch.int32)
         ident = (torch.arange(n_phys, device=device) + 1).view(
             b, slots).to(torch.int32)
-        pools = []
-        for tbl in (tables, ident):
-            kp = torch.full((n_phys + 1, bs, f), 9.0, dtype=dtype,
-                            device=device)      # garbage null block
-            vp = torch.full_like(kp, -9.0)
-            kp[tbl.view(-1).long()] = k.view(b * slots, bs, f)
-            vp[tbl.view(-1).long()] = v.view(b * slots, bs, f)
-            pools.append((kp, vp))
-        (kp, vp), (kp_i, vp_i) = pools
+        (kp, vp), (kp_i, vp_i) = (paged_pool(k, v, tbl, bs, slots)
+                                  for tbl in (tables, ident))
         got = ops.paged_decode_attention(q, kp, vp, tables, lens, hkv)
         want = ops.paged_decode_attention_plain(q, kp, vp, tables, lens, hkv)
         got_i = ops.paged_decode_attention(q, kp_i, vp_i, ident, lens, hkv)
@@ -303,6 +319,82 @@ def check_kernels(device, flush):
         log(f"kernel {json.dumps(row)}")
         results[("paged_decode_attention", label, dname)] = row
     return results
+
+
+def check_chunk_edges(device):
+    """The split window at its edges: group 8 at D=128 over a window that
+    is no multiple of the chunk, bounds C-1, C, C+1, 2C and window-1 (and a
+    sequence of one position), in float32 and bfloat16. Both kernels
+    against their plain versions; a scrambled table against the identity
+    table, the same rows in a table twice as wide (more chunks), and in a
+    table of one chunk (no combine) for the sequences it holds, bitwise."""
+    import torch
+
+    from horovod_tpu_torch.ops import decode_attention as ops
+
+    c, bs = ops.DECODE_CHUNK, 16
+    b, h, hkv, d = 6, 32, 4, 128
+    window = 3 * c + 80
+    bounds = [0, c - 1, c, c + 1, 2 * c, window - 1]
+    plans = [ops.decode_plan(b, h, d, w) for w in (window, 2 * window)]
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        gen = torch.Generator(device=device).manual_seed(4)
+
+        def randn(*shape):
+            return (torch.randn(*shape, generator=gen, device=device)
+                    * 0.5).to(dtype)
+
+        q = randn(b, 1, h, d)
+        k, v = randn(b, window, hkv * d), randn(b, window, hkv * d)
+        for idx in bounds:
+            got = ops.decode_attention(q, k, v, idx, hkv)
+            want = ops.decode_attention_plain(q, k, v, idx, hkv)
+            torch.cuda.synchronize()
+            compare(got, want, dname, f"decode_attention edge {dname} "
+                                      f"idx={idx}")
+        slots = window // bs
+        lens = torch.tensor(bounds, dtype=torch.int32, device=device)
+        # Tables twice as wide: the extra slots point at blocks past the
+        # window's, which hold garbage.
+        scrambled = (torch.randperm(2 * b * slots, generator=gen,
+                                    device=device) + 1).view(b, 2 * slots)
+        ident = (torch.arange(2 * b * slots, device=device) + 1).view(
+            b, 2 * slots)
+        outs = {}
+        for name, tbl in (("scrambled", scrambled), ("identity", ident)):
+            tbl = tbl.to(torch.int32)
+            kp, vp = paged_pool(k, v, tbl, bs, slots)
+            for width in (slots, 2 * slots):
+                t = tbl[:, :width].contiguous()
+                outs[name, width] = ops.paged_decode_attention(
+                    q, kp, vp, t, lens, hkv)
+                want = ops.paged_decode_attention_plain(q, kp, vp, t, lens,
+                                                        hkv)
+                torch.cuda.synchronize()
+                compare(outs[name, width], want, dname,
+                        f"paged edge {dname} {name} width {width * bs}")
+        base = outs["identity", slots]
+        for key, out in outs.items():
+            if not torch.equal(out, base):
+                raise AssertionError(
+                    f"paged edge {dname}: {key[0]} table of width "
+                    f"{key[1] * bs} differs from the identity table of "
+                    f"width {window}")
+        # A table of one chunk (the block writes the output, no combine)
+        # against the wide one, for the sequences it holds whole.
+        short = [i for i, n in enumerate(bounds) if n < c]
+        narrow = ops.paged_decode_attention(
+            q, kp, vp, tbl[:, :c // bs].contiguous(), lens, hkv)
+        if not torch.equal(narrow[short], outs["identity", slots][short]):
+            raise AssertionError(
+                f"paged edge {dname}: a one-chunk table differs from the "
+                f"width-{window} table for bounds < {c}")
+    log(f"decode chunk edges: H={h} Hkv={hkv} D={d}, window {window} "
+        f"(chunk {c}: {plans[0].chunks} chunks, {plans[1].chunks} at twice "
+        f"the width), bounds {bounds}: both kernels match plain in float32 "
+        f"and bfloat16; scrambled == identity, width {window} == "
+        f"{2 * window} == {c} (one chunk, bounds < {c}), bitwise")
 
 
 # ---------------------------------------------------------------------------
@@ -471,7 +563,7 @@ def profile_decode_steps(model, scfg, steps: int = 20):
             continue                      # host-side op: its kernels count
         kernels += ev.count
         name = ev.key.lower()
-        if "decode_kernel" in name:
+        if re.search(DECODE_KERNELS, name):
             key = "decode_kernel"
         elif any(t in name for t in ("nvjet", "gemm", "gemv", "cutlass")):
             key = "matmul"
@@ -486,6 +578,10 @@ def profile_decode_steps(model, scfg, steps: int = 20):
            else None}
     out.update({f"{k}_ms_per_step": v / steps / 1e3
                 for k, v in split.items()})
+    if not out["decode_kernel_ms_per_step"] > 0:
+        raise AssertionError(
+            "serving profile: no device time matched the decode kernels' "
+            f"names: {json.dumps(out)}")
     log(f"decode step profile (bf16, 8 sequences at ~130-170 positions): "
         f"{json.dumps(out)}")
     return out
@@ -506,9 +602,8 @@ def ptxas_report(name: str):
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
             mangled = entry.group(1)
-            kernel = re.search(
-                r"((?:bf16|f32)_(?:fwd|dq|dkdv)(?:_tma)?_kernel|decode_kernel)I",
-                mangled)
+            kernel = re.search(f"({FLASH_KERNELS}|{DECODE_KERNELS})I",
+                               mangled)
             dtype = "bf16" if "__nv_bfloat16" in mangled else "f32"
             ints = re.findall(r"Li(\d+)E", mangled)
             label = (f"{kernel.group(1) if kernel else mangled}"
@@ -862,7 +957,7 @@ def profile_training_step(out, step_ms: float, steps: int = 2):
             continue
         kernels += ev.count
         name = ev.key.lower()
-        if re.search(r"(bf16|f32)_(fwd|dq|dkdv)(_tma)?_kernel", name):
+        if re.search(FLASH_KERNELS, name):
             key = "flash"
         elif any(t in name for t in ("nvjet", "gemm", "gemv", "cutlass",
                                      "xmma")):
@@ -919,6 +1014,7 @@ def main() -> int:
 
     flush_buf = torch.empty(64 << 20, dtype=torch.int32, device=device)
     results = check_kernels(device, flush_buf.zero_)
+    check_chunk_edges(device)
     flash_results = check_flash(device, flush_buf.zero_)
     del flush_buf
 

@@ -7,36 +7,56 @@
 //   * hvd_paged_decode_attention <- horovod_tpu/ops/decode_attention.py::_paged_decode_kernel
 //                                   (paged pool (N, block_size, Hkv*D) read through
 //                                   a per-sequence block table, bound lens[i]).
-// Both launch the same kernel: only the address of a key row differs.
+// Both launch the same kernels: only the address of a key row differs.
 //
 // What it computes, per sequence and query head: s_t = (q . k_t) * scale in
-// f32 for every position t <= bound, an online softmax in f32, p rounded to
-// V's dtype before P.V, and acc / max(l, 1e-30) written in q's dtype. Rows
-// above the bound are never read, so the paged pool's null block (block 0)
-// cannot reach a sum.
+// f32 for every position t <= bound, a softmax in f32, p rounded to V's
+// dtype before P.V, and acc / max(l, 1e-30) written in q's dtype. Rows above
+// the bound are never read, so the paged pool's null block (block 0) cannot
+// reach a sum.
 //
 // What bounds it: device-memory bytes. Each call reads every valid K and V
 // row once, about 2 * (bound + 1) * Hkv * D * sizeof(T) bytes per sequence,
 // and does 4 * H * D operations per position: well under one operation per
-// byte, so the card's 3.35 TB/s is the roofline.
+// byte, so the card's 3.35 TB/s is the roofline, and the design's job is to
+// keep enough bytes in flight on every SM.
 //
-// Design (simple first): one block per (sequence, KV head) holding that
-// head's group = H / Hkv query heads. Eight warps stride over positions;
-// within a warp, D / VEC lanes share one row (16-byte loads, VEC elements
-// each), so a warp reads 32 * 16 bytes of K and of V per row set, four row
-// sets in flight before any arithmetic. Warps merge their (m, l, acc) through
-// shared memory at the end. The Mosaic workarounds of the Pallas kernels (the
-// block-diagonal query, the transposed accumulator, 8-row and 128-lane
-// scratch, the VMEM-driven L tiling) have no counterpart here.
+// Design (flash-decoding): the logical window splits into chunks of `chunk`
+// positions at fixed boundaries 0, chunk, 2 * chunk, ...; the grid is
+// (sequence x KV head, chunk), sized on the host from the window alone, so
+// a long sequence spreads over many SMs and the longest one no longer sets
+// the pace. A block holds its KV head's group = H / Hkv query heads (the
+// scale and log2(e) folded into q). Eight warps stride over the chunk's
+// positions in batches; within a warp, D / VEC lanes share one row (16-byte
+// loads, VEC elements each, kUnroll rows per lane per batch). Each lane
+// copies its own 16-byte pieces with cp.async into a private ring of
+// kStages batches in shared memory, so kStages - 1 batches are in flight
+// while it computes one, and the loads in flight hold no registers. The
+// lanes of a row sum their GROUP partial dot products by a reduce-scatter,
+// so each lane ends with one query head's score and runs that head's
+// softmax alone (one running-max update per batch of kUnroll rows, one
+// exp2 per score); the others read its rescale and probabilities by
+// shuffle. Warps merge their (m, l, acc) through shared memory in a fixed
+// order.
+//   * window <= chunk (the serving slice's 256): one launch, and the block
+//     writes the output itself: no scratch, no second pass.
+//   * otherwise each block writes its un-normalised partial (acc, m, l) to
+//     f32 scratch that the wrapper allocates, and decode_combine_kernel
+//     merges chunks 0 .. bound / chunk in chunk order (no atomics, so the
+//     sums' order never depends on which block finished first). Blocks whose
+//     chunk starts past the sequence's bound return at once. The combine is
+//     a programmatic dependent launch: it is set up while the split
+//     kernel's last blocks run and waits for that grid's writes.
+// Chunk boundaries are logical positions, so a scrambled block table, or the
+// same rows in a wider table, gives bit-identical output.
 //
-// Occupancy gap: B * Hkv blocks, 64 at the serving slice's b = 8, Hkv = 8,
-// for 132 SMs, and each block walks its whole window alone. Splitting the
-// window over several blocks with a combine pass (flash-decoding) is the
-// redesign that closes it.
+// The Mosaic workarounds of the Pallas kernels (the block-diagonal query,
+// the transposed accumulator, 8-row and 128-lane scratch, the VMEM-driven L
+// tiling) have no counterpart here.
 //
 // Plain C interface, loaded with ctypes: every entry point returns
-// cudaGetLastError() after its launch (0 = launched) or cudaErrorInvalidValue
-// for a shape it does not take.
+// cudaGetLastError() after its launches (0 = launched) or
+// cudaErrorInvalidValue for a shape it does not take.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -46,7 +66,11 @@ namespace {
 
 constexpr int kWarps = 8;
 constexpr int kUnroll = 4;
+constexpr int kStages = 4;   // batches in each lane's cp.async ring
+// The ring: [kStages][kUnroll][K, V][thread] 16-byte pieces.
+constexpr int kRingBytes = kStages * kUnroll * 2 * kWarps * 32 * 16;
 constexpr float kNegInf = -1e30f;   // horovod_tpu's NEG_INF
+constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -55,6 +79,13 @@ template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+
+// 2^x in one MUFU instruction (results below 2^-126 flush to zero).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // Unpack one 16-byte load into floats.
@@ -79,17 +110,69 @@ __device__ __forceinline__ uint4 load16(const T* p) {
   return __ldg(reinterpret_cast<const uint4*>(p));
 }
 
-// tables == nullptr: contiguous cache, row of position t is seq * window + t,
-// bound = cache_index. Otherwise paged: row is tables[seq, t / block_size] *
-// block_size + t % block_size, bound = lens[seq]. window is the logical
-// length (L, or table_slots * block_size); the bound is clamped below it.
+// 16 bytes global -> shared, asynchronously (bypassing L1).
+__device__ __forceinline__ void cp_async16(uint4* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The sequence's last attended position: cache_index (contiguous) or
+// lens[seq] (paged), clamped below the window.
+__device__ __forceinline__ int seq_bound(const int* __restrict__ lens, int seq, int cache_index,
+                                        int window) {
+  return min(lens ? lens[seq] : cache_index, window - 1);
+}
+
+// The GROUP partial dot products x[] of one row, summed over the LANES
+// lanes that share the row: a reduce-scatter (each step halves the values
+// a lane keeps and swaps the other half with its partner), then an
+// all-reduce of the last value. Lane sl ends with the full score of query
+// head sl / (LANES / GROUP): GROUP - 1 + log2(LANES / GROUP) shuffles
+// instead of GROUP * log2(LANES).
+template <int GROUP, int LANES>
+__device__ __forceinline__ float reduce_scatter(float (&x)[GROUP], int sl) {
+  static_assert(GROUP <= LANES, "a lane per query head");
+#pragma unroll
+  for (int n = GROUP, o = LANES / 2; n > 1; n /= 2, o /= 2) {
+    const bool hi = sl & o;
+#pragma unroll
+    for (int i = 0; i < n / 2; ++i) {
+      const float send = hi ? x[i] : x[i + n / 2];
+      const float keep = hi ? x[i + n / 2] : x[i];
+      x[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+    }
+  }
+  float r = x[0];
+#pragma unroll
+  for (int o = LANES / GROUP / 2; o > 0; o /= 2) r += __shfl_xor_sync(0xffffffffu, r, o);
+  return r;
+}
+
+// One block per (sequence x KV head, chunk). tables == nullptr: contiguous
+// cache, row of position t is seq * window + t, bound = cache_index.
+// Otherwise paged: row is tables[seq, t / block_size] * block_size + t %
+// block_size, bound = lens[seq]. window is the logical length (L, or
+// table_slots * block_size). part == nullptr: the window is one chunk and
+// the block writes `out`; otherwise it writes its partial record (acc[D],
+// m, l; m in log2 units) at part[(seq * H + head) * gridDim.y + chunk].
 template <typename T, int D, int GROUP>
 __global__ void __launch_bounds__(kWarps * 32)
-decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ out,
-              const int* __restrict__ tables, const int* __restrict__ lens,
-              int cache_index, int window, int table_slots, int block_size,
-              int hkv, float scale) {
+decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+              T* __restrict__ out, float* __restrict__ part, const int* __restrict__ tables,
+              const int* __restrict__ lens, int cache_index, int window, int table_slots,
+              int block_size, int hkv, int chunk, float scale_log2) {
   constexpr int VEC = 16 / sizeof(T);   // elements per 16-byte load
   constexpr int LANES = D / VEC;        // lanes sharing one row
   constexpr int ROWS = 32 / LANES;      // rows one warp reads at once
@@ -105,74 +188,130 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int sub = lane / LANES;
   const int sl = lane % LANES;
 
-  int bound = tables ? lens[seq] : cache_index;
-  bound = min(bound, window - 1);
+  const int bound = seq_bound(lens, seq, cache_index, window);
+  const int c0 = blockIdx.y * chunk;
+  if (part != nullptr && c0 > bound) return;   // no row here: the combine skips it
+  const int last = min(bound, c0 + chunk - 1);
 
   float qf[GROUP][VEC];
 #pragma unroll
   for (int g = 0; g < GROUP; ++g) {
     const T* qp = q + ((size_t)seq * h + kv * GROUP + g) * D + sl * VEC;
     unpack(load16(qp), qf[g], T());
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) qf[g][e] *= scale_log2;
   }
 
-  float m[GROUP], l[GROUP], acc[GROUP][VEC];
+  // The running max (log2 units) and sum of this lane's query head, sl /
+  // (LANES / GROUP); the accumulators of every head of the group.
+  constexpr int PER = LANES / GROUP;   // lanes that hold one head's score
+  float m_own = kNegInf, l_own = 0.f, acc[GROUP][VEC];
 #pragma unroll
   for (int g = 0; g < GROUP; ++g) {
-    m[g] = kNegInf;
-    l[g] = 0.f;
 #pragma unroll
     for (int e = 0; e < VEC; ++e) acc[g][e] = 0.f;
   }
 
-  // The loop bound is uniform across a warp (base depends on the warp
-  // only), so every lane reaches the shuffles below.
-  for (int base = warp * ROWS; base <= bound; base += STEP * kUnroll) {
+  // Batch i of this warp covers positions first + i * STEP * kUnroll + u *
+  // STEP + sub. The batch count is uniform across a warp, so every lane
+  // reaches the shuffles below.
+  extern __shared__ uint4 ring[];
+  const int first = c0 + warp * ROWS;
+  const int batches = first > last ? 0 : (last - first) / (STEP * kUnroll) + 1;
+  auto piece = [&](int i, int u, int which) {
+    return ring + (((i % kStages) * kUnroll + u) * 2 + which) * (kWarps * 32) + threadIdx.x;
+  };
+  // Copy batch i into its stage and commit a group (an empty one past the
+  // last batch, so that the group count stays uniform).
+  auto issue = [&](int i) {
+    if (i < batches) {
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int t = first + i * STEP * kUnroll + u * STEP + sub;
+        if (t <= last) {
+          size_t row;
+          if (tables) {
+            row = (size_t)tables[(size_t)seq * table_slots + t / block_size] * block_size
+                  + t % block_size;
+          } else {
+            row = (size_t)seq * window + t;
+          }
+          const size_t off = row * f + (size_t)kv * D + sl * VEC;
+          cp_async16(piece(i, u, 0), k + off);
+          cp_async16(piece(i, u, 1), v + off);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) issue(i);
+  for (int i = 0; i < batches; ++i) {
+    issue(i + kStages - 1);         // refills the stage read in batch i - 1
+    cp_async_wait<kStages - 1>();   // batch i has landed
     uint4 kraw[kUnroll], vraw[kUnroll];
     bool valid[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      const int t = base + u * STEP + sub;
-      valid[u] = t <= bound;
-      kraw[u] = make_uint4(0, 0, 0, 0);
-      vraw[u] = make_uint4(0, 0, 0, 0);
-      if (valid[u]) {
-        size_t row;
-        if (tables) {
-          row = (size_t)tables[(size_t)seq * table_slots + t / block_size] * block_size
-                + t % block_size;
-        } else {
-          row = (size_t)seq * window + t;
-        }
-        const size_t off = row * f + (size_t)kv * D + sl * VEC;
-        kraw[u] = load16(k + off);
-        vraw[u] = load16(v + off);
-      }
+      valid[u] = first + i * STEP * kUnroll + u * STEP + sub <= last;
+      kraw[u] = valid[u] ? *piece(i, u, 0) : make_uint4(0, 0, 0, 0);
+      vraw[u] = valid[u] ? *piece(i, u, 1) : make_uint4(0, 0, 0, 0);
     }
+    // This lane's head's scores of the batch's rows, in log2 units.
+    float s_own[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      float kf[VEC], vf[VEC];
+      float kf[VEC], x[GROUP];
       unpack(kraw[u], kf, T());
-      unpack(vraw[u], vf, T());
 #pragma unroll
       for (int g = 0; g < GROUP; ++g) {
-        float s = 0.f;
+        x[g] = 0.f;
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) s = fmaf(qf[g][e], kf[e], s);
+        for (int e = 0; e < VEC; ++e) x[g] = fmaf(qf[g][e], kf[e], x[g]);
+      }
+      s_own[u] = reduce_scatter<GROUP, LANES>(x, sl);
+    }
+    // One running-max update per batch, for this lane's head.
+    float mx = m_own;
 #pragma unroll
-        for (int o = LANES / 2; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-        if (valid[u]) {
-          s *= scale;
-          const float m_new = fmaxf(m[g], s);
-          const float alpha = expf(m[g] - m_new);
-          const float p = expf(s - m_new);
-          l[g] = l[g] * alpha + p;
-          const float pr = to_f(from_f<T>(p));   // p in V's dtype before P.V
+    for (int u = 0; u < kUnroll; ++u) mx = valid[u] ? fmaxf(mx, s_own[u]) : mx;
+    const float alpha_own = exp2_ftz(m_own - mx);
+    m_own = mx;
+    float pr_own[kUnroll], sum = 0.f;
 #pragma unroll
-          for (int e = 0; e < VEC; ++e) acc[g][e] = fmaf(pr, vf[e], acc[g][e] * alpha);
-          m[g] = m_new;
-        }
+    for (int u = 0; u < kUnroll; ++u) {
+      const float p = valid[u] ? exp2_ftz(s_own[u] - mx) : 0.f;
+      sum += p;
+      pr_own[u] = to_f(from_f<T>(p));   // p in V's dtype before P.V
+    }
+    l_own = l_own * alpha_own + sum;
+    float vf[kUnroll][VEC];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) unpack(vraw[u], vf[u], T());
+    // Every head's rescale and probabilities from the lanes that hold them.
+#pragma unroll
+    for (int g = 0; g < GROUP; ++g) {
+      const float alpha = __shfl_sync(0xffffffffu, alpha_own, g * PER, LANES);
+      float pr[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        pr[u] = __shfl_sync(0xffffffffu, pr_own[u], g * PER, LANES);
+      }
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        float a = acc[g][e] * alpha;
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) a = fmaf(pr[u], vf[u][e], a);
+        acc[g][e] = a;
       }
     }
+  }
+
+  float m[GROUP], l[GROUP];
+#pragma unroll
+  for (int g = 0; g < GROUP; ++g) {
+    m[g] = __shfl_sync(0xffffffffu, m_own, g * PER, LANES);
+    l[g] = __shfl_sync(0xffffffffu, l_own, g * PER, LANES);
   }
 
   // Merge the ROWS row streams of each warp (lanes LANES apart).
@@ -183,8 +322,8 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float m_o = __shfl_xor_sync(0xffffffffu, m[g], o);
       const float l_o = __shfl_xor_sync(0xffffffffu, l[g], o);
       const float m_new = fmaxf(m[g], m_o);
-      const float a = expf(m[g] - m_new);
-      const float a_o = expf(m_o - m_new);
+      const float a = exp2_ftz(m[g] - m_new);
+      const float a_o = exp2_ftz(m_o - m_new);
       l[g] = l[g] * a + l_o * a_o;
 #pragma unroll
       for (int e = 0; e < VEC; ++e) {
@@ -195,7 +334,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  // Merge the warps through shared memory and write the output.
+  // Merge the warps through shared memory, in warp order, and write.
   __shared__ float sm_m[kWarps][GROUP];
   __shared__ float sm_l[kWarps][GROUP];
   __shared__ float sm_acc[kWarps][GROUP][D];
@@ -220,12 +359,51 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float lsum = 0.f, asum = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
-      const float a = expf(sm_m[w][g] - mx);
+      const float a = exp2_ftz(sm_m[w][g] - mx);
       lsum += sm_l[w][g] * a;
       asum += sm_acc[w][g][e] * a;
     }
-    out[((size_t)seq * h + kv * GROUP + g) * D + e] = from_f<T>(asum / fmaxf(lsum, 1e-30f));
+    const size_t sh = (size_t)seq * h + kv * GROUP + g;
+    if (part == nullptr) {
+      out[sh * D + e] = from_f<T>(asum / fmaxf(lsum, 1e-30f));
+    } else {
+      float* rec = part + (sh * gridDim.y + blockIdx.y) * (D + 2);
+      rec[e] = asum;
+      if (e == 0) {
+        rec[D] = mx;
+        rec[D + 1] = lsum;
+      }
+    }
   }
+}
+
+// One block per (sequence, query head), one thread per output element:
+// merge the partial records of chunks 0 .. bound / chunk, in chunk order.
+// A sequence with no attended row (bound < 0) writes zeros.
+template <typename T, int D>
+__global__ void __launch_bounds__(D)
+decode_combine_kernel(const float* __restrict__ part, T* __restrict__ out,
+                      const int* __restrict__ lens, int cache_index, int window, int chunk,
+                      int chunks, int h) {
+  const int sh = blockIdx.x;
+  const int e = threadIdx.x;
+  const int bound = seq_bound(lens, sh / h, cache_index, window);
+  // Launched as a programmatic dependent of decode_kernel: wait here until
+  // that grid has finished and its partials are visible.
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const float* rec = part + (size_t)sh * chunks * (D + 2);
+  float mx = kNegInf;
+  for (int c = 0; c * chunk <= bound; ++c) mx = fmaxf(mx, rec[c * (D + 2) + D]);
+  float l = 0.f, acc = 0.f;
+  for (int c = 0; c * chunk <= bound; ++c) {
+    const float* r = rec + c * (D + 2);
+    // Exactly 1 for the chunk that holds the max: one live chunk gives
+    // the same bits as the single-chunk path.
+    const float a = r[D] == mx ? 1.f : exp2_ftz(r[D] - mx);
+    l = fmaf(r[D + 1], a, l);
+    acc = fmaf(r[e], a, acc);
+  }
+  out[(size_t)sh * D + e] = from_f<T>(acc / fmaxf(l, 1e-30f));
 }
 
 struct Args {
@@ -233,19 +411,40 @@ struct Args {
   const void* k;
   const void* v;
   void* out;
+  float* part;
   const int* tables;
   const int* lens;
-  int b, hkv, cache_index, window, table_slots, block_size;
+  int b, hkv, cache_index, window, table_slots, block_size, chunk;
   float scale;
 };
 
 template <typename T, int D, int GROUP>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  decode_kernel<T, D, GROUP><<<a.b * a.hkv, kWarps * 32, 0, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<T*>(a.out), a.tables, a.lens, a.cache_index, a.window, a.table_slots,
-      a.block_size, a.hkv, a.scale);
-  return cudaGetLastError();
+  static const cudaError_t ready = cudaFuncSetAttribute(
+      decode_kernel<T, D, GROUP>, cudaFuncAttributeMaxDynamicSharedMemorySize, kRingBytes);
+  if (ready != cudaSuccess) return ready;
+  const int chunks = (a.window + a.chunk - 1) / a.chunk;
+  T* out = static_cast<T*>(a.out);
+  decode_kernel<T, D, GROUP><<<dim3(a.b * a.hkv, chunks), kWarps * 32, kRingBytes, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v), out,
+      chunks > 1 ? a.part : nullptr, a.tables, a.lens, a.cache_index, a.window, a.table_slots,
+      a.block_size, a.hkv, a.chunk, a.scale * kLog2e);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || chunks == 1) return err;
+  // Programmatic dependent launch: the combine grid is set up while the
+  // split kernel's last blocks run, instead of after it.
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.b * a.hkv * GROUP);
+  cfg.blockDim = dim3(D);
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const float* part = a.part;
+  return cudaLaunchKernelEx(&cfg, decode_combine_kernel<T, D>, part, out, a.lens, a.cache_index,
+                            a.window, a.chunk, chunks, a.hkv * GROUP);
 }
 
 template <typename T, int D>
@@ -266,9 +465,14 @@ cudaError_t by_width(int d, int group, const Args& a, cudaStream_t stream) {
   return cudaErrorInvalidValue;
 }
 
-// dtype: 0 = float32, 1 = bfloat16.
+// dtype: 0 = float32, 1 = bfloat16. A window of more than one chunk needs
+// the scratch `part`: (B * H, chunks, D + 2) float32.
 cudaError_t dispatch(int dtype, int h, int d, const Args& a, cudaStream_t stream) {
-  if (a.b <= 0 || a.hkv <= 0 || h % a.hkv || a.window <= 0) return cudaErrorInvalidValue;
+  if (a.b <= 0 || a.hkv <= 0 || h % a.hkv || a.window <= 0 || a.chunk <= 0) {
+    return cudaErrorInvalidValue;
+  }
+  const int chunks = (a.window + a.chunk - 1) / a.chunk;
+  if (chunks > 65535 || (chunks > 1 && a.part == nullptr)) return cudaErrorInvalidValue;
   const int group = h / a.hkv;
   if (dtype == 0) return by_width<float>(d, group, a, stream);
   if (dtype == 1) return by_width<__nv_bfloat16>(d, group, a, stream);
@@ -282,22 +486,25 @@ extern "C" const char* hvd_error_string(int code) {
 }
 
 extern "C" int hvd_decode_attention(const void* q, const void* k_cache, const void* v_cache,
-                                    void* out, int b, int h, int hkv, int d, int window,
-                                    int cache_index, float scale, int dtype, void* stream) {
-  Args a{q, k_cache, v_cache, out, nullptr, nullptr, b, hkv, cache_index, window, 0, 1, scale};
+                                    void* out, void* part, int b, int h, int hkv, int d,
+                                    int window, int cache_index, int chunk, float scale,
+                                    int dtype, void* stream) {
+  Args a{q,       k_cache, v_cache,     out, static_cast<float*>(part), nullptr, nullptr, b, hkv,
+         cache_index, window, 0, 1, chunk, scale};
   return static_cast<int>(dispatch(dtype, h, d, a, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int hvd_paged_decode_attention(const void* q, const void* k_pool, const void* v_pool,
-                                          void* out, const void* tables, const void* lens,
-                                          int b, int h, int hkv, int d, int table_slots,
-                                          int block_size, float scale, int dtype,
-                                          void* stream) {
+                                          void* out, void* part, const void* tables,
+                                          const void* lens, int b, int h, int hkv, int d,
+                                          int table_slots, int block_size, int chunk,
+                                          float scale, int dtype, void* stream) {
   if (block_size <= 0 || table_slots <= 0) return static_cast<int>(cudaErrorInvalidValue);
   Args a{q,
          k_pool,
          v_pool,
          out,
+         static_cast<float*>(part),
          static_cast<const int*>(tables),
          static_cast<const int*>(lens),
          b,
@@ -306,6 +513,7 @@ extern "C" int hvd_paged_decode_attention(const void* q, const void* k_pool, con
          table_slots * block_size,
          table_slots,
          block_size,
+         chunk,
          scale};
   return static_cast<int>(dispatch(dtype, h, d, a, static_cast<cudaStream_t>(stream)));
 }

@@ -28,28 +28,25 @@
 // traffic, far above the H100's ~295 operations per byte, so the tensor
 // cores' rate is the roofline.
 //
-// bfloat16 forward and dk/dv (the training path's two largest): built for
-// that roofline. A block is a producer warpgroup and two or three consumer
+// bfloat16 (the training path): all three kernels are built for that
+// roofline. A block is a producer warpgroup and two or three consumer
 // warpgroups. One producer thread issues TMA loads of whole tiles (4-D
 // tensor maps over the (B, S, heads, D) layout, zero-filled past S) into a
 // ring of shared-memory stages guarded by mbarriers, so loads overlap the
 // math. Each consumer owns 64 rows and runs every product as wgmma (the only
 // path to the full tensor-core rate): both operands from shared memory for
-// the scores, and the score fragment repacked to bf16 as the register A
-// operand of the second product (P.V, P^T.dO, dS^T.Q), B read MN-major.
-// Accumulators live in registers the producer gave up (setmaxnreg). The
-// softmax runs in one FFMA and one ex2 per score, log2(e) folded into the
-// scale; masking runs only on the tiles that need it (a key mask, the
-// diagonal, the ragged last key tile). Forward: 192 query rows per block at
-// D = 64 (three consumers, which the exponentials need), 128 at D = 128,
-// 128-key K/V tiles, the longest causal query tiles launched first. dk/dv:
-// 128 keys per block, 64-row Q/dO tiles with their lse and delta slices.
-//
-// bfloat16 dq (the simple design; the next to move onto the same pipeline):
-// a block of four warps owns 64 query rows, 16 per warp, and streams 64-row
-// K/V tiles through shared memory with synchronous loads; mma.sync m16n8k16
-// with the score fragments repacked in registers (FA-2 style), operands
-// through ldmatrix.
+// the scores (S = Q K^T, and dP = dO V^T in dq), and the score fragment
+// repacked to bf16 as the register A operand of the second product (P.V,
+// dS.K, P^T.dO, dS^T.Q), B read MN-major. Accumulators live in registers
+// the producer gave up (setmaxnreg). The softmax runs in one FFMA and one
+// ex2 per score, log2(e) folded into the scale; masking runs only on the
+// tiles that need it (a key mask, the diagonal, the ragged last key tile).
+// Forward: 192 query rows per block at D = 64 (three consumers, which the
+// exponentials need), 128 at D = 128, 128-key K/V tiles, the longest causal
+// query tiles launched first. dq: 192 query rows per block at D = 64
+// (three consumers), 128 at D = 128, Q and dO loaded once, 64-key K/V
+// tiles (S, dP and dQ share the registers). dk/dv: 128 keys per block, 64-row
+// Q/dO tiles with their lse and delta slices.
 //
 // float32 (parity, not the bf16 main path): FMA loops over shared memory (no
 // TF32, so float32 stays float32), with the scores and P in a per-warp
@@ -126,29 +123,14 @@ struct Geo {
 
 // Copy rows [row0, row0 + R) of head `head` of x (B, S, NH, D), batch b,
 // into dst (R x ld); rows at or past S are zero.
-template <typename T, int D, int R>
-__device__ __forceinline__ void load_rows(T* dst, int ld, const T* __restrict__ x, int b, int S,
-                                          int NH, int head, int row0) {
-  if constexpr (sizeof(T) == 2) {
-    constexpr int VEC = 8;
-    constexpr int PER = D / VEC;
-    for (int i = threadIdx.x; i < R * PER; i += kThreads) {
-      const int r = i / PER;
-      const int c = (i % PER) * VEC;
-      const int s = row0 + r;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (s < S) {
-        val = __ldg(reinterpret_cast<const uint4*>(x + (((size_t)b * S + s) * NH + head) * D + c));
-      }
-      *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
-    }
-  } else {
-    for (int i = threadIdx.x; i < R * D; i += kThreads) {
-      const int r = i / D;
-      const int c = i % D;
-      const int s = row0 + r;
-      dst[r * ld + c] = s < S ? __ldg(x + (((size_t)b * S + s) * NH + head) * D + c) : 0.f;
-    }
+template <int D, int R>
+__device__ __forceinline__ void load_rows(float* dst, int ld, const float* __restrict__ x, int b,
+                                          int S, int NH, int head, int row0) {
+  for (int i = threadIdx.x; i < R * D; i += kThreads) {
+    const int r = i / D;
+    const int c = i % D;
+    const int s = row0 + r;
+    dst[r * ld + c] = s < S ? __ldg(x + (((size_t)b * S + s) * NH + head) * D + c) : 0.f;
   }
 }
 
@@ -229,7 +211,7 @@ f32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* sS = reinterpret_cast<float*>(p + warp * G::warp_scratch());
   float* sP = reinterpret_cast<float*>(sS);
 
-  load_rows<float, D, kRows>(sQ, G::LDT, q, b, sq, h, head, q0);
+  load_rows<D, kRows>(sQ, G::LDT, q, b, sq, h, head, q0);
   for (int i = threadIdx.x; i < kRows * G::LDO; i += kThreads) sO[i] = 0.f;
   __syncthreads();   // a block with no live key tile still reads sO
   const float* Qw = sQ + warp * 16 * G::LDT;
@@ -246,8 +228,8 @@ f32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int t = 0; t < tiles; ++t) {
     const int k0 = t * BN;
     __syncthreads();
-    load_rows<float, D, BN>(sK, G::LDT, k, b, sk, hkv, kvh, k0);
-    load_rows<float, D, BN>(sV, G::LDT, v, b, sk, hkv, kvh, k0);
+    load_rows<D, BN>(sK, G::LDT, k, b, sk, hkv, kvh, k0);
+    load_rows<D, BN>(sV, G::LDT, v, b, sk, hkv, kvh, k0);
     __syncthreads();
     warp_mm<BN, D, true>(Qw, G::LDT, sK, G::LDT, sS, G::LDS, false);
     __syncwarp();
@@ -348,8 +330,8 @@ f32_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* sDelta = reinterpret_cast<float*>(p);
   float* sdS = reinterpret_cast<float*>(sS);
 
-  load_rows<float, D, kRows>(sQ, G::LDT, q, b, sq, h, head, q0);
-  load_rows<float, D, kRows>(sdO, G::LDT, dout, b, sq, h, head, q0);
+  load_rows<D, kRows>(sQ, G::LDT, q, b, sq, h, head, q0);
+  load_rows<D, kRows>(sdO, G::LDT, dout, b, sq, h, head, q0);
   for (int i = threadIdx.x; i < kRows * G::LDO; i += kThreads) sdQ[i] = 0.f;
   for (int i = threadIdx.x; i < kRows; i += kThreads) {
     const int row = q0 + i;
@@ -365,8 +347,8 @@ f32_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int t = 0; t < tiles; ++t) {
     const int k0 = t * BN;
     __syncthreads();
-    load_rows<float, D, BN>(sK, G::LDT, k, b, sk, hkv, kvh, k0);
-    load_rows<float, D, BN>(sV, G::LDT, v, b, sk, hkv, kvh, k0);
+    load_rows<D, BN>(sK, G::LDT, k, b, sk, hkv, kvh, k0);
+    load_rows<D, BN>(sV, G::LDT, v, b, sk, hkv, kvh, k0);
     __syncthreads();
     warp_mm<BN, D, true>(Qw, G::LDT, sK, G::LDT, sS, G::LDS, false);
     warp_mm<BN, D, true>(dOw, G::LDT, sV, G::LDT, sdP, G::LDS, false);
@@ -455,8 +437,8 @@ f32_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* sPT = reinterpret_cast<float*>(sS);
   float* sdST = reinterpret_cast<float*>(sdP);
 
-  load_rows<float, D, kRows>(sK, G::LDT, k, b, sk, hkv, kvh, k0);
-  load_rows<float, D, kRows>(sV, G::LDT, v, b, sk, hkv, kvh, k0);
+  load_rows<D, kRows>(sK, G::LDT, k, b, sk, hkv, kvh, k0);
+  load_rows<D, kRows>(sV, G::LDT, v, b, sk, hkv, kvh, k0);
   for (int i = threadIdx.x; i < kRows * G::LDO; i += kThreads) {
     sdK[i] = 0.f;
     sdV[i] = 0.f;
@@ -488,8 +470,8 @@ f32_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int qt = qt_first; qt < q_tiles; ++qt) {
       const int q0 = qt * BN;
       __syncthreads();
-      load_rows<float, D, BN>(sQ, G::LDT, q, b, sq, h, head, q0);
-      load_rows<float, D, BN>(sdO, G::LDT, dout, b, sq, h, head, q0);
+      load_rows<D, BN>(sQ, G::LDT, q, b, sq, h, head, q0);
+      load_rows<D, BN>(sdO, G::LDT, dout, b, sq, h, head, q0);
       for (int i = threadIdx.x; i < BN; i += kThreads) {
         const int row = q0 + i;
         sL[i] = row < sq ? lse[bh * sq + row] : 0.f;
@@ -543,186 +525,11 @@ f32_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16 dq: mma.sync m16n8k16 with register-resident accumulators (FA-2)
-//
-// A warp's 16 x 64 score tile lives in registers as eight m16n8 f32
-// fragments: thread t holds rows t/4 and t/4 + 8, columns 2(t%4) and
-// 2(t%4) + 1 of each 8-column block. That layout is also the A operand
-// layout of the next m16n8k16 product once packed to bf16 pairs, so dS
-// never leaves the registers. Operands come from shared memory through
-// ldmatrix (row pitch padded by 16 bytes: the eight rows of each 8x8 matrix
-// then fall in distinct banks); the B operand of dS.K is read with
-// ldmatrix.trans.
-
-constexpr int kTile = 64;   // streamed tile rows, bf16 dq
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(sm90::smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(sm90::smem_u32(p)));
-}
-
-// c += a * b for one m16n8k16 tile, f32 accumulation.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// s (16 x N) = A (16 x K rows at `a`, pitch lda) * B^T, B being N rows of K
-// at `b` (pitch ldb): the scores Q K^T and dO V^T.
-template <int N, int K>
-__device__ __forceinline__ void warp_scores(float (&s)[N / 8][4], const __nv_bfloat16* a,
-                                            int lda, const __nv_bfloat16* b, int ldb) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int n = 0; n < N / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk) {
-    uint32_t af[4];
-    ldsm_x4(af, a + (lane % 16) * lda + kk * 16 + (lane / 16) * 8);
-#pragma unroll
-    for (int np = 0; np < N / 16; ++np) {
-      uint32_t bf[4];
-      ldsm_x4(bf, b + (np * 16 + (lane / 16) * 8 + lane % 8) * ldb + kk * 16
-                      + ((lane / 8) % 2) * 8);
-      mma_bf16(s[2 * np], af, bf[0], bf[1]);
-      mma_bf16(s[2 * np + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-// acc (16 x N) += P (16 x K, the f32 fragments p rounded to bf16 here) * B,
-// B being K rows of N at `b` (pitch ldb): dS K.
-template <int N, int K>
-__device__ __forceinline__ void warp_accumulate(float (&acc)[N / 8][4],
-                                                const float (&p)[K / 8][4],
-                                                const __nv_bfloat16* b, int ldb) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk) {
-    const uint32_t af[4] = {sm90::pack_bf16x2(p[2 * kk][0], p[2 * kk][1]),
-                            sm90::pack_bf16x2(p[2 * kk][2], p[2 * kk][3]),
-                            sm90::pack_bf16x2(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                            sm90::pack_bf16x2(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-#pragma unroll
-    for (int np = 0; np < N / 16; ++np) {
-      uint32_t bf[4];
-      ldsm_x4_t(bf, b + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * ldb + np * 16
-                        + (lane / 16) * 8);
-      mma_bf16(acc[2 * np], af, bf[0], bf[1]);
-      mma_bf16(acc[2 * np + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-// Write a warp's 16 x D f32 fragments, times `mul`, as bf16 rows
-// row_lo / row_lo + 8 of x (B, S, NH, D); rows at or past S are skipped.
-template <int D>
-__device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4], float mul_lo,
-                                           float mul_hi, __nv_bfloat16* x, int b, int S,
-                                           int NH, int head, int row_lo) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = row_lo + half * 8;
-    if (row >= S) continue;
-    const float mul = half ? mul_hi : mul_lo;
-    __nv_bfloat16* dst = x + (((size_t)b * S + row) * NH + head) * D + (lane % 4) * 2;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(dst + n * 8) =
-          __floats2bfloat162_rn(acc[n][2 * half] * mul, acc[n][2 * half + 1] * mul);
-    }
-  }
-}
-
-__host__ __device__ constexpr size_t bf16_tile_bytes(int d) {
-  return align128((size_t)kRows * (d + 8) * sizeof(__nv_bfloat16));
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-bf16_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-               const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ mask,
-               const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-               const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int sq, int sk,
-               int h, int hkv, float scale, int causal) {
-  constexpr int LD = D + 8;
-  constexpr int NT = kTile / 8;
-  extern __shared__ __align__(128) char smem[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sdO = reinterpret_cast<__nv_bfloat16*>(smem + bf16_tile_bytes(D));
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem + 2 * bf16_tile_bytes(D));
-  __nv_bfloat16* sV = reinterpret_cast<__nv_bfloat16*>(smem + 3 * bf16_tile_bytes(D));
-  const int bh = blockIdx.y;
-  const int b = bh / h;
-  const int head = bh % h;
-  const int kvh = head / (h / hkv);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int q0 = blockIdx.x * kRows;
-  const int off = sk - sq;
-  const int row_lo = q0 + warp * 16 + lane / 4;
-
-  load_rows<__nv_bfloat16, D, kRows>(sQ, LD, q, b, sq, h, head, q0);
-  load_rows<__nv_bfloat16, D, kRows>(sdO, LD, dout, b, sq, h, head, q0);
-  const __nv_bfloat16* Qw = sQ + warp * 16 * LD;
-  const __nv_bfloat16* dOw = sdO + warp * 16 * LD;
-  float row_lse[2], row_delta[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row_lo + r * 8;
-    row_lse[r] = row < sq ? lse[(size_t)bh * sq + row] : 0.f;
-    row_delta[r] = row < sq ? delta[(size_t)bh * sq + row] : 0.f;
-  }
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  const int tiles = live_key_tiles(q0, kRows, kTile, sk, off, causal);
-  for (int t = 0; t < tiles; ++t) {
-    const int k0 = t * kTile;
-    __syncthreads();
-    load_rows<__nv_bfloat16, D, kTile>(sK, LD, k, b, sk, hkv, kvh, k0);
-    load_rows<__nv_bfloat16, D, kTile>(sV, LD, v, b, sk, hkv, kvh, k0);
-    __syncthreads();
-    float s[NT][4], dp[NT][4];
-    warp_scores<kTile, D>(s, Qw, LD, sK, LD);
-    warp_scores<kTile, D>(dp, dOw, LD, sV, LD);
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = k0 + n * 8 + (lane % 4) * 2 + (i & 1);
-        const int row = row_lo + (i / 2) * 8;
-        const bool ok = row < sq && col < sk &&
-                        (mask == nullptr || mask[(size_t)b * sk + col]) &&
-                        (!causal || col <= row + off);
-        const float p = ok ? expf(s[n][i] * scale - row_lse[i / 2]) : 0.f;
-        s[n][i] = p * (dp[n][i] - row_delta[i / 2]);
-      }
-    }
-    warp_accumulate<D, kTile>(acc, s, sK, LD);
-  }
-  store_rows<D>(acc, scale, scale, dq, b, sq, h, head, row_lo);
-}
-
-// ---------------------------------------------------------------------------
-// bfloat16 forward and dk/dv: TMA ring + wgmma, warp-specialised (Hopper)
+// bfloat16 forward, dq and dk/dv: TMA ring + wgmma, warp-specialised (Hopper)
 //
 // A block is two or three consumer warpgroups and one producer warpgroup
-// after them. Each consumer owns 64 rows (queries in the forward, keys in
-// dk/dv) and runs the wgmma products and the elementwise work on them. The
+// after them. Each consumer owns 64 rows (queries in the forward and dq,
+// keys in dk/dv) and runs the wgmma products and the elementwise work on them. The
 // producer gives back its registers and one thread issues every TMA load
 // into a ring of shared-memory stages, each guarded by a full / empty
 // mbarrier pair; in dk/dv its first warp also stages the lse and delta
@@ -1198,6 +1005,182 @@ bf16_dkdv_tma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
   }
 }
 
+// Shared memory of dq: the block's Q and dO rows, then the stages of K and V
+// tiles, then the barriers. Each consumer owns 64 query rows. S, dP (BN / 2
+// registers each) and the dQ accumulator (D / 2) live together, so the key
+// tile is 64: at D = 64 three consumers share the tensor cores (their
+// exponentials overlap the others' products) inside setmaxnreg's 160; at
+// D = 128 two, inside 240.
+template <int D>
+struct DqTiles {
+  static constexpr int kWgs = D == 64 ? 3 : 2;
+  static constexpr int kThreads = 128 * (kWgs + 1);
+  static constexpr int kRows = 64 * kWgs;
+  static constexpr int kKeys = 64;
+  static constexpr int kStages = 4;
+  static constexpr uint32_t kQBytes = kRows * D * 2;    // Q or dO
+  static constexpr uint32_t kKVBytes = kKeys * D * 2;   // one K or V tile
+  __host__ __device__ static constexpr uint32_t k(int s) {
+    return 2 * kQBytes + 2 * s * kKVBytes;
+  }
+  __host__ __device__ static constexpr uint32_t v(int s) { return k(s) + kKVBytes; }
+  static constexpr uint32_t kBarriers = 2 * kQBytes + 2 * kStages * kKVBytes;
+  static constexpr size_t kSmem = kBarriers + 8 * (1 + 2 * kStages) + 1024;
+};
+
+// One block per (b * h, 64 * kWgs query rows), the last query tiles first,
+// as in the forward. The producer loads the block's Q and dO once and streams the
+// live K/V tiles; each consumer, per tile: S = Q K^T and dP = dO V^T by
+// wgmma, p = exp2(S * scale * log2 e - lse * log2 e) (one FFMA and one
+// ex2), dS = p (dP - delta), then dQ += dS K with dS as the register A
+// operand and K read MN-major. Masking runs only on the tiles that need it
+// (the forward's test), as a select: a row with no allowed key has lse =
+// -1e30 + log(1e-30), so its p is +inf before the select.
+template <int D>
+__global__ void __launch_bounds__(DqTiles<D>::kThreads, 1)
+bf16_dq_tma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ CUtensorMap tdo, const uint8_t* __restrict__ mask,
+                   const float* __restrict__ lse, const float* __restrict__ delta,
+                   __nv_bfloat16* __restrict__ dq, int sq, int sk, int h, int hkv, float scale,
+                   int causal) {
+  using T = DqTiles<D>;
+  constexpr int BM = T::kRows;
+  constexpr int BN = T::kKeys;
+  constexpr int S = T::kStages;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + T::kBarriers);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + S;
+
+  const int bh = blockIdx.x;
+  const int b = bh / h;
+  const int head = bh % h;
+  const int kvh = head / (h / hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;
+  const int off = sk - sq;
+  const int tiles = live_key_tiles(q0, BM, BN, sk, off, causal);
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    sm90::tma_prefetch(&tq);
+    sm90::tma_prefetch(&tk);
+    sm90::tma_prefetch(&tv);
+    sm90::tma_prefetch(&tdo);
+    sm90::mbar_init(q_full, 1);
+    for (int s = 0; s < S; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 128 * T::kWgs);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == T::kWgs) {
+    sm90::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 128 * T::kWgs) {
+      sm90::mbar_arrive_expect_tx(q_full, 2 * T::kQBytes);
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c) {
+        sm90::tma_load_4d(smem + c * BM * 128, &tq, q_full, 64 * c, head, q0, b);
+        sm90::tma_load_4d(smem + T::kQBytes + c * BM * 128, &tdo, q_full, 64 * c, head, q0, b);
+      }
+      for (int t = 0; t < tiles; ++t) {
+        const int s = t % S;
+        sm90::mbar_wait(&empty[s], ((t / S) & 1) ^ 1);
+        sm90::mbar_arrive_expect_tx(&full[s], 2 * T::kKVBytes);
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c) {
+          sm90::tma_load_4d(smem + T::k(s) + c * BN * 128, &tk, &full[s], 64 * c, kvh, t * BN, b);
+          sm90::tma_load_4d(smem + T::v(s) + c * BN * 128, &tv, &full[s], 64 * c, kvh, t * BN, b);
+        }
+      }
+    }
+  } else {
+    sm90::setmaxnreg_inc<consumer_regs(T::kWgs)>();
+    const int tid = threadIdx.x % 128;
+    const int lane = tid % 32;
+    const int r0 = q0 + 64 * wg;                          // this warpgroup's first row
+    const int row_lo = r0 + 16 * (tid / 32) + lane / 4;   // this thread's rows: +0, +8
+    const float scale_log2 = scale * kLog2e;
+    // Rows past Sq take lse = +inf (p = 0) and delta = 0, so their dS is 0.
+    float lse_l2[2], dl[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row_lo + 8 * i;
+      const bool in = row < sq;
+      lse_l2[i] = in ? lse[(size_t)bh * sq + row] * kLog2e : INFINITY;
+      dl[i] = in ? delta[(size_t)bh * sq + row] : 0.f;
+    }
+    const uint32_t base = sm90::smem_u32(smem);
+    const uint32_t q_addr = base + wg * 64 * 128;
+    const uint32_t do_addr = q_addr + T::kQBytes;
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+    sm90::mbar_wait(q_full, 0);
+    for (int t = 0; t < tiles; ++t) {
+      const int s = t % S;
+      const int k0 = t * BN;
+      sm90::mbar_wait(&full[s], (t / S) & 1);
+      // A tile wholly above this warpgroup's diagonal adds nothing.
+      if (!causal || k0 <= r0 + 63 + off) {
+        const uint32_t k_addr = base + T::k(s);
+        float sc[BN / 2], dp[BN / 2];
+        sm90::wgmma_fence();
+        issue_scores<D, BM, BN>(sc, q_addr, k_addr);
+        issue_scores<D, BM, BN>(dp, do_addr, base + T::v(s));
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(sc);
+        sm90::fence_regs(dp);
+        // Some entry is disallowed: a key mask, the ragged last tile (its
+        // zero-filled keys), the tiles on the diagonal.
+        const bool masked =
+            mask != nullptr || k0 + BN > sk || (causal && k0 + BN - 1 > r0 + off);
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+          for (int cc = 0; cc < 2; ++cc) {
+            const int col = k0 + 8 * j + 2 * (lane % 4) + cc;
+            const bool key_ok =
+                !masked || (col < sk && (mask == nullptr || mask[(size_t)b * sk + col]));
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              const int e = 4 * j + 2 * i + cc;
+              float p = sm90::exp2_ftz(fmaf(sc[e], scale_log2, -lse_l2[i]));
+              if (masked) p = key_ok && (!causal || col <= row_lo + 8 * i + off) ? p : 0.f;
+              sc[e] = p * (dp[e] - dl[i]);
+            }
+          }
+        }
+        uint32_t da[BN / 16][4];
+        sm90::pack_a<BN>(da, sc);
+        sm90::wgmma_fence();
+        issue_values<D, BN>(acc, da, k_addr);
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(acc);
+      }
+      sm90::mbar_arrive(&empty[s]);
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row_lo + 8 * i;
+      if (row >= sq) continue;
+      __nv_bfloat16* dst = dq + (((size_t)b * sq + row) * h + head) * D + 2 * (lane % 4);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) = __floats2bfloat162_rn(
+            acc[4 * j + 2 * i] * scale, acc[4 * j + 2 * i + 1] * scale);
+      }
+    }
+  }
+}
+
 struct Args {
   const void* q;
   const void* k;
@@ -1310,16 +1293,19 @@ cudaError_t launch_bf16(Kind kind, const Args& a, cudaStream_t stream) {
         tq, tk, tv, a.mask, static_cast<bf16*>(a.out0), a.lse_out, a.sq, a.sk, a.h, a.hkv,
         a.scale * kLog2e, a.causal);
   } else if (kind == kDq) {
-    const bf16* q = static_cast<const bf16*>(a.q);
-    const bf16* k = static_cast<const bf16*>(a.k);
-    const bf16* v = static_cast<const bf16*>(a.v);
-    const bf16* dout = static_cast<const bf16*>(a.dout);
-    const size_t bytes = 4 * bf16_tile_bytes(D);
-    if ((err = prepare(bf16_dq_kernel<D>, bytes)) != cudaSuccess) return err;
-    const dim3 grid((a.sq + kRows - 1) / kRows, a.b * a.h);
-    bf16_dq_kernel<D><<<grid, kThreads, bytes, stream>>>(
-        q, k, v, a.mask, dout, a.lse_in, a.delta, static_cast<bf16*>(a.out0), a.sq, a.sk, a.h,
-        a.hkv, a.scale, a.causal);
+    using T = DqTiles<D>;
+    const dim3 grid(a.b * a.h, (a.sq + T::kRows - 1) / T::kRows);
+    CUtensorMap tq, tk, tv, tdo;
+    if (grid.y > 65535 || !rows_map(&tq, a.q, a.b, a.sq, a.h, D, T::kRows) ||
+        !rows_map(&tdo, a.dout, a.b, a.sq, a.h, D, T::kRows) ||
+        !rows_map(&tk, a.k, a.b, a.sk, a.hkv, D, T::kKeys) ||
+        !rows_map(&tv, a.v, a.b, a.sk, a.hkv, D, T::kKeys)) {
+      return cudaErrorInvalidValue;
+    }
+    if ((err = prepare(bf16_dq_tma_kernel<D>, T::kSmem)) != cudaSuccess) return err;
+    bf16_dq_tma_kernel<D><<<grid, T::kThreads, T::kSmem, stream>>>(
+        tq, tk, tv, tdo, a.mask, a.lse_in, a.delta, static_cast<bf16*>(a.out0), a.sq, a.sk,
+        a.h, a.hkv, a.scale, a.causal);
   } else {
     using T = DkdvTiles<D>;
     const dim3 grid(a.b * a.hkv, (a.sk + T::kKeys - 1) / T::kKeys);

@@ -24,11 +24,10 @@ Sq and Sk work without padding: the kernels bounds-check, which gives what
 the JAX package's auto-pad path gives. ``HOROVOD_FLASH_XLA_BWD`` (the JAX
 package's rematerialised backward) is not ported. The JAX package's
 ``block_q``/``block_k`` (tiles chosen for TPU VMEM) have no counterpart:
-the kernels fix their own tiles. bfloat16 forward and dk/dv are Hopper
+the kernels fix their own tiles. The three bfloat16 kernels are Hopper
 kernels (TMA loads, wgmma) that read q/k/v/dO through tensor maps, so
 their operands must be contiguous and 16-byte aligned, as the wrappers
-check; bfloat16 dq and the float32 kernels stream 64-row (bf16) or 32-row
-(f32) tiles.
+check; the float32 kernels stream 32-row tiles through FMA loops.
 """
 
 from __future__ import annotations

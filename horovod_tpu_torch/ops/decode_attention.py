@@ -14,15 +14,23 @@ CPU tensors take the plain versions (``decode_attention_plain``,
 in torch; the CPU tests hold those against the JAX package, and
 ``chip_smoke.py`` holds the kernels against them on the card.
 
-``LAUNCHES`` counts kernel launches per wrapper (one per launch, and
-nowhere else), so a run can show its main path went through the
-kernels.
+Flash-decoding: the kernels split the logical window into chunks of
+``DECODE_CHUNK`` positions at fixed boundaries, one block per (sequence,
+KV head, chunk), and a second small kernel merges the chunks' partials in
+chunk order. :func:`decode_plan` is the host-side rule (chunk count, f32
+scratch shape, CUDA launches per call); it reads shapes only, never the
+sequences' lengths. A window of one chunk (the serving slice's 256) is
+one launch with no scratch.
+
+``LAUNCHES`` counts wrapper calls that launched the kernels (one per
+call, whether the plan ran one CUDA launch or two, and nowhere else), so
+a run can show its main path went through the kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -35,15 +43,52 @@ LAUNCHES: Dict[str, int] = {"decode_attention": 0,
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # q, k_cache, v_cache, out, b, h, hkv, d, window, cache_index, scale,
-    # dtype, stream
-    "hvd_decode_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                             _I, _P),
-    # q, k_pool, v_pool, out, tables, lens, b, h, hkv, d, table_slots,
-    # block_size, scale, dtype, stream
-    "hvd_paged_decode_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                   _I, _I, _F, _I, _P),
+    # q, k_cache, v_cache, out, part, b, h, hkv, d, window, cache_index,
+    # chunk, scale, dtype, stream
+    "hvd_decode_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _I, _F, _I, _P),
+    # q, k_pool, v_pool, out, part, tables, lens, b, h, hkv, d,
+    # table_slots, block_size, chunk, scale, dtype, stream
+    "hvd_paged_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                   _I, _I, _I, _I, _F, _I, _P),
 }
+
+#: Positions per block of the decode kernels: the window splits at 0,
+#: DECODE_CHUNK, 2 * DECODE_CHUNK, ...
+DECODE_CHUNK = 1024
+
+
+class DecodePlan(NamedTuple):
+    """How one decode kernel call runs: ``chunks`` blocks per (sequence,
+    KV head); ``scratch``: the shape of the f32 partials (B*H, chunks,
+    D + 2), None for one chunk; ``launches``: CUDA launches (the split
+    kernel, then the combine when there is more than one chunk)."""
+    chunks: int
+    scratch: Optional[Tuple[int, int, int]]
+    launches: int
+
+
+def decode_plan(b: int, h: int, d: int, window: int,
+                chunk: int = DECODE_CHUNK) -> DecodePlan:
+    """The host-side plan of a decode call over a logical ``window``
+    (L, or table slots x block size): from shapes alone."""
+    if window <= 0 or chunk <= 0:
+        raise ValueError(f"decode_plan: window ({window}) and chunk "
+                         f"({chunk}) must be positive")
+    chunks = -(-window // chunk)
+    if chunks == 1:
+        return DecodePlan(1, None, 1)
+    return DecodePlan(chunks, (b * h, chunks, d + 2), 2)
+
+
+def _scratch(plan: DecodePlan, device) -> Optional[torch.Tensor]:
+    if plan.scratch is None:
+        return None
+    return torch.empty(plan.scratch, dtype=torch.float32, device=device)
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
 
 
 def reset_launch_counts() -> None:
@@ -119,12 +164,14 @@ def decode_attention(q, k_cache, v_cache, cache_index, num_kv_heads,
     out = torch.empty_like(q)
     if b == 0:
         return out
+    window = k_cache.shape[1]
+    part = _scratch(decode_plan(b, h, d, window, DECODE_CHUNK), q.device)
     lib = _build.library("decode_attention", _SIGNATURES)
     code = lib.hvd_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        out.data_ptr(), b, h, num_kv_heads, d, k_cache.shape[1],
-        int(cache_index), float(scale), _build.KERNEL_DTYPES[q.dtype],
-        _build.stream(q.device))
+        out.data_ptr(), _ptr(part), b, h, num_kv_heads, d, window,
+        int(cache_index), DECODE_CHUNK, float(scale),
+        _build.KERNEL_DTYPES[q.dtype], _build.stream(q.device))
     _build.check(lib, "hvd_decode_attention", code)
     LAUNCHES["decode_attention"] += 1
     return out
@@ -183,11 +230,14 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, context_lens,
     out = torch.empty_like(q)
     if b == 0:
         return out
+    slots, block_size = tables.shape[1], k_pool.shape[1]
+    part = _scratch(decode_plan(b, h, d, slots * block_size,
+                                 DECODE_CHUNK), q.device)
     lib = _build.library("decode_attention", _SIGNATURES)
     code = lib.hvd_paged_decode_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), out.data_ptr(),
-        tables.data_ptr(), lens.data_ptr(), b, h, num_kv_heads, d,
-        tables.shape[1], k_pool.shape[1], float(scale),
+        _ptr(part), tables.data_ptr(), lens.data_ptr(), b, h, num_kv_heads,
+        d, slots, block_size, DECODE_CHUNK, float(scale),
         _build.KERNEL_DTYPES[q.dtype], _build.stream(q.device))
     _build.check(lib, "hvd_paged_decode_attention", code)
     LAUNCHES["paged_decode_attention"] += 1

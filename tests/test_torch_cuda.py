@@ -96,6 +96,62 @@ def test_kernels_match_plain(cuda_device, dtype, h, hkv, d):
     assert torch.equal(
         got, ops.paged_decode_attention(q, kp_i, vp_i, ident, lens, hkv))
 
+    # A window of several chunks that is no multiple of the chunk, with
+    # bounds on and around the chunk edges.
+    c = ops.DECODE_CHUNK
+    window = 2 * c + 80
+    assert ops.decode_plan(b, h, d, window).chunks == 3
+    k = _randn(gen, cuda_device, dtype, b, window, hkv * d)
+    v = _randn(gen, cuda_device, dtype, b, window, hkv * d)
+    for idx in (c - 1, c, c + 1, window - 1):
+        got = ops.decode_attention(q, k, v, idx, hkv)
+        want = ops.decode_attention_plain(q, k, v, idx, hkv)
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+    slots = window // bs
+    tables = (torch.randperm(b * slots, generator=gen, device=cuda_device)
+              + 1).view(b, slots).to(torch.int32)
+    kp, vp = _pools(k, v, tables, bs)
+    lens = torch.tensor([c - 1, c, c + 1, window - 1], dtype=torch.int32,
+                        device=cuda_device)
+    got = ops.paged_decode_attention(q, kp, vp, tables, lens, hkv)
+    want = ops.paged_decode_attention_plain(q, kp, vp, tables, lens, hkv)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_same_rows_give_the_same_output_at_two_windows(cuda_device, dtype):
+    """Chunks start at fixed logical positions, so the same rows in a
+    wider cache or block table (more chunks) give the same bits, and a
+    window of one chunk (no combine pass) gives the bits of a wider one."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    c, bs = ops.DECODE_CHUNK, 16
+    b, h, hkv, d = 4, 16, 2, 128
+    bounds = [0, c // 2, c - 1, c + 17]
+    q = _randn(gen, cuda_device, dtype, b, 1, h, d)
+    k = _randn(gen, cuda_device, dtype, b, 4 * c, hkv * d)
+    v = _randn(gen, cuda_device, dtype, b, 4 * c, hkv * d)
+    for idx in bounds:
+        wide = ops.decode_attention(q, k, v, idx, hkv)
+        for window in (2 * c, c + 32, c):
+            if idx < window:
+                narrow = ops.decode_attention(
+                    q, k[:, :window].contiguous(), v[:, :window].contiguous(),
+                    idx, hkv)
+                assert torch.equal(narrow, wide), (idx, window)
+    slots = 4 * c // bs
+    tables = (torch.randperm(b * slots, generator=gen, device=cuda_device)
+              + 1).view(b, slots).to(torch.int32)
+    kp, vp = _pools(k, v, tables, bs)
+    lens = torch.tensor(bounds, dtype=torch.int32, device=cuda_device)
+    wide = ops.paged_decode_attention(q, kp, vp, tables, lens, hkv)
+    for window in (2 * c, c):
+        narrow = ops.paged_decode_attention(
+            q, kp, vp, tables[:, :window // bs].contiguous(), lens, hkv)
+        held = [i for i, n in enumerate(bounds) if n < window]
+        assert torch.equal(narrow[held], wide[held]), window
+
 
 @pytest.mark.cuda
 def test_paged_single_block_bitwise_matches_contiguous(cuda_device):

@@ -9,6 +9,8 @@ the plain versions on a card by ``tests/test_torch_cuda.py`` and
 ``chip_smoke.py``.
 """
 
+import inspect
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -193,3 +195,33 @@ def test_cpu_calls_never_launch_and_odd_devices_raise():
     with pytest.raises(ValueError, match="single-token"):
         ops.decode_attention(_t(np.zeros((1, 2, 4, 16), np.float32)),
                              _t(k), _t(v), 3, 2)
+
+
+@pytest.mark.parametrize("b,h,d,window,chunk,chunks", [
+    (8, 16, 64, 256, 256, 1),       # the serving slice: one chunk
+    (8, 16, 64, 255, 256, 1),
+    (8, 16, 64, 257, 256, 2),       # one position past a chunk
+    (8, 32, 128, 4096, 256, 16),    # Llama-8B's window
+    (6, 32, 128, 848, 256, 4),      # no multiple of the chunk
+    (2, 4, 64, 848, 128, 7)])
+def test_decode_plan_is_a_rule_of_shapes(b, h, d, window, chunk, chunks):
+    """The decode kernels' host-side plan: chunks of the window, the f32
+    scratch of the partials, and CUDA launches per call. One chunk means
+    no scratch and one launch."""
+    plan = ops.decode_plan(b, h, d, window, chunk)
+    assert plan.chunks == chunks
+    if chunks == 1:
+        assert plan == ops.DecodePlan(1, None, 1)
+    else:
+        assert plan == ops.DecodePlan(chunks, (b * h, chunks, d + 2), 2)
+
+
+def test_decode_plan_reads_no_lengths():
+    """The chunk rule depends on shapes alone, never on the sequences'
+    lengths or the table's contents, and the serving slice's window of 256
+    stays one launch at the default chunk."""
+    assert list(inspect.signature(ops.decode_plan).parameters) == [
+        "b", "h", "d", "window", "chunk"]
+    assert ops.decode_plan(8, 16, 64, 256).launches == 1
+    with pytest.raises(ValueError, match="positive"):
+        ops.decode_plan(1, 4, 64, 0)
