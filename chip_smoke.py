@@ -30,19 +30,24 @@ on ``cuda``; any failure exits non-zero:
    kernel launched 16 x steps times;
 5. the same engine in bfloat16, timed: tokens/s, TTFT p50, TPOT p50;
 6. the three flash-attention kernels (forward, dq, dk/dv) against their
-   plain versions in float32 and bfloat16 on five cases: the training
+   plain versions in float32 and bfloat16 on eight cases: the training
    slice's shape (b=8, S=1024, H=16, Hkv=8, D=64, causal), a key-masked
    causal case at an awkward length with a fully masked row, causal with
    sq=256 < sk=1024, Llama-8B's width (b=1, S=4096, H=32, Hkv=8, D=128),
-   and the TMA kernels' edges (b=3, sq=197, sk=261: ragged last tiles and
+   the TMA kernels' edges (b=3, sq=197, sk=261: ragged last tiles and
    a diagonal offset of 64, H=16 over Hkv=2, D=128, key mask with a fully
-   masked row). float32 at TOL; bfloat16 at SCALED_TOL (each output held
-   to its own magnitude), and faults planted in the plain outputs (the
-   last key or query tile skipped) must fail that check. Times as in 2;
-   the yardstick is
-   ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``:
-   its forward, and its backward alone (``autograd.grad`` on a saved
-   forward), which covers dq and dk/dv together;
+   masked row), and three non-causal cases at group 1: BERT-base's
+   (b=32, S=512, H=Hkv=12, D=64, the last quarter of the keys masked in
+   every other sequence), the same without the mask, and ViT-B/16's
+   (b=8, S=197, no mask). float32 at TOL;
+   bfloat16 at SCALED_TOL (each output held to its own magnitude), and
+   faults planted in the plain outputs (the last key or query tile
+   skipped; causal at the slice, non-causal at BERT's) must fail that
+   check. Times as in 2; the yardstick is
+   ``scaled_dot_product_attention`` (``is_causal``, or the key mask as
+   ``attn_mask``, ``enable_gqa=True``): its forward, and its backward
+   alone (``autograd.grad`` on a saved forward), which covers dq and
+   dk/dv together;
 7. ``init()`` under a launcher environment of size 1: a real NCCL group
    on ``cuda:0``; collectives on card tensors return their inputs;
 8. training parity at Llama-300M full size in float32: two SGD steps
@@ -50,11 +55,30 @@ on ``cuda``; any failure exits non-zero:
    every weight), with 16 launches per kernel per step;
 9. the training example (``horovod_tpu_torch.examples.llama_training``)
    in bfloat16, seq 1024, batch 8, AdamW, 10 timed steps: tokens/s, step
-   ms, falling loss, peak memory, and one profiled step's device split.
+   ms, falling loss, peak memory, and one profiled step's device split;
+10. ResNet-50 in float32 (TF32 off), 224², batch 4: two SGD-momentum
+   steps on the card (``channels_last``, cuDNN) against the same module,
+   weights and batch on the CPU (loss, every weight's change, every
+   running statistic, at ``RESNET_TOL``);
+11. the synthetic benchmark (``examples.synthetic_benchmark``) at
+   ResNet-50, bf16, batch 128, 224²: one warm-up step, 5 windows of 10
+   steps (img/s per window and median), step ms, peak memory, the share
+   of the bf16 dense peak (FLOPs counted from the model) and one profiled
+   step's device split (convolutions, BatchNorm, optimizer, the rest);
+   then ResNet-101, Inception V3 (299²) and VGG-16, 3 steps each;
+12. BERT-base in float32 at seq 512, batch 4, padded-tail key mask: two
+   SGD steps through ``make_attention_fn()`` (the flash kernels,
+   non-causal) against ``use_flash=False``, 12 launches per kernel per
+   step;
+13. the BERT example (``examples.bert_pretraining``), base, bf16, seq
+   512, batch 32, AdamW, 10 timed steps: sequences/s, step ms, falling
+   loss, peak memory, the dense-peak share and a profiled step's split.
 
-Phases 3-5 and 9 are the main paths: the launch counts in the kernels'
-JSON line come from them. The line before the last is that JSON object;
-the last line is ``{"ok": true, "device": {...}}``.
+Phases 3-5, 9 and 13 are the main paths: the launch counts in the
+kernels' JSON line come from them (the flash kernels' are the sum of 9
+and 13, each path's on a line of its own). The line before the last is
+that JSON object; the last line is ``{"ok": true, "device": {...}}``.
+The whole run logs its wall time.
 """
 
 from __future__ import annotations
@@ -621,15 +645,33 @@ def ptxas_report(name: str):
 
 
 def flash_cases():
-    """(label, b, sq, sk, h, hkv, d, masked): every case is causal."""
-    return [("slice", 8, 1024, 1024, 16, 8, 64, False),
-            ("masked", 2, 333, 333, 16, 8, 64, True),
-            ("sq256_sk1024", 8, 256, 1024, 16, 8, 64, False),
-            ("llama8b", 1, 4096, 4096, 32, 8, 128, False),
-            ("edge", 3, 197, 261, 16, 2, 128, True)]
+    """(label, b, sq, sk, h, hkv, d, mask, causal). ``mask``: None, a
+    random key mask with a fully masked row (``"random"``), or BERT's
+    padded tails, the last quarter of the keys masked in every other
+    sequence (``"tail"``)."""
+    return [("slice", 8, 1024, 1024, 16, 8, 64, None, True),
+            ("masked", 2, 333, 333, 16, 8, 64, "random", True),
+            ("sq256_sk1024", 8, 256, 1024, 16, 8, 64, None, True),
+            ("llama8b", 1, 4096, 4096, 32, 8, 128, None, True),
+            ("edge", 3, 197, 261, 16, 2, 128, "random", True),
+            ("bert", 32, 512, 512, 12, 12, 64, "tail", False),
+            # BERT's shape without the mask: what the key mask costs.
+            ("bert_nomask", 32, 512, 512, 12, 12, 64, None, False),
+            ("vit", 8, 197, 197, 12, 12, 64, None, False)]
 
 
-def planted_faults(A, q, k, v, g, p_out, p_lse, delta, got, tile=64):
+def tail_mask(b: int, s: int, device):
+    """BERT's padded tails: the last quarter of the keys masked in every
+    other sequence."""
+    import torch
+
+    mask = torch.ones(b, s, dtype=torch.bool, device=device)
+    mask[::2, s - s // 4:] = False
+    return mask
+
+
+def planted_faults(A, label, q, k, v, mask, causal, g, p_lse, delta, got,
+                   tile=64):
     """Show that the bf16 check catches a kernel that drops work: out and
     dq from the plain versions with the last key tile skipped (masked
     out), dk and dv with the last query tile skipped (its p zeroed by an
@@ -640,24 +682,27 @@ def planted_faults(A, q, k, v, g, p_out, p_lse, delta, got, tile=64):
     b, sq, sk = q.shape[0], q.shape[1], k.shape[1]
     drop_keys = torch.ones(b, sk, dtype=torch.bool, device=q.device)
     drop_keys[:, sk - tile:] = False
-    f_out, _ = A.flash_attention_forward_plain(q, k, v, drop_keys, True)
+    if mask is not None:
+        drop_keys &= mask
+    f_out, _ = A.flash_attention_forward_plain(q, k, v, drop_keys, causal)
     f_dq = A.flash_backward_dq_plain(q, k, v, drop_keys, g, p_lse, delta,
-                                     True)
+                                     causal)
     lse_f = p_lse.clone()
     lse_f[..., sq - tile:] = 1e30
-    f_dk, f_dv = A.flash_backward_dkdv_plain(q, k, v, None, g, lse_f, delta,
-                                             True)
+    f_dk, f_dv = A.flash_backward_dkdv_plain(q, k, v, mask, g, lse_f, delta,
+                                             causal)
     worst = {}
     for key, faulty in (("out", f_out), ("dq", f_dq), ("dk", f_dk),
                         ("dv", f_dv)):
         stats = compare_scaled(faulty, got[key][1], "planted", check=False)
         if not stats["fails"]:
             raise AssertionError(
-                f"planted fault in {key} (last {tile}-row tile skipped) "
-                f"passes the bf16 check: {json.dumps(stats)}")
+                f"planted fault in {key} (last {tile}-row tile skipped, "
+                f"{label}) passes the bf16 check: {json.dumps(stats)}")
         worst[key] = stats["worst"]
-    log(f"planted faults (last {tile}-row tile skipped, bf16 slice shape) "
-        f"fail the check: worst error/limit {json.dumps(worst)}")
+    log(f"planted faults (last {tile}-row tile skipped, bf16 {label} shape, "
+        f"{'causal' if causal else 'non-causal'}) fail the check: worst "
+        f"error/limit {json.dumps(worst)}")
     return worst
 
 
@@ -671,7 +716,7 @@ def check_flash(device, flush):
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
         item = torch.tensor([], dtype=dtype).element_size()
-        for label, b, sq, sk, h, hkv, d, masked in flash_cases():
+        for label, b, sq, sk, h, hkv, d, mask_kind, causal in flash_cases():
             gen = torch.Generator(device=device).manual_seed(0)
 
             def randn(*shape):
@@ -681,23 +726,25 @@ def check_flash(device, flush):
             q, k, v, g = (randn(b, sq, h, d), randn(b, sk, hkv, d),
                           randn(b, sk, hkv, d), randn(b, sq, h, d))
             mask = None
-            if masked:
+            if mask_kind == "random":
                 mask = torch.rand(b, sk, generator=gen, device=device) > 0.3
                 mask[:, 0] = True
                 # Query row 0 of batch 0 attends keys <= sk - sq: none.
                 mask[0, :sk - sq + 1] = False
+            elif mask_kind == "tail":
+                mask = tail_mask(b, sk, device)
             what = f"flash {label} {dname}"
-            out, lse = A._flash_forward(q, k, v, mask, True)
+            out, lse = A._flash_forward(q, k, v, mask, causal)
             p_out, p_lse = A.flash_attention_forward_plain(q, k, v, mask,
-                                                           True)
+                                                           causal)
             delta = A.flash_delta(p_out, g)
-            dq = A.flash_backward_dq(q, k, v, mask, g, p_lse, delta, True)
+            dq = A.flash_backward_dq(q, k, v, mask, g, p_lse, delta, causal)
             dk, dv = A.flash_backward_dkdv(q, k, v, mask, g, p_lse, delta,
-                                           True)
+                                           causal)
             p_dq = A.flash_backward_dq_plain(q, k, v, mask, g, p_lse, delta,
-                                             True)
+                                             causal)
             p_dk, p_dv = A.flash_backward_dkdv_plain(q, k, v, mask, g, p_lse,
-                                                     delta, True)
+                                                     delta, causal)
             torch.cuda.synchronize()
             got = {"out": (out, p_out), "dq": (dq, p_dq), "dk": (dk, p_dk),
                    "dv": (dv, p_dv)}
@@ -711,19 +758,23 @@ def check_flash(device, flush):
             errs["lse"] = {"max_abs": compare(lse, p_lse, "float32",
                                               f"{what} lse")[0]}
             planted = None
-            if label == "slice" and dtype == torch.bfloat16:
-                planted = planted_faults(A, q, k, v, g, p_out, p_lse, delta,
-                                         got)
-            if masked and (bool(out[0, 0].ne(0).any())
-                           or float(lse[0, 0, 0]) > -1e29
-                           or bool(dq[0, 0].ne(0).any())):
+            if label in ("slice", "bert") and dtype == torch.bfloat16:
+                planted = planted_faults(A, label, q, k, v, mask, causal, g,
+                                         p_lse, delta, got)
+            if mask_kind == "random" and (
+                    bool(out[0, 0].ne(0).any())
+                    or float(lse[0, 0, 0]) > -1e29
+                    or bool(dq[0, 0].ne(0).any())):
                 raise AssertionError(
                     f"{what}: the fully masked row is not zero "
                     f"(lse {float(lse[0, 0, 0])})")
 
             # The work this run's data needs: allowed (query, key) pairs.
-            qi = torch.arange(sq, device=device)[:, None] + (sk - sq)
-            allowed = (torch.arange(sk, device=device)[None, :] <= qi)[None]
+            allowed = torch.ones(1, sq, sk, dtype=torch.bool, device=device)
+            if causal:
+                qi = torch.arange(sq, device=device)[:, None] + (sk - sq)
+                allowed = (torch.arange(sk, device=device)[None, :]
+                           <= qi)[None]
             if mask is not None:
                 allowed = allowed & mask[:, None, :]
             pairs = int(allowed.expand(b, sq, sk).sum()) * h
@@ -738,42 +789,44 @@ def check_flash(device, flush):
                                + extra, 8 * d * pairs, dname)
             times = {
                 "flash_forward": time_ms(
-                    lambda: A._flash_forward(q, k, v, mask, True), flush),
+                    lambda: A._flash_forward(q, k, v, mask, causal), flush),
                 "flash_backward_dq": time_ms(
                     lambda: A.flash_backward_dq(q, k, v, mask, g, p_lse,
-                                                delta, True), flush),
+                                                delta, causal), flush),
                 "flash_backward_dkdv": time_ms(
                     lambda: A.flash_backward_dkdv(q, k, v, mask, g, p_lse,
-                                                  delta, True), flush)}
+                                                  delta, causal), flush)}
             plain = {
                 "flash_forward": time_ms(
                     lambda: A.flash_attention_forward_plain(q, k, v, mask,
-                                                            True),
+                                                            causal),
                     flush, repeats=10),
                 "flash_backward_dq": time_ms(
                     lambda: A.flash_backward_dq_plain(q, k, v, mask, g,
-                                                      p_lse, delta, True),
+                                                      p_lse, delta, causal),
                     flush, repeats=10),
                 "flash_backward_dkdv": time_ms(
                     lambda: A.flash_backward_dkdv_plain(q, k, v, mask, g,
-                                                        p_lse, delta, True),
+                                                        p_lse, delta, causal),
                     flush, repeats=10)}
             sdpa_fwd = sdpa_bwd = None
-            if mask is None and sq == sk:
-                # The yardstick (the port never calls it): causal SDPA on
-                # the same inputs in (B, H, S, D): its forward, and its
-                # backward alone on one saved forward (dq, dk and dv).
+            if mask_kind != "random" and sq == sk:
+                # The yardstick (the port never calls it): SDPA on the same
+                # inputs in (B, H, S, D), causal or with the key mask as
+                # attn_mask: its forward, and its backward alone on one
+                # saved forward (dq, dk and dv).
                 qt, kt, vt, gt = (x.transpose(1, 2).contiguous()
                                   for x in (q, k, v, g))
                 qr, kr, vr = (x.detach().requires_grad_()
                               for x in (qt, kt, vt))
+                attn_mask = None if mask is None else mask[:, None, None, :]
 
-                def sdpa():
+                def sdpa(qs=qt, ks=kt, vs=vt):
                     return F.scaled_dot_product_attention(
-                        qt, kt, vt, is_causal=True, enable_gqa=True)
+                        qs, ks, vs, attn_mask=attn_mask, is_causal=causal,
+                        enable_gqa=True)
 
-                o_saved = F.scaled_dot_product_attention(
-                    qr, kr, vr, is_causal=True, enable_gqa=True)
+                o_saved = sdpa(qr, kr, vr)
 
                 def sdpa_bwd_only():
                     return torch.autograd.grad(o_saved, (qr, kr, vr), gt,
@@ -783,7 +836,7 @@ def check_flash(device, flush):
                 sdpa_bwd = time_ms(sdpa_bwd_only, flush, repeats=10)
                 del o_saved
             row = dict(case=label, dtype=dname, shape=[b, sq, sk, h, hkv, d],
-                       pairs=pairs,
+                       mask=mask_kind, causal=causal, pairs=pairs,
                        max_abs_err={key: e["max_abs"]
                                     for key, e in errs.items()},
                        errors=errs, planted_faults=planted,
@@ -925,46 +978,60 @@ def run_training_timed(card: str):
         f"{out['tokens_per_s']:.1f} tokens/s, step {out['step_ms']:.3f} ms, "
         f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, peak memory "
         f"{peak:.2f} GiB, flash launches {launches} over 11 steps [{card}]")
-    numbers["step_profile"] = profile_training_step(out, out["step_ms"])
+    numbers["step_profile"] = profile_step(
+        lambda: ex.train_step(out["model"], out["optimizer"], out["ids"],
+                              out["loss_fn"]),
+        out["step_ms"], TRANSFORMER_SPLIT, "flash", "llama300m")
     return numbers
 
 
-def profile_training_step(out, step_ms: float, steps: int = 2):
-    """Where a bf16 training step's device time goes: matrix products,
-    the three flash kernels, everything else; the kernel count. Two
-    shares: the idle share of the profiled window (device busy time
-    against that window's own wall time, which the profiler's per-launch
-    host cost stretches), and busy time over the step's wall time without
-    the profiler (``step_ms``)."""
+# Device-time buckets of a profiled step: (bucket, kernel-name test), the
+# first that matches wins, the rest is "other" (the elementwise tail).
+TRANSFORMER_SPLIT = (
+    ("flash", lambda n: re.search(FLASH_KERNELS, n)),
+    ("matmul", lambda n: any(t in n for t in ("nvjet", "gemm", "gemv",
+                                              "cutlass", "xmma"))))
+CONV_SPLIT = (
+    ("batchnorm", lambda n: "batch_norm" in n or "batchnorm" in n),
+    ("conv", lambda n: any(t in n for t in ("conv", "xmma", "implicit_gemm",
+                                            "cudnn", "wgrad", "dgrad",
+                                            "fprop", "nhwc", "nchw"))),
+    ("optimizer", lambda n: "multi_tensor_apply" in n or "foreach" in n),
+    ("matmul", lambda n: any(t in n for t in ("nvjet", "gemm", "gemv",
+                                              "cutlass"))))
+
+
+def profile_step(step, step_ms: float, buckets, required: str, what: str,
+                 steps: int = 2):
+    """Where a bf16 training step's device time goes, by ``buckets`` plus
+    "other" (which must see time in bucket ``required``); the kernel
+    count. Two shares: the idle share of the profiled
+    window (device busy time against that window's own wall time, which
+    the profiler's per-launch host cost stretches), and busy time over
+    the step's wall time without the profiler (``step_ms``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-
-    from horovod_tpu_torch.examples import llama_training as ex
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            ex.train_step(out["model"], out["optimizer"], out["ids"],
-                          out["loss_fn"])
+            step()
         torch.cuda.synchronize()
         profiled_ms = (time.perf_counter() - t0) * 1e3 / steps
-    split = {"flash": 0.0, "matmul": 0.0, "other": 0.0}
+    split = {key: 0.0 for key, _ in buckets}
+    split["other"] = 0.0
     kernels = 0
+    by_name = []
     for ev in prof.key_averages():
         if not str(ev.device_type).endswith("CUDA"):
             continue
         kernels += ev.count
         name = ev.key.lower()
-        if re.search(FLASH_KERNELS, name):
-            key = "flash"
-        elif any(t in name for t in ("nvjet", "gemm", "gemv", "cutlass",
-                                     "xmma")):
-            key = "matmul"
-        else:
-            key = "other"
+        key = next((k for k, test in buckets if test(name)), "other")
         split[key] += ev.self_device_time_total
+        by_name.append((ev.self_device_time_total, key, ev.key))
     busy_ms = sum(split.values()) / steps / 1e3
     result = {"step_ms": step_ms, "step_ms_profiled": profiled_ms,
               "kernels_per_step": kernels / steps,
@@ -974,12 +1041,294 @@ def profile_training_step(out, step_ms: float, steps: int = 2):
               "device_busy_over_unprofiled_step": busy_ms / step_ms}
     result.update({f"{k}_ms_per_step": v / steps / 1e3
                    for k, v in split.items()})
-    if not result["flash_ms_per_step"] > 0:
+    # The kernels that take the most device time, with their bucket.
+    result["top_kernels"] = [
+        [bucket, name[:90], us / steps / 1e3]
+        for us, bucket, name in sorted(by_name, reverse=True)[:12]]
+    if not result[f"{required}_ms_per_step"] > 0:
         raise AssertionError(
-            "training profile: no device time matched the flash kernels' "
-            f"names: {json.dumps(result)}")
-    log(f"training step profile (bf16, {steps} steps): {json.dumps(result)}")
+            f"{what} profile: no device time matched the {required} "
+            f"kernels' names: {json.dumps(result)}")
+    log(f"{what} step profile (bf16, {steps} steps): {json.dumps(result)}")
     return result
+
+
+# ---------------------------------------------------------------------------
+# Phases 10-13: the model zoo (ResNet-50 and BERT-base)
+
+# The card-vs-CPU ResNet-50 check (float32 on both, TF32 off): the loss
+# to ``loss_rtol``; each weight's change over the steps and each running
+# statistic by its relative L2 error, ||card - cpu|| / ||cpu||, within
+# ``update_rel`` / ``stat_rel``. Not element by element: ReLU and max-pool
+# route each gradient by a comparison, and where two values tie within
+# rounding the two devices route it to different elements, so single
+# entries of a weight's gradient may differ by one position's whole term
+# while the tensor agrees. How far float32 rounding carries here is
+# measured in the same run: a CPU run with float64 activations
+# (parameters and head float32) is the reference, and each tensor's limit
+# is the larger of ``*_rel`` and 3x the CPU's own float32 error against
+# it (two float32 runs each within e of the reference differ by up to 2e;
+# 3e allows the card's error to be twice the CPU's, no more).
+RESNET_TOL = {"loss_rtol": 1e-4, "update_rel": 1e-3, "stat_rel": 1e-4,
+              "of_cpu_f32_error": 3.0}
+
+
+def rel_l2(got, want) -> float:
+    got, want = got.double(), want.double()
+    norm = float(want.norm())
+    diff = float((got - want).norm())
+    return diff / norm if norm else diff
+
+
+def run_resnet_parity(steps: int = 2, batch: int = 4, lr: float = 0.01):
+    """ResNet-50 in float32 at 224², batch 4: ``steps`` SGD-momentum
+    steps of the synthetic benchmark's train_step on the card
+    (``channels_last``, cuDNN) against the same module, weights and batch
+    on the CPU: the losses, every weight's change and every running
+    statistic (:data:`RESNET_TOL`), each also against a float64 CPU run.
+    ``lr`` is 0.01, not the example's 0.1: at 0.1 one step nearly fits a
+    batch of 4, and the second step's gradients shrink to differences
+    that float32 does not resolve, so the two devices drift apart by a
+    large share of some weights' change. Weights
+    whose change stays small at 0.01 too (each block's residual branch
+    behind its zero-initialised third norm) are what the float64
+    reference's per-tensor limit is for."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.examples import synthetic_benchmark as ex
+    from horovod_tpu_torch.models import ResNet50
+
+    runs = {}
+    for label, dev, dtype in (("card", "cuda", torch.float32),
+                              ("cpu", "cpu", torch.float32),
+                              ("cpu_f64", "cpu", torch.float64)):
+        model = ResNet50(dtype=dtype, device=dev, seed=0)
+        start = {n: p.detach().cpu().clone()
+                 for n, p in model.named_parameters()}
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=lr, momentum=0.9),
+            named_parameters=model.named_parameters())
+        x, y = ex.batch(224, batch, dev)
+        t0 = time.perf_counter()
+        losses = [float(ex.train_step(model, opt, x, y))
+                  for _ in range(steps)]
+        state = {f"{n} change": (p.detach().cpu() - start[n], "update")
+                 for n, p in model.named_parameters()}
+        state.update({n: (t.cpu(), "stat")
+                      for n, t in model.named_buffers()})
+        runs[label] = (losses, state, time.perf_counter() - t0)
+        if label == "card" and not model.conv_init.weight.is_contiguous(
+                memory_format=torch.channels_last):
+            raise AssertionError("ResNet-50 on the card is not channels_last")
+        del model, opt
+    torch.cuda.empty_cache()
+    (c_losses, card, c_s), (p_losses, cpu, p_s), (r_losses, ref, _) = (
+        runs["card"], runs["cpu"], runs["cpu_f64"])
+    worst = {}
+    failures = []
+    for name, (got, kind) in card.items():
+        want = cpu[name][0]
+        err = rel_l2(got, want)
+        cpu_err = rel_l2(want, ref[name][0])
+        limit = max(RESNET_TOL[f"{kind}_rel"],
+                    RESNET_TOL["of_cpu_f32_error"] * cpu_err)
+        for key, e in ((f"{kind}_card_vs_cpu", err),
+                       (f"{kind}_card_vs_f64", rel_l2(got, ref[name][0])),
+                       (f"{kind}_cpu_vs_f64", cpu_err),
+                       (f"{kind}_card_vs_cpu_over_limit", err / limit)):
+            if e > worst.get(key, (-1.0, ""))[0]:
+                worst[key] = (e, name)
+        if not bool(torch.isfinite(got).all()) or err > limit:
+            failures.append((name, err, limit))
+    log(f"resnet50 parity: f32 224x224 b={batch}, {steps} SGD-momentum "
+        f"(lr {lr}) steps, card (channels_last, cuDNN, TF32 off) vs CPU; losses "
+        f"card {c_losses}, CPU {p_losses}, CPU float64 activations "
+        f"{r_losses}; worst relative L2 error per tensor (and where): "
+        f"{json.dumps(worst)}; card {c_s:.2f} s, CPU {p_s:.2f} s")
+    for a, b in zip(c_losses, p_losses):
+        if not np.isfinite(a) or abs(a - b) > RESNET_TOL["loss_rtol"] * abs(b):
+            raise AssertionError(
+                f"resnet50 parity: losses card {c_losses} vs CPU {p_losses}")
+    if failures:
+        raise AssertionError(
+            f"resnet50 parity: {len(failures)} tensors outside {RESNET_TOL}: "
+            f"{failures[:6]}")
+    return {"losses_card": c_losses, "losses_cpu": p_losses,
+            "losses_cpu_f64": r_losses, "worst_rel_l2": worst,
+            "tolerance": RESNET_TOL}
+
+
+def run_synthetic_benchmark(card: str):
+    """The synthetic benchmark's main path: ResNet-50 bf16, batch 128,
+    224², one warm-up step, then 5 windows of 10 steps; img/s, step ms,
+    peak memory, the step's share of the bf16 dense peak (FLOPs counted
+    from the model's own convolutions and dense layers) and one profiled
+    step's device split. Then ResNet-101, Inception V3 and VGG-16, one
+    warm-up and 3 steps each."""
+    import torch
+
+    from horovod_tpu_torch.examples import synthetic_benchmark as ex
+
+    torch.cuda.reset_peak_memory_stats()
+    out = ex.main(["--model", "resnet50", "--batch-size", "128",
+                   "--num-iters", "10", "--num-batches", "5"])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not all(np.isfinite(out["losses"])):
+        raise AssertionError(f"resnet50 benchmark: loss {out['losses']}")
+    macs = ex.forward_macs(out["model"], 224)
+    flops = 3 * 2 * macs * 128
+    bound_ms = flops / PEAK_OPS_PER_S["bfloat16"] * 1e3
+    numbers = {"img_per_s": out["img_per_s"],
+               "img_per_s_windows": out["img_per_s_windows"],
+               "spread": out["spread"], "step_ms": out["step_ms"],
+               "peak_memory_gib": peak, "forward_gmac_per_image": macs / 1e9,
+               "tflop_per_step": flops / 1e12, "bound_ms": bound_ms,
+               "dense_peak_share": bound_ms / out["step_ms"],
+               "losses": out["losses"]}
+    log(f"synthetic benchmark resnet50 bf16 b=128 224x224 sgd-momentum: "
+        f"{out['img_per_s']:.1f} img/s median (windows "
+        f"{[round(v, 1) for v in out['img_per_s_windows']]}), step "
+        f"{out['step_ms']:.3f} ms, peak memory {peak:.2f} GiB; "
+        f"{macs / 1e9:.4f} GMAC/image forward, {flops / 1e12:.3f} TFLOP per "
+        f"step, bf16 bound {bound_ms:.3f} ms = "
+        f"{bound_ms / out['step_ms']:.3f} of the step [{card}]")
+    numbers["step_profile"] = profile_step(
+        lambda: ex.train_step(out["model"], out["optimizer"], out["x"],
+                              out["y"]),
+        out["step_ms"], CONV_SPLIT, "conv", "resnet50")
+    del out
+    torch.cuda.empty_cache()
+    for name in ("resnet101", "inception3", "vgg16"):
+        torch.cuda.reset_peak_memory_stats()
+        other = ex.main(["--model", name, "--batch-size", "128",
+                         "--num-iters", "3", "--num-batches", "1"])
+        torch.cuda.synchronize()
+        if not all(np.isfinite(other["losses"])):
+            raise AssertionError(f"{name} benchmark: loss {other['losses']}")
+        numbers[name] = {
+            "img_per_s": other["img_per_s"], "step_ms": other["step_ms"],
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "image_size": other["image_size"]}
+        log(f"synthetic benchmark {name} bf16 b=128 "
+            f"{other['image_size']}x{other['image_size']}, 3 steps: "
+            f"{json.dumps(numbers[name])} [{card}]")
+        del other
+        torch.cuda.empty_cache()
+    return numbers
+
+
+def run_bert_parity(steps: int = 2, batch: int = 4, seq: int = 512):
+    """BERT-base in float32 at seq 512, batch 4, key mask with padded
+    tails: ``steps`` SGD steps through ``make_attention_fn()`` (flash
+    from 512 rows up: the three kernels, non-causal, masked, group 1)
+    against as many through ``use_flash=False``, from the same weights
+    and batch; the loss and every weight at the Llama parity phase's
+    tolerances, 12 launches per kernel per step."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.examples import bert_pretraining as ex
+    from horovod_tpu_torch.models.bert import BERT_BASE, BertEncoder, mlm_loss
+    from horovod_tpu_torch.ops import attention as A
+
+    cfg = dataclasses.replace(BERT_BASE, dtype=torch.float32)
+    ids, mlm = ex.batch(cfg, batch, seq, "cuda")
+    key_mask = tail_mask(batch, seq, "cuda")
+    runs = {}
+    for use_flash in ("auto", False):
+        model = BertEncoder(cfg, A.make_attention_fn(use_flash=use_flash),
+                            device="cuda", seed=0)
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9),
+            named_parameters=model.named_parameters())
+        losses = []
+        for step in range(steps):
+            A.reset_launch_counts()
+            opt.zero_grad(set_to_none=True)
+            loss = mlm_loss(model(ids, attention_mask=key_mask), ids, mlm)
+            loss.backward()
+            opt.step()
+            losses.append(float(loss))
+            want = cfg.num_layers if use_flash else 0
+            if set(A.LAUNCHES.values()) != {want}:
+                raise AssertionError(
+                    f"bert step {step} (use_flash={use_flash}): flash "
+                    f"launches {A.LAUNCHES}, expected {want} each")
+        runs[use_flash] = (model, losses)
+        del opt
+    (kmodel, klosses), (pmodel, plosses) = runs["auto"], runs[False]
+    for a, b in zip(klosses, plosses):
+        if not np.isfinite(a) or abs(a - b) > 1e-4 * abs(b):
+            raise AssertionError(f"bert parity: losses {klosses} vs {plosses}")
+    worst = 0.0
+    with torch.no_grad():
+        for (name, p), (_, r) in zip(kmodel.named_parameters(),
+                                     pmodel.named_parameters()):
+            worst = max(worst, float((p - r).abs().max()))
+            compare(p, r, "float32", f"bert parity weight {name}")
+    log(f"bert parity: bert-base f32 seq {seq} b={batch}, key mask with "
+        f"the last quarter masked in every other row, {steps} SGD steps; "
+        f"losses flash {klosses} vs plain {plosses}; every weight within "
+        f"{TOL['float32']} (max abs diff {worst:.3g}); flash launches "
+        f"{cfg.num_layers} per kernel per step")
+    del kmodel, pmodel, runs
+    torch.cuda.empty_cache()
+    return {"losses_flash": klosses, "losses_plain": plosses,
+            "max_abs_weight_diff": worst}
+
+
+def run_bert_timed(card: str):
+    """The BERT example's main path: base, bf16, seq 512, batch 32, AdamW,
+    10 timed steps; sequences/s, step ms, falling loss, peak memory, the
+    step's share of the bf16 dense peak and one profiled step's device
+    split. Returns its numbers and the flash launch counts of the run."""
+    import torch
+
+    from horovod_tpu_torch.examples import bert_pretraining as ex
+    from horovod_tpu_torch.models.layers import Dense
+    from horovod_tpu_torch.ops import attention as A
+
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launch_counts()
+    out = ex.main(["--model", "base", "--seq-len", "512", "--batch-size",
+                   "32", "--num-iters", "10"])
+    torch.cuda.synchronize()
+    launches = dict(A.LAUNCHES)
+    losses = out["losses"]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"bert training: loss did not fall: {losses}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    cfg = out["model"].config
+    dense = sum(m.weight.numel() for m in out["model"].modules()
+                if isinstance(m, Dense))
+    b, s = out["ids"].shape
+    # 6 FLOPs per dense weight per token; attention's four S x S x hidden
+    # products (QK^T, PV and their backward: twelve in all) per layer.
+    flops = 6 * dense * b * s + 12 * b * s * s * cfg.hidden_size \
+        * cfg.num_layers
+    bound_ms = flops / PEAK_OPS_PER_S["bfloat16"] * 1e3
+    numbers = {"sequences_per_s": out["sequences_per_s"],
+               "step_ms": out["step_ms"], "losses": losses,
+               "peak_memory_gib": peak, "flash_launches": launches,
+               "dense_params": dense, "tflop_per_step": flops / 1e12,
+               "bound_ms": bound_ms,
+               "dense_peak_share": bound_ms / out["step_ms"]}
+    log(f"bert training bf16 base seq 512 b=32 adamw: "
+        f"{out['sequences_per_s']:.1f} sequences/s, step "
+        f"{out['step_ms']:.3f} ms, loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+        f"peak memory {peak:.2f} GiB, {flops / 1e12:.3f} TFLOP per step "
+        f"({dense / 1e6:.1f} M dense weights), bf16 bound {bound_ms:.3f} ms "
+        f"= {bound_ms / out['step_ms']:.3f} of the step, flash launches "
+        f"{launches} over 11 steps [{card}]")
+    numbers["step_profile"] = profile_step(
+        lambda: ex.train_step(out["model"], out["optimizer"], out["ids"],
+                              out["mlm"]),
+        out["step_ms"], TRANSFORMER_SPLIT, "flash", "bert-base")
+    del out
+    torch.cuda.empty_cache()
+    return numbers
 
 
 def main() -> int:
@@ -994,6 +1343,7 @@ def main() -> int:
     from horovod_tpu_torch.ops import attention as flash_ops
 
     device = torch.device("cuda")
+    t_start = time.perf_counter()
     card = card_line()
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -1030,11 +1380,26 @@ def main() -> int:
 
     parity = run_training_parity()
     training = run_training_timed(card)
+    torch.cuda.empty_cache()
+
+    zoo = {"resnet50_parity": run_resnet_parity(),
+           "synthetic_benchmark": run_synthetic_benchmark(card),
+           "bert_parity": run_bert_parity()}
+    bert = run_bert_timed(card)
     hvd.shutdown()
 
+    log(f"flash launches by main path: llama300m training "
+        f"{json.dumps(training['flash_launches'])}, bert-base training "
+        f"{json.dumps(bert['flash_launches'])}")
     launches = {"decode_attention": gen_launches,
                 "paged_decode_attention": paged_launches,
-                **training["flash_launches"]}
+                **{name: training["flash_launches"][name]
+                   + bert["flash_launches"][name]
+                   for name in flash_ops.LAUNCHES}}
+    if min(launches.values()) <= 0 or min(
+            bert["flash_launches"].values()) <= 0:
+        raise AssertionError(f"a kernel of the main paths never ran: "
+                             f"{launches}, bert {bert['flash_launches']}")
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the main paths never ran: "
                              f"{launches}")
@@ -1064,6 +1429,8 @@ def main() -> int:
                            else None)})
     log(f"serving: {json.dumps(serving_numbers)}")
     log(f"training: {json.dumps({'parity': parity, **training})}")
+    log(f"zoo: {json.dumps({**zoo, 'bert_training': bert})}")
+    log(f"wall time: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,11 +8,20 @@ maps raises. Weights land in the port's storage dtypes: with
 ``param_dtype=None`` dense kernels in the compute dtype (the cast flax
 makes at every call, made once), with ``param_dtype=torch.float32`` all
 f32 and trainable.
+
+The model zoo (``resnet``, ``vgg``, ``inception``, ``mlp``, ``bert``,
+``vit``) names its submodules as flax does, so one rule maps any of
+their trees (``zoo_state_dict``, and ``resnet_from_flax`` and its
+siblings, which load it): a flax module path is the state_dict prefix,
+``kernel``/``scale``/``embedding`` become ``weight`` (conv kernels HWIO ->
+OIHW, dense and ``DenseGeneral`` kernels flattened to (in, out) and
+transposed), and the ``batch_stats`` leaves ``mean``/``var`` become
+``running_mean``/``running_var``.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterator, List, Optional, Tuple
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -21,13 +30,14 @@ from .. import DeviceLike
 from .llama import LlamaConfig, LlamaLM
 
 
-def _leaves(tree, prefix=()) -> List[Tuple[str, ...]]:
-    if isinstance(tree, dict):
-        out = []
-        for key in tree:
-            out.extend(_leaves(tree[key], prefix + (str(key),)))
-        return out
-    return [prefix]
+def _flat_leaves(tree, prefix=()) -> Iterator[Tuple[Tuple[str, ...],
+                                                      np.ndarray]]:
+    """(path, array) for every leaf of a nested dict."""
+    for key in tree:
+        if isinstance(tree[key], dict):
+            yield from _flat_leaves(tree[key], prefix + (str(key),))
+        else:
+            yield prefix + (str(key),), np.asarray(tree[key])
 
 
 def _mapping(model: LlamaLM) -> Iterator[
@@ -92,7 +102,7 @@ def llama_from_flax(params_np: Dict, cfg: LlamaConfig,
 
     for param, path, shape in _mapping(model):
         put(param, path, shape)
-    extra = sorted("/".join(p) for p in _leaves(params_np)
+    extra = sorted("/".join(p) for p, _ in _flat_leaves(params_np)
                    if p not in used)
     if extra:
         raise ValueError(
@@ -119,3 +129,77 @@ def llama_to_flax(model: LlamaLM, grads: bool = False) -> Dict:
             node = node.setdefault(key, {})
         node[path[-1]] = arr
     return tree
+
+
+# ---------------------------------------------------------------------------
+# The model zoo
+
+_PARAM_LEAVES = {"kernel": "weight", "scale": "weight",
+                 "embedding": "weight"}
+_STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
+
+
+def _kernel(arr: np.ndarray, shape: torch.Size, name: str) -> np.ndarray:
+    """A flax kernel in the port's layout: conv HWIO -> OIHW; dense
+    (in, out) and ``DenseGeneral`` (in..., out...) -> (out, in)."""
+    if arr.ndim == 4:
+        out = arr.transpose(3, 2, 0, 1)
+    else:
+        n_out, n_in = shape
+        splits = np.cumprod(arr.shape)[:-1]
+        if n_in not in splits or arr.size != n_in * n_out:
+            raise ValueError(
+                f"zoo_state_dict: {name} has a kernel of shape {arr.shape}, "
+                f"which does not flatten to (in={n_in}, out={n_out})")
+        out = arr.reshape(n_in, n_out).T
+    if out.shape != tuple(shape):
+        raise ValueError(f"zoo_state_dict: {name} has shape {out.shape} "
+                         f"after conversion, expected {tuple(shape)}")
+    return out
+
+
+def zoo_state_dict(model: torch.nn.Module, params: Dict,
+                   batch_stats: Optional[Dict] = None
+                   ) -> Dict[str, torch.Tensor]:
+    """The port's state_dict entries for a flax zoo model's ``params``
+    (or gradients of the same tree) and ``batch_stats``, as nested dicts
+    of numpy arrays, in ``model``'s layouts (float32, on the CPU). Raises
+    for a leaf the model does not have or a shape that does not fit."""
+    target = model.state_dict()
+    out = {}
+    leaves = [(path, arr, _PARAM_LEAVES) for path, arr in
+              _flat_leaves(params)]
+    leaves += [(path, arr, _STAT_LEAVES) for path, arr in
+               _flat_leaves(batch_stats or {})]
+    for path, arr, names in leaves:
+        name = ".".join(path[:-1] + (names.get(path[-1], path[-1]),))
+        if name not in target:
+            raise ValueError(f"zoo_state_dict: flax leaf {'/'.join(path)} "
+                             f"has no counterpart {name!r} in the model")
+        shape = target[name].shape
+        if path[-1] == "kernel":
+            arr = _kernel(arr, shape, name)
+        elif arr.size != target[name].numel():
+            raise ValueError(f"zoo_state_dict: {name} has {arr.size} "
+                             f"values, expected {tuple(shape)}")
+        out[name] = torch.from_numpy(
+            np.array(arr, dtype=np.float32).reshape(shape))
+    return out
+
+
+def zoo_from_flax(model: torch.nn.Module, params: Dict,
+                  batch_stats: Optional[Dict] = None) -> torch.nn.Module:
+    """Load a flax zoo model's ``params`` and ``batch_stats`` (numpy
+    trees: ``jax.tree_util.tree_map(np.asarray, variables[...])``) into
+    the port's ``model`` of the same configuration; every parameter and
+    statistic must be given. Returns ``model``."""
+    model.load_state_dict(zoo_state_dict(model, params, batch_stats))
+    return model
+
+
+resnet_from_flax = zoo_from_flax
+vgg_from_flax = zoo_from_flax
+inception_from_flax = zoo_from_flax
+mlp_from_flax = zoo_from_flax
+bert_from_flax = zoo_from_flax
+vit_from_flax = zoo_from_flax

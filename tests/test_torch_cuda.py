@@ -12,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from horovod_tpu_torch.models import llama
+from horovod_tpu_torch.models import bert, llama
+from horovod_tpu_torch.models.resnet import ResNetTiny
 from horovod_tpu_torch.ops import attention as flash
 from horovod_tpu_torch.ops import decode_attention as ops
 
@@ -223,7 +224,10 @@ def test_generate_through_the_kernel_equals_einsum_path(cuda_device):
      (2, 100, 261, 4, 2, 64, True, False),      # sq < sk, offset 161
      (2, 300, 133, 4, 1, 128, True, False),     # sq > sk, offset -167
      (3, 197, 261, 16, 2, 128, True, True),     # group 8, D=128, key mask
-     (2, 70, 1, 4, 2, 64, False, False)])       # a single key
+     (2, 70, 1, 4, 2, 64, False, False),        # a single key
+     # BERT-base and ViT-B/16 heads: group 1, non-causal.
+     (4, 512, 512, 12, 12, 64, False, True),
+     (2, 197, 197, 12, 12, 64, False, False)])
 def test_flash_kernels_match_plain(cuda_device, dtype, b, sq, sk, h, hkv, d,
                                    causal, masked):
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -308,3 +312,56 @@ def test_training_step_runs_the_flash_kernels_per_layer(cuda_device):
         grads.append([p.grad for p in model.parameters()])
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_bert_step_runs_the_flash_kernels_per_layer(cuda_device):
+    """BERT's path (non-causal, a key mask with padded tails, group 1)
+    through the kernels against the plain path."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(bert.BERT_TINY, hidden_size=256, num_heads=4,
+                              intermediate_size=512, dtype=torch.float32)
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (4, 128))).to(cuda_device)
+    mask = torch.ones(4, 128, dtype=torch.bool, device=cuda_device)
+    mask[::2, 96:] = False
+    grads = []
+    for use_flash in (True, False):
+        model = bert.BertEncoder(
+            cfg, flash.make_attention_fn(use_flash=use_flash), seed=0)
+        flash.reset_launch_counts()
+        loss = bert.mlm_loss(model(ids, attention_mask=mask), ids,
+                             torch.ones_like(mask))
+        loss.backward()
+        torch.cuda.synchronize()
+        want = cfg.num_layers if use_flash else 0
+        assert flash.LAUNCHES == {"flash_forward": want,
+                                  "flash_backward_dq": want,
+                                  "flash_backward_dkdv": want}
+        grads.append([p.grad for p in model.parameters()])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_resnet_tiny_on_the_card_matches_the_cpu(cuda_device):
+    """cuDNN in channels_last against the CPU, float32 (TF32 off): the
+    logits, every gradient and the new running statistics."""
+    torch.backends.cudnn.allow_tf32 = False
+    x = torch.from_numpy(np.random.RandomState(0).rand(
+        4, 36, 36, 3).astype(np.float32))
+    runs = []
+    for device in (cuda_device, torch.device("cpu")):
+        model = ResNetTiny(dtype=torch.float32, device=device, seed=0)
+        out = model(x.to(device), train=True)
+        (out ** 2).sum().backward()
+        runs.append((out, model))
+    (out, card), (want, cpu) = runs
+    torch.testing.assert_close(out.cpu(), want, **F32_TOL)
+    for (name, p), (_, r) in zip(card.named_parameters(),
+                                 cpu.named_parameters()):
+        scale = float(r.grad.abs().max())
+        torch.testing.assert_close(p.grad.cpu(), r.grad, rtol=0,
+                                   atol=1e-5 + 1e-4 * scale, msg=name)
+    for (name, t), (_, r) in zip(card.named_buffers(), cpu.named_buffers()):
+        torch.testing.assert_close(t.cpu(), r, **F32_TOL, msg=name)

@@ -236,6 +236,15 @@ def test_port_imports_no_jax_or_reference_package():
         "import horovod_tpu_torch.ops.decode_attention\n"
         "import horovod_tpu_torch.models.llama\n"
         "import horovod_tpu_torch.models.convert\n"
+        "import horovod_tpu_torch.models.layers\n"
+        "import horovod_tpu_torch.models.resnet\n"
+        "import horovod_tpu_torch.models.vgg\n"
+        "import horovod_tpu_torch.models.inception\n"
+        "import horovod_tpu_torch.models.mlp\n"
+        "import horovod_tpu_torch.models.bert\n"
+        "import horovod_tpu_torch.models.vit\n"
+        "import horovod_tpu_torch.examples.synthetic_benchmark\n"
+        "import horovod_tpu_torch.examples.bert_pretraining\n"
         "import horovod_tpu_torch.serving\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'horovod_tpu'))\n"
