@@ -1,16 +1,22 @@
 #!/usr/bin/env python3
-"""Time the bf16 training example of two checkouts in turns on one card.
+"""Time one path of two checkouts in turns on one card.
 
-    python3 chip_compare.py OTHER_ROOT [--rounds N]
+    python3 chip_compare.py OTHER_ROOT [--rounds N] [--path PATH]
 
 OTHER_ROOT is another checkout of this repository (for example the parent
 commit, unpacked with ``git archive`` into a directory ``.gitignore``
-lists). Each round runs ``chip_smoke.run_training_timed`` (Llama-300M,
-bf16, seq 1024, batch 8, AdamW, 10 timed steps and one profiled step) in a
-fresh process from each tree, in the order other, this, this, other, so
-that drift of the card's clocks hits both alike. Each process builds its
-own tree's kernels. Prints one JSON line per run, then the medians per
-tree and the card's name and power limit.
+lists). Each round runs the path in a fresh process from each tree, in
+the order other, this, this, other, so that drift of the card's clocks
+hits both alike. ``training`` (the default) is
+``chip_smoke.run_training_timed`` (Llama-300M, bf16, seq 1024, batch 8,
+AdamW, 10 timed steps and one profiled step); ``decode`` is
+``chip_smoke.check_kernels`` (both decode kernels against their plain
+versions at the serving slice's and Llama-8B's shapes, each kernel's
+median time with the L2 flushed); ``flash`` is ``chip_smoke.check_flash``
+(the three flash kernels on its eight cases, in both dtypes, each
+kernel's median time). Each process builds its own tree's
+kernels. Prints one JSON line per run, then the medians per tree and the
+card's name and power limit.
 """
 
 from __future__ import annotations
@@ -35,8 +41,26 @@ print("RESULT " + json.dumps({
 """
 
 
-def run(tree: Path) -> dict:
-    proc = subprocess.run([sys.executable, "-c", _RUN], cwd=tree,
+_RUN_DECODE = """
+import json, torch, chip_smoke
+flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+rows = chip_smoke.check_kernels(torch.device("cuda"), flush.zero_)
+print("RESULT " + json.dumps({" ".join(key) + " ms": row["ms"]
+                              for key, row in rows.items()}))
+"""
+_RUN_FLASH = """
+import json, torch, chip_smoke
+flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+rows = chip_smoke.check_flash(torch.device("cuda"), flush.zero_)
+print("RESULT " + json.dumps({" ".join(key) + " " + name: ms
+                              for key, row in rows.items()
+                              for name, ms in row["ms"].items()}))
+"""
+RUNS = {"training": _RUN, "decode": _RUN_DECODE, "flash": _RUN_FLASH}
+
+
+def run(tree: Path, path: str = "training") -> dict:
+    proc = subprocess.run([sys.executable, "-c", RUNS[path]], cwd=tree,
                           capture_output=True, text=True, timeout=600)
     for line in proc.stdout.splitlines():
         if line.startswith("RESULT "):
@@ -49,13 +73,14 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("other", type=Path)
     parser.add_argument("--rounds", type=int, default=1)
+    parser.add_argument("--path", choices=sorted(RUNS), default="training")
     args = parser.parse_args(argv)
     here = Path(__file__).resolve().parent
     trees = {"other": args.other.resolve(), "this": here}
     runs = {"other": [], "this": []}
     for _ in range(args.rounds):
         for name in ("other", "this", "this", "other"):
-            result = run(trees[name])
+            result = run(trees[name], args.path)
             runs[name].append(result)
             print(json.dumps({"tree": name, **result}), flush=True)
     medians = {name: {key: statistics.median(r[key] for r in rs)

@@ -74,11 +74,40 @@ on ``cuda``; any failure exits non-zero:
    512, batch 32, AdamW, 10 timed steps: sequences/s, step ms, falling
    loss, peak memory, the dense-peak share and a profiled step's split.
 
-Phases 3-5, 9 and 13 are the main paths: the launch counts in the
-kernels' JSON line come from them (the flash kernels' are the sum of 9
-and 13, each path's on a line of its own). The line before the last is
-that JSON object; the last line is ``{"ok": true, "device": {...}}``.
-The whole run logs its wall time.
+14. the kernels' operand range: the decode kernels (contiguous and
+   paged) at Llama-tiny's heads (H=4, Hkv=2, D=16), at D=32 and at group
+   16 (H=16, Hkv=1, D=64); the flash kernels at D=16, at D=32 (BERT-tiny,
+   non-causal, tail mask) and at group 16 (causal), through the wrappers'
+   zero-padding and K/V repeat. float32 at TOL, bfloat16 at SCALED_TOL,
+   timed as 2 and 6. Then ``generate()`` at LLAMA_TINY on the card in
+   float32 equals ``decode_kernel_disabled()``;
+15. the generation example (``examples.llama_generation``) at the JAX
+   bench's two decode rows: Llama-300M bf16, prompt 128, 256 new tokens,
+   batch 8 and 32: decode tokens/s and peak memory;
+16. the load generator (``examples.serving_loadgen``), one engine, with
+   the arguments of the JAX row ``llama_300m_serving_b8_loadgen``: its
+   record (tok/s, TTFT and TPOT p50/p99, preemptions, block peak); every
+   request finishes;
+17. fleet parity: Llama-300M float32, three replicas over one model
+   behind the Router, 12 requests on a shared 64-token prefix, the
+   replica serving them hard-killed once half are submitted: every
+   request (replays included) equals ``generate()`` alone, affinity hits,
+   and the ``hvd_serving_tokens_generated_total`` and
+   ``hvd_router_requests_total`` totals agree with the engines and the
+   handles;
+18. the JAX fleet row ``llama_serving_fleet_prefix_loadgen`` through the
+   load generator with its arguments (tiny, 320 requests, 3 replicas,
+   prefix sharing), then the same trace with ``--chaos-kill`` (and
+   ``--no-warmup``: the process is warm by then): no request fails;
+   warm and cold TTFT and the live block peak against the no-sharing
+   baseline are logged.
+
+Phases 3-5, 9, 13 and 15-18 are the main paths: the launch counts in
+the kernels' JSON line come from them (the flash kernels' are the sum of
+9 and 13, the contiguous decode kernel's of 3 and 15, the paged one's of
+4 and 16-18; each path's on a line of its own). Each phase logs its wall
+time. The line before the last is that JSON object; the last line is
+``{"ok": true, "device": {...}}``. The whole run logs its wall time.
 """
 
 from __future__ import annotations
@@ -706,7 +735,9 @@ def planted_faults(A, label, q, k, v, mask, causal, g, p_lse, delta, got,
     return worst
 
 
-def check_flash(device, flush):
+def check_flash(device, flush, cases=None):
+    """The flash kernels against their plain versions on ``cases``
+    (default :func:`flash_cases`), timed; returns (label, dtype) -> row."""
     import torch
     import torch.nn.functional as F
 
@@ -716,7 +747,8 @@ def check_flash(device, flush):
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
         item = torch.tensor([], dtype=dtype).element_size()
-        for label, b, sq, sk, h, hkv, d, mask_kind, causal in flash_cases():
+        for label, b, sq, sk, h, hkv, d, mask_kind, causal in (
+                cases or flash_cases()):
             gen = torch.Generator(device=device).manual_seed(0)
 
             def randn(*shape):
@@ -854,6 +886,317 @@ def check_flash(device, flush):
             del q, k, v, g, out, lse, p_out, p_lse, dq, dk, dv, got
             torch.cuda.empty_cache()
     return results
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the kernels' operand range
+
+
+def operand_decode_cases():
+    """(label, shape dict): Llama-tiny's attention (H=4, Hkv=2, D=16), a
+    D=32 case, and group 16 (H=16, Hkv=1, D=64), at the serving window."""
+    lens = [0, 15, 16, 47, 100, 191, 240, 255]
+    return [("llama_tiny_d16", dict(b=8, h=4, hkv=2, d=16, window=256,
+                                    bs=16, lens=lens)),
+            ("d32", dict(b=8, h=8, hkv=4, d=32, window=256, bs=16,
+                         lens=lens)),
+            ("group16", dict(b=8, h=16, hkv=1, d=64, window=256, bs=16,
+                             lens=lens))]
+
+
+def operand_flash_cases():
+    """Flash cases outside the kernels' instantiations: Llama-tiny's D=16
+    (causal), BERT-tiny's D=32 (non-causal, the padded-tail mask) and
+    group 16 (H=16 over Hkv=1, causal)."""
+    return [("llama_tiny_d16", 8, 256, 256, 4, 2, 16, None, True),
+            ("bert_tiny_d32", 8, 128, 128, 2, 2, 32, "tail", False),
+            ("group16", 2, 1024, 1024, 16, 1, 64, None, True)]
+
+
+def check_operand_range(device, flush):
+    """The decode kernels (contiguous and paged) and the flash kernels at
+    operands outside the widths and groups they were first built for,
+    float32 at TOL and bfloat16 at SCALED_TOL against the plain versions,
+    timed as phases 2 and 6; then ``generate()`` at LLAMA_TINY on the card
+    in float32 gives the tokens of ``decode_kernel_disabled()``."""
+    import torch
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.models.llama import (LLAMA_TINY, LlamaLM,
+                                                decode_kernel_disabled,
+                                                generate)
+    from horovod_tpu_torch.ops import decode_attention as ops
+
+    rows = []
+    for label, s in operand_decode_cases():
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).replace("torch.", "")
+            item = torch.tensor([], dtype=dtype).element_size()
+            b, h, hkv, d, window, bs = (s["b"], s["h"], s["hkv"], s["d"],
+                                        s["window"], s["bs"])
+            f = hkv * d
+            gen = torch.Generator(device=device).manual_seed(5)
+
+            def randn(*shape):
+                return (torch.randn(*shape, generator=gen, device=device)
+                        * 0.5).to(dtype)
+
+            q, k, v = randn(b, 1, h, d), randn(b, window, f), \
+                randn(b, window, f)
+            slots = window // bs
+            lens = torch.tensor(s["lens"], dtype=torch.int32, device=device)
+            tables = (torch.randperm(b * slots, generator=gen,
+                                     device=device) + 1).view(
+                b, slots).to(torch.int32)
+            kp, vp = paged_pool(k, v, tables, bs, slots)
+            idx = window - 1
+            calls = {
+                "decode_attention": (
+                    lambda: ops.decode_attention(q, k, v, idx, hkv),
+                    lambda: ops.decode_attention_plain(q, k, v, idx, hkv),
+                    b * (idx + 1)),
+                "paged_decode_attention": (
+                    lambda: ops.paged_decode_attention(q, kp, vp, tables,
+                                                       lens, hkv),
+                    lambda: ops.paged_decode_attention_plain(
+                        q, kp, vp, tables, lens, hkv),
+                    int((lens.long() + 1).sum()))}
+            for name, (kernel, plain, n_rows) in calls.items():
+                got, want = kernel(), plain()
+                torch.cuda.synchronize()
+                what = f"{name} {label} {dname}"
+                if dtype == torch.float32:
+                    err = {"max_abs": compare(got, want, dname, what)[0]}
+                else:
+                    err = compare_scaled(got, want, what)
+                nbytes = (2 * n_rows * f + 2 * b * h * d) * item
+                if name == "paged_decode_attention":
+                    nbytes += tables.numel() * 4 + lens.numel() * 4
+                    k_g = kp[tables.long()].view(b, window, hkv, d)
+                    v_g = vp[tables.long()].view(b, window, hkv, d)
+                    mask = (torch.arange(window, device=device)[None, :]
+                            <= lens[:, None].long())[:, None, None, :]
+                else:
+                    k_g = k.view(b, window, hkv, d)
+                    v_g = v.view(b, window, hkv, d)
+                    mask = None
+                k_g, v_g = k_g.transpose(1, 2), v_g.transpose(1, 2)
+                q_sdpa = q.transpose(1, 2)
+                t_bound, by = bound(nbytes, 4 * n_rows * h * d, dname)
+                row = dict(
+                    name=name, shape=label, dtype=dname,
+                    dims=dict(b=b, h=h, hkv=hkv, d=d, window=window),
+                    errors=err, tolerance=(TOL[dname] if dname == "float32"
+                                           else SCALED_TOL),
+                    ms=time_ms(kernel, flush), plain_ms=time_ms(plain, flush),
+                    bound_ms=t_bound, bound_by=by,
+                    library_ms=time_ms(
+                        lambda: F.scaled_dot_product_attention(
+                            q_sdpa, k_g, v_g, attn_mask=mask,
+                            scale=d ** -0.5, enable_gqa=True), flush))
+                log(f"operand range {json.dumps(row)}")
+                rows.append(row)
+    flash_rows = check_flash(device, flush, operand_flash_cases())
+
+    cfg = dataclasses.replace(LLAMA_TINY, dtype=torch.float32)
+    model = LlamaLM(cfg, seed=0)
+    prompt = torch.from_numpy(np.random.RandomState(2).randint(
+        0, cfg.vocab_size, (8, 40)))
+    ops.reset_launch_counts()
+    tokens = generate(model, prompt, max_new_tokens=24)
+    torch.cuda.synchronize()
+    launches = ops.LAUNCHES["decode_attention"]
+    with decode_kernel_disabled():
+        einsum = generate(model, prompt, max_new_tokens=24)
+    if not torch.equal(tokens, einsum) or launches != cfg.num_layers * 23:
+        raise AssertionError(
+            f"generate at LLAMA_TINY on the card: kernel tokens equal "
+            f"einsum: {bool(torch.equal(tokens, einsum))}; decode "
+            f"launches {launches}, expected {cfg.num_layers * 23}")
+    log(f"generate: llama-tiny (H=4, Hkv=2, D=16) f32 b=8 p=40 n=24 on the "
+        f"card: tokens equal decode_kernel_disabled(); decode_attention "
+        f"launches {launches}")
+    return {"decode": rows, "flash": {f"{k[0]} {k[1]}": v
+                                      for k, v in flash_rows.items()},
+            "generate_llama_tiny_launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# Phases 15-18: the serving fleet and its examples
+
+
+def release_serving():
+    """Drop the serving module's default engine and fleet (``serve()`` and
+    ``fleet()`` register them), and with them their models and pools."""
+    from horovod_tpu_torch import serving
+
+    serving._default_engine = serving._default_router = None
+
+
+def run_generation_example(card: str):
+    """The generation example at the JAX bench's two decode rows:
+    Llama-300M bf16, prompt 128, 256 new tokens, batch 8 then 32. Returns
+    the numbers and the contiguous decode kernel's launches over both
+    runs (each run: one unmeasured call, one timed)."""
+    import torch
+
+    from horovod_tpu_torch.examples import llama_generation
+    from horovod_tpu_torch.ops import decode_attention as ops
+
+    rows = {}
+    ops.reset_launch_counts()
+    for batch in (8, 32):
+        out = llama_generation.main([
+            "--model", "300m", "--prompt-len", "128", "--max-new-tokens",
+            "256", "--batch-size", str(batch)])
+        tokens = out["out"]
+        if tuple(tokens.shape) != (batch, 384) or not bool(
+                ((tokens >= 0) & (tokens < 32000)).all()):
+            raise AssertionError(
+                f"generation example b={batch}: bad output "
+                f"{tuple(tokens.shape)}")
+        rows[f"b{batch}"] = {
+            "tokens_per_s": out["tokens_per_s"], "seconds": out["seconds"],
+            "peak_memory_gib": out["peak_memory_bytes"] / 2 ** 30}
+        log(f"generation example llama-300m bf16 p=128 n=256 b={batch}: "
+            f"{out['tokens_per_s']:.1f} decode tokens/s "
+            f"({out['seconds']:.3f} s), peak memory "
+            f"{rows[f'b{batch}']['peak_memory_gib']:.3f} GiB [{card}]")
+        del out, tokens
+        torch.cuda.empty_cache()
+    launches = ops.LAUNCHES["decode_attention"]
+    if launches != 2 * 2 * LAYERS * 255:
+        raise AssertionError(f"generation example: decode_attention "
+                             f"launched {launches} times, expected "
+                             f"{2 * 2 * LAYERS * 255}")
+    return rows, launches
+
+
+def run_loadgen(argv, what: str, card: str):
+    """One load-generator run; fails unless every request finished.
+    Returns its record and the paged decode kernel's launches."""
+    import torch
+
+    from horovod_tpu_torch import metrics
+    from horovod_tpu_torch.examples import serving_loadgen
+    from horovod_tpu_torch.ops import decode_attention as ops
+
+    ops.reset_launch_counts()
+    record = serving_loadgen.main(argv)
+    torch.cuda.synchronize()
+    launches = ops.LAUNCHES["paged_decode_attention"]
+    metrics.reset_for_tests()
+    if record["failed"] != 0 or record["rejected"] != 0 or \
+            record["finished"] != record["requests"]:
+        raise AssertionError(f"{what}: not every request finished: "
+                             f"{json.dumps(record)}")
+    if record["substrate"] != "cuda" or record["path"] != "kernel":
+        raise AssertionError(f"{what}: ran on {record['substrate']} "
+                             f"through the {record['path']} path")
+    log(f"loadgen {what}: {record['value']} tok/s, TTFT p50/p99 "
+        f"{record['ttft_p50_s']}/{record['ttft_p99_s']} s, TPOT p50/p99 "
+        f"{record['tpot_p50_s']}/{record['tpot_p99_s']} s, preemptions "
+        f"{record['preemptions']}, blocks peak {record['blocks_peak']}, "
+        f"paged_decode_attention launches {launches} [{card}]")
+    log(f"loadgen {what} record: {json.dumps(record)}")
+    return record, launches
+
+
+LOADGEN_300M = ["--model", "300m", "--requests", "32", "--seed", "9",
+                "--rate", "64", "--min-prompt", "32", "--max-prompt", "128",
+                "--min-new", "32", "--max-new", "128", "--max-seq-len",
+                "256"]
+LOADGEN_FLEET_TINY = ["--model", "tiny", "--requests", "320", "--seed",
+                      "11", "--rate", "30", "--prefix-share", "8",
+                      "--prefix-len", "192", "--min-prompt", "200",
+                      "--max-prompt", "224", "--min-new", "16",
+                      "--max-new", "32", "--max-seq-len", "256",
+                      "--replicas", "3"]
+
+
+def run_fleet_parity(model, cfg):
+    """Three replicas over one float32 Llama-300M behind the Router, 12
+    requests sharing a 64-token prefix with unique tails, the replica
+    serving them hard-killed once half are submitted and it has produced
+    tokens: every request finishes with the tokens of ``generate()`` of
+    its prompt alone (replays included), prefix affinity hit, and the
+    metrics' totals agree with the engines and the handles."""
+    import torch
+
+    from horovod_tpu_torch import metrics, serving
+    from horovod_tpu_torch.models.llama import generate
+    from horovod_tpu_torch.ops import decode_attention as ops
+
+    metrics.reset_for_tests()
+    metrics.enable()
+    rng = np.random.RandomState(12)
+    shared = rng.randint(0, cfg.vocab_size, (64,)).astype(np.int32)
+    prompts = [np.concatenate([shared, rng.randint(
+        0, cfg.vocab_size, (int(rng.randint(8, 40)),)).astype(np.int32)])
+        for _ in range(12)]
+    news = [int(rng.randint(24, 49)) for _ in prompts]
+    scfg = serving.ServingConfig(max_batch=8, block_size=16, num_blocks=0,
+                                 queue_depth=64, max_seq_len=256)
+    router = serving.fleet(model, replicas=3, config=scfg)
+    ops.reset_launch_counts()
+    handles = [router.submit(p, n) for p, n in zip(prompts[:6], news[:6])]
+    victim = handles[0].replica_id
+    deadline = time.monotonic() + 300
+    while router.engine(victim).stats()["tokens_generated"] < 6:
+        if time.monotonic() > deadline:
+            raise AssertionError("fleet parity: the victim made no progress")
+        time.sleep(0.002)
+    victim_engine = router.engine(victim)
+    victim_engine.shutdown()
+    handles += [router.submit(p, n) for p, n in zip(prompts[6:], news[6:])]
+    results = [h.result(timeout=600) for h in handles]
+    torch.cuda.synchronize()
+    launches = ops.LAUNCHES["paged_decode_attention"]
+    rstats = router.router_stats()
+    with router._lock:
+        affinity_hits = router._affinity_hits
+    engines = [router.engine(rid) for rid in range(3)]
+    engine_tokens = [e.stats()["tokens_generated"] for e in engines]
+    snap = metrics.snapshot()
+    router.shutdown()
+    for i, (p, n, got) in enumerate(zip(prompts, news, results)):
+        want = generate(model, torch.from_numpy(p[None]),
+                        max_new_tokens=n)[0, len(p):].tolist()
+        if got != want:
+            raise AssertionError(
+                f"fleet request {i} (replays {handles[i].replays}, replica "
+                f"{handles[i].replica_id}) differs from generate():\n"
+                f" got={got}\nwant={want}")
+    replays = sum(h.replays for h in handles)
+    if not (rstats["router_reroutes"] > 0 and replays > 0
+            and rstats["router_replica_departures"] == 1
+            and affinity_hits > 0):
+        raise AssertionError(f"fleet parity: reroutes/replays/departures/"
+                             f"affinity {rstats} {replays} {affinity_hits}")
+    # Tokens: the counter is every engine's own count, and that is what
+    # the handles returned plus what the killed replica made for the
+    # requests it lost (their replays start over).
+    counter = snap["hvd_serving_tokens_generated_total"]["values"][0][1]
+    kept_on_victim = sum(len(r) for h, r in zip(handles, results)
+                         if h.replica_id == victim and h.replays == 0)
+    lost = victim_engine.stats()["tokens_generated"] - kept_on_victim
+    placed = sum(v for _, v in snap["hvd_router_requests_total"]["values"])
+    if not (counter == sum(engine_tokens) == sum(news) + lost
+            and sum(len(r) for r in results) == sum(news)
+            and placed == rstats["router_requests"] == 12 + replays):
+        raise AssertionError(
+            f"fleet parity: metrics disagree: tokens counter {counter}, "
+            f"engines {engine_tokens}, returned {sum(news)} + lost {lost}; "
+            f"placements {placed} vs {rstats} (+{replays} replays)")
+    metrics.reset_for_tests()
+    numbers = {"requests": 12, "victim": victim, "replays": replays,
+               "affinity_hits": affinity_hits, "router": rstats,
+               "tokens_counter": counter, "tokens_lost_on_victim": lost,
+               "paged_launches": launches}
+    log(f"fleet parity: llama300m f32, 3 replicas over one model, 12 "
+        f"requests on a 64-token prefix, replica {victim} killed mid-run: "
+        f"every request equals generate(); {json.dumps(numbers)}")
+    return numbers, launches
 
 
 # ---------------------------------------------------------------------------
@@ -1362,37 +1705,87 @@ def main() -> int:
     log("TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
         "torch.backends.cudnn.allow_tf32 = False")
 
+    def phase(label, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        log(f"phase {label}: {time.perf_counter() - t:.1f} s")
+        return out
+
     flush_buf = torch.empty(64 << 20, dtype=torch.int32, device=device)
-    results = check_kernels(device, flush_buf.zero_)
-    check_chunk_edges(device)
-    flash_results = check_flash(device, flush_buf.zero_)
+    results = phase("2 decode kernels", check_kernels, device,
+                    flush_buf.zero_)
+    phase("2 decode chunk edges", check_chunk_edges, device)
+    flash_results = phase("6 flash kernels", check_flash, device,
+                          flush_buf.zero_)
+    operand = phase("14 operand range", check_operand_range, device,
+                    flush_buf.zero_)
     del flush_buf
 
-    run_collectives()
+    phase("7 collectives", run_collectives)
 
     cfg32 = dataclasses.replace(LLAMA_300M, dtype=torch.float32)
-    model, gen_launches = run_generate(cfg32)
-    paged_launches = run_engine_parity(model, cfg32)
+    model, gen_launches = phase("3 generate", run_generate, cfg32)
+    paged_launches = phase("4 engine parity", run_engine_parity, model,
+                           cfg32)
+    fleet_parity, fleet_launches = phase("17 fleet parity",
+                                         run_fleet_parity, model, cfg32)
+    release_serving()
     del model
     torch.cuda.empty_cache()
-    serving_numbers = run_engine_timing(card)
+    serving_numbers = phase("5 engine timing", run_engine_timing, card)
+    release_serving()
+    torch.cuda.empty_cache()
+    generation, example_launches = phase(
+        "15 generation example", run_generation_example, card)
+    loadgen_300m, loadgen_launches = phase(
+        "16 loadgen llama-300m", run_loadgen, LOADGEN_300M,
+        "llama_300m_serving_b8_loadgen", card)
+    fleet_rows = {}
+    # The chaos pass reruns the same trace in the same (warm) process.
+    for label, extra in (("fleet", []),
+                         ("fleet_chaos", ["--chaos-kill", "--no-warmup"])):
+        fleet_rows[label] = phase(
+            f"18 loadgen tiny {label}", run_loadgen,
+            LOADGEN_FLEET_TINY + extra,
+            f"llama_serving_fleet_prefix_loadgen {label}", card)
+    for label, (rec, _) in fleet_rows.items():
+        base = rec["baseline_no_sharing"]
+        log(f"fleet row {label}: TTFT p50 warm {rec['ttft_warm_p50_s']} s "
+            f"vs cold {rec['ttft_cold_p50_s']} s; blocks_live_peak "
+            f"{rec['blocks_live_peak']} vs {base['blocks_live_peak']} "
+            f"without sharing; reroutes {rec['router']['reroutes']}")
     torch.cuda.empty_cache()
 
-    parity = run_training_parity()
-    training = run_training_timed(card)
+    parity = phase("8 training parity", run_training_parity)
+    training = phase("9 training example", run_training_timed, card)
     torch.cuda.empty_cache()
 
-    zoo = {"resnet50_parity": run_resnet_parity(),
-           "synthetic_benchmark": run_synthetic_benchmark(card),
-           "bert_parity": run_bert_parity()}
-    bert = run_bert_timed(card)
+    zoo = {"resnet50_parity": phase("10 resnet parity", run_resnet_parity),
+           "synthetic_benchmark": phase("11 synthetic benchmark",
+                                        run_synthetic_benchmark, card),
+           "bert_parity": phase("12 bert parity", run_bert_parity)}
+    bert = phase("13 bert example", run_bert_timed, card)
     hvd.shutdown()
 
     log(f"flash launches by main path: llama300m training "
         f"{json.dumps(training['flash_launches'])}, bert-base training "
         f"{json.dumps(bert['flash_launches'])}")
-    launches = {"decode_attention": gen_launches,
-                "paged_decode_attention": paged_launches,
+    decode_paths = {"generate (3)": gen_launches,
+                    "generation example (15)": example_launches}
+    paged_paths = {"engine parity (4)": paged_launches,
+                   "fleet parity (17)": fleet_launches,
+                   "loadgen llama-300m (16)": loadgen_launches,
+                   **{f"loadgen tiny {k} (18)": v[1]
+                      for k, v in fleet_rows.items()}}
+    log(f"decode_attention launches by main path: "
+        f"{json.dumps(decode_paths)}")
+    log(f"paged_decode_attention launches by main path: "
+        f"{json.dumps(paged_paths)}")
+    if min(list(decode_paths.values()) + list(paged_paths.values())) <= 0:
+        raise AssertionError(f"a decode main path never ran its kernel: "
+                             f"{decode_paths} {paged_paths}")
+    launches = {"decode_attention": sum(decode_paths.values()),
+                "paged_decode_attention": sum(paged_paths.values()),
                 **{name: training["flash_launches"][name]
                    + bert["flash_launches"][name]
                    for name in flash_ops.LAUNCHES}}
@@ -1428,6 +1821,8 @@ def main() -> int:
             "library_ms": (row["sdpa_fwd_ms"] if name == "flash_forward"
                            else None)})
     log(f"serving: {json.dumps(serving_numbers)}")
+    log(f"operand range: {json.dumps(operand)}")
+    log(f"fleet: {json.dumps({'parity': fleet_parity, 'generation': generation, 'loadgen_300m': loadgen_300m, 'fleet_tiny': {k: v[0] for k, v in fleet_rows.items()}})}")
     log(f"training: {json.dumps({'parity': parity, **training})}")
     log(f"zoo: {json.dumps({**zoo, 'bert_training': bert})}")
     log(f"wall time: {time.perf_counter() - t_start:.1f} s")

@@ -78,6 +78,50 @@ def serving_prefix_capacity() -> int:
     return max(0, _env_int("HOROVOD_SERVING_PREFIX_CAPACITY", 0))
 
 
+def router_replicas() -> int:
+    """``HOROVOD_ROUTER_REPLICAS``: engine replicas ``serving.fleet``
+    spins up when the caller does not pass an explicit count. Default 2
+    (the smallest fleet where replica death is a reshape, not an
+    outage)."""
+    val = _env_int("HOROVOD_ROUTER_REPLICAS", 2)
+    return val if val > 0 else 2
+
+
+def router_affinity() -> bool:
+    """``HOROVOD_ROUTER_AFFINITY``: prefix-affinity placement (requests
+    whose first whole page matches a recently routed prefix follow it to
+    that replica's warm cache). Default ON; off = pure least-loaded."""
+    return _env_bool("HOROVOD_ROUTER_AFFINITY", True)
+
+
+def router_retries() -> int:
+    """``HOROVOD_ROUTER_RETRIES``: replays of one request on another
+    replica after its serving replica died mid-flight. Default 2;
+    negative clamps to 0."""
+    return max(0, _env_int("HOROVOD_ROUTER_RETRIES", 2))
+
+
+def metrics_enabled() -> bool:
+    """The switch ``metrics.on()`` reads: ``HOROVOD_METRICS`` by the
+    repo's boolean convention ("0"/"false"/"no"/"off"/"" are off), or a
+    positive ``HOROVOD_METRICS_PORT``."""
+    return (_env_bool("HOROVOD_METRICS")
+            or _env_int("HOROVOD_METRICS_PORT", 0) > 0)
+
+
+def trace_dir() -> Optional[str]:
+    """``HOROVOD_TRACE_DIR``: where the serving engine writes its spans
+    (``trace.serving.rank<N>.json``); None when unset or blank."""
+    val = (os.environ.get("HOROVOD_TRACE_DIR") or "").strip()
+    return val or None
+
+
+def trace_max_events() -> int:
+    """``HOROVOD_TRACE_MAX_EVENTS``: spans a trace file buffers before it
+    drops (and counts) the rest. Default 2**20, at least 1024."""
+    return max(1024, _env_int("HOROVOD_TRACE_MAX_EVENTS", 1 << 20))
+
+
 def _env_bool(name: str, default: bool = False) -> bool:
     val = os.environ.get(name)
     if val is None:

@@ -33,10 +33,11 @@
 // kStages batches in shared memory, so kStages - 1 batches are in flight
 // while it computes one, and the loads in flight hold no registers. The
 // lanes of a row sum their GROUP partial dot products by a reduce-scatter,
-// so each lane ends with one query head's score and runs that head's
-// softmax alone (one running-max update per batch of kUnroll rows, one
-// exp2 per score); the others read its rescale and probabilities by
-// shuffle. Warps merge their (m, l, acc) through shared memory in a fixed
+// so each lane ends with one query head's score (GROUP / (D / VEC) heads'
+// when the group is wider than the lanes of a row: narrow heads, wide
+// groups) and runs those heads' softmax alone (one running-max update per
+// batch of kUnroll rows, one exp2 per score); the others read its rescale
+// and probabilities by shuffle. Warps merge their (m, l, acc) through shared memory in a fixed
 // order.
 //   * window <= chunk (the serving slice's 256): one launch, and the block
 //     writes the output itself: no scratch, no second pass.
@@ -53,6 +54,11 @@
 // The Mosaic workarounds of the Pallas kernels (the block-diagonal query,
 // the transposed accumulator, 8-row and 128-lane scratch, the VMEM-driven L
 // tiling) have no counterpart here.
+//
+// Instantiated for head_dim 16, 32, 64 and 128 and H / Hkv of 1, 2, 4, 8
+// and 16, in float32 and bfloat16: every width and group of the repo's
+// configurations, at the pool's own layout (padding D in the wrapper
+// would copy the whole pool on every step).
 //
 // Plain C interface, loaded with ctypes: every entry point returns
 // cudaGetLastError() after its launches (0 = launched) or
@@ -138,14 +144,16 @@ __device__ __forceinline__ int seq_bound(const int* __restrict__ lens, int seq, 
 // The GROUP partial dot products x[] of one row, summed over the LANES
 // lanes that share the row: a reduce-scatter (each step halves the values
 // a lane keeps and swaps the other half with its partner), then an
-// all-reduce of the last value. Lane sl ends with the full score of query
-// head sl / (LANES / GROUP): GROUP - 1 + log2(LANES / GROUP) shuffles
-// instead of GROUP * log2(LANES).
+// all-reduce of what is left. With GROUP <= LANES, lane sl ends with the
+// full score of query head sl / (LANES / GROUP) in x[0]: GROUP - 1 +
+// log2(LANES / GROUP) shuffles instead of GROUP * log2(LANES). With GROUP >
+// LANES (narrow heads, wide groups), the halving stops after log2(LANES)
+// steps and lane sl ends with the NH = GROUP / LANES heads sl * NH + j in
+// x[j]. head_of() below is the one rule for both.
 template <int GROUP, int LANES>
-__device__ __forceinline__ float reduce_scatter(float (&x)[GROUP], int sl) {
-  static_assert(GROUP <= LANES, "a lane per query head");
+__device__ __forceinline__ void reduce_scatter(float (&x)[GROUP], int sl) {
 #pragma unroll
-  for (int n = GROUP, o = LANES / 2; n > 1; n /= 2, o /= 2) {
+  for (int n = GROUP, o = LANES / 2; n > 1 && o > 0; n /= 2, o /= 2) {
     const bool hi = sl & o;
 #pragma unroll
     for (int i = 0; i < n / 2; ++i) {
@@ -154,11 +162,18 @@ __device__ __forceinline__ float reduce_scatter(float (&x)[GROUP], int sl) {
       x[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
     }
   }
-  float r = x[0];
 #pragma unroll
-  for (int o = LANES / GROUP / 2; o > 0; o /= 2) r += __shfl_xor_sync(0xffffffffu, r, o);
-  return r;
+  for (int o = LANES / GROUP / 2; o > 0; o /= 2) x[0] += __shfl_xor_sync(0xffffffffu, x[0], o);
 }
+
+// Query heads each lane holds after reduce_scatter, and lanes holding each.
+template <int GROUP, int LANES>
+struct Heads {
+  static constexpr int NH = GROUP > LANES ? GROUP / LANES : 1;
+  static constexpr int PER = GROUP > LANES ? 1 : LANES / GROUP;
+  // The lane (within its row's LANES) that holds head g, at index g % NH.
+  static __device__ __forceinline__ int lane_of(int g) { return (g / NH) * PER; }
+};
 
 // One block per (sequence x KV head, chunk). tables == nullptr: contiguous
 // cache, row of position t is seq * window + t, bound = cache_index.
@@ -202,10 +217,16 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     for (int e = 0; e < VEC; ++e) qf[g][e] *= scale_log2;
   }
 
-  // The running max (log2 units) and sum of this lane's query head, sl /
-  // (LANES / GROUP); the accumulators of every head of the group.
-  constexpr int PER = LANES / GROUP;   // lanes that hold one head's score
-  float m_own = kNegInf, l_own = 0.f, acc[GROUP][VEC];
+  // The running max (log2 units) and sum of this lane's NH query heads;
+  // the accumulators of every head of the group.
+  using HD = Heads<GROUP, LANES>;
+  constexpr int NH = HD::NH;
+  float m_own[NH], l_own[NH], acc[GROUP][VEC];
+#pragma unroll
+  for (int j = 0; j < NH; ++j) {
+    m_own[j] = kNegInf;
+    l_own[j] = 0.f;
+  }
 #pragma unroll
   for (int g = 0; g < GROUP; ++g) {
 #pragma unroll
@@ -257,8 +278,8 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
       kraw[u] = valid[u] ? *piece(i, u, 0) : make_uint4(0, 0, 0, 0);
       vraw[u] = valid[u] ? *piece(i, u, 1) : make_uint4(0, 0, 0, 0);
     }
-    // This lane's head's scores of the batch's rows, in log2 units.
-    float s_own[kUnroll];
+    // This lane's heads' scores of the batch's rows, in log2 units.
+    float s_own[NH][kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       float kf[VEC], x[GROUP];
@@ -269,33 +290,39 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 #pragma unroll
         for (int e = 0; e < VEC; ++e) x[g] = fmaf(qf[g][e], kf[e], x[g]);
       }
-      s_own[u] = reduce_scatter<GROUP, LANES>(x, sl);
-    }
-    // One running-max update per batch, for this lane's head.
-    float mx = m_own;
+      reduce_scatter<GROUP, LANES>(x, sl);
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) mx = valid[u] ? fmaxf(mx, s_own[u]) : mx;
-    const float alpha_own = exp2_ftz(m_own - mx);
-    m_own = mx;
-    float pr_own[kUnroll], sum = 0.f;
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const float p = valid[u] ? exp2_ftz(s_own[u] - mx) : 0.f;
-      sum += p;
-      pr_own[u] = to_f(from_f<T>(p));   // p in V's dtype before P.V
+      for (int j = 0; j < NH; ++j) s_own[j][u] = x[j];
     }
-    l_own = l_own * alpha_own + sum;
+    // One running-max update per batch, for each of this lane's heads.
+    float alpha_own[NH], pr_own[NH][kUnroll];
+#pragma unroll
+    for (int j = 0; j < NH; ++j) {
+      float mx = m_own[j];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) mx = valid[u] ? fmaxf(mx, s_own[j][u]) : mx;
+      alpha_own[j] = exp2_ftz(m_own[j] - mx);
+      m_own[j] = mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const float p = valid[u] ? exp2_ftz(s_own[j][u] - mx) : 0.f;
+        sum += p;
+        pr_own[j][u] = to_f(from_f<T>(p));   // p in V's dtype before P.V
+      }
+      l_own[j] = l_own[j] * alpha_own[j] + sum;
+    }
     float vf[kUnroll][VEC];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) unpack(vraw[u], vf[u], T());
     // Every head's rescale and probabilities from the lanes that hold them.
 #pragma unroll
     for (int g = 0; g < GROUP; ++g) {
-      const float alpha = __shfl_sync(0xffffffffu, alpha_own, g * PER, LANES);
+      const float alpha = __shfl_sync(0xffffffffu, alpha_own[g % NH], HD::lane_of(g), LANES);
       float pr[kUnroll];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
-        pr[u] = __shfl_sync(0xffffffffu, pr_own[u], g * PER, LANES);
+        pr[u] = __shfl_sync(0xffffffffu, pr_own[g % NH][u], HD::lane_of(g), LANES);
       }
 #pragma unroll
       for (int e = 0; e < VEC; ++e) {
@@ -310,8 +337,8 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   float m[GROUP], l[GROUP];
 #pragma unroll
   for (int g = 0; g < GROUP; ++g) {
-    m[g] = __shfl_sync(0xffffffffu, m_own, g * PER, LANES);
-    l[g] = __shfl_sync(0xffffffffu, l_own, g * PER, LANES);
+    m[g] = __shfl_sync(0xffffffffu, m_own[g % NH], HD::lane_of(g), LANES);
+    l[g] = __shfl_sync(0xffffffffu, l_own[g % NH], HD::lane_of(g), LANES);
   }
 
   // Merge the ROWS row streams of each warp (lanes LANES apart).
@@ -334,10 +361,21 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     }
   }
 
-  // Merge the warps through shared memory, in warp order, and write.
+  // Merge the warps through shared memory, in warp order, and write. The
+  // warps' accumulators take kWarps * GROUP * D floats: up to 32 KB they
+  // have a static array of their own; above (D = 128 at group 16) they
+  // reuse the cp.async ring, once every lane has read its last batch.
   __shared__ float sm_m[kWarps][GROUP];
   __shared__ float sm_l[kWarps][GROUP];
-  __shared__ float sm_acc[kWarps][GROUP][D];
+  constexpr int kAcc = kWarps * GROUP * D;
+  constexpr bool kAccInRing = kAcc * 4 > 32768;
+  static_assert(!kAccInRing || kAcc * 4 <= kRingBytes, "the ring holds the accumulators");
+  __shared__ float sm_acc_own[kAccInRing ? 1 : kAcc];
+  float* sm_acc = kAccInRing ? reinterpret_cast<float*>(ring) : sm_acc_own;
+  if constexpr (kAccInRing) {
+    cp_async_wait<0>();
+    __syncthreads();
+  }
   if (sub == 0) {
 #pragma unroll
     for (int g = 0; g < GROUP; ++g) {
@@ -346,7 +384,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
         sm_l[warp][g] = l[g];
       }
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) sm_acc[warp][g][sl * VEC + e] = acc[g][e];
+      for (int e = 0; e < VEC; ++e) sm_acc[(warp * GROUP + g) * D + sl * VEC + e] = acc[g][e];
     }
   }
   __syncthreads();
@@ -361,7 +399,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     for (int w = 0; w < kWarps; ++w) {
       const float a = exp2_ftz(sm_m[w][g] - mx);
       lsum += sm_l[w][g] * a;
-      asum += sm_acc[w][g][e] * a;
+      asum += sm_acc[(w * GROUP + g) * D + e] * a;
     }
     const size_t sh = (size_t)seq * h + kv * GROUP + g;
     if (part == nullptr) {
@@ -447,6 +485,8 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
                             a.window, a.chunk, chunks, a.hkv * GROUP);
 }
 
+// The instantiations: head_dim in {16, 32, 64, 128} (ops/_build.py's
+// DECODE_WIDTHS) by H / Hkv in {1, 2, 4, 8, 16} (DECODE_GROUPS).
 template <typename T, int D>
 cudaError_t by_group(int group, const Args& a, cudaStream_t stream) {
   switch (group) {
@@ -454,15 +494,20 @@ cudaError_t by_group(int group, const Args& a, cudaStream_t stream) {
     case 2: return launch<T, D, 2>(a, stream);
     case 4: return launch<T, D, 4>(a, stream);
     case 8: return launch<T, D, 8>(a, stream);
+    case 16: return launch<T, D, 16>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 template <typename T>
 cudaError_t by_width(int d, int group, const Args& a, cudaStream_t stream) {
-  if (d == 64) return by_group<T, 64>(group, a, stream);
-  if (d == 128) return by_group<T, 128>(group, a, stream);
-  return cudaErrorInvalidValue;
+  switch (d) {
+    case 16: return by_group<T, 16>(group, a, stream);
+    case 32: return by_group<T, 32>(group, a, stream);
+    case 64: return by_group<T, 64>(group, a, stream);
+    case 128: return by_group<T, 128>(group, a, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // dtype: 0 = float32, 1 = bfloat16. A window of more than one chunk needs

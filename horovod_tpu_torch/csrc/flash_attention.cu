@@ -1324,13 +1324,13 @@ cudaError_t launch_bf16(Kind kind, const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// dtype: 0 = float32, 1 = bfloat16; d in {64, 128}; H / Hkv in {1, 2, 4, 8}.
+// dtype: 0 = float32, 1 = bfloat16; d in {64, 128}; any H / Hkv: every
+// kernel reads a query head's K/V head as head / (H / Hkv), and dk/dv loop
+// over the group at run time.
 cudaError_t dispatch(Kind kind, int dtype, int d, const Args& a, cudaStream_t stream) {
   if (a.b <= 0 || a.sq <= 0 || a.sk <= 0 || a.hkv <= 0 || a.h % a.hkv) {
     return cudaErrorInvalidValue;
   }
-  const int group = a.h / a.hkv;
-  if (group != 1 && group != 2 && group != 4 && group != 8) return cudaErrorInvalidValue;
   if (a.b * (kind == kDkdv ? a.hkv : a.h) > 65535) return cudaErrorInvalidValue;
   if (dtype == 0) {
     if (d == 64) return launch_f32<64>(kind, a, stream);

@@ -41,6 +41,7 @@ import contextlib
 import dataclasses
 import functools
 import math
+import threading
 from typing import Callable, Optional
 
 import numpy as np
@@ -151,29 +152,38 @@ def rotary_embedding(x, theta: float, positions=None):
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
 
 
-# Switch for the hand-written decode kernels. Default on; within
-# ``decode_kernel_disabled()`` single-token cached attention takes the
-# plain einsum path instead.
-_DECODE_KERNEL = True
+# Switch for the hand-written decode kernels, per thread. Default on;
+# within ``decode_kernel_disabled()`` single-token cached attention takes
+# the plain einsum path instead. Per thread because serving replicas run
+# their loops side by side in one process: a process-wide switch that each
+# context saves and restores lets one thread restore a value over
+# another's, and leaves every later engine on a path nobody chose (the
+# JAX package passes the path as a static argument of the compiled
+# program instead).
+_SWITCH = threading.local()
+
+
+def _decode_kernel_on() -> bool:
+    return getattr(_SWITCH, "kernel", True)
 
 
 @contextlib.contextmanager
 def decode_kernel_disabled():
-    """Within this context, single-token cached attention uses the plain
-    einsum path instead of the CUDA decode kernels."""
+    """Within this context (in this thread), single-token cached
+    attention uses the plain einsum path instead of the CUDA decode
+    kernels."""
     with _decode_kernel_override(False):
         yield
 
 
 @contextlib.contextmanager
 def _decode_kernel_override(value: bool):
-    global _DECODE_KERNEL
-    prev = _DECODE_KERNEL
-    _DECODE_KERNEL = value
+    prev = _decode_kernel_on()
+    _SWITCH.kernel = value
     try:
         yield
     finally:
-        _DECODE_KERNEL = prev
+        _SWITCH.kernel = prev
 
 
 @dataclasses.dataclass(frozen=True)
@@ -186,7 +196,7 @@ class DecodePath:
 
 
 def current_decode_path() -> DecodePath:
-    if _DECODE_KERNEL:
+    if _decode_kernel_on():
         return DecodePath("kernel", "single device: decode kernels")
     return DecodePath("einsum", "decode_kernel_disabled()")
 
@@ -228,7 +238,7 @@ def _cached_attention(q, k, v, cache, cache_index):
         tables = cache["tables"]
         paged_cache_write(cache["k"], cache["v"], kc, vc, tables,
                           cache_index)
-        if _DECODE_KERNEL:
+        if _decode_kernel_on():
             return paged_decode_attention(q, cache["k"], cache["v"], tables,
                                           cache_index, hkv, sm_scale=scale)
         return paged_gather_attention(q, cache["k"], cache["v"], tables,
@@ -236,7 +246,7 @@ def _cached_attention(q, k, v, cache, cache_index):
     k_cache, v_cache = cache["k"], cache["v"]
     k_cache[:, cache_index:cache_index + s] = kc.reshape(b, s, hkv * d)
     v_cache[:, cache_index:cache_index + s] = vc.reshape(b, s, hkv * d)
-    if s == 1 and _DECODE_KERNEL:
+    if s == 1 and _decode_kernel_on():
         return decode_attention(q, k_cache, v_cache, cache_index, hkv,
                                 sm_scale=scale)
     qg = q.reshape(b, s, hkv, group, d)

@@ -22,15 +22,19 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, List, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence
 
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "horovod_tpu_torch"
 SOURCES = ("decode_attention", "flash_attention")
+# --split-compile=0: optimise and assemble the kernels of one source on
+# every core (the decode source's 48 instantiations build in half the
+# time on the card's host).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+              "--split-compile=0")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -150,14 +154,23 @@ def on_card(name: str, *tensors: torch.Tensor) -> bool:
 
 
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-KERNEL_WIDTHS = (64, 128)
-KERNEL_GROUPS = (1, 2, 4, 8)
+#: head_dim and H/Hkv the decode kernels are instantiated for
+#: (``csrc/decode_attention.cu``): every width and group of the repo's
+#: configurations.
+DECODE_WIDTHS = (16, 32, 64, 128)
+DECODE_GROUPS = (1, 2, 4, 8, 16)
+#: The head_dim the flash kernels (``csrc/flash_attention.cu``) are
+#: instantiated for; they take any H/Hkv. ``ops/attention.py`` zero-pads
+#: a narrower head_dim up to one of these widths.
+FLASH_WIDTHS = (64, 128)
 
 
-def check_operands(name: str, group: int, **tensors: torch.Tensor) -> None:
+def check_operands(name: str, group: int, widths: Sequence[int],
+                   groups: Optional[Sequence[int]],
+                   **tensors: torch.Tensor) -> None:
     """Raise unless the attention kernels take these operands: float32 or
-    bfloat16 in one dtype, head_dim (the last dim) in ``KERNEL_WIDTHS``,
-    H/Hkv in ``KERNEL_GROUPS``, contiguous and 16-byte aligned."""
+    bfloat16 in one dtype, head_dim (the last dim) in ``widths``, H/Hkv
+    in ``groups`` (None: any), contiguous and 16-byte aligned."""
     dtypes = {t.dtype for t in tensors.values()}
     if len(dtypes) != 1 or not dtypes <= set(KERNEL_DTYPES):
         raise TypeError(
@@ -165,13 +178,13 @@ def check_operands(name: str, group: int, **tensors: torch.Tensor) -> None:
             "operands in one dtype, got "
             + ", ".join(f"{k} {t.dtype}" for k, t in tensors.items()))
     d = next(iter(tensors.values())).shape[-1]
-    if d not in KERNEL_WIDTHS:
+    if d not in widths:
         raise ValueError(
-            f"{name}: the CUDA kernel takes head_dim in {KERNEL_WIDTHS}, "
+            f"{name}: the CUDA kernel takes head_dim in {tuple(widths)}, "
             f"got {d}")
-    if group not in KERNEL_GROUPS:
+    if groups is not None and group not in groups:
         raise ValueError(
-            f"{name}: the CUDA kernel takes H/Hkv in {KERNEL_GROUPS}, "
+            f"{name}: the CUDA kernel takes H/Hkv in {tuple(groups)}, "
             f"got {group}")
     for label, t in tensors.items():
         if not t.is_contiguous() or t.data_ptr() % 16:

@@ -9,7 +9,9 @@ runs kernel 2 (dq) and kernel 3 (dk/dv, summed over each GQA group). The
 kernels are hand-written CUDA in ``csrc/flash_attention.cu``.
 
 Routing, as in ``ops/decode_attention.py``: a CUDA tensor always goes to
-the kernel, and the call raises if the kernel cannot take it; only CPU
+the kernel, and the call raises if the kernel cannot take it (a head_dim
+above 128, or float16); a head_dim other than 64 or 128 reaches the
+kernels zero-padded (see "The kernels' operand range" below). Only CPU
 tensors take the plain versions (``flash_attention_forward_plain``,
 ``flash_backward_dq_plain``, ``flash_backward_dkdv_plain``), which repeat
 the kernels' arithmetic with explicit formulas. ``LAUNCHES`` counts kernel
@@ -33,6 +35,7 @@ check; the float32 kernels stream 32-row tiles through FMA loops.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict, Optional
 
 import torch
@@ -46,6 +49,7 @@ FLASH_AUTO_MIN_SEQ = 512
 #: Kernel launches per wrapper since the last :func:`reset_launch_counts`.
 LAUNCHES: Dict[str, int] = {"flash_forward": 0, "flash_backward_dq": 0,
                             "flash_backward_dkdv": 0}
+_launch_lock = threading.Lock()
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -65,8 +69,16 @@ _SIGNATURES = {
 
 
 def reset_launch_counts() -> None:
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
+    with _launch_lock:
+        for key in LAUNCHES:
+            LAUNCHES[key] = 0
+
+
+def _count_launch(name: str) -> None:
+    """One launch of ``name``'s kernel. Under a lock: several serving
+    loops (fleet replicas) launch from their own threads."""
+    with _launch_lock:
+        LAUNCHES[name] += 1
 
 
 def _check_gqa_heads(q, k, v, name: str) -> None:
@@ -251,12 +263,86 @@ def flash_attention_backward_plain(q, k, v, key_mask, out, lse, g,
 
 
 # ---------------------------------------------------------------------------
+# The kernels' operand range
+#
+# The flash kernels are instantiated at head_dim 64 and 128
+# (``_build.FLASH_WIDTHS``) and take any group H/Hkv. A narrower head_dim
+# is zero-padded up to the next width, with the scale taken from the true
+# head_dim: the padded columns add 0 to every q·k and give 0 in out, dq,
+# dk and dv, which are sliced back; lse and delta (a row sum of dO·O) are
+# unchanged. The transforms are plain functions around any
+# implementation of the kernels' signatures, so the CPU tests drive them
+# around the plain versions.
+
+
+def kernel_width(d: int) -> int:
+    """The flash kernels' head width that takes head_dim ``d``: the next
+    of ``FLASH_WIDTHS``. A head_dim above the widest raises."""
+    widths = [w for w in _build.FLASH_WIDTHS if w >= d]
+    if not widths:
+        raise ValueError(
+            f"flash_attention: the CUDA kernels take head_dim up to "
+            f"{max(_build.FLASH_WIDTHS)}, got {d} (no configuration of the "
+            "repo has a wider head)")
+    return widths[0]
+
+
+def widen(x, width: int):
+    """``x`` with its last dim zero-padded up to ``width``."""
+    d = x.shape[-1]
+    return x if d == width else torch.nn.functional.pad(x, (0, width - d))
+
+
+def forward_in_range(forward, q, k, v, key_mask=None, causal: bool = False,
+                     sm_scale: Optional[float] = None):
+    """``forward`` (kernel 1 or its plain version, at a kernel width) over
+    any head_dim up to the widest: ``(out, lse)``."""
+    d = q.shape[-1]
+    width = kernel_width(d)
+    if width == d:
+        return forward(q, k, v, key_mask, causal, sm_scale)
+    out, lse = forward(widen(q, width), widen(k, width), widen(v, width),
+                       key_mask, causal, _scale(q, sm_scale))
+    return out[..., :d].contiguous(), lse
+
+
+def dq_in_range(backward_dq, q, k, v, key_mask, g, lse, delta,
+                causal: bool = False, sm_scale: Optional[float] = None):
+    """``backward_dq`` (kernel 2 or its plain version) over any head_dim
+    up to the widest."""
+    d = q.shape[-1]
+    width = kernel_width(d)
+    if width == d:
+        return backward_dq(q, k, v, key_mask, g, lse, delta, causal,
+                           sm_scale)
+    dq = backward_dq(widen(q, width), widen(k, width), widen(v, width),
+                     key_mask, widen(g, width), lse, delta, causal,
+                     _scale(q, sm_scale))
+    return dq[..., :d].contiguous()
+
+
+def dkdv_in_range(backward_dkdv, q, k, v, key_mask, g, lse, delta,
+                  causal: bool = False, sm_scale: Optional[float] = None):
+    """``backward_dkdv`` (kernel 3 or its plain version) over any head_dim
+    up to the widest: ``(dk, dv)``."""
+    d = q.shape[-1]
+    width = kernel_width(d)
+    if width == d:
+        return backward_dkdv(q, k, v, key_mask, g, lse, delta, causal,
+                             sm_scale)
+    dk, dv = backward_dkdv(widen(q, width), widen(k, width),
+                           widen(v, width), key_mask, widen(g, width), lse,
+                           delta, causal, _scale(q, sm_scale))
+    return dk[..., :d].contiguous(), dv[..., :d].contiguous()
+
+
+# ---------------------------------------------------------------------------
 # Kernel wrappers
 
 
 def _kernel_args(name, q, k, v, key_mask, **more):
-    _build.check_operands(name, q.shape[2] // k.shape[2], q=q, k=k, v=v,
-                          **more)
+    _build.check_operands(name, q.shape[2] // k.shape[2],
+                          _build.FLASH_WIDTHS, None, q=q, k=k, v=v, **more)
     mask = None
     if key_mask is not None:
         mask = key_mask.to(torch.uint8).contiguous()
@@ -268,15 +354,8 @@ def _mask_ptr(mask):
     return None if mask is None else mask.data_ptr()
 
 
-def _flash_forward(q, k, v, key_mask=None, causal: bool = False,
-                   sm_scale: Optional[float] = None):
-    """Kernel 1 (``_flash_kernel``'s counterpart): ``(out, lse)`` as
-    :func:`flash_attention_forward_plain` returns them."""
-    _check_gqa_heads(q, k, v, "flash_attention")
-    tensors = (q, k, v) + (() if key_mask is None else (key_mask,))
-    if not _build.on_card("flash attention", *tensors):
-        return flash_attention_forward_plain(q, k, v, key_mask, causal,
-                                             sm_scale)
+def _forward_kernel(q, k, v, key_mask, causal, sm_scale):
+    """Launch kernel 1 on operands in its range."""
     mask, dims = _kernel_args("flash_forward", q, k, v, key_mask)
     b, sq, sk, h, hkv, d = dims
     out = torch.empty_like(q)
@@ -287,8 +366,21 @@ def _flash_forward(q, k, v, key_mask=None, causal: bool = False,
         out.data_ptr(), lse.data_ptr(), *dims, float(_scale(q, sm_scale)),
         int(causal), _build.KERNEL_DTYPES[q.dtype], _build.stream(q.device))
     _build.check(lib, "hvd_flash_forward", code)
-    LAUNCHES["flash_forward"] += 1
+    _count_launch("flash_forward")
     return out, lse
+
+
+def _flash_forward(q, k, v, key_mask=None, causal: bool = False,
+                   sm_scale: Optional[float] = None):
+    """Kernel 1 (``_flash_kernel``'s counterpart): ``(out, lse)`` as
+    :func:`flash_attention_forward_plain` returns them."""
+    _check_gqa_heads(q, k, v, "flash_attention")
+    tensors = (q, k, v) + (() if key_mask is None else (key_mask,))
+    if not _build.on_card("flash attention", *tensors):
+        return flash_attention_forward_plain(q, k, v, key_mask, causal,
+                                             sm_scale)
+    return forward_in_range(_forward_kernel, q, k, v, key_mask, causal,
+                            sm_scale)
 
 
 def _check_stats(q, lse, delta):
@@ -301,14 +393,8 @@ def _check_stats(q, lse, delta):
                 f"shape {want}, got {t.dtype} {tuple(t.shape)}")
 
 
-def flash_backward_dq(q, k, v, key_mask, g, lse, delta, causal=False,
-                      sm_scale=None):
-    """Kernel 2 (``_flash_bwd_dq_kernel``'s counterpart): dq."""
-    tensors = (q, k, v, g, lse, delta) + (
-        () if key_mask is None else (key_mask,))
-    if not _build.on_card("flash attention", *tensors):
-        return flash_backward_dq_plain(q, k, v, key_mask, g, lse, delta,
-                                       causal, sm_scale)
+def _dq_kernel(q, k, v, key_mask, g, lse, delta, causal, sm_scale):
+    """Launch kernel 2 on operands in its range."""
     mask, dims = _kernel_args("flash_backward_dq", q, k, v, key_mask, g=g)
     _check_stats(q, lse, delta)
     dq = torch.empty_like(q)
@@ -319,8 +405,37 @@ def flash_backward_dq(q, k, v, key_mask, g, lse, delta, causal=False,
         *dims, float(_scale(q, sm_scale)), int(causal),
         _build.KERNEL_DTYPES[q.dtype], _build.stream(q.device))
     _build.check(lib, "hvd_flash_backward_dq", code)
-    LAUNCHES["flash_backward_dq"] += 1
+    _count_launch("flash_backward_dq")
     return dq
+
+
+def flash_backward_dq(q, k, v, key_mask, g, lse, delta, causal=False,
+                      sm_scale=None):
+    """Kernel 2 (``_flash_bwd_dq_kernel``'s counterpart): dq."""
+    tensors = (q, k, v, g, lse, delta) + (
+        () if key_mask is None else (key_mask,))
+    if not _build.on_card("flash attention", *tensors):
+        return flash_backward_dq_plain(q, k, v, key_mask, g, lse, delta,
+                                       causal, sm_scale)
+    return dq_in_range(_dq_kernel, q, k, v, key_mask, g, lse, delta, causal,
+                       sm_scale)
+
+
+def _dkdv_kernel(q, k, v, key_mask, g, lse, delta, causal, sm_scale):
+    """Launch kernel 3 on operands in its range."""
+    mask, dims = _kernel_args("flash_backward_dkdv", q, k, v, key_mask, g=g)
+    _check_stats(q, lse, delta)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    lib = _build.library("flash_attention", _SIGNATURES)
+    code = lib.hvd_flash_backward_dkdv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _mask_ptr(mask),
+        g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), *dims, float(_scale(q, sm_scale)), int(causal),
+        _build.KERNEL_DTYPES[q.dtype], _build.stream(q.device))
+    _build.check(lib, "hvd_flash_backward_dkdv", code)
+    _count_launch("flash_backward_dkdv")
+    return dk, dv
 
 
 def flash_backward_dkdv(q, k, v, key_mask, g, lse, delta, causal=False,
@@ -333,19 +448,8 @@ def flash_backward_dkdv(q, k, v, key_mask, g, lse, delta, causal=False,
     if not _build.on_card("flash attention", *tensors):
         return flash_backward_dkdv_plain(q, k, v, key_mask, g, lse, delta,
                                          causal, sm_scale)
-    mask, dims = _kernel_args("flash_backward_dkdv", q, k, v, key_mask, g=g)
-    _check_stats(q, lse, delta)
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
-    lib = _build.library("flash_attention", _SIGNATURES)
-    code = lib.hvd_flash_backward_dkdv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), _mask_ptr(mask),
-        g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), *dims, float(_scale(q, sm_scale)), int(causal),
-        _build.KERNEL_DTYPES[q.dtype], _build.stream(q.device))
-    _build.check(lib, "hvd_flash_backward_dkdv", code)
-    LAUNCHES["flash_backward_dkdv"] += 1
-    return dk, dv
+    return dkdv_in_range(_dkdv_kernel, q, k, v, key_mask, g, lse, delta,
+                         causal, sm_scale)
 
 
 def _flash_backward(q, k, v, key_mask, out, lse, g, causal: bool = False,

@@ -30,6 +30,7 @@ a run can show its main path went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -40,6 +41,7 @@ from .attention import NEG_INF
 #: Kernel launches per wrapper since the last :func:`reset_launch_counts`.
 LAUNCHES: Dict[str, int] = {"decode_attention": 0,
                             "paged_decode_attention": 0}
+_launch_lock = threading.Lock()
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -92,8 +94,16 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def reset_launch_counts() -> None:
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
+    with _launch_lock:
+        for key in LAUNCHES:
+            LAUNCHES[key] = 0
+
+
+def _count_launch(name: str) -> None:
+    """One launch of ``name``'s kernel. Under a lock: several serving
+    loops (fleet replicas) launch from their own threads."""
+    with _launch_lock:
+        LAUNCHES[name] += 1
 
 
 def _attend_plain(q, k4, v4, lens, scale):
@@ -158,7 +168,8 @@ def decode_attention(q, k_cache, v_cache, cache_index, num_kv_heads,
         return decode_attention_plain(q, k_cache, v_cache, cache_index,
                                       num_kv_heads, sm_scale)
     b, _, h, d = q.shape
-    _build.check_operands("decode_attention", h // num_kv_heads, q=q,
+    _build.check_operands("decode_attention", h // num_kv_heads,
+                          _build.DECODE_WIDTHS, _build.DECODE_GROUPS, q=q,
                           k=k_cache, v=v_cache)
     scale = sm_scale if sm_scale is not None else 1.0 / (d ** 0.5)
     out = torch.empty_like(q)
@@ -173,7 +184,7 @@ def decode_attention(q, k_cache, v_cache, cache_index, num_kv_heads,
         int(cache_index), DECODE_CHUNK, float(scale),
         _build.KERNEL_DTYPES[q.dtype], _build.stream(q.device))
     _build.check(lib, "hvd_decode_attention", code)
-    LAUNCHES["decode_attention"] += 1
+    _count_launch("decode_attention")
     return out
 
 
@@ -222,7 +233,8 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, context_lens,
                                             context_lens, num_kv_heads,
                                             sm_scale)
     b, _, h, d = q.shape
-    _build.check_operands("paged_decode_attention", h // num_kv_heads, q=q,
+    _build.check_operands("paged_decode_attention", h // num_kv_heads,
+                          _build.DECODE_WIDTHS, _build.DECODE_GROUPS, q=q,
                           k=k_pool, v=v_pool)
     scale = sm_scale if sm_scale is not None else 1.0 / (d ** 0.5)
     tables = block_tables.to(torch.int32).contiguous()
@@ -240,7 +252,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, context_lens,
         d, slots, block_size, DECODE_CHUNK, float(scale),
         _build.KERNEL_DTYPES[q.dtype], _build.stream(q.device))
     _build.check(lib, "hvd_paged_decode_attention", code)
-    LAUNCHES["paged_decode_attention"] += 1
+    _count_launch("paged_decode_attention")
     return out
 
 

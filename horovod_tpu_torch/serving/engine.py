@@ -26,39 +26,138 @@ what the tests use) or by its own daemon loop (``start()``; thread named
 ``hvd-serving-engine``). All state lives under one lock; device work
 runs outside it so ``submit``/``stream`` never block on a decode step.
 
-Not ported yet: the metrics and trace hooks of the JAX engine, and the
-TP-sharded decode path.
+Telemetry, as in the JAX engine: the ``hvd_serving_*`` metrics (when
+``metrics.on()``; registered at first use, never at import), whose
+unlabelled gauges describe the whole process (the sum over every live
+engine, so N fleet replicas in one process publish the fleet), and the
+``schedule`` / ``prefill`` / ``decode`` spans under ``HOROVOD_TRACE_DIR``
+(``trace.serving.rank<N>.json``, written at ``shutdown()``).
+
+Not ported yet: the TP-sharded decode path.
 """
 
 from __future__ import annotations
 
 import itertools
 import math
+import os
 import threading
 import time
+import weakref
 from collections import deque
 from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
 
+from .. import metrics
+from ..common import config as hvd_config
 from ..common import hvd_logging as logging
 from ..models.llama import current_decode_path, decode_path_context, pick_tokens
+from ..trace import TraceWriter
+from ..trace.tracer import SERVING_TRACE_FILE_FMT
 from .kv_blocks import BlockPool, padded_table
 from .prefix_cache import PrefixCache
 from .scheduler import (
     CANCELLED,
     FAILED,
     FINISHED,
+    REJECTED,
     RUNNING,
     TERMINAL_STATES,
     WAITING,
     CancelledError,
+    RejectedError,
     Request,
     Scheduler,
     ServingConfig,
     zero_stats,
 )
+
+_m = None
+
+# Every live engine in this process (a fleet runs several): the
+# unlabelled hvd_serving_* gauges describe the PROCESS, so each sweep
+# publishes the sum over live engines' latest per-engine snapshots.
+_LIVE_ENGINES: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def _serving_metrics():
+    """Lazy registration (never at import time); one owner per
+    ``hvd_serving_*`` series, with the JAX engine's names and help."""
+    global _m
+    if _m is None:
+        from types import SimpleNamespace
+
+        _m = SimpleNamespace(
+            queue_depth=metrics.gauge(
+                "hvd_serving_queue_depth",
+                "Requests waiting for a decode slot."),
+            queue_limit=metrics.gauge(
+                "hvd_serving_queue_limit",
+                "Admission bound on the waiting queue "
+                "(HOROVOD_SERVING_QUEUE_DEPTH)."),
+            active=metrics.gauge(
+                "hvd_serving_active_sequences",
+                "Sequences in the decode batch right now."),
+            blocks_in_use=metrics.gauge(
+                "hvd_serving_blocks_in_use",
+                "Allocated KV-cache blocks."),
+            blocks_total=metrics.gauge(
+                "hvd_serving_blocks_total",
+                "KV-cache pool capacity in blocks (null block excluded)."),
+            block_util=metrics.gauge(
+                "hvd_serving_block_utilization",
+                "blocks_in_use / blocks_total, 0..1."),
+            requests=metrics.counter(
+                "hvd_serving_requests_total",
+                "Serving requests by terminal outcome.", ("outcome",)),
+            preemptions=metrics.counter(
+                "hvd_serving_preemptions_total",
+                "Sequences preempted (blocks dropped, recompute queued) "
+                "because the block pool ran dry."),
+            tokens=metrics.counter(
+                "hvd_serving_tokens_generated_total",
+                "Tokens produced across all requests."),
+            steps=metrics.counter(
+                "hvd_serving_steps_total",
+                "Continuous-batching decode steps executed."),
+            ttft=metrics.histogram(
+                "hvd_serving_ttft_seconds",
+                "Submit-to-first-token latency per request."),
+            tpot=metrics.histogram(
+                "hvd_serving_tpot_seconds",
+                "Inter-token latency per generated token (decode steps "
+                "plus any scheduling/preemption stall between them)."),
+            prefix_hits=metrics.counter(
+                "hvd_serving_prefix_hits_total",
+                "Whole KV pages admitted warm (mapped copy-free onto "
+                "blocks the prefix index already held)."),
+            prefix_misses=metrics.counter(
+                "hvd_serving_prefix_misses_total",
+                "Whole KV pages that had to prefill cold."),
+            prefix_cached=metrics.gauge(
+                "hvd_serving_prefix_cached_blocks",
+                "Blocks currently referenced by the prefix index."),
+            prefix_evictions=metrics.counter(
+                "hvd_serving_prefix_evictions_total",
+                "Prefix-index entries dropped (pool pressure or "
+                "capacity LRU)."),
+            blocks_shared=metrics.gauge(
+                "hvd_serving_blocks_shared",
+                "Blocks with more than one live reference right now."),
+            cow=metrics.counter(
+                "hvd_serving_cow_copies_total",
+                "Copy-on-write page copies (a sequence about to write "
+                "into a shared page got a private copy first)."),
+        )
+    return _m
+
+
+def _count_outcome(outcome: str) -> None:
+    if metrics.on():
+        _serving_metrics().requests.labels(outcome).inc()
+
 
 # ---------------------------------------------------------------------------
 # Device programs. Each updates the pools IN PLACE (the JAX programs
@@ -316,6 +415,14 @@ class ServingEngine:
         self._ttfts: deque = deque(maxlen=4096)
         self._tpots: deque = deque(maxlen=4096)
         self._live_peak = 0
+        self._prefix_published: Dict[str, int] = {}
+        # Latest per-engine gauge numbers (the whole dict swapped under
+        # the GIL; peers read it without this engine's lock when summing
+        # the process-wide gauges, see _publish_gauge_totals).
+        self._gauge_snapshot: Dict[str, float] = {}
+        _LIVE_ENGINES.add(self)
+        self._tracer: Optional[TraceWriter] = None
+        self._trace_checked = False
 
     # -- public API ---------------------------------------------------------
 
@@ -346,8 +453,23 @@ class ServingEngine:
         with self._cond:
             if self._closed:
                 raise RuntimeError("engine is shut down")
-            self._sched.check_admissible(prompt.shape[0],
-                                         int(max_new_tokens))
+            try:
+                self._sched.check_admissible(prompt.shape[0],
+                                             int(max_new_tokens))
+            except RejectedError:
+                if metrics.on():
+                    m = _serving_metrics()
+                    m.requests.labels(REJECTED).inc()
+                    # Publish the queue gauges here too (an engine whose
+                    # every submission is rejected would never set them).
+                    # The engine lock is held, so refresh this engine's
+                    # snapshot directly and publish the lock-free sum.
+                    snap = dict(self._gauge_snapshot)
+                    snap["queue_depth"] = self._sched.queue_depth_now()
+                    snap["queue_limit"] = self._sched.queue_depth
+                    self._gauge_snapshot = snap
+                    _publish_gauge_totals(m)
+                raise
             req = Request(rid=next(self._rid), prompt=prompt,
                           max_new_tokens=int(max_new_tokens),
                           temperature=float(temperature),
@@ -355,6 +477,7 @@ class ServingEngine:
             self._sched.enqueue(req)
             self._submitted += 1
             self._cond.notify_all()
+        self._update_gauges()
         return RequestHandle(self, req)
 
     def step(self) -> bool:
@@ -363,11 +486,13 @@ class ServingEngine:
         batched decode step. Returns whether work remains. Only ONE
         driver may call it (the loop thread, or the caller in
         synchronous mode)."""
+        t_sched = time.monotonic()
         with self._cond:
             for req in list(self._sched.running.values()):
                 if req.cancel_requested:
                     self._sched.retire(req, CANCELLED)
                     self._cancelled += 1
+                    _count_outcome(CANCELLED)
                     self._cond.notify_all()
             # A cancel that landed while the request sat RUNNING may have
             # been overtaken by a preemption; purge those here so admit()
@@ -376,9 +501,15 @@ class ServingEngine:
                         if r.cancel_requested]:
                 self._sched.cancel_waiting(req)
                 self._cancelled += 1
+                _count_outcome(CANCELLED)
                 self._cond.notify_all()
             admitted = self._sched.admit()
             self._note_live_blocks()
+            running = len(self._sched.running)
+        tracer = self._maybe_tracer()
+        if tracer is not None:
+            tracer.span("schedule", t_sched, time.monotonic(),
+                        admitted=len(admitted), running=running)
 
         for req in admitted:
             self._prefill(req)
@@ -387,6 +518,8 @@ class ServingEngine:
             preempted = self._sched.ensure_decode_capacity()
             copies = self._sched.pending_copies
             self._sched.pending_copies = []
+            if preempted and metrics.on():
+                _serving_metrics().preemptions.inc(len(preempted))
             self._note_live_blocks()
             batch = self._sched.active()
             arrays = self._build_batch(batch) if batch else None
@@ -402,8 +535,11 @@ class ServingEngine:
             dst = self._to_device([d for _, d in copies])
             with torch.inference_mode():
                 _copy_blocks(self._pools, src, dst)
+            if metrics.on():
+                _serving_metrics().cow.inc(len(copies))
 
         if arrays is not None:
+            t_dec = time.monotonic()
             tokens, lens, tables, temps = arrays
             with torch.inference_mode(), decode_path_context(
                     self._path.path):
@@ -419,6 +555,12 @@ class ServingEngine:
                     if req.state == RUNNING and req.slot is not None:
                         self._append_token(req, int(out_host[req.slot]))
                 self._steps += 1
+            if metrics.on():
+                _serving_metrics().steps.inc()
+            if tracer is not None:
+                tracer.span("decode", t_dec, time.monotonic(),
+                            batch=len(batch))
+        self._update_gauges()
         with self._cond:
             return self._sched.has_work()
 
@@ -445,8 +587,8 @@ class ServingEngine:
         return self
 
     def shutdown(self, timeout: float = 10.0) -> None:
-        """Stop the loop and fail whatever is still queued or running.
-        Idempotent."""
+        """Stop the loop, fail whatever is still queued or running, and
+        close the trace file. Idempotent."""
         with self._cond:
             self._stop = True
             self._closed = True
@@ -457,6 +599,8 @@ class ServingEngine:
             thread.join(timeout)
         with self._cond:
             self._fail_all_locked("engine shut down")
+        if self._tracer is not None:
+            self._tracer.close()
 
     def stats(self) -> Dict[str, float]:
         """Serving stats snapshot — ``zero_stats()`` shape, every key
@@ -506,6 +650,7 @@ class ServingEngine:
             if req.state not in TERMINAL_STATES:
                 self._sched.cancel_waiting(req)
                 self._sched.retire(req, FAILED, error)
+                _count_outcome(FAILED)
         self._sched.waiting.clear()
         if self._prefix is not None:
             self._prefix.clear()
@@ -538,11 +683,14 @@ class ServingEngine:
             if req.state == WAITING:
                 self._sched.cancel_waiting(req)
                 self._cancelled += 1
+                _count_outcome(CANCELLED)
             else:
                 req.cancel_requested = True
             self._cond.notify_all()
+        self._update_gauges()
 
     def _prefill(self, req: Request) -> None:
+        t0 = time.monotonic()
         prompt = req.current_prompt()
         plen = int(prompt.shape[0])
         nb = self._sched.pool.blocks_for(plen)
@@ -572,6 +720,11 @@ class ServingEngine:
             if req.state == RUNNING:       # not cancelled mid-prefill
                 self._register_prefix(req, plen)
                 self._append_token(req, token)
+        tracer = self._maybe_tracer()
+        if tracer is not None:
+            tracer.span("prefill", t0, time.monotonic(), rid=req.rid,
+                        len=plen, warm_pages=warm,
+                        recompute=req.preemptions)
 
     def _register_prefix(self, req: Request, plen: int) -> None:
         """Caller holds the lock, right after a successful prefill:
@@ -587,17 +740,27 @@ class ServingEngine:
     def _append_token(self, req: Request, token: int) -> None:
         """Caller holds the lock."""
         now = time.monotonic()
+        on = metrics.on()
         req.tokens.append(token)
         self._tokens_generated += 1
+        if on:
+            _serving_metrics().tokens.inc()
         if req.first_token_t is None:
             req.first_token_t = now
-            self._ttfts.append(now - req.submit_t)
+            ttft = now - req.submit_t
+            self._ttfts.append(ttft)
+            if on:
+                _serving_metrics().ttft.observe(ttft)
         elif req.last_token_t is not None:
-            self._tpots.append(now - req.last_token_t)
+            tpot = now - req.last_token_t
+            self._tpots.append(tpot)
+            if on:
+                _serving_metrics().tpot.observe(tpot)
         req.last_token_t = now
         if req.is_done():
             self._sched.retire(req, FINISHED)
             self._finished += 1
+            _count_outcome(FINISHED)
         self._cond.notify_all()
 
     def _build_batch(self, batch: List[Request]):
@@ -628,6 +791,74 @@ class ServingEngine:
         live = self._live_blocks()
         if live > self._live_peak:
             self._live_peak = live
+
+    def _update_gauges(self) -> None:
+        """Refresh this engine's gauge snapshot, publish the prefix
+        cache's counters as deltas since the last sweep, and publish the
+        process-wide gauge sums."""
+        if not metrics.on():
+            return
+        m = _serving_metrics()
+        with self._cond:
+            pool = self._sched.pool
+            self._gauge_snapshot = {
+                "queue_depth": self._sched.queue_depth_now(),
+                "queue_limit": self._sched.queue_depth,
+                "active": len(self._sched.running),
+                "blocks_in_use": pool.blocks_in_use,
+                "blocks_total": pool.num_blocks,
+                "blocks_shared": pool.blocks_shared,
+                "prefix_cached": (self._prefix.cached_blocks
+                                  if self._prefix is not None else 0),
+            }
+            if self._prefix is not None:
+                for attr, counter in (("hits", m.prefix_hits),
+                                      ("misses", m.prefix_misses),
+                                      ("evictions", m.prefix_evictions)):
+                    total = getattr(self._prefix, attr)
+                    seen = self._prefix_published.get(attr, 0)
+                    if total > seen:
+                        counter.inc(total - seen)
+                        self._prefix_published[attr] = total
+        _publish_gauge_totals(m)
+
+    def _maybe_tracer(self) -> Optional[TraceWriter]:
+        """The engine's span writer under ``HOROVOD_TRACE_DIR`` (opened
+        at first use), or None."""
+        if not self._trace_checked:
+            self._trace_checked = True
+            tdir = hvd_config.trace_dir()
+            if tdir:
+                os.makedirs(tdir, exist_ok=True)
+                rank = hvd_config.env_rank() or 0
+                self._tracer = TraceWriter(
+                    os.path.join(tdir,
+                                 SERVING_TRACE_FILE_FMT.format(rank=rank)),
+                    rank)
+        return self._tracer
+
+
+def _publish_gauge_totals(m) -> None:
+    """Process-wide gauges = the sum over LIVE engines' latest snapshots
+    (read lock-free: each snapshot dict is swapped whole). A closed
+    engine drops out of the sum, so a replica kill shows in the
+    gauges."""
+    totals: Dict[str, float] = {}
+    for engine in list(_LIVE_ENGINES):
+        if engine._closed:
+            continue
+        for key, value in engine._gauge_snapshot.items():
+            totals[key] = totals.get(key, 0) + value
+    m.queue_depth.set(totals.get("queue_depth", 0))
+    m.queue_limit.set(totals.get("queue_limit", 0))
+    m.active.set(totals.get("active", 0))
+    m.blocks_in_use.set(totals.get("blocks_in_use", 0))
+    m.blocks_total.set(totals.get("blocks_total", 0))
+    m.block_util.set(
+        totals.get("blocks_in_use", 0) / totals["blocks_total"]
+        if totals.get("blocks_total") else 0.0)
+    m.blocks_shared.set(totals.get("blocks_shared", 0))
+    m.prefix_cached.set(totals.get("prefix_cached", 0))
 
 
 def _pctl(sorted_vals: List[float], q: float) -> Optional[float]:

@@ -67,7 +67,11 @@ def _pools(k, v, tables, block_size):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("h,hkv,d", [(16, 8, 64), (32, 8, 128), (8, 1, 64)])
+@pytest.mark.parametrize("h,hkv,d", [
+    (16, 8, 64), (32, 8, 128), (8, 1, 64),
+    # The widened operand range: Llama-tiny's heads (D=16), D=32, and
+    # group 16 at D=64 and D=128 (the merge buffer in the cp.async ring).
+    (4, 2, 16), (4, 4, 32), (16, 1, 64), (32, 2, 128)])
 def test_kernels_match_plain(cuda_device, dtype, h, hkv, d):
     tol = F32_TOL if dtype == torch.float32 else BF16_TOL
     gen = torch.Generator(device=cuda_device).manual_seed(0)
@@ -176,10 +180,14 @@ def test_paged_single_block_bitwise_matches_contiguous(cuda_device):
 
 @pytest.mark.cuda
 def test_kernel_wrappers_refuse_what_the_kernel_cannot_take(cuda_device):
-    q = torch.zeros((1, 1, 4, 16), device=cuda_device)      # D=16
-    k = torch.zeros((1, 8, 2 * 16), device=cuda_device)
+    q = torch.zeros((1, 1, 4, 24), device=cuda_device)      # D=24
+    k = torch.zeros((1, 8, 2 * 24), device=cuda_device)
     with pytest.raises(ValueError, match="head_dim"):
         ops.decode_attention(q, k, k, 3, 2)
+    q = torch.zeros((1, 1, 3, 64), device=cuda_device)      # group 3
+    k = torch.zeros((1, 8, 64), device=cuda_device)
+    with pytest.raises(ValueError, match="H/Hkv"):
+        ops.decode_attention(q, k, k, 3, 1)
     q = torch.zeros((1, 1, 4, 64), dtype=torch.float16, device=cuda_device)
     k = torch.zeros((1, 8, 2 * 64), dtype=torch.float16, device=cuda_device)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
@@ -208,6 +216,23 @@ def test_generate_through_the_kernel_equals_einsum_path(cuda_device):
 
 
 @pytest.mark.cuda
+def test_generate_at_llama_tiny_runs_the_kernel(cuda_device):
+    """LLAMA_TINY's heads are 16 wide: the decode kernel takes them and
+    gives the einsum path's tokens."""
+    cfg = dataclasses.replace(llama.LLAMA_TINY, dtype=torch.float32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = llama.LlamaLM(cfg, seed=0)
+    prompt = torch.from_numpy(
+        np.random.RandomState(1).randint(0, cfg.vocab_size, (3, 11)))
+    ops.reset_launch_counts()
+    tokens = llama.generate(model, prompt, max_new_tokens=9)
+    assert ops.LAUNCHES["decode_attention"] == cfg.num_layers * 8
+    with llama.decode_kernel_disabled():
+        einsum = llama.generate(model, prompt, max_new_tokens=9)
+    assert torch.equal(tokens, einsum)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize(
@@ -227,7 +252,14 @@ def test_generate_through_the_kernel_equals_einsum_path(cuda_device):
      (2, 70, 1, 4, 2, 64, False, False),        # a single key
      # BERT-base and ViT-B/16 heads: group 1, non-causal.
      (4, 512, 512, 12, 12, 64, False, True),
-     (2, 197, 197, 12, 12, 64, False, False)])
+     (2, 197, 197, 12, 12, 64, False, False),
+     # The widened operand range (D zero-padded to 64, K/V repeated):
+     # Llama-tiny's D=16, BERT-tiny's D=32 with a key mask, group 16, and
+     # group 3 at D=16.
+     (2, 96, 96, 4, 2, 16, True, False),
+     (2, 77, 77, 2, 2, 32, False, True),
+     (1, 200, 200, 16, 1, 64, True, False),
+     (2, 50, 70, 6, 2, 16, True, True)])
 def test_flash_kernels_match_plain(cuda_device, dtype, b, sq, sk, h, hkv, d,
                                    causal, masked):
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -275,12 +307,9 @@ def test_flash_kernels_match_plain(cuda_device, dtype, b, sq, sk, h, hkv, d,
 
 @pytest.mark.cuda
 def test_flash_wrappers_refuse_what_the_kernels_cannot_take(cuda_device):
-    q = torch.zeros((1, 8, 4, 16), device=cuda_device)       # D=16
+    q = torch.zeros((1, 8, 4, 160), device=cuda_device)      # D=160
     with pytest.raises(ValueError, match="head_dim"):
         flash.flash_attention(q, q[:, :, :2], q[:, :, :2])
-    q = torch.zeros((1, 8, 3, 64), device=cuda_device)       # group 3
-    with pytest.raises(ValueError, match="H/Hkv"):
-        flash.flash_attention(q, q[:, :, :1], q[:, :, :1])
     q = torch.zeros((1, 8, 4, 64), dtype=torch.float16, device=cuda_device)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         flash.flash_attention(q, q[:, :, :2].contiguous(),

@@ -246,6 +246,12 @@ def test_port_imports_no_jax_or_reference_package():
         "import horovod_tpu_torch.examples.synthetic_benchmark\n"
         "import horovod_tpu_torch.examples.bert_pretraining\n"
         "import horovod_tpu_torch.serving\n"
+        "import horovod_tpu_torch.serving.router\n"
+        "import horovod_tpu_torch.metrics\n"
+        "import horovod_tpu_torch.metrics.registry\n"
+        "import horovod_tpu_torch.trace\n"
+        "import horovod_tpu_torch.examples.llama_generation\n"
+        "import horovod_tpu_torch.examples.serving_loadgen\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'horovod_tpu'))\n"
         "print(bad)\n"
