@@ -12,7 +12,9 @@ on ``cuda``; any failure exits non-zero:
 2. each decode kernel against its plain torch version, in float32 and
    bfloat16, at the serving slice's attention shape (Llama-300M: H=16,
    Hkv=8, D=64, b=8, window 256, paged block 16) and at Llama-8B's
-   (H=32, Hkv=8, D=128, b=8, window 4096), plus a scrambled block table
+   (H=32, Hkv=8, D=128, b=8, window 4096), and at MOE_SMALL's (H=12,
+   Hkv=6, D=64, window 384, b=8 and b=32: the MoE generation example's
+   shapes), plus a scrambled block table
    against the identity table, bitwise. Times (CUDA events, median over
    launches, L2 flushed before each) of the kernel, the plain version and
    ``scaled_dot_product_attention`` on the gathered window (a yardstick
@@ -30,7 +32,7 @@ on ``cuda``; any failure exits non-zero:
    kernel launched 16 x steps times;
 5. the same engine in bfloat16, timed: tokens/s, TTFT p50, TPOT p50;
 6. the three flash-attention kernels (forward, dq, dk/dv) against their
-   plain versions in float32 and bfloat16 on eight cases: the training
+   plain versions in float32 and bfloat16 on ten cases: the training
    slice's shape (b=8, S=1024, H=16, Hkv=8, D=64, causal), a key-masked
    causal case at an awkward length with a fully masked row, causal with
    sq=256 < sk=1024, Llama-8B's width (b=1, S=4096, H=32, Hkv=8, D=128),
@@ -39,7 +41,9 @@ on ``cuda``; any failure exits non-zero:
    masked row), and three non-causal cases at group 1: BERT-base's
    (b=32, S=512, H=Hkv=12, D=64, the last quarter of the keys masked in
    every other sequence), the same without the mask, and ViT-B/16's
-   (b=8, S=197, no mask). float32 at TOL;
+   (b=8, S=197, no mask); then the MoE LM's training shape (MOE_SMALL:
+   b=8, S=1024, H=12, Hkv=6, D=64, causal) and ViT-S/16's at batch 64
+   (S=197, H=Hkv=6, D=64, non-causal). float32 at TOL;
    bfloat16 at SCALED_TOL (each output held to its own magnitude), and
    faults planted in the plain outputs (the last key or query tile
    skipped; causal at the slice, non-causal at BERT's) must fail that
@@ -75,10 +79,11 @@ on ``cuda``; any failure exits non-zero:
    loss, peak memory, the dense-peak share and a profiled step's split.
 
 14. the kernels' operand range: the decode kernels (contiguous and
-   paged) at Llama-tiny's heads (H=4, Hkv=2, D=16), at D=32 and at group
-   16 (H=16, Hkv=1, D=64); the flash kernels at D=16, at D=32 (BERT-tiny,
-   non-causal, tail mask) and at group 16 (causal), through the wrappers'
-   zero-padding and K/V repeat. float32 at TOL, bfloat16 at SCALED_TOL,
+   paged) at Llama-tiny's heads (H=4, Hkv=2, D=16), at D=32, at group
+   16 (H=16, Hkv=1, D=64), at D=256 and at group 3; the flash kernels at
+   D=16, at D=32 (BERT-tiny, non-causal, tail mask), at group 16
+   (causal), at D=192 and at D=256, through the wrappers' zero-padding.
+   float32 at TOL, bfloat16 at SCALED_TOL,
    timed as 2 and 6. Then ``generate()`` at LLAMA_TINY on the card in
    float32 equals ``decode_kernel_disabled()``;
 15. the generation example (``examples.llama_generation``) at the JAX
@@ -100,12 +105,37 @@ on ``cuda``; any failure exits non-zero:
    prefix sharing), then the same trace with ``--chaos-kill`` (and
    ``--no-warmup``: the process is warm by then): no request fails;
    warm and cold TTFT and the live block peak against the no-sharing
-   baseline are logged.
+   baseline are logged;
+19. MoE parity: ``MOE_SMALL`` (249.7M parameters, top-2 of 8 experts on
+   every other layer) in float32 at seq 1024, batch 8: two SGD steps
+   through the flash kernels equal two through ``use_flash=False`` (loss
+   to 1e-4 relative, every weight within TOL, as phase 8), then two AdamW
+   steps (the loss held at each; step 0's gradients within TOL and its
+   weights within TOL plus AdamW's first-update spread of the two
+   gradients; the weights outside TOL after the last step counted, with
+   their step-0 gradients); every routing decision of the two runs
+   compared, and at every step a flip at the first routed layer with
+   flips at a probability gap above ``MOE_FLIP_GAP`` fails;
+20. the MoE training example (``examples.moe_lm_training``), moe-small,
+   bf16, seq 1024, batch 8, AdamW, 10 timed steps: tokens/s, step ms,
+   peak memory, the share of the bf16 dense peak (useful FLOPs, and the
+   capacity-padded count beside them) and a profiled pair of steps split
+   into flash, matmuls, routing and gathers, and the rest;
+21. ``generate()`` at ``MOE_SMALL`` in float32 through the decode kernel
+   equals the einsum path, then the generation example at
+   ``--model moe-small``, bf16, prompt 128, 256 new, batch 8 and 32, and
+   its model's greedy tokens at b=8 against the einsum path's (reported);
+22. ``ServingEngine`` at ``MOE_SMALL`` in float32 over 12 requests: each
+   equals ``generate()`` alone, through the paged kernel;
+23. the ViT example (``examples.vit_training``) at the JAX row
+   ``vit_s16_224_b64_adamw_spc8``: ViT-S/16 bf16, batch 64, 8 steps a
+   call, ``--attention xla`` and ``flash``: img/s.
 
-Phases 3-5, 9, 13 and 15-18 are the main paths: the launch counts in
-the kernels' JSON line come from them (the flash kernels' are the sum of
-9 and 13, the contiguous decode kernel's of 3 and 15, the paged one's of
-4 and 16-18; each path's on a line of its own). Each phase logs its wall
+Phases 3-5, 9, 13, 15-18 and 20-23 are the main paths: the launch
+counts in the kernels' JSON line come from them (the flash kernels' are
+the sum of 9, 13, 20 and 23's flash run, the contiguous decode kernel's
+of 3, 15 and 21, the paged one's of 4, 16-18 and 22; each path's on a
+line of its own). Each phase logs its wall
 time. The line before the last is that JSON object; the last line is
 ``{"ok": true, "device": {...}}``. The whole run logs its wall time.
 """
@@ -149,7 +179,7 @@ REPLACES = {
 }
 LAYERS = 16                          # Llama-300M
 # Kernel names as ptxas and the profiler report them.
-FLASH_KERNELS = r"(?:bf16|f32)_(?:fwd|dq|dkdv)(?:_tma)?_kernel"
+FLASH_KERNELS = r"(?:bf16|fma)_(?:fwd|dq|dkdv)(?:_tma)?_kernel"
 DECODE_KERNELS = r"decode_(?:combine_)?kernel"
 
 
@@ -245,7 +275,9 @@ def compare_scaled(got, want, what: str, check: bool = True):
 
 def kernel_cases():
     """Yield (label, dtype, shape dict): the serving slice's attention
-    shape, and Llama-8B's attention width at a 4096 window."""
+    shape, Llama-8B's attention width at a 4096 window, and MOE_SMALL's
+    (H=12, Hkv=6, D=64) at the MoE generation example's window (prompt
+    128 + 256 new) and batches."""
     import torch
 
     for dtype in (torch.float32, torch.bfloat16):
@@ -255,6 +287,41 @@ def kernel_cases():
         yield ("llama8b", dtype,
                dict(b=8, h=32, hkv=8, d=128, window=4096, bs=16,
                     lens=[0, 15, 511, 1023, 2047, 3000, 4000, 4095]))
+        yield ("moe_small_b8", dtype,
+               dict(b=8, h=12, hkv=6, d=64, window=384, bs=16,
+                    lens=[0, 15, 16, 127, 128, 200, 300, 383]))
+        yield ("moe_small_b32", dtype,
+               dict(b=32, h=12, hkv=6, d=64, window=384, bs=16,
+                    lens=list(range(0, 372, 12)) + [383]))
+
+
+def decode_accuracy(q, k, v, idx: int, hkv: int, got):
+    """RMS error of the bf16 contiguous decode kernel's output ``got`` and
+    of the model's einsum path (``models.llama``: q.k in bf16, the
+    probabilities rounded to bf16, P.V in bf16) against float32 math on
+    the same bf16 inputs."""
+    import torch
+
+    b, _, h, d = q.shape
+    window = k.shape[1]
+    scale = d ** -0.5
+    qg = q.reshape(b, 1, hkv, h // hkv, d)
+    k4, v4 = k.view(b, window, hkv, d), v.view(b, window, hkv, d)
+    mask = (torch.arange(window, device=q.device) <= idx)[
+        None, None, None, None, :]
+
+    def attend(qx, kx, vx, rounded: bool):
+        logits = torch.einsum("bshgd,blhd->bshgl", qx, kx).float() * scale
+        probs = torch.softmax(logits.masked_fill(~mask, float("-inf")), -1)
+        if rounded:
+            probs = probs.to(qx.dtype)
+        return torch.einsum("bshgl,blhd->bshgd", probs, vx).reshape(
+            b, 1, h, d).float()
+
+    exact = attend(qg.float(), k4.float(), v4.float(), False)
+    einsum = attend(qg, k4, v4, True)
+    return {name: float((x.float() - exact).pow(2).mean().sqrt())
+            for name, x in (("kernel", got), ("einsum_path", einsum))}
 
 
 def paged_pool(k, v, tables, bs, slots):
@@ -305,6 +372,11 @@ def check_kernels(device, flush):
             err = compare(got, want, dname,
                           f"decode_attention {label} {dname} idx={idx}")
         idx = window - 1
+        accuracy = None
+        if dtype == torch.bfloat16:
+            accuracy = decode_accuracy(q, k, v, idx, hkv,
+                                       ops.decode_attention(q, k, v, idx,
+                                                            hkv))
         k_win = k.view(b, window, hkv, d).transpose(1, 2)
         v_win = v.view(b, window, hkv, d).transpose(1, 2)
         q_sdpa = q.transpose(1, 2)
@@ -324,7 +396,8 @@ def check_kernels(device, flush):
             bound_ms=c_bound, bound_by=c_by,
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                 q_sdpa, k_win, v_win, scale=scale, enable_gqa=True),
-                flush))
+                flush),
+            rms_err_vs_float32_math=accuracy)
         log(f"kernel {json.dumps(row)}")
         results[("decode_attention", label, dname)] = row
 
@@ -459,14 +532,18 @@ def random_prompts(rng, n, vocab, lo, hi):
             .astype(np.int32) for _ in range(n)]
 
 
-def run_generate(cfg):
+def run_generate(cfg, model_cls=None, what: str = "llama300m"):
+    """``generate()`` in float32 at ``cfg`` (``model_cls``, default
+    ``LlamaLM``), b=8, prompt 128, 32 new: the kernel's tokens equal the
+    einsum path's; returns the model and the decode kernel's launches."""
     import torch
 
     from horovod_tpu_torch.models.llama import (
         LlamaLM, decode_kernel_disabled, generate)
     from horovod_tpu_torch.ops import decode_attention as ops
 
-    model = LlamaLM(cfg, seed=0)
+    layers = cfg.num_layers
+    model = (model_cls or LlamaLM)(cfg, seed=0)
     rng = np.random.RandomState(0)
     prompt = torch.from_numpy(rng.randint(0, cfg.vocab_size, (8, 128)))
     ops.reset_launch_counts()
@@ -487,21 +564,24 @@ def run_generate(cfg):
         raise AssertionError(
             f"generate: kernel tokens differ from decode_kernel_disabled() "
             f"at {diff}")
-    if launches != LAYERS * 31 or paged != 0:
+    if launches != layers * 31 or paged != 0:
         raise AssertionError(
             f"generate: decode kernel launched {launches} times (paged "
-            f"{paged}); expected {LAYERS * 31}")
+            f"{paged}); expected {layers * 31}")
     with torch.inference_mode():
         logits = model(prompt[:1, :16].to(model.device))
     if not bool(torch.isfinite(logits).all()):
         raise AssertionError("forward logits are not finite")
-    log(f"generate: llama300m f32 b=8 p=128 n=32 tokens equal einsum path; "
+    log(f"generate: {what} f32 b=8 p=128 n=32 tokens equal einsum path; "
         f"decode_attention launches {launches}; wall {wall:.3f} s "
         f"(first call, {8 * 32 / wall:.1f} tok/s)")
     return model, launches
 
 
-def run_engine_parity(model, cfg):
+def run_engine_parity(model, cfg, what: str = "llama300m"):
+    """``ServingEngine`` in float32 over 12 seeded requests: each equals
+    ``generate()`` alone; the paged kernel launched once per layer per
+    step. Returns its launches."""
     import torch
 
     from horovod_tpu_torch import serving
@@ -521,7 +601,7 @@ def run_engine_parity(model, cfg):
     launches = ops.LAUNCHES["paged_decode_attention"]
     contiguous = ops.LAUNCHES["decode_attention"]
     stats = engine.stats()
-    if launches != LAYERS * stats["steps"] or contiguous != 0:
+    if launches != cfg.num_layers * stats["steps"] or contiguous != 0:
         raise AssertionError(
             f"engine: paged kernel launched {launches} times (contiguous "
             f"{contiguous}) over {stats['steps']} steps")
@@ -534,7 +614,7 @@ def run_engine_parity(model, cfg):
                 f"engine request {i} (prompt {len(p)}, {n} new) differs "
                 f"from generate():\n got={got}\nwant={want}")
     engine.shutdown()
-    log(f"engine: llama300m f32 12 requests equal generate(); steps "
+    log(f"engine: {what} f32 12 requests equal generate(); steps "
         f"{stats['steps']}, paged_decode_attention launches {launches}, "
         f"preemptions {stats['preemptions']}")
     return launches
@@ -686,7 +766,11 @@ def flash_cases():
             ("bert", 32, 512, 512, 12, 12, 64, "tail", False),
             # BERT's shape without the mask: what the key mask costs.
             ("bert_nomask", 32, 512, 512, 12, 12, 64, None, False),
-            ("vit", 8, 197, 197, 12, 12, 64, None, False)]
+            ("vit", 8, 197, 197, 12, 12, 64, None, False),
+            # The MoE LM's training shape (MOE_SMALL, seq 1024, b8) and
+            # ViT-S/16's at the JAX row's batch of 64.
+            ("moe_small", 8, 1024, 1024, 12, 6, 64, None, True),
+            ("vit_s16", 64, 197, 197, 6, 6, 64, None, False)]
 
 
 def tail_mask(b: int, s: int, device):
@@ -894,23 +978,35 @@ def check_flash(device, flush, cases=None):
 
 def operand_decode_cases():
     """(label, shape dict): Llama-tiny's attention (H=4, Hkv=2, D=16), a
-    D=32 case, and group 16 (H=16, Hkv=1, D=64), at the serving window."""
+    D=32 case, group 16 (H=16, Hkv=1, D=64), D=256 and group 3, at the
+    serving window."""
     lens = [0, 15, 16, 47, 100, 191, 240, 255]
     return [("llama_tiny_d16", dict(b=8, h=4, hkv=2, d=16, window=256,
                                     bs=16, lens=lens)),
             ("d32", dict(b=8, h=8, hkv=4, d=32, window=256, bs=16,
                          lens=lens)),
             ("group16", dict(b=8, h=16, hkv=1, d=64, window=256, bs=16,
-                             lens=lens))]
+                             lens=lens)),
+            # head_dim 256 (two 16-byte pieces a lane in
+            # float32), and group 3, which no block width equals (one
+            # query head a block).
+            ("d256", dict(b=8, h=8, hkv=4, d=256, window=256, bs=16,
+                          lens=lens)),
+            ("group3", dict(b=8, h=12, hkv=4, d=64, window=256, bs=16,
+                            lens=lens))]
 
 
 def operand_flash_cases():
-    """Flash cases outside the kernels' instantiations: Llama-tiny's D=16
-    (causal), BERT-tiny's D=32 (non-causal, the padded-tail mask) and
-    group 16 (H=16 over Hkv=1, causal)."""
+    """Flash cases outside the kernels' first instantiations: Llama-tiny's
+    D=16 (causal), BERT-tiny's D=32 (non-causal, the padded-tail mask),
+    group 16 (H=16 over Hkv=1, causal), D=192 and D=256."""
     return [("llama_tiny_d16", 8, 256, 256, 4, 2, 16, None, True),
             ("bert_tiny_d32", 8, 128, 128, 2, 2, 32, "tail", False),
-            ("group16", 2, 1024, 1024, 16, 1, 64, None, True)]
+            ("group16", 2, 1024, 1024, 16, 1, 64, None, True),
+            # head_dim 192 (padded to 256) and 256, the FMA
+            # family at 32 rows a block, causal and with a tail mask.
+            ("d192", 2, 512, 512, 8, 4, 192, None, True),
+            ("d256", 2, 512, 512, 8, 2, 256, "tail", False)]
 
 
 def check_operand_range(device, flush):
@@ -1345,10 +1441,10 @@ CONV_SPLIT = (
 
 
 def profile_step(step, step_ms: float, buckets, required: str, what: str,
-                 steps: int = 2):
+                 steps: int = 2, listed=None):
     """Where a bf16 training step's device time goes, by ``buckets`` plus
     "other" (which must see time in bucket ``required``); the kernel
-    count. Two shares: the idle share of the profiled
+    count; every kernel of bucket ``listed`` (if given) with its time. Two shares: the idle share of the profiled
     window (device busy time against that window's own wall time, which
     the profiler's per-launch host cost stretches), and busy time over
     the step's wall time without the profiler (``step_ms``)."""
@@ -1388,6 +1484,11 @@ def profile_step(step, step_ms: float, buckets, required: str, what: str,
     result["top_kernels"] = [
         [bucket, name[:90], us / steps / 1e3]
         for us, bucket, name in sorted(by_name, reverse=True)[:12]]
+    if listed:
+        result[f"{listed}_kernels"] = [
+            [name[:90], us / steps / 1e3]
+            for us, bucket, name in sorted(by_name, reverse=True)
+            if bucket == listed]
     if not result[f"{required}_ms_per_step"] > 0:
         raise AssertionError(
             f"{what} profile: no device time matched the {required} "
@@ -1674,6 +1775,544 @@ def run_bert_timed(card: str):
     return numbers
 
 
+# ---------------------------------------------------------------------------
+# Phases 19-23: the MoE LM (MOE_SMALL) and the ViT example
+
+# Device-time buckets of the MoE step: flash, matmuls (the experts' bmm,
+# the dense projections, the head), routing and the row permutations
+# (argmax, the integer cumsum, index/gather kernels), then "other". The
+# name match also takes the embedding's lookup and backward and any
+# indexing in the loss, so the profile lists every kernel of that bucket.
+MOE_SPLIT = (
+    ("flash", lambda n: re.search(FLASH_KERNELS, n)),
+    ("matmul", lambda n: any(t in n for t in ("nvjet", "gemm", "gemv",
+                                              "cutlass", "xmma"))),
+    ("routing_gather", lambda n: any(t in n for t in (
+        "index", "gather", "scatter", "scan", "cumsum", "argmax",
+        "argm", "one_hot", "nonzero"))))
+
+
+def moe_step_flops(cfg, b: int, s: int):
+    """FLOPs of one MoE LM training step (forward and backward, 6 per
+    weight per token; attention's QK^T and PV over the causal pairs, 12
+    per pair per head width): ``(useful, padded)``. Useful counts the k
+    routed assignments of every token; padded every capacity slot the
+    experts compute (E x C rows at the training capacity factor)."""
+    from horovod_tpu_torch.parallel.moe import _capacity
+
+    d, hd = cfg.dim, cfg.dim // cfg.num_heads
+    tokens = b * s
+    attn_w = d * (2 * cfg.num_heads + 2 * cfg.num_kv_heads) * hd
+    dense_ffn = 3 * d * cfg.ffn_hidden
+    expert = 2 * d * cfg.expert_hidden
+    routed = sum(cfg.routed(i) for i in range(cfg.num_layers))
+    dense = cfg.num_layers * attn_w + (cfg.num_layers - routed) * dense_ffn \
+        + routed * d * cfg.num_experts + d * cfg.vocab_size
+    attn = 12 * b * (s * (s + 1) // 2) * cfg.num_heads * hd * cfg.num_layers
+    slots = cfg.num_experts * _capacity(tokens, cfg.num_experts,
+                                        cfg.capacity_factor,
+                                        cfg.num_selected)
+    base = 6 * dense * tokens + attn
+    return (base + 6 * expert * routed * cfg.num_selected * tokens,
+            base + 6 * expert * routed * slots)
+
+
+class RoutingLog:
+    """Each routed layer's decisions in a forward pass, taken from its
+    input by a forward hook: the float32 router probabilities and each
+    round's expert, as ``parallel.moe._route`` picks them."""
+
+    def __init__(self, model):
+        from horovod_tpu_torch.models.moe_lm import MoeFFN
+        from horovod_tpu_torch.parallel.moe import _route
+
+        self.calls = []
+        cfg = model.config
+
+        def hook(module, args, _out):
+            import torch
+
+            with torch.no_grad():
+                x = args[0]
+                probs = torch.softmax(x.reshape(-1, x.shape[-1]).float()
+                                      @ module.gate.float(), -1)
+                routing, _ = _route(probs, 1 << 30, cfg.num_selected, True,
+                                    torch.float32)
+            self.calls.append((probs, torch.stack(routing.expert_idx)))
+
+        self.handles = [m.register_forward_hook(hook)
+                        for m in model.modules() if isinstance(m, MoeFFN)]
+
+    def close(self):
+        for h in self.handles:
+            h.remove()
+
+
+def routing_flips(kernel_log, plain_log):
+    """Per forward call of a routed layer, in order (steps x routed
+    layers): ``(flips, decisions, smallest gap, largest gap)``, a flip
+    being a decision (token, round) whose expert differs between the two
+    runs and its gap the two experts' probability difference in the
+    kernel run."""
+    if len(kernel_log.calls) != len(plain_log.calls):
+        raise AssertionError("routing logs of unequal length")
+    rows = []
+    for (pk, ek), (_, ep) in zip(kernel_log.calls, plain_log.calls):
+        diff = (ek != ep).nonzero().tolist()
+        gaps = [float((pk[t, ek[r, t]] - pk[t, ep[r, t]]).abs())
+                for r, t in diff]
+        rows.append((len(diff), ek.numel(), min(gaps) if gaps else None,
+                     max(gaps) if gaps else None))
+    return rows
+
+
+# A routing flip at a larger probability gap fails. Held at the first
+# routed layer of a step that has flips: a flip changes its token's
+# output, and a capacity drop its neighbours', so the later layers' inputs
+# differ by more than rounding and their flips follow from the first.
+MOE_FLIP_GAP = 1e-5
+
+
+def adamw_first_update(grad, eps: float):
+    """AdamW's first step, bias-corrected, per unit of lr: g / (|g| + eps)
+    (the sign of g wherever |g| >> eps)."""
+    return grad / (grad.abs() + eps)
+
+
+def run_moe_parity(steps: int = 2, batch: int = 8, seq: int = 1024):
+    """MOE_SMALL float32 (TF32 off) at seq 1024, batch 8: ``steps`` steps
+    through the flash kernels against as many through ``use_flash=False``
+    from the same weights and batch, first with SGD (the loss to 1e-4
+    relative and every weight within TOL, as phase 8), then with AdamW:
+    the loss to 1e-4 relative at every step; at step 0, where both runs
+    start from the same weights, every gradient within TOL, and every
+    weight after the update within TOL plus AdamW's own spread of the
+    two gradients, lr * |u_k - u_p| with u = g / (|g| + eps) (AdamW's first
+    update is lr * u, the sign of g: a gradient element within rounding
+    of zero can take either sign in the two runs and so moves its weight
+    by up to 2 lr either way). After the last step the weights outside
+    TOL are counted, by parameter, and their step-0 |g| and relative
+    gradient difference reported beside every element's. Every routing decision of both
+    runs is compared: at every step, a flip at the first routed layer
+    with flips whose probability gap exceeds MOE_FLIP_GAP fails."""
+    import torch
+
+    from horovod_tpu_torch.examples import llama_training, moe_lm_training
+    from horovod_tpu_torch.models.moe_lm import MOE_SMALL
+    from horovod_tpu_torch.ops import attention as A
+
+    cfg = dataclasses.replace(MOE_SMALL, dtype=torch.float32)
+    ids = llama_training.batch_ids(cfg, batch, seq, "cuda")
+    loss_fn = moe_lm_training.make_loss_fn(0.01)
+    layers = cfg.num_layers
+    tol = TOL["float32"]
+    report = {}
+    for opt_name in ("sgd", "adamw"):
+        runs = {}
+        step0, hyper = {}, None
+        for use_flash in (True, False):
+            model = moe_lm_training.make_model(cfg, no_flash=not use_flash,
+                                               device="cuda")
+            opt = llama_training.make_optimizer(opt_name, model)
+            if opt_name == "adamw":
+                hyper = {k: opt.param_groups[0][k] for k in ("lr", "eps")}
+            routing = RoutingLog(model)
+            losses = []
+            for step in range(steps):
+                A.reset_launch_counts()
+                losses.append(float(llama_training.train_step(
+                    model, opt, ids, loss_fn)))
+                want = layers if use_flash else 0
+                if set(A.LAUNCHES.values()) != {want}:
+                    raise AssertionError(
+                        f"moe parity step {step} (use_flash={use_flash}): "
+                        f"flash launches {A.LAUNCHES}, expected {want}")
+                if step == 0 and opt_name == "adamw":
+                    # Both runs' gradients and weights after step 0.
+                    step0[use_flash] = [
+                        (name, p.grad.detach().clone(), p.detach().clone())
+                        for name, p in model.named_parameters()]
+            routing.close()
+            runs[use_flash] = (model, losses, routing)
+            del opt
+        (kmodel, klosses, klog), (pmodel, plosses, plog) = (runs[True],
+                                                            runs[False])
+        rows = routing_flips(klog, plog)
+        routed = len(rows) // steps
+        first_flips = []
+        for step in range(steps):
+            hit = [r for r in rows[step * routed:(step + 1) * routed] if r[0]]
+            first_flips.append(hit[0] if hit else None)
+            if hit and hit[0][3] > MOE_FLIP_GAP:
+                raise AssertionError(
+                    f"moe parity ({opt_name}) step {step}: {hit[0][0]} "
+                    f"routing flips at the first routed layer with any, "
+                    f"the largest at a probability gap of {hit[0][3]:.3g} "
+                    f"(> {MOE_FLIP_GAP})")
+        flips = sum(r[0] for r in rows)
+        decisions = sum(r[1] for r in rows)
+        gaps = [g for r in rows for g in r[2:] if g is not None]
+        gap_min = min(gaps) if gaps else None
+        gap_max = max(gaps) if gaps else None
+        for a, b in zip(klosses, plosses):
+            if not np.isfinite(a) or abs(a - b) > 1e-4 * abs(b):
+                raise AssertionError(
+                    f"moe parity ({opt_name}): losses {klosses} vs {plosses}")
+        adamw = None
+        if opt_name == "adamw":
+            adamw = check_adamw_step0(step0, kmodel, pmodel, **hyper)
+        del step0
+        worst, outside, total = 0.0, 0, 0
+        with torch.no_grad():
+            for (name, p), (_, r) in zip(kmodel.named_parameters(),
+                                         pmodel.named_parameters()):
+                worst = max(worst, float((p - r).abs().max()))
+                bad = (p - r).abs() > tol["atol"] + tol["rtol"] * r.abs()
+                outside += int(bad.sum())
+                total += p.numel()
+                if opt_name == "sgd":
+                    compare(p, r, "float32", f"moe parity weight {name}")
+        report[opt_name] = {
+            "losses_kernel": klosses, "losses_plain": plosses,
+            "max_abs_weight_diff": worst,
+            "weights_outside_tol": outside, "weights": total,
+            "routing_decisions": decisions, "routing_flips": flips,
+            "flip_gap_min": gap_min, "flip_gap_max": gap_max,
+            "routing_by_layer": rows,
+            "first_flipping_layer_by_step": first_flips, "adamw": adamw}
+        log(f"moe parity: moe-small f32 seq {seq} b={batch}, {steps} "
+            f"{opt_name} steps; losses kernel {klosses} vs plain {plosses}; "
+            f"max abs weight diff {worst:.3g}, {outside} of {total} weights "
+            f"outside {TOL['float32']} after the last step"
+            f"{' (held: 0 allowed)' if opt_name == 'sgd' else ''}"
+            f"; routing: {flips} of {decisions} decisions differ (gap "
+            f"min {gap_min}, max {gap_max}; per step, the first routed "
+            f"layer with flips: {first_flips}); flash launches {layers} "
+            f"per kernel per step")
+        if adamw is not None:
+            log(f"moe parity adamw: {json.dumps(adamw)}")
+        del kmodel, pmodel, runs, klog, plog
+        torch.cuda.empty_cache()
+    return report
+
+
+def check_adamw_step0(step0, kmodel, pmodel, lr: float, eps: float):
+    """Phase 19's AdamW holds (see :func:`run_moe_parity`): step 0's
+    gradients within TOL, and step 0's weights within TOL plus
+    lr * |u_k - u_p|. Then, for the weights outside TOL after the last
+    step, their step-0 |g| (kernel run) and the two runs' relative
+    gradient difference there, against every element's."""
+    import torch
+
+    tol = TOL["float32"]
+    grad_diff = spread_excess = 0.0
+    outside0 = 0
+    by_param0, by_param = {}, {}
+    g_abs, g_out, rel, rel_out = [], [], [], []
+    with torch.no_grad():
+        for (name, gk, wk), (_, gp, wp), (_, p), (_, r) in zip(
+                step0[True], step0[False], kmodel.named_parameters(),
+                pmodel.named_parameters()):
+            compare(gk, gp, "float32", f"moe parity adamw step-0 gradient "
+                                       f"{name}")
+            grad_diff = max(grad_diff, float((gk - gp).abs().max()))
+            limit = tol["atol"] + tol["rtol"] * wp.abs()
+            spread = lr * (adamw_first_update(gk, eps)
+                           - adamw_first_update(gp, eps)).abs()
+            err = (wk - wp).abs()
+            n0 = int((err > limit).sum())
+            outside0 += n0
+            if n0:
+                by_param0[name] = n0
+            spread_excess = max(spread_excess,
+                                float((err - limit - spread).max()))
+            # |g_k - g_p| / |g_k|: above 1 where the two signs may differ.
+            ratio = ((gk - gp).abs() / gk.abs().clamp_min(1e-30)).flatten()
+            bad = ((p - r).abs()
+                   > tol["atol"] + tol["rtol"] * r.abs()).flatten()
+            if bool(bad.any()):
+                by_param[name] = [int(bad.sum()), p.numel()]
+            g_abs.append(gk.abs().flatten())
+            g_out.append(gk.abs().flatten()[bad])
+            rel.append(ratio)
+            rel_out.append(ratio[bad])
+        if spread_excess > 0:
+            raise AssertionError(
+                f"moe parity adamw step 0: a weight differs by "
+                f"{spread_excess:.3g} beyond TOL + lr |u_k - u_p|")
+        g_abs, g_out = torch.cat(g_abs), torch.cat(g_out)
+        rel, rel_out = torch.cat(rel), torch.cat(rel_out)
+
+        def spread(t):
+            return None if not t.numel() else {
+                "median": float(t.median()), "max": float(t.max())}
+
+        return {
+            "lr": lr, "eps": eps,
+            "step0_max_abs_grad_diff": grad_diff,
+            "step0_grads_outside_tol": 0,
+            "step0_weights_outside_tol": outside0,
+            "step0_weights_beyond_tol_plus_lr_spread": 0,
+            "step0_outside_by_param": by_param0,
+            "last_step_weights_outside_tol": int(g_out.numel()),
+            # [outside, size] of the 12 parameters with the most.
+            "last_step_outside_by_param": dict(sorted(
+                by_param.items(), key=lambda kv: -kv[1][0])[:12]),
+            "last_step_params_with_outside": len(by_param),
+            "step0_abs_grad": {"all": spread(g_abs), "at_outside":
+                               spread(g_out)},
+            "step0_rel_grad_diff": {"all": spread(rel),
+                                    "at_outside": spread(rel_out)}}
+
+
+def run_moe_training_timed(card: str):
+    """The MoE training example's main path: moe-small, bf16, seq 1024,
+    batch 8, AdamW, 10 timed steps: tokens/s, step ms, falling loss, peak
+    memory, the share of the bf16 dense peak (useful FLOPs: the routed
+    assignments; the capacity-padded count beside it) and a profiled pair
+    of steps split into flash, matmuls, routing and gathers, and the rest.
+    Returns its numbers and the flash launch counts of the run."""
+    import torch
+
+    from horovod_tpu_torch.examples import llama_training
+    from horovod_tpu_torch.examples import moe_lm_training as ex
+    from horovod_tpu_torch.ops import attention as A
+
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launch_counts()
+    out = ex.main(["--model", "small", "--seq-len", "1024",
+                   "--batch-size", "8", "--num-iters", "10"])
+    torch.cuda.synchronize()
+    launches = dict(A.LAUNCHES)
+    losses = out["losses"]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"moe training: loss did not fall: {losses}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    useful, padded = moe_step_flops(out["model"].config, 8, 1024)
+    bound_ms = useful / PEAK_OPS_PER_S["bfloat16"] * 1e3
+    numbers = {"tokens_per_s": out["tokens_per_s"],
+               "step_ms": out["step_ms"], "losses": losses,
+               "peak_memory_gib": peak, "flash_launches": launches,
+               "tflop_per_step_useful": useful / 1e12,
+               "tflop_per_step_capacity_padded": padded / 1e12,
+               "bound_ms": bound_ms,
+               "dense_peak_share": bound_ms / out["step_ms"],
+               "dense_peak_share_padded": padded / useful * bound_ms
+               / out["step_ms"]}
+    log(f"moe training bf16 moe-small seq 1024 b=8 adamw: "
+        f"{out['tokens_per_s']:.1f} tokens/s, step {out['step_ms']:.3f} ms, "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, peak memory "
+        f"{peak:.2f} GiB, {useful / 1e12:.3f} TFLOP per step useful "
+        f"({padded / 1e12:.3f} capacity-padded), bf16 bound "
+        f"{bound_ms:.3f} ms = {numbers['dense_peak_share']:.4f} of the step "
+        f"({numbers['dense_peak_share_padded']:.4f} padded), flash launches "
+        f"{launches} over 11 steps [{card}]")
+    numbers["step_profile"] = profile_step(
+        lambda: llama_training.train_step(out["model"], out["optimizer"],
+                                          out["ids"], out["loss_fn"]),
+        out["step_ms"], MOE_SPLIT, "flash", "moe-small",
+        listed="routing_gather")
+    del out
+    torch.cuda.empty_cache()
+    return numbers
+
+
+def run_moe_generation(card: str):
+    """``generate()`` at MOE_SMALL in float32 through the decode kernel
+    (tokens equal the einsum path's), then the generation example at
+    ``--model moe-small``, bf16, prompt 128, 256 new, batch 8 and 32:
+    tokens/s and peak memory. Returns the numbers and the contiguous
+    decode kernel's launches of the example's runs and of generate()."""
+    import torch
+
+    from horovod_tpu_torch.examples import llama_generation
+    from horovod_tpu_torch.models.moe_lm import MOE_SMALL, MoeLM
+    from horovod_tpu_torch.ops import decode_attention as ops
+
+    cfg = dataclasses.replace(MOE_SMALL, dtype=torch.float32)
+    model, gen_launches = run_generate(cfg, MoeLM, "moe-small")
+    rows = {}
+    ops.reset_launch_counts()
+    for batch in (8, 32):
+        out = llama_generation.main([
+            "--model", "moe-small", "--prompt-len", "128",
+            "--max-new-tokens", "256", "--batch-size", str(batch)])
+        tokens = out["out"]
+        if tuple(tokens.shape) != (batch, 384) or not bool(
+                ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
+            raise AssertionError(f"moe generation example b={batch}: bad "
+                                 f"output {tuple(tokens.shape)}")
+        rows[f"b{batch}"] = {
+            "tokens_per_s": out["tokens_per_s"], "seconds": out["seconds"],
+            "peak_memory_gib": out["peak_memory_bytes"] / 2 ** 30}
+        log(f"generation example moe-small bf16 p=128 n=256 b={batch}: "
+            f"{out['tokens_per_s']:.1f} decode tokens/s "
+            f"({out['seconds']:.3f} s), peak memory "
+            f"{rows[f'b{batch}']['peak_memory_gib']:.3f} GiB [{card}]")
+        del out, tokens
+        torch.cuda.empty_cache()
+    launches = ops.LAUNCHES["decode_attention"]
+    want = 2 * 2 * cfg.num_layers * 255
+    if launches != want:
+        raise AssertionError(f"moe generation example: decode_attention "
+                             f"launched {launches} times, expected {want}")
+    rows["bf16_tokens_vs_einsum"] = bf16_token_agreement()
+    return model, rows, gen_launches, launches
+
+
+def bf16_token_agreement(batch: int = 8, new: int = 32):
+    """The generation example's bf16 model and prompt (MOE_SMALL, seed 0,
+    prompt 128), ``new`` greedy tokens through the decode kernel and
+    through ``decode_kernel_disabled()``: how many rows agree, and where
+    each other row first differs. Reported, not held: in bf16 two
+    logits within rounding of each other pick either token, and the rows
+    part from there (the kernel itself is held at this shape in phase 2,
+    ``moe_small_b8``)."""
+    import torch
+
+    from horovod_tpu_torch.examples.llama_generation import CONFIGS
+    from horovod_tpu_torch.models.llama import (decode_kernel_disabled,
+                                                generate)
+
+    model_cls, cfg = CONFIGS["moe-small"]
+    model = model_cls(cfg, device="cuda", seed=0)
+    prompt = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (batch, 128)))
+    got = generate(model, prompt, max_new_tokens=new)[:, 128:]
+    with decode_kernel_disabled():
+        want = generate(model, prompt, max_new_tokens=new)[:, 128:]
+    first = [None if torch.equal(g, w) else int((g != w).nonzero()[0])
+             for g, w in zip(got, want)]
+    # The first decode step's logits (a full forward over the prompt and
+    # the first token, which both paths take from the same prefill): each
+    # row's top-two gap in bf16 spacings at the top logit.
+    with torch.inference_mode():
+        logits = model(torch.cat([prompt.to(model.device), want[:, :1]],
+                                 1))[:, -1]
+    top2 = logits.float().topk(2, dim=-1).values
+    _, exp = torch.frexp(top2[:, 0])
+    spacing = torch.ldexp(torch.full_like(top2[:, 0], torch.finfo(
+        logits.dtype).eps), exp - 1)
+    out = {"dtype": str(cfg.dtype).replace("torch.", ""),
+           "logits_dtype": str(logits.dtype).replace("torch.", ""),
+           "batch": batch, "new_tokens": new,
+           "rows_equal": first.count(None),
+           "first_difference_by_row": first,
+           "first_decode_top2_gap_in_spacings": (
+               (top2[:, 0] - top2[:, 1]) / spacing).tolist(),
+           "first_decode_step_vs_float32": first_step_against_float32(
+               model)}
+    log(f"moe-small bf16 greedy tokens, kernel vs einsum path: "
+        f"{json.dumps(out)}")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def first_step_against_float32(model, batch: int = 64, prompt_len=128):
+    """One decode step of the bf16 ``model`` (``batch`` seeded prompts,
+    then one seeded token each) through the decode kernel and through
+    the einsum path, each against a float32 copy of the same weights
+    (einsum path): the logits' max and RMS difference, the rows whose
+    argmax agrees, the routing decisions of the new token that differ
+    (of batch x top-k x routed layers), and layer 0's attention output,
+    whose inputs the two bf16 paths share."""
+    import torch
+
+    from horovod_tpu_torch.models.llama import (decode_kernel_disabled,
+                                                init_kv_cache)
+
+    cfg32 = dataclasses.replace(model.config, dtype=torch.float32)
+    ref = type(model)(cfg32, device="cuda", seed=0)
+    ref.load_state_dict(model.state_dict())
+    draw = np.random.RandomState(1).randint(
+        0, cfg32.vocab_size, (batch, prompt_len + 1))
+    ids = torch.from_numpy(draw[:, :-1]).to(model.device)
+    token = torch.from_numpy(draw[:, -1]).to(model.device)
+    s = prompt_len
+
+    def step(m, kernel: bool):
+        log_ = RoutingLog(m)
+        # Layer 0's attention output: both bf16 paths share its inputs.
+        seen = []
+        hook = m.layers[0].attention.register_forward_hook(
+            lambda _m, _a, o: seen.append(o.float()))
+        with torch.inference_mode():
+            cache = init_kv_cache(m.config, ids.shape[0], s + 1,
+                                  device=m.device)
+            m(ids, cache=cache, cache_index=0)
+            log_.calls.clear()
+            if kernel:
+                logits, _ = m(token[:, None], cache=cache, cache_index=s)
+            else:
+                with decode_kernel_disabled():
+                    logits, _ = m(token[:, None], cache=cache,
+                                  cache_index=s)
+        log_.close()
+        hook.remove()
+        return (logits[:, -1].float(), [e for _, e in log_.calls],
+                seen[-1])
+
+    want, want_routes, want_attn = step(ref, False)
+    out = {"batch": batch, "routing_decisions": sum(
+        r.numel() for r in want_routes)}
+    for path in ("kernel", "einsum"):
+        got, routes, attn = step(model, path == "kernel")
+        err = got - want
+        out[path] = {
+            "layer0_attention_rms_diff": float(
+                (attn - want_attn).pow(2).mean().sqrt()),
+            "logits_max_abs_diff": float(err.abs().max()),
+            "logits_rms_diff": float(err.pow(2).mean().sqrt()),
+            "argmax_rows_equal": int((got.argmax(-1)
+                                      == want.argmax(-1)).sum()),
+            "routing_decisions_differing": int(sum(
+                int((a != b).sum()) for a, b in zip(routes, want_routes)))}
+    del ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_vit_timed(card: str):
+    """The ViT example at the JAX row ``vit_s16_224_b64_adamw_spc8``:
+    ViT-S/16, bf16, batch 64, 8 steps per call, one warm-up call and 3
+    timed, with ``--attention xla`` then ``flash`` (non-causal at S=197):
+    img/s each, and the flash kernels' launches of the flash run."""
+    import torch
+
+    from horovod_tpu_torch.examples import vit_training as ex
+    from horovod_tpu_torch.ops import attention as A
+
+    rows = {}
+    for attention in ("xla", "flash"):
+        torch.cuda.reset_peak_memory_stats()
+        A.reset_launch_counts()
+        out = ex.main(["--model", "s16", "--batch-per-chip", "64",
+                       "--steps", "4", "--warmup-steps", "1",
+                       "--steps-per-call", "8", "--attention", attention])
+        torch.cuda.synchronize()
+        launches = dict(A.LAUNCHES)
+        if not all(np.isfinite(out["losses"])):
+            raise AssertionError(f"vit {attention}: loss {out['losses']}")
+        want = 12 * 4 * 8 if attention == "flash" else 0
+        if set(launches.values()) != {want}:
+            raise AssertionError(f"vit {attention}: flash launches "
+                                 f"{launches}, expected {want} each")
+        rows[attention] = {
+            "images_per_s": out["images_per_s"], "step_ms": out["step_ms"],
+            "losses": out["losses"], "flash_launches": launches,
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        log(f"vit example s16 224px bf16 b=64 spc=8 --attention "
+            f"{attention}: {out['images_per_s']:.1f} img/s, step "
+            f"{out['step_ms']:.3f} ms, loss {out['losses'][0]:.4f} -> "
+            f"{out['losses'][-1]:.4f}, peak memory "
+            f"{rows[attention]['peak_memory_gib']:.2f} GiB, flash launches "
+            f"{launches} [{card}]")
+        del out
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -1760,6 +2399,18 @@ def main() -> int:
     training = phase("9 training example", run_training_timed, card)
     torch.cuda.empty_cache()
 
+    moe_parity = phase("19 moe parity", run_moe_parity)
+    moe_training = phase("20 moe training example", run_moe_training_timed,
+                         card)
+    moe_model, moe_generation, moe_gen_launches, moe_example_launches = \
+        phase("21 moe generation", run_moe_generation, card)
+    moe_paged_launches = phase("22 moe engine", run_engine_parity,
+                               moe_model, moe_model.config, "moe-small")
+    release_serving()
+    del moe_model
+    torch.cuda.empty_cache()
+    vit = phase("23 vit example", run_vit_timed, card)
+
     zoo = {"resnet50_parity": phase("10 resnet parity", run_resnet_parity),
            "synthetic_benchmark": phase("11 synthetic benchmark",
                                         run_synthetic_benchmark, card),
@@ -1767,16 +2418,23 @@ def main() -> int:
     bert = phase("13 bert example", run_bert_timed, card)
     hvd.shutdown()
 
-    log(f"flash launches by main path: llama300m training "
-        f"{json.dumps(training['flash_launches'])}, bert-base training "
-        f"{json.dumps(bert['flash_launches'])}")
+    flash_paths = {"llama300m training (9)": training["flash_launches"],
+                   "bert-base training (13)": bert["flash_launches"],
+                   "moe-small training (20)": moe_training["flash_launches"],
+                   "vit-s16 --attention flash (23)":
+                       vit["flash"]["flash_launches"]}
+    log(f"flash launches by main path: {json.dumps(flash_paths)}")
     decode_paths = {"generate (3)": gen_launches,
-                    "generation example (15)": example_launches}
+                    "generation example (15)": example_launches,
+                    "moe-small generate (21)": moe_gen_launches,
+                    "moe-small generation example (21)":
+                        moe_example_launches}
     paged_paths = {"engine parity (4)": paged_launches,
                    "fleet parity (17)": fleet_launches,
                    "loadgen llama-300m (16)": loadgen_launches,
                    **{f"loadgen tiny {k} (18)": v[1]
-                      for k, v in fleet_rows.items()}}
+                      for k, v in fleet_rows.items()},
+                   "moe-small engine parity (22)": moe_paged_launches}
     log(f"decode_attention launches by main path: "
         f"{json.dumps(decode_paths)}")
     log(f"paged_decode_attention launches by main path: "
@@ -1786,16 +2444,13 @@ def main() -> int:
                              f"{decode_paths} {paged_paths}")
     launches = {"decode_attention": sum(decode_paths.values()),
                 "paged_decode_attention": sum(paged_paths.values()),
-                **{name: training["flash_launches"][name]
-                   + bert["flash_launches"][name]
+                **{name: sum(path[name] for path in flash_paths.values())
                    for name in flash_ops.LAUNCHES}}
-    if min(launches.values()) <= 0 or min(
-            bert["flash_launches"].values()) <= 0:
+    never = [f"{path}: {name}" for path, counts in flash_paths.items()
+             for name, n in counts.items() if n <= 0]
+    if min(launches.values()) <= 0 or never:
         raise AssertionError(f"a kernel of the main paths never ran: "
-                             f"{launches}, bert {bert['flash_launches']}")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the main paths never ran: "
-                             f"{launches}")
+                             f"{launches}; {never}")
     kernels = []
     for name in ("decode_attention", "paged_decode_attention"):
         row = results[(name, "llama300m", "bfloat16")]
@@ -1825,6 +2480,8 @@ def main() -> int:
     log(f"fleet: {json.dumps({'parity': fleet_parity, 'generation': generation, 'loadgen_300m': loadgen_300m, 'fleet_tiny': {k: v[0] for k, v in fleet_rows.items()}})}")
     log(f"training: {json.dumps({'parity': parity, **training})}")
     log(f"zoo: {json.dumps({**zoo, 'bert_training': bert})}")
+    log(f"moe: {json.dumps({'parity': moe_parity, 'training': moe_training, 'generation': moe_generation})}")
+    log(f"vit: {json.dumps(vit)}")
     log(f"wall time: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -55,10 +55,14 @@
 // the transposed accumulator, 8-row and 128-lane scratch, the VMEM-driven L
 // tiling) have no counterpart here.
 //
-// Instantiated for head_dim 16, 32, 64 and 128 and H / Hkv of 1, 2, 4, 8
-// and 16, in float32 and bfloat16: every width and group of the repo's
-// configurations, at the pool's own layout (padding D in the wrapper
-// would copy the whole pool on every step).
+// Instantiated for head_dim 16, 32, 64, 128 and 256 and blocks of 1, 2, 4,
+// 8 and 16 query heads, in float32 and bfloat16, at the pool's own layout
+// (padding D in the wrapper would copy the whole pool on every step). Any
+// H / Hkv runs: at the largest of those block widths that divides it. A
+// float32 row at D = 256 is 64 16-byte pieces, two per lane (the ring then
+// holds two batches in flight instead of four). The widest instantiations
+// (group 16 at D = 128 and 256) hold 2 x GROUP x D / 32 floats of q and
+// acc per lane and spill.
 //
 // Plain C interface, loaded with ctypes: every entry point returns
 // cudaGetLastError() after its launches (0 = launched) or
@@ -175,7 +179,11 @@ struct Heads {
   static __device__ __forceinline__ int lane_of(int g) { return (g / NH) * PER; }
 };
 
-// One block per (sequence x KV head, chunk). tables == nullptr: contiguous
+// One block per (sequence x GROUP query heads, chunk): the GROUP heads
+// head0 .. head0 + GROUP - 1 share the K/V head head0 / group, where group
+// = H / Hkv is the model's (GROUP divides it; GROUP = group is the native
+// layout, a smaller GROUP reads the K/V head once per GROUP heads, as the
+// flash kernels do, and takes any group). tables == nullptr: contiguous
 // cache, row of position t is seq * window + t, bound = cache_index.
 // Otherwise paged: row is tables[seq, t / block_size] * block_size + t %
 // block_size, bound = lens[seq]. window is the logical length (L, or
@@ -187,16 +195,25 @@ __global__ void __launch_bounds__(kWarps * 32)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
               T* __restrict__ out, float* __restrict__ part, const int* __restrict__ tables,
               const int* __restrict__ lens, int cache_index, int window, int table_slots,
-              int block_size, int hkv, int chunk, float scale_log2) {
+              int block_size, int hkv, int group, int chunk, float scale_log2) {
   constexpr int VEC = 16 / sizeof(T);   // elements per 16-byte load
-  constexpr int LANES = D / VEC;        // lanes sharing one row
+  // 16-byte pieces of a row per lane: 1, or 2 for a float32 row wider than
+  // 32 pieces (D = 256). Piece pc of lane sl covers elements
+  // (pc * LANES + sl) * VEC ...
+  constexpr int PIECES = D / VEC > 32 ? D / VEC / 32 : 1;
+  constexpr int PV = PIECES * VEC;      // elements per lane of a row
+  constexpr int LANES = D / PV;         // lanes sharing one row
   constexpr int ROWS = 32 / LANES;      // rows one warp reads at once
   constexpr int STEP = kWarps * ROWS;   // rows the block reads at once
+  constexpr int STAGES = kStages / PIECES;   // the ring's bytes stay the same
   static_assert(LANES <= 32 && 32 % LANES == 0, "D / VEC must divide 32");
+  static_assert(STAGES >= 2, "the ring holds two batches at least");
 
-  const int seq = blockIdx.x / hkv;
-  const int kv = blockIdx.x % hkv;
-  const int h = hkv * GROUP;
+  const int blocks_per_seq = hkv * (group / GROUP);
+  const int seq = blockIdx.x / blocks_per_seq;
+  const int head0 = (blockIdx.x % blocks_per_seq) * GROUP;
+  const int kv = head0 / group;
+  const int h = hkv * group;
   const size_t f = (size_t)hkv * D;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -208,20 +225,23 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   if (part != nullptr && c0 > bound) return;   // no row here: the combine skips it
   const int last = min(bound, c0 + chunk - 1);
 
-  float qf[GROUP][VEC];
+  float qf[GROUP][PV];
 #pragma unroll
   for (int g = 0; g < GROUP; ++g) {
-    const T* qp = q + ((size_t)seq * h + kv * GROUP + g) * D + sl * VEC;
-    unpack(load16(qp), qf[g], T());
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) qf[g][e] *= scale_log2;
+    for (int pc = 0; pc < PIECES; ++pc) {
+      const T* qp = q + ((size_t)seq * h + head0 + g) * D + (pc * LANES + sl) * VEC;
+      unpack(load16(qp), qf[g] + pc * VEC, T());
+    }
+#pragma unroll
+    for (int e = 0; e < PV; ++e) qf[g][e] *= scale_log2;
   }
 
   // The running max (log2 units) and sum of this lane's NH query heads;
   // the accumulators of every head of the group.
   using HD = Heads<GROUP, LANES>;
   constexpr int NH = HD::NH;
-  float m_own[NH], l_own[NH], acc[GROUP][VEC];
+  float m_own[NH], l_own[NH], acc[GROUP][PV];
 #pragma unroll
   for (int j = 0; j < NH; ++j) {
     m_own[j] = kNegInf;
@@ -230,7 +250,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 #pragma unroll
   for (int g = 0; g < GROUP; ++g) {
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) acc[g][e] = 0.f;
+    for (int e = 0; e < PV; ++e) acc[g][e] = 0.f;
   }
 
   // Batch i of this warp covers positions first + i * STEP * kUnroll + u *
@@ -239,8 +259,9 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   extern __shared__ uint4 ring[];
   const int first = c0 + warp * ROWS;
   const int batches = first > last ? 0 : (last - first) / (STEP * kUnroll) + 1;
-  auto piece = [&](int i, int u, int which) {
-    return ring + (((i % kStages) * kUnroll + u) * 2 + which) * (kWarps * 32) + threadIdx.x;
+  auto piece = [&](int i, int u, int which, int pc) {
+    return ring + ((((i % STAGES) * kUnroll + u) * 2 + which) * PIECES + pc) * (kWarps * 32)
+           + threadIdx.x;
   };
   // Copy batch i into its stage and commit a group (an empty one past the
   // last batch, so that the group count stays uniform).
@@ -257,38 +278,45 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
           } else {
             row = (size_t)seq * window + t;
           }
-          const size_t off = row * f + (size_t)kv * D + sl * VEC;
-          cp_async16(piece(i, u, 0), k + off);
-          cp_async16(piece(i, u, 1), v + off);
+#pragma unroll
+          for (int pc = 0; pc < PIECES; ++pc) {
+            const size_t off = row * f + (size_t)kv * D + (pc * LANES + sl) * VEC;
+            cp_async16(piece(i, u, 0, pc), k + off);
+            cp_async16(piece(i, u, 1, pc), v + off);
+          }
         }
       }
     }
     cp_async_commit();
   };
 #pragma unroll
-  for (int i = 0; i < kStages - 1; ++i) issue(i);
+  for (int i = 0; i < STAGES - 1; ++i) issue(i);
   for (int i = 0; i < batches; ++i) {
-    issue(i + kStages - 1);         // refills the stage read in batch i - 1
-    cp_async_wait<kStages - 1>();   // batch i has landed
-    uint4 kraw[kUnroll], vraw[kUnroll];
+    issue(i + STAGES - 1);         // refills the stage read in batch i - 1
+    cp_async_wait<STAGES - 1>();   // batch i has landed
+    uint4 kraw[kUnroll][PIECES], vraw[kUnroll][PIECES];
     bool valid[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       valid[u] = first + i * STEP * kUnroll + u * STEP + sub <= last;
-      kraw[u] = valid[u] ? *piece(i, u, 0) : make_uint4(0, 0, 0, 0);
-      vraw[u] = valid[u] ? *piece(i, u, 1) : make_uint4(0, 0, 0, 0);
+#pragma unroll
+      for (int pc = 0; pc < PIECES; ++pc) {
+        kraw[u][pc] = valid[u] ? *piece(i, u, 0, pc) : make_uint4(0, 0, 0, 0);
+        vraw[u][pc] = valid[u] ? *piece(i, u, 1, pc) : make_uint4(0, 0, 0, 0);
+      }
     }
     // This lane's heads' scores of the batch's rows, in log2 units.
     float s_own[NH][kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      float kf[VEC], x[GROUP];
-      unpack(kraw[u], kf, T());
+      float kf[PV], x[GROUP];
+#pragma unroll
+      for (int pc = 0; pc < PIECES; ++pc) unpack(kraw[u][pc], kf + pc * VEC, T());
 #pragma unroll
       for (int g = 0; g < GROUP; ++g) {
         x[g] = 0.f;
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) x[g] = fmaf(qf[g][e], kf[e], x[g]);
+        for (int e = 0; e < PV; ++e) x[g] = fmaf(qf[g][e], kf[e], x[g]);
       }
       reduce_scatter<GROUP, LANES>(x, sl);
 #pragma unroll
@@ -312,9 +340,12 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
       }
       l_own[j] = l_own[j] * alpha_own[j] + sum;
     }
-    float vf[kUnroll][VEC];
+    float vf[kUnroll][PV];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) unpack(vraw[u], vf[u], T());
+    for (int u = 0; u < kUnroll; ++u) {
+#pragma unroll
+      for (int pc = 0; pc < PIECES; ++pc) unpack(vraw[u][pc], vf[u] + pc * VEC, T());
+    }
     // Every head's rescale and probabilities from the lanes that hold them.
 #pragma unroll
     for (int g = 0; g < GROUP; ++g) {
@@ -325,7 +356,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
         pr[u] = __shfl_sync(0xffffffffu, pr_own[g % NH][u], HD::lane_of(g), LANES);
       }
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) {
+      for (int e = 0; e < PV; ++e) {
         float a = acc[g][e] * alpha;
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) a = fmaf(pr[u], vf[u][e], a);
@@ -353,7 +384,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
       const float a_o = exp2_ftz(m_o - m_new);
       l[g] = l[g] * a + l_o * a_o;
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) {
+      for (int e = 0; e < PV; ++e) {
         const float acc_o = __shfl_xor_sync(0xffffffffu, acc[g][e], o);
         acc[g][e] = acc[g][e] * a + acc_o * a_o;
       }
@@ -384,7 +415,12 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
         sm_l[warp][g] = l[g];
       }
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) sm_acc[(warp * GROUP + g) * D + sl * VEC + e] = acc[g][e];
+      for (int pc = 0; pc < PIECES; ++pc) {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          sm_acc[(warp * GROUP + g) * D + (pc * LANES + sl) * VEC + e] = acc[g][pc * VEC + e];
+        }
+      }
     }
   }
   __syncthreads();
@@ -401,7 +437,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
       lsum += sm_l[w][g] * a;
       asum += sm_acc[(w * GROUP + g) * D + e] * a;
     }
-    const size_t sh = (size_t)seq * h + kv * GROUP + g;
+    const size_t sh = (size_t)seq * h + head0 + g;
     if (part == nullptr) {
       out[sh * D + e] = from_f<T>(asum / fmaxf(lsum, 1e-30f));
     } else {
@@ -457,16 +493,17 @@ struct Args {
 };
 
 template <typename T, int D, int GROUP>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
+cudaError_t launch(const Args& a, int group, cudaStream_t stream) {
   static const cudaError_t ready = cudaFuncSetAttribute(
       decode_kernel<T, D, GROUP>, cudaFuncAttributeMaxDynamicSharedMemorySize, kRingBytes);
   if (ready != cudaSuccess) return ready;
   const int chunks = (a.window + a.chunk - 1) / a.chunk;
   T* out = static_cast<T*>(a.out);
-  decode_kernel<T, D, GROUP><<<dim3(a.b * a.hkv, chunks), kWarps * 32, kRingBytes, stream>>>(
+  const dim3 grid(a.b * a.hkv * (group / GROUP), chunks);
+  decode_kernel<T, D, GROUP><<<grid, kWarps * 32, kRingBytes, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v), out,
       chunks > 1 ? a.part : nullptr, a.tables, a.lens, a.cache_index, a.window, a.table_slots,
-      a.block_size, a.hkv, a.chunk, a.scale * kLog2e);
+      a.block_size, a.hkv, group, a.chunk, a.scale * kLog2e);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || chunks == 1) return err;
   // Programmatic dependent launch: the combine grid is set up while the
@@ -475,28 +512,27 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr.val.programmaticStreamSerializationAllowed = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.b * a.hkv * GROUP);
+  cfg.gridDim = dim3(a.b * a.hkv * group);
   cfg.blockDim = dim3(D);
   cfg.stream = stream;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
   const float* part = a.part;
   return cudaLaunchKernelEx(&cfg, decode_combine_kernel<T, D>, part, out, a.lens, a.cache_index,
-                            a.window, a.chunk, chunks, a.hkv * GROUP);
+                            a.window, a.chunk, chunks, a.hkv * group);
 }
 
-// The instantiations: head_dim in {16, 32, 64, 128} (ops/_build.py's
-// DECODE_WIDTHS) by H / Hkv in {1, 2, 4, 8, 16} (DECODE_GROUPS).
+// The instantiations: head_dim in {16, 32, 64, 128, 256} (ops/_build.py's
+// DECODE_WIDTHS) by GROUP in {1, 2, 4, 8, 16} (DECODE_GROUPS). A model's
+// group H / Hkv runs at the largest GROUP that divides it: its own where
+// it is one of them, else blocks of fewer heads (group 3: one head a block).
 template <typename T, int D>
 cudaError_t by_group(int group, const Args& a, cudaStream_t stream) {
-  switch (group) {
-    case 1: return launch<T, D, 1>(a, stream);
-    case 2: return launch<T, D, 2>(a, stream);
-    case 4: return launch<T, D, 4>(a, stream);
-    case 8: return launch<T, D, 8>(a, stream);
-    case 16: return launch<T, D, 16>(a, stream);
-    default: return cudaErrorInvalidValue;
-  }
+  if (group % 16 == 0) return launch<T, D, 16>(a, group, stream);
+  if (group % 8 == 0) return launch<T, D, 8>(a, group, stream);
+  if (group % 4 == 0) return launch<T, D, 4>(a, group, stream);
+  if (group % 2 == 0) return launch<T, D, 2>(a, group, stream);
+  return launch<T, D, 1>(a, group, stream);
 }
 
 template <typename T>
@@ -506,6 +542,7 @@ cudaError_t by_width(int d, int group, const Args& a, cudaStream_t stream) {
     case 32: return by_group<T, 32>(group, a, stream);
     case 64: return by_group<T, 64>(group, a, stream);
     case 128: return by_group<T, 128>(group, a, stream);
+    case 256: return by_group<T, 256>(group, a, stream);
     default: return cudaErrorInvalidValue;
   }
 }

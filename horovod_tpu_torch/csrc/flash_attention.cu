@@ -48,9 +48,15 @@
 // tiles (S, dP and dQ share the registers). dk/dv: 128 keys per block, 64-row
 // Q/dO tiles with their lse and delta slices.
 //
-// float32 (parity, not the bf16 main path): FMA loops over shared memory (no
-// TF32, so float32 stays float32), with the scores and P in a per-warp
-// scratch tile and the accumulators in shared memory.
+// float32 (parity, not the bf16 main path), and both types at head_dim 256:
+// the FMA family, loops over float32 tiles in shared memory (no TF32, so
+// float32 stays float32; bf16 is widened as it is loaded, p and ds rounded
+// to bf16 before their products as the plain versions round them, and the
+// outputs narrowed as they are written), with the scores and P in a
+// per-warp scratch tile and the accumulators in shared memory. 64 rows per
+// block at D = 64 and 128, 32 at D = 256, where 64 would not fit shared
+// memory. A D = 256 wgmma design is later work: no configuration of the
+// repo has that width, and these kernels close the operand range.
 //
 // The TPU kernels' tile sizes (512 / 1024, chosen for v5e VMEM) and their
 // head-folding transposes have no counterpart here.
@@ -69,9 +75,6 @@
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRows = 16 * kWarps;   // rows a block owns, 16 per warp
 constexpr float kNegInf = -1e30f;    // horovod_tpu's NEG_INF
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -88,11 +91,16 @@ __device__ __forceinline__ float warp_sum(float x) {
 
 __host__ __device__ constexpr size_t align128(size_t n) { return (n + 127) / 128 * 128; }
 
-// float32 tile geometry. Row pitches are padded by one element: the FMA
-// loops read columns across lanes, and an odd pitch keeps them on distinct
-// banks.
-template <int D>
+// The FMA family's tile geometry: W warps, 16 rows each, so a block owns
+// R = 16 W rows (4 warps at D = 64 and 128; 2 at D = 256, whose footprints
+// at 64 rows would not fit the 227 KB a block may use: dq would need about
+// 280 KB). Tiles hold float32 whatever the operands' type (bf16 is widened
+// as it is loaded). Row pitches are padded by one element: the FMA loops
+// read columns across lanes, and an odd pitch keeps them on distinct banks.
+template <int D, int W>
 struct Geo {
+  static constexpr int R = 16 * W;     // rows a block owns
+  static constexpr int NT = 32 * W;    // threads
   static constexpr int BN = 32;        // streamed tile rows
   static constexpr int LDT = D + 1;    // input tiles
   static constexpr int LDO = D + 1;    // accumulators
@@ -101,36 +109,54 @@ struct Geo {
     return align128((size_t)rows * LDT * sizeof(float));
   }
   __host__ __device__ static constexpr size_t acc() {
-    return align128((size_t)kRows * LDO * sizeof(float));
+    return align128((size_t)R * LDO * sizeof(float));
   }
   __host__ __device__ static constexpr size_t warp_scratch() {
     return align128((size_t)16 * LDS * sizeof(float));
   }
-  __host__ __device__ static constexpr size_t scratch() { return warp_scratch() * kWarps; }
+  __host__ __device__ static constexpr size_t scratch() { return warp_scratch() * W; }
   __host__ __device__ static constexpr size_t vec(int n) {
     return align128((size_t)n * sizeof(float));
   }
   __host__ __device__ static constexpr size_t fwd_bytes() {
-    return tile(kRows) + 2 * tile(BN) + acc() + scratch();
+    return tile(R) + 2 * tile(BN) + acc() + scratch();
   }
   __host__ __device__ static constexpr size_t dq_bytes() {
-    return 2 * tile(kRows) + 2 * tile(BN) + acc() + 2 * scratch() + 2 * vec(kRows);
+    return 2 * tile(R) + 2 * tile(BN) + acc() + 2 * scratch() + 2 * vec(R);
   }
   __host__ __device__ static constexpr size_t dkdv_bytes() {
-    return 2 * tile(kRows) + 2 * tile(BN) + 2 * acc() + 2 * scratch() + 2 * vec(BN);
+    return 2 * tile(R) + 2 * tile(BN) + 2 * acc() + 2 * scratch() + 2 * vec(BN);
   }
 };
+static_assert(Geo<256, 2>::dkdv_bytes() <= 232448 && Geo<256, 2>::dq_bytes() <= 232448,
+              "D = 256 fits a block's shared memory at 32 rows");
+
+// Operands in float32 or bfloat16, widened to float32 as they are read and
+// narrowed as they are written.
+__device__ __forceinline__ float ld_f(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld_f(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
+}
+__device__ __forceinline__ void st_f(float* p, float x) { *p = x; }
+__device__ __forceinline__ void st_f(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+// x rounded to T (p and ds are rounded to the operands' type before their
+// products, as the plain versions round them).
+template <typename T> __device__ __forceinline__ float round_to(float x);
+template <> __device__ __forceinline__ float round_to<float>(float x) { return x; }
+template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
 
 // Copy rows [row0, row0 + R) of head `head` of x (B, S, NH, D), batch b,
-// into dst (R x ld); rows at or past S are zero.
-template <int D, int R>
-__device__ __forceinline__ void load_rows(float* dst, int ld, const float* __restrict__ x, int b,
+// into dst (R x ld) as float32, with NT threads; rows at or past S are zero.
+template <int D, int R, int NT, typename T>
+__device__ __forceinline__ void load_rows(float* dst, int ld, const T* __restrict__ x, int b,
                                           int S, int NH, int head, int row0) {
-  for (int i = threadIdx.x; i < R * D; i += kThreads) {
+  for (int i = threadIdx.x; i < R * D; i += NT) {
     const int r = i / D;
     const int c = i % D;
     const int s = row0 + r;
-    dst[r * ld + c] = s < S ? __ldg(x + (((size_t)b * S + s) * NH + head) * D + c) : 0.f;
+    dst[r * ld + c] = s < S ? ld_f(x + (((size_t)b * S + s) * NH + head) * D + c) : 0.f;
   }
 }
 
@@ -180,13 +206,15 @@ __device__ __forceinline__ int live_key_tiles(int q0, int rows, int tile, int sk
   return last < 0 ? 0 : min(all, last / tile + 1);
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-f32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, const uint8_t* __restrict__ mask,
-               float* __restrict__ out, float* __restrict__ lse, int sq, int sk, int h, int hkv,
+template <typename T, int D, int W>
+__global__ void __launch_bounds__(32 * W)
+fma_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, const uint8_t* __restrict__ mask,
+               T* __restrict__ out, float* __restrict__ lse, int sq, int sk, int h, int hkv,
                float scale, int causal) {
-  using G = Geo<D>;
+  using G = Geo<D, W>;
+  constexpr int kRows = G::R;
+  constexpr int kThreads = G::NT;
   constexpr int BN = G::BN;
   constexpr int NJ = BN / 32;
   extern __shared__ __align__(128) char smem[];
@@ -211,7 +239,7 @@ f32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* sS = reinterpret_cast<float*>(p + warp * G::warp_scratch());
   float* sP = reinterpret_cast<float*>(sS);
 
-  load_rows<D, kRows>(sQ, G::LDT, q, b, sq, h, head, q0);
+  load_rows<D, kRows, kThreads>(sQ, G::LDT, q, b, sq, h, head, q0);
   for (int i = threadIdx.x; i < kRows * G::LDO; i += kThreads) sO[i] = 0.f;
   __syncthreads();   // a block with no live key tile still reads sO
   const float* Qw = sQ + warp * 16 * G::LDT;
@@ -228,8 +256,8 @@ f32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int t = 0; t < tiles; ++t) {
     const int k0 = t * BN;
     __syncthreads();
-    load_rows<D, BN>(sK, G::LDT, k, b, sk, hkv, kvh, k0);
-    load_rows<D, BN>(sV, G::LDT, v, b, sk, hkv, kvh, k0);
+    load_rows<D, BN, kThreads>(sK, G::LDT, k, b, sk, hkv, kvh, k0);
+    load_rows<D, BN, kThreads>(sV, G::LDT, v, b, sk, hkv, kvh, k0);
     __syncthreads();
     warp_mm<BN, D, true>(Qw, G::LDT, sK, G::LDT, sS, G::LDS, false);
     __syncwarp();
@@ -270,7 +298,7 @@ f32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int r = 0; r < 16; ++r) {
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) sP[r * G::LDS + lane + 32 * j] = pr[r][j];
+      for (int j = 0; j < NJ; ++j) sP[r * G::LDS + lane + 32 * j] = round_to<T>(pr[r][j]);
 #pragma unroll
       for (int c = lane; c < D; c += 32) Ow[r * G::LDO + c] *= alpha[r];
     }
@@ -284,20 +312,22 @@ f32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int row = q0 + warp * 16 + r;
     if (row >= sq) continue;
     const float denom = fmaxf(l[r], 1e-30f);
-    float* orow = out + (((size_t)b * sq + row) * h + head) * D;
-    for (int c = lane; c < D; c += 32) orow[c] = (Ow[r * G::LDO + c] / denom);
+    T* orow = out + (((size_t)b * sq + row) * h + head) * D;
+    for (int c = lane; c < D; c += 32) st_f(orow + c, Ow[r * G::LDO + c] / denom);
     if (lane == 0) lse[(size_t)bh * sq + row] = m[r] + logf(denom);
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-f32_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, const uint8_t* __restrict__ mask,
-              const float* __restrict__ dout, const float* __restrict__ lse,
-              const float* __restrict__ delta, float* __restrict__ dq, int sq, int sk, int h,
+template <typename T, int D, int W>
+__global__ void __launch_bounds__(32 * W)
+fma_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, const uint8_t* __restrict__ mask,
+              const T* __restrict__ dout, const float* __restrict__ lse,
+              const float* __restrict__ delta, T* __restrict__ dq, int sq, int sk, int h,
               int hkv, float scale, int causal) {
-  using G = Geo<D>;
+  using G = Geo<D, W>;
+  constexpr int kRows = G::R;
+  constexpr int kThreads = G::NT;
   constexpr int BN = G::BN;
   constexpr int NJ = BN / 32;
   extern __shared__ __align__(128) char smem[];
@@ -330,8 +360,8 @@ f32_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* sDelta = reinterpret_cast<float*>(p);
   float* sdS = reinterpret_cast<float*>(sS);
 
-  load_rows<D, kRows>(sQ, G::LDT, q, b, sq, h, head, q0);
-  load_rows<D, kRows>(sdO, G::LDT, dout, b, sq, h, head, q0);
+  load_rows<D, kRows, kThreads>(sQ, G::LDT, q, b, sq, h, head, q0);
+  load_rows<D, kRows, kThreads>(sdO, G::LDT, dout, b, sq, h, head, q0);
   for (int i = threadIdx.x; i < kRows * G::LDO; i += kThreads) sdQ[i] = 0.f;
   for (int i = threadIdx.x; i < kRows; i += kThreads) {
     const int row = q0 + i;
@@ -347,8 +377,8 @@ f32_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int t = 0; t < tiles; ++t) {
     const int k0 = t * BN;
     __syncthreads();
-    load_rows<D, BN>(sK, G::LDT, k, b, sk, hkv, kvh, k0);
-    load_rows<D, BN>(sV, G::LDT, v, b, sk, hkv, kvh, k0);
+    load_rows<D, BN, kThreads>(sK, G::LDT, k, b, sk, hkv, kvh, k0);
+    load_rows<D, BN, kThreads>(sV, G::LDT, v, b, sk, hkv, kvh, k0);
     __syncthreads();
     warp_mm<BN, D, true>(Qw, G::LDT, sK, G::LDT, sS, G::LDS, false);
     warp_mm<BN, D, true>(dOw, G::LDT, sV, G::LDT, sdP, G::LDS, false);
@@ -379,7 +409,7 @@ f32_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int r = 0; r < 16; ++r) {
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) sdS[r * G::LDS + lane + 32 * j] = ds[r][j];
+      for (int j = 0; j < NJ; ++j) sdS[r * G::LDS + lane + 32 * j] = round_to<T>(ds[r][j]);
     }
     __syncwarp();
     warp_mm<D, BN, false>(sdS, G::LDS, sK, G::LDT, dQw, G::LDO, true);
@@ -390,19 +420,21 @@ f32_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int r = 0; r < 16; ++r) {
     const int row = q0 + warp * 16 + r;
     if (row >= sq) continue;
-    float* drow = dq + (((size_t)b * sq + row) * h + head) * D;
-    for (int c = lane; c < D; c += 32) drow[c] = (dQw[r * G::LDO + c] * scale);
+    T* drow = dq + (((size_t)b * sq + row) * h + head) * D;
+    for (int c = lane; c < D; c += 32) st_f(drow + c, dQw[r * G::LDO + c] * scale);
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-f32_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, const uint8_t* __restrict__ mask,
-                const float* __restrict__ dout, const float* __restrict__ lse,
-                const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv,
+template <typename T, int D, int W>
+__global__ void __launch_bounds__(32 * W)
+fma_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, const uint8_t* __restrict__ mask,
+                const T* __restrict__ dout, const float* __restrict__ lse,
+                const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
                 int sq, int sk, int h, int hkv, float scale, int causal) {
-  using G = Geo<D>;
+  using G = Geo<D, W>;
+  constexpr int kRows = G::R;
+  constexpr int kThreads = G::NT;
   constexpr int BN = G::BN;
   constexpr int NJ = BN / 32;
   extern __shared__ __align__(128) char smem[];
@@ -437,8 +469,8 @@ f32_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* sPT = reinterpret_cast<float*>(sS);
   float* sdST = reinterpret_cast<float*>(sdP);
 
-  load_rows<D, kRows>(sK, G::LDT, k, b, sk, hkv, kvh, k0);
-  load_rows<D, kRows>(sV, G::LDT, v, b, sk, hkv, kvh, k0);
+  load_rows<D, kRows, kThreads>(sK, G::LDT, k, b, sk, hkv, kvh, k0);
+  load_rows<D, kRows, kThreads>(sV, G::LDT, v, b, sk, hkv, kvh, k0);
   for (int i = threadIdx.x; i < kRows * G::LDO; i += kThreads) {
     sdK[i] = 0.f;
     sdV[i] = 0.f;
@@ -470,8 +502,8 @@ f32_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int qt = qt_first; qt < q_tiles; ++qt) {
       const int q0 = qt * BN;
       __syncthreads();
-      load_rows<D, BN>(sQ, G::LDT, q, b, sq, h, head, q0);
-      load_rows<D, BN>(sdO, G::LDT, dout, b, sq, h, head, q0);
+      load_rows<D, BN, kThreads>(sQ, G::LDT, q, b, sq, h, head, q0);
+      load_rows<D, BN, kThreads>(sdO, G::LDT, dout, b, sq, h, head, q0);
       for (int i = threadIdx.x; i < BN; i += kThreads) {
         const int row = q0 + i;
         sL[i] = row < sq ? lse[bh * sq + row] : 0.f;
@@ -501,8 +533,8 @@ f32_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int r = 0; r < 16; ++r) {
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
-          sPT[r * G::LDS + lane + 32 * j] = pt[r][j];
-          sdST[r * G::LDS + lane + 32 * j] = dst[r][j];
+          sPT[r * G::LDS + lane + 32 * j] = round_to<T>(pt[r][j]);
+          sdST[r * G::LDS + lane + 32 * j] = round_to<T>(dst[r][j]);
         }
       }
       __syncwarp();
@@ -518,8 +550,8 @@ f32_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (kr >= sk) continue;
     const size_t base = (((size_t)b * sk + kr) * hkv + kvh) * D;
     for (int c = lane; c < D; c += 32) {
-      dk[base + c] = (dKw[r * G::LDO + c] * scale);
-      dv[base + c] = (dVw[r * G::LDO + c]);
+      st_f(dk + base + c, dKw[r * G::LDO + c] * scale);
+      st_f(dv + base + c, dVw[r * G::LDO + c]);
     }
   }
 }
@@ -1204,35 +1236,37 @@ cudaError_t prepare(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <int D>
-cudaError_t launch_f32(Kind kind, const Args& a, cudaStream_t stream) {
-  using G = Geo<D>;
-  const float* q = static_cast<const float*>(a.q);
-  const float* k = static_cast<const float*>(a.k);
-  const float* v = static_cast<const float*>(a.v);
-  const float* dout = static_cast<const float*>(a.dout);
+// The FMA family: float32 at D = 64 and 128 (4 warps), and both types at
+// D = 256 (2 warps).
+template <typename T, int D, int W>
+cudaError_t launch_fma(Kind kind, const Args& a, cudaStream_t stream) {
+  using G = Geo<D, W>;
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  const T* dout = static_cast<const T*>(a.dout);
   cudaError_t err;
   if (kind == kForward) {
     const size_t bytes = G::fwd_bytes();
-    if ((err = prepare(f32_fwd_kernel<D>, bytes)) != cudaSuccess) return err;
-    const dim3 grid((a.sq + kRows - 1) / kRows, a.b * a.h);
-    f32_fwd_kernel<D><<<grid, kThreads, bytes, stream>>>(
-        q, k, v, a.mask, static_cast<float*>(a.out0), a.lse_out, a.sq, a.sk, a.h, a.hkv,
-        a.scale, a.causal);
+    if ((err = prepare(fma_fwd_kernel<T, D, W>, bytes)) != cudaSuccess) return err;
+    const dim3 grid((a.sq + G::R - 1) / G::R, a.b * a.h);
+    fma_fwd_kernel<T, D, W><<<grid, G::NT, bytes, stream>>>(
+        q, k, v, a.mask, static_cast<T*>(a.out0), a.lse_out, a.sq, a.sk, a.h, a.hkv, a.scale,
+        a.causal);
   } else if (kind == kDq) {
     const size_t bytes = G::dq_bytes();
-    if ((err = prepare(f32_dq_kernel<D>, bytes)) != cudaSuccess) return err;
-    const dim3 grid((a.sq + kRows - 1) / kRows, a.b * a.h);
-    f32_dq_kernel<D><<<grid, kThreads, bytes, stream>>>(
-        q, k, v, a.mask, dout, a.lse_in, a.delta, static_cast<float*>(a.out0), a.sq, a.sk,
-        a.h, a.hkv, a.scale, a.causal);
+    if ((err = prepare(fma_dq_kernel<T, D, W>, bytes)) != cudaSuccess) return err;
+    const dim3 grid((a.sq + G::R - 1) / G::R, a.b * a.h);
+    fma_dq_kernel<T, D, W><<<grid, G::NT, bytes, stream>>>(
+        q, k, v, a.mask, dout, a.lse_in, a.delta, static_cast<T*>(a.out0), a.sq, a.sk, a.h,
+        a.hkv, a.scale, a.causal);
   } else {
     const size_t bytes = G::dkdv_bytes();
-    if ((err = prepare(f32_dkdv_kernel<D>, bytes)) != cudaSuccess) return err;
-    const dim3 grid((a.sk + kRows - 1) / kRows, a.b * a.hkv);
-    f32_dkdv_kernel<D><<<grid, kThreads, bytes, stream>>>(
-        q, k, v, a.mask, dout, a.lse_in, a.delta, static_cast<float*>(a.out0),
-        static_cast<float*>(a.out1), a.sq, a.sk, a.h, a.hkv, a.scale, a.causal);
+    if ((err = prepare(fma_dkdv_kernel<T, D, W>, bytes)) != cudaSuccess) return err;
+    const dim3 grid((a.sk + G::R - 1) / G::R, a.b * a.hkv);
+    fma_dkdv_kernel<T, D, W><<<grid, G::NT, bytes, stream>>>(
+        q, k, v, a.mask, dout, a.lse_in, a.delta, static_cast<T*>(a.out0),
+        static_cast<T*>(a.out1), a.sq, a.sk, a.h, a.hkv, a.scale, a.causal);
   }
   return cudaGetLastError();
 }
@@ -1324,20 +1358,22 @@ cudaError_t launch_bf16(Kind kind, const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// dtype: 0 = float32, 1 = bfloat16; d in {64, 128}; any H / Hkv: every
-// kernel reads a query head's K/V head as head / (H / Hkv), and dk/dv loop
-// over the group at run time.
+// dtype: 0 = float32, 1 = bfloat16; d in {64, 128, 256}; any H / Hkv:
+// every kernel reads a query head's K/V head as head / (H / Hkv), and dk/dv
+// loop over the group at run time.
 cudaError_t dispatch(Kind kind, int dtype, int d, const Args& a, cudaStream_t stream) {
   if (a.b <= 0 || a.sq <= 0 || a.sk <= 0 || a.hkv <= 0 || a.h % a.hkv) {
     return cudaErrorInvalidValue;
   }
   if (a.b * (kind == kDkdv ? a.hkv : a.h) > 65535) return cudaErrorInvalidValue;
   if (dtype == 0) {
-    if (d == 64) return launch_f32<64>(kind, a, stream);
-    if (d == 128) return launch_f32<128>(kind, a, stream);
+    if (d == 64) return launch_fma<float, 64, 4>(kind, a, stream);
+    if (d == 128) return launch_fma<float, 128, 4>(kind, a, stream);
+    if (d == 256) return launch_fma<float, 256, 2>(kind, a, stream);
   } else if (dtype == 1) {
     if (d == 64) return launch_bf16<64>(kind, a, stream);
     if (d == 128) return launch_bf16<128>(kind, a, stream);
+    if (d == 256) return launch_fma<__nv_bfloat16, 256, 2>(kind, a, stream);
   }
   return cudaErrorInvalidValue;
 }

@@ -12,8 +12,11 @@ timed call; it prints the JAX example's line, ``... N decode tokens/sec
 (x tok/s/sequence) ...``, where the time covers prefill and decode as
 there. Runs on ``cuda`` unless given ``--device cpu``.
 
-Not ported yet: ``--checkpoint`` (it waits for the port of the
-checkpoint utilities) and the MoE choices (they wait for the MoE LM).
+The MoE choices (``moe-tiny``, ``moe-small``) decode ``MoeLM`` through
+the same ``generate()`` (no-drop expert capacity) and print the model's
+name without the ``llama-`` prefix, as the JAX example does. Not ported
+yet: ``--checkpoint`` (it waits for the port of the checkpoint
+utilities).
 """
 
 from __future__ import annotations
@@ -27,9 +30,11 @@ import torch
 
 from horovod_tpu_torch.models.llama import (LLAMA_1B, LLAMA_8B, LLAMA_300M,
                                             LLAMA_TINY, LlamaLM, generate)
+from horovod_tpu_torch.models.moe_lm import MOE_SMALL, MOE_TINY, MoeLM
 
-CONFIGS = {"tiny": LLAMA_TINY, "300m": LLAMA_300M, "1b": LLAMA_1B,
-           "8b": LLAMA_8B}
+CONFIGS = {"tiny": (LlamaLM, LLAMA_TINY), "300m": (LlamaLM, LLAMA_300M),
+           "1b": (LlamaLM, LLAMA_1B), "8b": (LlamaLM, LLAMA_8B),
+           "moe-tiny": (MoeLM, MOE_TINY), "moe-small": (MoeLM, MOE_SMALL)}
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -51,11 +56,11 @@ def _sync(device: torch.device) -> None:
 
 def main(argv: Optional[List[str]] = None) -> Dict:
     args = parse_args(argv)
-    cfg = CONFIGS[args.model]
+    model_cls, cfg = CONFIGS[args.model]
     device = torch.device(args.device)
     on_card = device.type == "cuda"
     held_before = torch.cuda.memory_allocated(device) if on_card else 0
-    model = LlamaLM(cfg, device=device, seed=0)
+    model = model_cls(cfg, device=device, seed=0)
     rng = np.random.RandomState(0)
     prompt = torch.from_numpy(rng.randint(
         0, cfg.vocab_size, (args.batch_size, args.prompt_len)))
@@ -82,7 +87,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
 
     new_tokens = args.batch_size * args.max_new_tokens
     sample = out[0, args.prompt_len:args.prompt_len + 8].cpu().numpy()
-    print(f"llama-{args.model} prompt={args.prompt_len} "
+    label = args.model if model_cls is MoeLM else f"llama-{args.model}"
+    print(f"{label} prompt={args.prompt_len} "
           f"b={args.batch_size}: "
           f"{new_tokens / dt:.0f} decode tokens/sec "
           f"({args.max_new_tokens / dt:.1f} tok/s/sequence), "

@@ -1,5 +1,5 @@
 """Models of the port, named as in ``horovod_tpu/models``: the Llama LM
-(serving and training) and the model zoo — ResNet, VGG, Inception V3, the
+(serving and training), the MoE LM and the model zoo — ResNet, VGG, Inception V3, the
 MNIST MLP, BERT and ViT — with their weight converters in ``convert``."""
 
 from .bert import (  # noqa: F401
@@ -26,6 +26,14 @@ from .llama import (  # noqa: F401
     token_nll,
 )
 from .mlp import MnistMLP  # noqa: F401
+from .moe_lm import (  # noqa: F401
+    MOE_SMALL,
+    MOE_TINY,
+    MoeBlock,
+    MoeConfig,
+    MoeFFN,
+    MoeLM,
+)
 from .resnet import (  # noqa: F401
     ResNet,
     ResNet50,

@@ -1,7 +1,8 @@
-"""Weights across the two packages: the JAX ``LlamaLM`` parameter tree,
-given as nested dicts of numpy arrays, into the port's ``LlamaLM``
-(``llama_from_flax``) and back (``llama_to_flax``, from the parameters or
-from their gradients, so the two packages compare leaf by leaf).
+"""Weights across the two packages: the JAX ``LlamaLM`` and ``MoeLM``
+parameter trees, given as nested dicts of numpy arrays, into the port's
+models (``llama_from_flax``, ``moe_from_flax``) and back
+(``llama_to_flax``, ``moe_to_flax``, from the parameters or from their
+gradients, so the two packages compare leaf by leaf).
 
 Every leaf is mapped; a missing key, a wrong shape or a leaf nothing
 maps raises. Weights land in the port's storage dtypes: with
@@ -27,7 +28,8 @@ import numpy as np
 import torch
 
 from .. import DeviceLike
-from .llama import LlamaConfig, LlamaLM
+from .llama import CausalLM, LlamaConfig, LlamaLM
+from .moe_lm import MoeBlock, MoeConfig, MoeLM
 
 
 def _flat_leaves(tree, prefix=()) -> Iterator[Tuple[Tuple[str, ...],
@@ -40,85 +42,90 @@ def _flat_leaves(tree, prefix=()) -> Iterator[Tuple[Tuple[str, ...],
             yield prefix + (str(key),), np.asarray(tree[key])
 
 
-def _mapping(model: LlamaLM) -> Iterator[
-        Tuple[torch.nn.Parameter, Tuple[str, ...], Tuple[int, ...]]]:
-    """(port parameter, JAX tree path, JAX leaf shape) for every leaf."""
+_Leaf = Tuple[torch.nn.Parameter, Tuple[str, ...], Tuple[int, ...],
+              Optional[slice]]
+
+
+def _mapping(model: CausalLM) -> Iterator[_Leaf]:
+    """(port parameter, JAX tree path, JAX leaf shape, rows) for every
+    leaf of a ``LlamaLM`` or ``MoeLM``; ``rows``: the slice of the leaf's
+    dim 0 the parameter holds (an expert group's rank), else None."""
     cfg = model.config
     hd = cfg.dim // cfg.num_heads
     h, hkv = cfg.num_heads, cfg.num_kv_heads
     yield (model.tok_embeddings, ("tok_embeddings", "embedding"),
-           (cfg.vocab_size, cfg.dim))
+           (cfg.vocab_size, cfg.dim), None)
     for i, block in enumerate(model.layers):
         layer = f"layer_{i}"
         attn = block.attention
         yield (block.attention_norm.scale, (layer, "attention_norm", "scale"),
-               (cfg.dim,))
-        yield attn.wq, (layer, "attention", "wq", "kernel"), (cfg.dim, h, hd)
+               (cfg.dim,), None)
+        yield (attn.wq, (layer, "attention", "wq", "kernel"),
+               (cfg.dim, h, hd), None)
         yield (attn.wk, (layer, "attention", "wk", "kernel"),
-               (cfg.dim, hkv, hd))
+               (cfg.dim, hkv, hd), None)
         yield (attn.wv, (layer, "attention", "wv", "kernel"),
-               (cfg.dim, hkv, hd))
-        yield attn.wo, (layer, "attention", "wo", "kernel"), (h, hd, cfg.dim)
-        yield block.ffn_norm.scale, (layer, "ffn_norm", "scale"), (cfg.dim,)
-        yield (block.w_gate, (layer, "w_gate", "kernel"),
-               (cfg.dim, cfg.ffn_hidden))
-        yield (block.w_up, (layer, "w_up", "kernel"),
-               (cfg.dim, cfg.ffn_hidden))
-        yield (block.w_down, (layer, "w_down", "kernel"),
-               (cfg.ffn_hidden, cfg.dim))
-    yield model.final_norm.scale, ("final_norm", "scale"), (cfg.dim,)
-    yield model.lm_head, ("lm_head", "kernel"), (cfg.dim, cfg.vocab_size)
+               (cfg.dim, hkv, hd), None)
+        yield (attn.wo, (layer, "attention", "wo", "kernel"),
+               (h, hd, cfg.dim), None)
+        yield (block.ffn_norm.scale, (layer, "ffn_norm", "scale"), (cfg.dim,),
+               None)
+        if isinstance(block, MoeBlock):
+            ffn = block.moe_ffn
+            e, x = cfg.num_experts, cfg.expert_hidden
+            rows = None
+            if ffn.expert_group is not None:
+                n = ffn.wi.shape[0]
+                r = torch.distributed.get_rank(ffn.expert_group)
+                rows = slice(r * n, (r + 1) * n)
+            yield ffn.gate, (layer, "moe_ffn", "gate"), (cfg.dim, e), None
+            yield ffn.wi, (layer, "moe_ffn", "wi"), (e, cfg.dim, x), rows
+            yield ffn.wo, (layer, "moe_ffn", "wo"), (e, x, cfg.dim), rows
+            continue
+        f = block.w_gate.shape[1]
+        yield block.w_gate, (layer, "w_gate", "kernel"), (cfg.dim, f), None
+        yield block.w_up, (layer, "w_up", "kernel"), (cfg.dim, f), None
+        yield block.w_down, (layer, "w_down", "kernel"), (f, cfg.dim), None
+    yield model.final_norm.scale, ("final_norm", "scale"), (cfg.dim,), None
+    yield (model.lm_head, ("lm_head", "kernel"), (cfg.dim, cfg.vocab_size),
+           None)
 
 
-def llama_from_flax(params_np: Dict, cfg: LlamaConfig,
-                    device: DeviceLike = None,
-                    attention_fn: Optional[Callable] = None,
-                    param_dtype: Optional[torch.dtype] = None) -> LlamaLM:
-    """``params_np``: ``variables["params"]`` of the JAX ``LlamaLM`` with
-    numpy leaves (``jax.tree_util.tree_map(np.asarray, ...)``);
-    ``cfg``: the port's config of the same model; ``attention_fn`` and
-    ``param_dtype`` as for ``LlamaLM``."""
-    model = LlamaLM(cfg, device=device, attention_fn=attention_fn,
-                    param_dtype=param_dtype)
+def _load(model: CausalLM, params_np: Dict, what: str):
+    """Copy every leaf of ``params_np`` into ``model``; raise for a
+    missing leaf, a wrong shape or a leaf nothing maps."""
     used = set()
-
-    def put(param: torch.nn.Parameter, path: Tuple[str, ...],
-            shape: Tuple[int, ...]) -> None:
+    for param, path, shape, _ in _mapping(model):
         node = params_np
         for key in path:
             if not isinstance(node, dict) or key not in node:
                 raise KeyError(
-                    f"llama_from_flax: missing parameter {'/'.join(path)}")
+                    f"{what}: missing parameter {'/'.join(path)}")
             node = node[key]
         arr = np.asarray(node)
         if arr.shape != shape:
             raise ValueError(
-                f"llama_from_flax: {'/'.join(path)} has shape {arr.shape}, "
+                f"{what}: {'/'.join(path)} has shape {arr.shape}, "
                 f"expected {shape}")
         with torch.no_grad():
             param.copy_(torch.from_numpy(
                 np.array(arr, dtype=np.float32)).reshape(param.shape))
         used.add(path)
-
-    for param, path, shape in _mapping(model):
-        put(param, path, shape)
     extra = sorted("/".join(p) for p, _ in _flat_leaves(params_np)
                    if p not in used)
     if extra:
         raise ValueError(
-            f"llama_from_flax: parameters nothing maps: {extra[:8]}"
+            f"{what}: parameters nothing maps: {extra[:8]}"
             f"{' ...' if len(extra) > 8 else ''} (does cfg match the "
             "checkpoint?)")
     return model
 
 
-def llama_to_flax(model: LlamaLM, grads: bool = False) -> Dict:
-    """The JAX ``LlamaLM`` parameter tree of ``model`` as nested dicts of
-    float32 numpy arrays in the JAX shapes: the parameters, or with
-    ``grads=True`` their ``.grad`` (zeros where a parameter has none,
-    as ``jax.grad`` reports an unused leaf)."""
+def _to_flax(model: CausalLM, grads: bool) -> Dict:
     tree: Dict = {}
-    for param, path, shape in _mapping(model):
+    for param, path, shape, rows in _mapping(model):
+        if rows is not None:
+            shape = tuple(param.shape)
         t = param.grad if grads else param
         if t is None:
             arr = np.zeros(shape, np.float32)
@@ -129,6 +136,44 @@ def llama_to_flax(model: LlamaLM, grads: bool = False) -> Dict:
             node = node.setdefault(key, {})
         node[path[-1]] = arr
     return tree
+
+
+def llama_from_flax(params_np: Dict, cfg: LlamaConfig,
+                    device: DeviceLike = None,
+                    attention_fn: Optional[Callable] = None,
+                    param_dtype: Optional[torch.dtype] = None) -> LlamaLM:
+    """``params_np``: ``variables["params"]`` of the JAX ``LlamaLM`` with
+    numpy leaves (``jax.tree_util.tree_map(np.asarray, ...)``);
+    ``cfg``: the port's config of the same model; ``attention_fn`` and
+    ``param_dtype`` as for ``LlamaLM``."""
+    return _load(LlamaLM(cfg, device=device, attention_fn=attention_fn,
+                         param_dtype=param_dtype),
+                 params_np, "llama_from_flax")
+
+
+def llama_to_flax(model: LlamaLM, grads: bool = False) -> Dict:
+    """The JAX ``LlamaLM`` parameter tree of ``model`` as nested dicts of
+    float32 numpy arrays in the JAX shapes: the parameters, or with
+    ``grads=True`` their ``.grad`` (zeros where a parameter has none,
+    as ``jax.grad`` reports an unused leaf)."""
+    return _to_flax(model, grads)
+
+
+def moe_from_flax(params_np: Dict, cfg: MoeConfig, device: DeviceLike = None,
+                  attention_fn: Optional[Callable] = None,
+                  param_dtype: Optional[torch.dtype] = None) -> MoeLM:
+    """As :func:`llama_from_flax` for the JAX ``MoeLM`` (dense mode):
+    routed layers hold ``layer_i/moe_ffn/{gate,wi,wo}`` and
+    ``layer_i/ffn_norm``, the others ``LlamaBlock``'s names."""
+    return _load(MoeLM(cfg, device=device, attention_fn=attention_fn,
+                       param_dtype=param_dtype),
+                 params_np, "moe_from_flax")
+
+
+def moe_to_flax(model: MoeLM, grads: bool = False) -> Dict:
+    """As :func:`llama_to_flax` for ``MoeLM``. An expert group's rank
+    gives its own rows of ``wi``/``wo`` (shape ``[1, ...]``)."""
+    return _to_flax(model, grads)
 
 
 # ---------------------------------------------------------------------------

@@ -30,8 +30,10 @@ block), ``return_hidden``, and the losses ``token_nll``,
 ``causal_lm_loss`` and ``chunked_causal_lm_loss``.
 
 Ported here: the single-device decode paths (paged, contiguous kernel,
-prefill at index 0, general einsum), ``generate`` and the training
-surface above. The TP paths (``kernel_tp``, ``sharded_*``) and the
+prefill at index 0, general einsum), ``generate`` (for any ``CausalLM``:
+``LlamaLM`` and ``models.moe_lm.MoeLM``), ``attention_sublayer`` (the
+one cache protocol of both models' blocks) and the training surface
+above. The TP paths (``kernel_tp``, ``sharded_*``) and the
 sequence-parallel loss wait for later slices.
 """
 
@@ -317,16 +319,35 @@ class LlamaAttention(nn.Module):
         return ctx.reshape(b, s, cfg.num_heads * hd) @ self.wo.to(dt)
 
 
+def init_attention_sublayer(block: nn.Module, cfg: LlamaConfig, generator,
+                            attention_fn: Optional[Callable] = None,
+                            param_dtype: Optional[torch.dtype] = None):
+    """Give ``block`` the pre-norm attention of :func:`attention_sublayer`
+    (submodules ``attention_norm`` and ``attention``, flax's names)."""
+    block.attention_norm = RMSNorm(cfg.dim, cfg.norm_eps, cfg.dtype,
+                                   param_dtype)
+    block.attention = LlamaAttention(cfg, generator, attention_fn,
+                                     param_dtype)
+
+
+def attention_sublayer(block: nn.Module, x, positions=None, cache=None,
+                       cache_index=None):
+    """Pre-norm attention + residual, shared by ``LlamaBlock`` and
+    ``MoeBlock`` so that one place owns the cache protocol (the cache is
+    updated in place), as ``horovod_tpu/models/llama.py``'s
+    ``attention_sublayer`` does."""
+    return x + block.attention(block.attention_norm(x), positions, cache,
+                               cache_index)
+
+
 class LlamaBlock(nn.Module):
     def __init__(self, cfg: LlamaConfig, generator,
                  attention_fn: Optional[Callable] = None,
                  param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.dtype = cfg.dtype
-        self.attention_norm = RMSNorm(cfg.dim, cfg.norm_eps, cfg.dtype,
-                                      param_dtype)
-        self.attention = LlamaAttention(cfg, generator, attention_fn,
-                                        param_dtype)
+        init_attention_sublayer(self, cfg, generator, attention_fn,
+                                param_dtype)
         self.ffn_norm = RMSNorm(cfg.dim, cfg.norm_eps, cfg.dtype,
                                 param_dtype)
         self.w_gate = _param((cfg.dim, cfg.ffn_hidden), cfg.dtype,
@@ -337,15 +358,73 @@ class LlamaBlock(nn.Module):
                              cfg.ffn_hidden ** -0.5, generator, param_dtype)
 
     def forward(self, x, positions=None, cache=None, cache_index=None):
-        x = x + self.attention(self.attention_norm(x), positions, cache,
-                               cache_index)
+        x = attention_sublayer(self, x, positions, cache, cache_index)
         h = self.ffn_norm(x)
         dt = self.dtype
         gated = F.silu(h @ self.w_gate.to(dt)) * (h @ self.w_up.to(dt))
         return x + gated @ self.w_down.to(dt)
 
 
-class LlamaLM(nn.Module):
+class CausalLM(nn.Module):
+    """What ``LlamaLM`` and ``MoeLM`` share: the embedding table, the
+    blocks (``layers``), the final norm and the untied head, owning their
+    weights, and the call contract of :meth:`LlamaLM.forward` (the cache
+    protocol that ``generate`` and the serving engine rely on). Blocks
+    return the stream, or ``(stream, aux)`` where they add a loss."""
+
+    def _init_embedding(self, cfg, gen, param_dtype) -> None:
+        """The embedding table: drawn before the blocks, and the norm and
+        head (:meth:`_init_head`) after them."""
+        self.tok_embeddings = _param((cfg.vocab_size, cfg.dim),
+                                     torch.float32, cfg.dim ** -0.5, gen,
+                                     param_dtype)
+
+    def _init_head(self, cfg, gen, param_dtype) -> None:
+        self.final_norm = RMSNorm(cfg.dim, cfg.norm_eps, cfg.dtype,
+                                  param_dtype)
+        self.lm_head = _param((cfg.dim, cfg.vocab_size),
+                              cfg.head_dtype or cfg.dtype, cfg.dim ** -0.5,
+                              gen, param_dtype)
+
+    @property
+    def device(self) -> torch.device:
+        return self.tok_embeddings.device
+
+    def _forward(self, input_ids, positions, cache, cache_index,
+                 return_hidden: bool):
+        """``(result, aux)``: the result of :meth:`LlamaLM.forward` and
+        the list of the blocks' auxiliary losses."""
+        cfg = self.config
+        if cache is not None and positions is None:
+            steps = torch.arange(input_ids.shape[1], device=input_ids.device)
+            if torch.is_tensor(cache_index) and cache_index.ndim:
+                positions = cache_index[:, None] + steps
+            else:
+                positions = int(cache_index) + steps
+        x = F.embedding(input_ids, self.tok_embeddings).to(cfg.dtype)
+        remat = cfg.remat and cache is None and torch.is_grad_enabled()
+        aux = []
+        for i, layer in enumerate(self.layers):
+            if remat:
+                out = checkpoint(layer, x, positions, use_reentrant=False)
+            else:
+                out = layer(x, positions,
+                            None if cache is None else cache[f"layer_{i}"],
+                            cache_index)
+            if isinstance(out, tuple):
+                x, a = out
+                aux.append(a)
+            else:
+                x = out
+        x = self.final_norm(x)
+        if return_hidden:
+            return x, aux
+        head = cfg.head_dtype or cfg.dtype
+        logits = x.to(head) @ self.lm_head.to(head)
+        return (logits if cache is None else (logits, cache)), aux
+
+
+class LlamaLM(CausalLM):
     """Causal LM: embeddings + blocks + untied output head, owning its
     weights (random from ``seed`` on a CPU generator; load real ones with
     ``models.convert.llama_from_flax``). ``device=None`` means CUDA and
@@ -361,22 +440,12 @@ class LlamaLM(nn.Module):
         device = default_device(device)
         self.config = cfg = config
         gen = torch.Generator().manual_seed(seed)
-        self.tok_embeddings = _param((cfg.vocab_size, cfg.dim),
-                                     torch.float32, cfg.dim ** -0.5, gen,
-                                     param_dtype)
+        self._init_embedding(cfg, gen, param_dtype)
         self.layers = nn.ModuleList(
             [LlamaBlock(cfg, gen, attention_fn, param_dtype)
              for _ in range(cfg.num_layers)])
-        self.final_norm = RMSNorm(cfg.dim, cfg.norm_eps, cfg.dtype,
-                                  param_dtype)
-        self.lm_head = _param((cfg.dim, cfg.vocab_size),
-                              cfg.head_dtype or cfg.dtype, cfg.dim ** -0.5,
-                              gen, param_dtype)
+        self._init_head(cfg, gen, param_dtype)
         self.to(device)
-
-    @property
-    def device(self) -> torch.device:
-        return self.tok_embeddings.device
 
     def forward(self, input_ids, positions=None, cache=None,
                 cache_index=None, return_hidden: bool = False):
@@ -387,28 +456,8 @@ class LlamaLM(nn.Module):
         ``(logits, cache)`` when a cache is given (updated in place).
         ``return_hidden``: skip the lm_head and return the final-norm
         hidden states (B, S, dim), for :func:`chunked_causal_lm_loss`."""
-        cfg = self.config
-        if cache is not None and positions is None:
-            steps = torch.arange(input_ids.shape[1], device=input_ids.device)
-            if torch.is_tensor(cache_index) and cache_index.ndim:
-                positions = cache_index[:, None] + steps
-            else:
-                positions = int(cache_index) + steps
-        x = F.embedding(input_ids, self.tok_embeddings).to(cfg.dtype)
-        remat = cfg.remat and cache is None and torch.is_grad_enabled()
-        for i, layer in enumerate(self.layers):
-            if remat:
-                x = checkpoint(layer, x, positions, use_reentrant=False)
-            else:
-                x = layer(x, positions,
-                          None if cache is None else cache[f"layer_{i}"],
-                          cache_index)
-        x = self.final_norm(x)
-        if return_hidden:
-            return x
-        head = cfg.head_dtype or cfg.dtype
-        logits = x.to(head) @ self.lm_head.to(head)
-        return logits if cache is None else (logits, cache)
+        return self._forward(input_ids, positions, cache, cache_index,
+                             return_hidden)[0]
 
 
 def init_kv_cache(cfg: LlamaConfig, batch_size: int, max_len: int,
@@ -442,12 +491,13 @@ def pick_tokens(logits, temperature: float, generator):
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
 
-def generate(model: LlamaLM, prompt_ids, max_new_tokens: int,
+def generate(model: CausalLM, prompt_ids, max_new_tokens: int,
              max_len: Optional[int] = None, temperature: float = 0.0,
              generator: Optional[torch.Generator] = None):
     """Autoregressive decoding with the KV cache: prefill the prompt in
     one call, then single-token steps in a Python loop (the JAX
-    package's ``lax.scan``). ``temperature`` 0.0 = greedy argmax;
+    package's ``lax.scan``). ``model`` is any causal LM with the cache
+    call contract (``LlamaLM``, ``MoeLM``). ``temperature`` 0.0 = greedy argmax;
     > 0 samples with ``generator`` (a ``torch.Generator`` on the model's
     device). Returns ``(B, prompt + max_new_tokens)`` int64 ids, prompt
     included, on the model's device."""
@@ -457,7 +507,10 @@ def generate(model: LlamaLM, prompt_ids, max_new_tokens: int,
     prompt = torch.as_tensor(prompt_ids, device=device).long()
     b, s = prompt.shape
     if max_len is None:
-        max_len = min(cfg.max_seq_len, s + max_new_tokens)
+        # A config with no max_seq_len (MoeConfig: RoPE-only positions)
+        # caps nothing, as in the JAX package.
+        max_len = min(getattr(cfg, "max_seq_len", s + max_new_tokens),
+                      s + max_new_tokens)
     if s + max_new_tokens > max_len:
         raise ValueError(
             f"prompt ({s}) + max_new_tokens ({max_new_tokens}) exceeds the "

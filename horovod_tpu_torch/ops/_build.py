@@ -22,7 +22,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, List, Optional, Sequence
+from typing import Dict, Iterable, List, Sequence
 
 import torch
 
@@ -154,23 +154,23 @@ def on_card(name: str, *tensors: torch.Tensor) -> bool:
 
 
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: head_dim and H/Hkv the decode kernels are instantiated for
-#: (``csrc/decode_attention.cu``): every width and group of the repo's
-#: configurations.
-DECODE_WIDTHS = (16, 32, 64, 128)
+#: head_dim the decode kernels are instantiated for
+#: (``csrc/decode_attention.cu``), and the query heads per block they are
+#: instantiated for: any H/Hkv runs, at the largest of DECODE_GROUPS that
+#: divides it (so the wrappers check no group).
+DECODE_WIDTHS = (16, 32, 64, 128, 256)
 DECODE_GROUPS = (1, 2, 4, 8, 16)
 #: The head_dim the flash kernels (``csrc/flash_attention.cu``) are
 #: instantiated for; they take any H/Hkv. ``ops/attention.py`` zero-pads
 #: a narrower head_dim up to one of these widths.
-FLASH_WIDTHS = (64, 128)
+FLASH_WIDTHS = (64, 128, 256)
 
 
-def check_operands(name: str, group: int, widths: Sequence[int],
-                   groups: Optional[Sequence[int]],
+def check_operands(name: str, widths: Sequence[int],
                    **tensors: torch.Tensor) -> None:
     """Raise unless the attention kernels take these operands: float32 or
-    bfloat16 in one dtype, head_dim (the last dim) in ``widths``, H/Hkv
-    in ``groups`` (None: any), contiguous and 16-byte aligned."""
+    bfloat16 in one dtype, head_dim (the last dim) in ``widths``,
+    contiguous and 16-byte aligned (every kernel takes any H/Hkv)."""
     dtypes = {t.dtype for t in tensors.values()}
     if len(dtypes) != 1 or not dtypes <= set(KERNEL_DTYPES):
         raise TypeError(
@@ -182,10 +182,6 @@ def check_operands(name: str, group: int, widths: Sequence[int],
         raise ValueError(
             f"{name}: the CUDA kernel takes head_dim in {tuple(widths)}, "
             f"got {d}")
-    if groups is not None and group not in groups:
-        raise ValueError(
-            f"{name}: the CUDA kernel takes H/Hkv in {tuple(groups)}, "
-            f"got {group}")
     for label, t in tensors.items():
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(

@@ -10,7 +10,7 @@ kernels are hand-written CUDA in ``csrc/flash_attention.cu``.
 
 Routing, as in ``ops/decode_attention.py``: a CUDA tensor always goes to
 the kernel, and the call raises if the kernel cannot take it (a head_dim
-above 128, or float16); a head_dim other than 64 or 128 reaches the
+above 256, or float16); a head_dim other than 64, 128 or 256 reaches the
 kernels zero-padded (see "The kernels' operand range" below). Only CPU
 tensors take the plain versions (``flash_attention_forward_plain``,
 ``flash_backward_dq_plain``, ``flash_backward_dkdv_plain``), which repeat
@@ -29,7 +29,8 @@ package's rematerialised backward) is not ported. The JAX package's
 the kernels fix their own tiles. The three bfloat16 kernels are Hopper
 kernels (TMA loads, wgmma) that read q/k/v/dO through tensor maps, so
 their operands must be contiguous and 16-byte aligned, as the wrappers
-check; the float32 kernels stream 32-row tiles through FMA loops.
+check; the float32 kernels, and both types at head_dim 256, stream 32-row
+tiles through FMA loops.
 """
 
 from __future__ import annotations
@@ -265,7 +266,7 @@ def flash_attention_backward_plain(q, k, v, key_mask, out, lse, g,
 # ---------------------------------------------------------------------------
 # The kernels' operand range
 #
-# The flash kernels are instantiated at head_dim 64 and 128
+# The flash kernels are instantiated at head_dim 64, 128 and 256
 # (``_build.FLASH_WIDTHS``) and take any group H/Hkv. A narrower head_dim
 # is zero-padded up to the next width, with the scale taken from the true
 # head_dim: the padded columns add 0 to every q·k and give 0 in out, dq,
@@ -341,8 +342,7 @@ def dkdv_in_range(backward_dkdv, q, k, v, key_mask, g, lse, delta,
 
 
 def _kernel_args(name, q, k, v, key_mask, **more):
-    _build.check_operands(name, q.shape[2] // k.shape[2],
-                          _build.FLASH_WIDTHS, None, q=q, k=k, v=v, **more)
+    _build.check_operands(name, _build.FLASH_WIDTHS, q=q, k=k, v=v, **more)
     mask = None
     if key_mask is not None:
         mask = key_mask.to(torch.uint8).contiguous()

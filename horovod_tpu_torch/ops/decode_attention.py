@@ -168,8 +168,7 @@ def decode_attention(q, k_cache, v_cache, cache_index, num_kv_heads,
         return decode_attention_plain(q, k_cache, v_cache, cache_index,
                                       num_kv_heads, sm_scale)
     b, _, h, d = q.shape
-    _build.check_operands("decode_attention", h // num_kv_heads,
-                          _build.DECODE_WIDTHS, _build.DECODE_GROUPS, q=q,
+    _build.check_operands("decode_attention", _build.DECODE_WIDTHS, q=q,
                           k=k_cache, v=v_cache)
     scale = sm_scale if sm_scale is not None else 1.0 / (d ** 0.5)
     out = torch.empty_like(q)
@@ -233,9 +232,8 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, context_lens,
                                             context_lens, num_kv_heads,
                                             sm_scale)
     b, _, h, d = q.shape
-    _build.check_operands("paged_decode_attention", h // num_kv_heads,
-                          _build.DECODE_WIDTHS, _build.DECODE_GROUPS, q=q,
-                          k=k_pool, v=v_pool)
+    _build.check_operands("paged_decode_attention", _build.DECODE_WIDTHS,
+                          q=q, k=k_pool, v=v_pool)
     scale = sm_scale if sm_scale is not None else 1.0 / (d ** 0.5)
     tables = block_tables.to(torch.int32).contiguous()
     lens = context_lens.to(torch.int32).contiguous()

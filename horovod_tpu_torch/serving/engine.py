@@ -358,10 +358,12 @@ class RequestHandle:
 
 
 class ServingEngine:
-    """See module docstring. ``model``: the port's ``LlamaLM`` (it owns
-    its weights and device); ``config``: the engine knobs (default
+    """See module docstring. ``model``: any causal LM of the port with
+    the cache call contract (``LlamaLM``, ``MoeLM``; it owns its weights
+    and device); ``config``: the engine knobs (default
     ``ServingConfig.from_env()``); ``seed``: the engine's sampling
-    ``torch.Generator``."""
+    ``torch.Generator``. A model whose config declares no
+    ``max_seq_len`` (``MoeConfig``) needs ``ServingConfig.max_seq_len``."""
 
     def __init__(self, model, config: Optional[ServingConfig] = None,
                  seed: int = 0):
@@ -369,7 +371,14 @@ class ServingEngine:
         self._device = model.device
         cfg = config if config is not None else ServingConfig.from_env()
         mcfg = model.config
-        max_seq = min(cfg.max_seq_len or mcfg.max_seq_len, mcfg.max_seq_len)
+        model_max = int(getattr(mcfg, "max_seq_len", 0) or 0)
+        max_seq = cfg.max_seq_len or model_max
+        if not max_seq:
+            raise ValueError(
+                "the model declares no max_seq_len; set "
+                "ServingConfig.max_seq_len (HOROVOD_SERVING_MAX_SEQ_LEN)")
+        if model_max:
+            max_seq = min(max_seq, model_max)
         self._config = cfg = ServingConfig(
             max_batch=cfg.max_batch, block_size=cfg.block_size,
             num_blocks=cfg.num_blocks, queue_depth=cfg.queue_depth,

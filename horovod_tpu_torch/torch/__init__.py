@@ -33,19 +33,23 @@ from .mpi_ops import (  # noqa: F401
     Sum,
     allgather,
     allgather_async,
+    allgather_object,
     allreduce,
     allreduce_,
     allreduce_async,
     allreduce_async_,
+    alltoall,
     barrier,
     broadcast,
     broadcast_,
     broadcast_async,
     broadcast_async_,
+    broadcast_object,
     grouped_allreduce,
     grouped_allreduce_,
     grouped_allreduce_async,
     poll,
+    reducescatter,
     synchronize,
 )
 
@@ -57,6 +61,7 @@ __all__ = [
     "grouped_allreduce", "grouped_allreduce_", "grouped_allreduce_async",
     "allgather", "allgather_async", "broadcast", "broadcast_",
     "broadcast_async", "broadcast_async_", "synchronize", "poll", "barrier",
+    "reducescatter", "alltoall", "broadcast_object", "allgather_object",
     "DistributedOptimizer", "broadcast_parameters",
     "broadcast_optimizer_state",
 ]

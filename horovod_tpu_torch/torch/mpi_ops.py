@@ -3,19 +3,20 @@
 ``horovod_tpu/ops/collective_ops.py``.
 
 Sync, async and in-place variants of ``allreduce``, ``grouped_allreduce``,
-``allgather`` and ``broadcast``; ``synchronize``/``poll`` on handles;
-``barrier``. Each runs on the tensor's own device over the process group
+``allgather`` and ``broadcast``; ``reducescatter`` and ``alltoall``
+(differentiable); ``broadcast_object`` and ``allgather_object``;
+``synchronize``/``poll`` on handles; ``barrier``. Each runs on the tensor's own device over the process group
 ``init()`` built (NCCL on a card, gloo on the CPU). ``average=`` and
 ``op=`` (``Sum``/``Average``) are exclusive; neither means Average.
 ``name`` is accepted for the JAX package's signatures. At size 1 every
-op is the identity (the out-of-place ones return a copy), as in the JAX
-package. ``reducescatter``, ``alltoall`` and the object collectives are
-not ported yet.
+op is the identity (the out-of-place ones return a copy; the object
+collectives a pickled round trip), as in the JAX package.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional
+import pickle
+from typing import Any, Callable, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -274,3 +275,176 @@ def broadcast(tensor: torch.Tensor, root_rank: int,
 def broadcast_(tensor: torch.Tensor, root_rank: int,
                name: Optional[str] = None) -> torch.Tensor:
     return broadcast_async_(tensor, root_rank, name).wait()
+
+
+# ---------------------------------------------------------------------------
+# reducescatter, alltoall and the object collectives
+# (``horovod_tpu/ops/collective_ops.py:325-438`` with the semantics of
+# ``controller.composed_reducescatter`` / ``composed_alltoall``)
+
+
+def _require_dim(tensor: torch.Tensor, op: str) -> None:
+    # Before any size-1 shortcut: what raises must not depend on the size.
+    if tensor.ndim == 0:
+        raise ValueError(
+            f"{op} requires at least one dimension (got a scalar)")
+
+
+def _split_counts(n: int, size: int) -> List[int]:
+    """``np.array_split``'s block sizes: the lower ranks get the larger
+    blocks."""
+    base, rem = divmod(n, size)
+    return [base + (1 if r < rem else 0) for r in range(size)]
+
+
+class _Identity(torch.autograd.Function):
+    """A copy whose gradient passes through: the size-1 collectives."""
+
+    @staticmethod
+    def forward(ctx, tensor):
+        return tensor.detach().clone()
+
+    @staticmethod
+    def backward(ctx, grad_output):
+        return grad_output
+
+
+class _ReducescatterFunction(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, tensor, average):
+        ctx.average = average
+        full = allreduce_async(tensor, average).wait()
+        counts = _split_counts(tensor.shape[0], _size())
+        off = sum(counts[:basics.rank()])
+        return full[off:off + counts[basics.rank()]].clone()
+
+    @staticmethod
+    def backward(ctx, grad_output):
+        # Every rank's input reaches every block: gather the blocks' cotangents
+        # back to full length, scaled as the forward reduction was.
+        grad = allgather_async(grad_output.contiguous()).wait()
+        if ctx.average:
+            grad = grad / _size()
+        return grad, None
+
+
+def reducescatter(tensor: torch.Tensor, average: Optional[bool] = None,
+                  op: Optional[str] = None,
+                  name: Optional[str] = None) -> torch.Tensor:
+    """Reduce over ranks (mean by default), then keep this rank's block
+    of dim 0; an uneven dim 0 splits like ``np.array_split``.
+    Differentiable: the backward gathers the blocks' gradients."""
+    avg = _resolve_average(average, op)
+    _require_dim(tensor, "reducescatter")
+    if _size() == 1:
+        return _Identity.apply(tensor)
+    return _ReducescatterFunction.apply(tensor, avg)
+
+
+def _alltoall_splits(tensor: torch.Tensor, group) -> List[int]:
+    """Every rank's dim 0, agreed through an allgather so that an
+    indivisible one raises the same error on every rank (instead of
+    hanging the exchange)."""
+    n = dist.get_world_size(group)
+    mine = torch.tensor([tensor.shape[0]], dtype=torch.int64,
+                        device=tensor.device)
+    dims = [torch.empty_like(mine) for _ in range(n)]
+    dist.all_gather(dims, mine, group=group)
+    dims = [int(d) for d in dims]
+    for r, d in enumerate(dims):
+        if d % n:
+            raise ValueError(
+                f"alltoall requires every rank's first dimension to be "
+                f"divisible by size {n}; rank {r} has dim 0 = {d}")
+    return dims
+
+
+def _exchange(tensor: torch.Tensor, send: List[int], recv: List[int],
+              group) -> torch.Tensor:
+    out = tensor.new_empty((sum(recv),) + tuple(tensor.shape[1:]))
+    dist.all_to_all_single(out, tensor.contiguous(), output_split_sizes=recv,
+                           input_split_sizes=send, group=group)
+    return out
+
+
+class _AlltoallFunction(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, tensor, group, equal):
+        n = dist.get_world_size(group)
+        dims = ([tensor.shape[0]] * n if equal
+                else _alltoall_splits(tensor, group))
+        send = [tensor.shape[0] // n] * n
+        recv = [d // n for d in dims]
+        ctx.send, ctx.recv, ctx.group = send, recv, group
+        return _exchange(tensor.detach(), send, recv, group)
+
+    @staticmethod
+    def backward(ctx, grad_output):
+        # The inverse exchange: block j of the output came from rank j.
+        return (_exchange(grad_output, ctx.recv, ctx.send, ctx.group),
+                None, None)
+
+
+def alltoall(tensor: torch.Tensor, name: Optional[str] = None,
+             group=None) -> torch.Tensor:
+    """Exchange dim-0 blocks: rank r's result is the concatenation, in
+    rank order, of every rank's r-th block. Each rank's own dim 0 must
+    be divisible by the size (block sizes may differ between ranks).
+    Differentiable: the backward is the inverse exchange. ``group``: a
+    ``torch.distributed`` process group (None: the job's)."""
+    _require_dim(tensor, "alltoall")
+    size = _size() if group is None else dist.get_world_size(group)
+    if size == 1:
+        return _Identity.apply(tensor)
+    return _AlltoallFunction.apply(tensor, group, False)
+
+
+def _alltoall_equal(tensor: torch.Tensor, group) -> torch.Tensor:
+    """:func:`alltoall` for a caller that knows every rank's dim 0 is the
+    same multiple of the group's size (``moe_apply``'s ``[E, C, D]``
+    buffers, E the group's size): no agreement round, so no extra
+    collective and no host sync per exchange."""
+    if dist.get_world_size(group) == 1:
+        return _Identity.apply(tensor)
+    return _AlltoallFunction.apply(tensor, group, True)
+
+
+def _byte_tensor(payload: bytes) -> torch.Tensor:
+    dev = basics.device()
+    return torch.frombuffer(bytearray(payload), dtype=torch.uint8).to(dev)
+
+
+def broadcast_object(obj: Any, root_rank: int = 0,
+                     name: Optional[str] = None) -> Any:
+    """Root's picklable ``obj`` on every rank: the pickled length first,
+    then the bytes. Unpickling trusts the job's own ranks."""
+    _check_root(root_rank)
+    if _size() == 1:
+        return pickle.loads(pickle.dumps(obj))
+    dev = basics.device()
+    if basics.rank() == root_rank:
+        payload = _byte_tensor(pickle.dumps(obj))
+        length = torch.tensor([payload.numel()], dtype=torch.int64,
+                              device=dev)
+    else:
+        payload = None
+        length = torch.zeros(1, dtype=torch.int64, device=dev)
+    dist.broadcast(length, src=root_rank)
+    if payload is None:
+        payload = torch.empty(int(length[0]), dtype=torch.uint8, device=dev)
+    dist.broadcast(payload, src=root_rank)
+    return pickle.loads(payload.cpu().numpy().tobytes())
+
+
+def allgather_object(obj: Any, name: Optional[str] = None) -> list:
+    """One picklable object per rank, in rank order: the lengths are
+    gathered first, then the bytes (padded to the longest)."""
+    if _size() == 1:
+        return [pickle.loads(pickle.dumps(obj))]
+    blob = allgather_async(_byte_tensor(pickle.dumps(obj)))
+    data = blob.wait().cpu().numpy()
+    out, off = [], 0
+    for n in blob.tensor_sizes:
+        out.append(pickle.loads(data[off:off + n].tobytes()))
+        off += n
+    return out

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from horovod_tpu_torch.models import bert, llama
+from horovod_tpu_torch.models import bert, llama, moe_lm
 from horovod_tpu_torch.models.resnet import ResNetTiny
 from horovod_tpu_torch.ops import attention as flash
 from horovod_tpu_torch.ops import decode_attention as ops
@@ -70,8 +70,11 @@ def _pools(k, v, tables, block_size):
 @pytest.mark.parametrize("h,hkv,d", [
     (16, 8, 64), (32, 8, 128), (8, 1, 64),
     # The widened operand range: Llama-tiny's heads (D=16), D=32, and
-    # group 16 at D=64 and D=128 (the merge buffer in the cp.async ring).
-    (4, 2, 16), (4, 4, 32), (16, 1, 64), (32, 2, 128)])
+    # group 16 at D=64 and D=128 (the merge buffer in the cp.async ring);
+    # D=256 (two 16-byte pieces a lane in float32), at group 2 and 16; and
+    # groups no block width equals (3: one head a block; 6: two; 12: four).
+    (4, 2, 16), (4, 4, 32), (16, 1, 64), (32, 2, 128), (8, 4, 256),
+    (16, 1, 256), (3, 1, 64), (12, 2, 16), (24, 2, 128)])
 def test_kernels_match_plain(cuda_device, dtype, h, hkv, d):
     tol = F32_TOL if dtype == torch.float32 else BF16_TOL
     gen = torch.Generator(device=cuda_device).manual_seed(0)
@@ -184,9 +187,9 @@ def test_kernel_wrappers_refuse_what_the_kernel_cannot_take(cuda_device):
     k = torch.zeros((1, 8, 2 * 24), device=cuda_device)
     with pytest.raises(ValueError, match="head_dim"):
         ops.decode_attention(q, k, k, 3, 2)
-    q = torch.zeros((1, 1, 3, 64), device=cuda_device)      # group 3
-    k = torch.zeros((1, 8, 64), device=cuda_device)
-    with pytest.raises(ValueError, match="H/Hkv"):
+    q = torch.zeros((1, 1, 3, 288), device=cuda_device)     # D=288
+    k = torch.zeros((1, 8, 288), device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim"):
         ops.decode_attention(q, k, k, 3, 1)
     q = torch.zeros((1, 1, 4, 64), dtype=torch.float16, device=cuda_device)
     k = torch.zeros((1, 8, 2 * 64), dtype=torch.float16, device=cuda_device)
@@ -259,7 +262,12 @@ def test_generate_at_llama_tiny_runs_the_kernel(cuda_device):
      (2, 96, 96, 4, 2, 16, True, False),
      (2, 77, 77, 2, 2, 32, False, True),
      (1, 200, 200, 16, 1, 64, True, False),
-     (2, 50, 70, 6, 2, 16, True, True)])
+     (2, 50, 70, 6, 2, 16, True, True),
+     # head_dim 192 (padded to 256) and 256: the FMA family, 32 rows a
+     # block, both types.
+     (2, 96, 96, 4, 2, 192, True, False),
+     (2, 77, 100, 4, 1, 256, True, True),
+     (1, 130, 130, 2, 2, 256, False, False)])
 def test_flash_kernels_match_plain(cuda_device, dtype, b, sq, sk, h, hkv, d,
                                    causal, masked):
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -307,7 +315,7 @@ def test_flash_kernels_match_plain(cuda_device, dtype, b, sq, sk, h, hkv, d,
 
 @pytest.mark.cuda
 def test_flash_wrappers_refuse_what_the_kernels_cannot_take(cuda_device):
-    q = torch.zeros((1, 8, 4, 160), device=cuda_device)      # D=160
+    q = torch.zeros((1, 8, 4, 288), device=cuda_device)      # D=288
     with pytest.raises(ValueError, match="head_dim"):
         flash.flash_attention(q, q[:, :, :2], q[:, :, :2])
     q = torch.zeros((1, 8, 4, 64), dtype=torch.float16, device=cuda_device)
@@ -394,3 +402,66 @@ def test_resnet_tiny_on_the_card_matches_the_cpu(cuda_device):
                                    atol=1e-5 + 1e-4 * scale, msg=name)
     for (name, t), (_, r) in zip(card.named_buffers(), cpu.named_buffers()):
         torch.testing.assert_close(t.cpu(), r, **F32_TOL, msg=name)
+
+
+def _moe_tiny_f32():
+    return dataclasses.replace(moe_lm.MOE_TINY, dtype=torch.float32)
+
+
+@pytest.mark.cuda
+def test_moe_training_step_runs_the_flash_kernels_per_layer(cuda_device):
+    """MOE_TINY at D=16 (padded to 64), causal, group 2: one launch per
+    kernel per layer, and the gradients of the plain path."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _moe_tiny_f32()
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (2, 64))).to(cuda_device)
+    grads = []
+    for use_flash in (True, False):
+        model = moe_lm.MoeLM(
+            cfg, seed=0, param_dtype=torch.float32,
+            attention_fn=flash.make_attention_fn(causal=True,
+                                                 use_flash=use_flash))
+        flash.reset_launch_counts()
+        logits, aux = model(ids, return_aux=True)
+        (llama.causal_lm_loss(logits, ids) + 0.01 * aux).backward()
+        torch.cuda.synchronize()
+        want = cfg.num_layers if use_flash else 0
+        assert flash.LAUNCHES == {"flash_forward": want,
+                                  "flash_backward_dq": want,
+                                  "flash_backward_dkdv": want}
+        grads.append([p.grad for p in model.parameters()])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_generate_and_engine_at_moe_tiny_run_the_kernels(cuda_device):
+    """MoeLM through generate() (the contiguous kernel) and the serving
+    engine (the paged kernel): the einsum path's tokens, and generate()'s."""
+    from horovod_tpu_torch.serving import ServingConfig, ServingEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _moe_tiny_f32()
+    model = moe_lm.MoeLM(cfg, seed=0)
+    prompt = torch.from_numpy(
+        np.random.RandomState(1).randint(0, cfg.vocab_size, (3, 11)))
+    ops.reset_launch_counts()
+    tokens = llama.generate(model, prompt, max_new_tokens=9)
+    assert ops.LAUNCHES["decode_attention"] == cfg.num_layers * 8
+    with llama.decode_kernel_disabled():
+        assert torch.equal(tokens,
+                           llama.generate(model, prompt, max_new_tokens=9))
+    engine = ServingEngine(model, config=ServingConfig(
+        max_batch=4, block_size=16, max_seq_len=64))
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in (5, 17, 9, 30, 12)]
+    handles = [engine.submit(p, 7) for p in prompts]
+    ops.reset_launch_counts()
+    engine.run_until_idle()
+    assert ops.LAUNCHES["paged_decode_attention"] > 0
+    for p, handle in zip(prompts, handles):
+        want = llama.generate(model, torch.from_numpy(p[None]),
+                              max_new_tokens=7)[0, len(p):].tolist()
+        assert handle.result(timeout=0) == want

@@ -252,6 +252,14 @@ def test_port_imports_no_jax_or_reference_package():
         "import horovod_tpu_torch.trace\n"
         "import horovod_tpu_torch.examples.llama_generation\n"
         "import horovod_tpu_torch.examples.serving_loadgen\n"
+        "import horovod_tpu_torch.parallel\n"
+        "import horovod_tpu_torch.parallel.moe\n"
+        "import horovod_tpu_torch.models.moe_lm\n"
+        "import horovod_tpu_torch.examples.moe_lm_training\n"
+        "import horovod_tpu_torch.examples.moe_training\n"
+        "import horovod_tpu_torch.examples.vit_training\n"
+        "import horovod_tpu_torch.examples.mnist\n"
+        "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'horovod_tpu'))\n"
         "print(bad)\n"
@@ -264,16 +272,16 @@ def test_port_imports_no_jax_or_reference_package():
 
 def test_port_sources_never_name_jax_or_the_reference_package():
     offenders = []
+    paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(PKG):
-        for name in files:
-            if not name.endswith((".py", ".cu", ".cuh")):
-                continue
-            path = os.path.join(root, name)
-            with open(path, encoding="utf-8") as fh:
-                text = fh.read()
-            for needle in ("import jax", "from jax", "import flax",
-                           "horovod_tpu."):
-                if needle in text:
-                    offenders.append(f"{os.path.relpath(path, REPO)}: "
-                                     f"{needle!r}")
+        paths += [os.path.join(root, name) for name in sorted(files)
+                  if name.endswith((".py", ".cu", ".cuh"))]
+    for path in paths:
+        with open(path, encoding="utf-8") as fh:
+            text = fh.read()
+        for needle in ("import jax", "from jax", "import flax",
+                       "horovod_tpu."):
+            if needle in text:
+                offenders.append(f"{os.path.relpath(path, REPO)}: "
+                                 f"{needle!r}")
     assert not offenders, offenders

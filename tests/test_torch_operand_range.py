@@ -1,7 +1,7 @@
 """The kernels' operand range, held on the CPU.
 
-The flash kernels are instantiated at head_dim 64 and 128 and take any
-group; ``ops/attention.py`` brings a narrower head_dim to them by
+The flash kernels are instantiated at head_dim 64, 128 and 256 and take
+any group; ``ops/attention.py`` brings a narrower head_dim to them by
 zero-padding it. Those transforms are plain functions around any
 implementation of the kernels' signatures: here they wrap the plain
 versions, which must then give what the plain versions give on the
@@ -49,8 +49,9 @@ def _inputs(seed, b, sq, sk, h, hkv, d, masked):
      (2, 19, 19, 2, 2, 32, False, True),      # BERT-tiny: D=32, key mask
      (1, 12, 20, 16, 1, 32, True, False),     # group 16 at D=32
      (1, 9, 9, 6, 2, 16, True, True),         # group 3 at D=16
-     (2, 16, 16, 4, 4, 128, False, False)],   # in range: passed through
-    ids=["d16", "d32_mask", "group16", "group3_d16", "in_range"])
+     (2, 16, 16, 4, 4, 128, False, False),    # in range: passed through
+     (1, 10, 10, 2, 1, 192, True, True)],     # D=192: padded up to 256
+    ids=["d16", "d32_mask", "group16", "group3_d16", "in_range", "d192"])
 def test_transforms_around_plain_equal_plain(b, sq, sk, h, hkv, d, causal,
                                              masked):
     q, k, v, g, mask = _inputs(0, b, sq, sk, h, hkv, d, masked)
@@ -104,11 +105,12 @@ def test_padding_keeps_bfloat16_exact():
 
 
 def test_operand_rule_names_what_stays_out_of_range():
-    assert [A.kernel_width(d) for d in (16, 32, 64, 100, 128)] == \
-        [64, 64, 64, 128, 128]
-    with pytest.raises(ValueError, match="head_dim up to 128, got 160"):
-        A.kernel_width(160)
-    assert _build.DECODE_WIDTHS == (16, 32, 64, 128)
+    assert [A.kernel_width(d) for d in (16, 32, 64, 100, 128, 129, 192,
+                                        256)] == \
+        [64, 64, 64, 128, 128, 256, 256, 256]
+    with pytest.raises(ValueError, match="head_dim up to 256, got 288"):
+        A.kernel_width(288)
+    assert _build.DECODE_WIDTHS == (16, 32, 64, 128, 256)
     assert _build.DECODE_GROUPS == (1, 2, 4, 8, 16)
 
 
