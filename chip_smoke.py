@@ -129,14 +129,37 @@ on ``cuda``; any failure exits non-zero:
    equals ``generate()`` alone, through the paged kernel;
 23. the ViT example (``examples.vit_training``) at the JAX row
    ``vit_s16_224_b64_adamw_spc8``: ViT-S/16 bf16, batch 64, 8 steps a
-   call, ``--attention xla`` and ``flash``: img/s.
+   call, ``--attention xla`` and ``flash``: img/s;
+24. the ring paths' kernel calls against the plain versions with a
+   random cotangent on lse (ring attention's merge gives it one; float32
+   at TOL, bf16 at SCALED_TOL), timed as 6: Llama-300M's ring blocks at
+   seq 2048 over 2 ranks, b4 (the causal diagonal, a past block, the
+   zigzag half-blocks, Ulysses' full sequence at H/2), and the
+   long-context example's block. Then, on two processes sharing the card
+   as a gloo group (NCCL refuses two ranks on one device): the training
+   example ``--seq-parallel 2`` at Llama-300M, seq 2048, float32, two SGD
+   steps equal to the single-process run at the same global batch (loss
+   to 1e-4 relative, every weight within TOL), then bf16 timed (tok/s);
+   ``examples.long_context_ring_attention`` at its defaults (S 8192, H 8,
+   D 64), both layouts;
+25. tensor parallelism over the two processes: ``generate()`` (b8,
+   prompt 128, 32 new) and ``ServingEngine`` (8 requests) at Llama-300M
+   float32 give the unsharded model's tokens through both decode kernels
+   on each rank's heads (H 8, Hkv 4; phase 2 holds the kernels at that
+   shape), then ``examples.tp_decode_profile`` in bf16 (tok/s, two ranks
+   sharing one card);
+26. GPipe and 1F1B over the two processes (one stage each, residual MLP
+   stages of width 1024) equal the sequential stages: outputs, loss and
+   gradients within TOL.
 
-Phases 3-5, 9, 13, 15-18 and 20-23 are the main paths: the launch
+Phases 3-5, 9, 13, 15-18 and 20-25 are the main paths: the launch
 counts in the kernels' JSON line come from them (the flash kernels' are
-the sum of 9, 13, 20 and 23's flash run, the contiguous decode kernel's
-of 3, 15 and 21, the paged one's of 4, 16-18 and 22; each path's on a
-line of its own). Each phase logs its wall
-time. The line before the last is that JSON object; the last line is
+the sum of 9, 13, 20, 23's flash run and 24's seq-parallel training,
+plus the forward-only long-context runs of 24; the contiguous decode
+kernel's of 3, 15, 21 and 25's ``generate()`` and profile, the paged
+one's of 4, 16-18, 22 and 25's engine; a two-process path's counts are
+its two ranks' sum; each path's on a line of its own). Each phase logs
+its wall time. The line before the last is that JSON object; the last line is
 ``{"ok": true, "device": {...}}``. The whole run logs its wall time.
 """
 
@@ -229,7 +252,7 @@ def compare(got, want, dtype: str, what: str):
     """Max abs/rel error; raise if outside the stated tolerance."""
     import torch
 
-    got, want = got.float(), want.float()
+    got, want = got.detach().float(), want.detach().float()
     err = (got - want).abs()
     tol = TOL[dtype]
     limit = tol["atol"] + tol["rtol"] * want.abs()
@@ -293,6 +316,11 @@ def kernel_cases():
         yield ("moe_small_b32", dtype,
                dict(b=32, h=12, hkv=6, d=64, window=384, bs=16,
                     lens=list(range(0, 372, 12)) + [383]))
+        # One rank's heads of Llama-300M under tensor parallelism over 2
+        # (phase 25): H 16/2, Hkv 8/2.
+        yield ("llama300m_tp2", dtype,
+               dict(b=8, h=8, hkv=4, d=64, window=256, bs=16,
+                    lens=[0, 15, 16, 47, 100, 191, 240, 255]))
 
 
 def decode_accuracy(q, k, v, idx: int, hkv: int, got):
@@ -819,9 +847,26 @@ def planted_faults(A, label, q, k, v, mask, causal, g, p_lse, delta, got,
     return worst
 
 
-def check_flash(device, flush, cases=None):
+def ring_flash_cases():
+    """The ring paths' kernel calls (phase 24), in :func:`flash_cases`'
+    format: Llama-300M at seq 2048 over 2 ranks, batch 4 — the causal
+    diagonal block, a past block (non-causal), the zigzag half-blocks of
+    512 (a triangle, and the late half over a whole block) and Ulysses'
+    full sequence at H/2, Hkv/2; and the long-context example's
+    contiguous block (S 8192 over 2 ranks, H 8, D 64, non-causal)."""
+    return [("ring_diag", 4, 1024, 1024, 16, 8, 64, None, True),
+            ("ring_past", 4, 1024, 1024, 16, 8, 64, None, False),
+            ("ring_zigzag_tri", 4, 512, 512, 16, 8, 64, None, True),
+            ("ring_zigzag_hi", 4, 512, 1024, 16, 8, 64, None, False),
+            ("ulysses", 4, 2048, 2048, 8, 4, 64, None, True),
+            ("long_context", 1, 4096, 4096, 8, 8, 64, None, False)]
+
+
+def check_flash(device, flush, cases=None, with_dlse: bool = False):
     """The flash kernels against their plain versions on ``cases``
-    (default :func:`flash_cases`), timed; returns (label, dtype) -> row."""
+    (default :func:`flash_cases`), timed; returns (label, dtype) -> row.
+    ``with_dlse``: the backward gets a random cotangent on lse as well
+    (ring attention's merge gives it one), folded into delta."""
     import torch
     import torch.nn.functional as F
 
@@ -853,7 +898,9 @@ def check_flash(device, flush, cases=None):
             out, lse = A._flash_forward(q, k, v, mask, causal)
             p_out, p_lse = A.flash_attention_forward_plain(q, k, v, mask,
                                                            causal)
-            delta = A.flash_delta(p_out, g)
+            dlse = (torch.randn(b * h, 1, sq, generator=gen, device=device)
+                    if with_dlse else None)
+            delta = A.flash_delta(p_out, g, dlse)
             dq = A.flash_backward_dq(q, k, v, mask, g, p_lse, delta, causal)
             dk, dv = A.flash_backward_dkdv(q, k, v, mask, g, p_lse, delta,
                                            causal)
@@ -926,7 +973,7 @@ def check_flash(device, flush, cases=None):
                                                         p_lse, delta, causal),
                     flush, repeats=10)}
             sdpa_fwd = sdpa_bwd = None
-            if mask_kind != "random" and sq == sk:
+            if mask_kind != "random" and (sq == sk or not causal):
                 # The yardstick (the port never calls it): SDPA on the same
                 # inputs in (B, H, S, D), causal or with the key mask as
                 # attn_mask: its forward, and its backward alone on one
@@ -953,6 +1000,7 @@ def check_flash(device, flush, cases=None):
                 del o_saved
             row = dict(case=label, dtype=dname, shape=[b, sq, sk, h, hkv, d],
                        mask=mask_kind, causal=causal, pairs=pairs,
+                       dlse=with_dlse,
                        max_abs_err={key: e["max_abs"]
                                     for key, e in errs.items()},
                        errors=errs, planted_faults=planted,
@@ -2313,6 +2361,466 @@ def run_vit_timed(card: str):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phases 24-26: the parallel modes, on two ranks sharing the card
+#
+# NCCL refuses two ranks on one device, so the two worker processes form
+# a gloo group on cuda:0 themselves (init_process_group before hvd.init,
+# which then adopts it; HOROVOD_LOCAL_RANK=0 binds both to cuda:0). gloo
+# carries CUDA tensors for allreduce, allgather, broadcast and alltoall;
+# the neighbour exchange stages them through host memory (see
+# horovod_tpu_torch/parallel/exchange.py).
+
+PARALLEL_SP = ["--model", "300m", "--seq-len", "2048", "--seq-parallel",
+               "2"]
+PARALLEL_TP_PROFILE = ["--model", "300m", "--tp", "2", "--batch-size", "8",
+                       "--prompt-len", "128", "--max-new-tokens", "64"]
+
+
+def _counts():
+    from horovod_tpu_torch.ops import attention as A
+    from horovod_tpu_torch.ops import decode_attention as D
+
+    return {**A.LAUNCHES, **D.LAUNCHES}
+
+
+def _reset_counts():
+    from horovod_tpu_torch.ops import attention as A
+    from horovod_tpu_torch.ops import decode_attention as D
+
+    A.reset_launch_counts()
+    D.reset_launch_counts()
+
+
+def _path(fn):
+    """Run one main path with every launch count set to 0 just before
+    and read just after; returns (its result, the counts)."""
+    import torch
+
+    _reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, _counts()
+
+
+def worker_sp_parity(rank: int, batch: int = 2, steps: int = 2):
+    """Phase 24 parity: the pieces of ``llama_training --seq-parallel
+    2`` (``make_model`` with ring attention over ``seq``,
+    ``make_sp_loss_fn``, ``batch_ids`` and ``train_step``) in float32,
+    SGD, ``steps`` steps, against the single-process run at the same
+    global batch (rank 0 runs it after, on the full sequence): the loss
+    to 1e-4 relative at every step, every weight within TOL."""
+    import torch
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.examples import llama_training as ex
+    from horovod_tpu_torch.models.llama import LLAMA_300M
+    from horovod_tpu_torch.parallel import make_mesh
+
+    cfg = dataclasses.replace(LLAMA_300M, dtype=torch.float32)
+    seq_len = int(PARALLEL_SP[PARALLEL_SP.index("--seq-len") + 1])
+    mesh = make_mesh({"data": 1, "seq": 2})
+    seq = mesh.group("seq")
+    ring = ex.make_model(cfg, device="cuda", seq_group=seq)
+    ring_opt = ex.make_optimizer("sgd", ring, mesh.group("data"))
+    sp_loss = ex.make_sp_loss_fn(seq)
+    ids = ex.batch_ids(cfg, batch, seq_len, "cuda", mesh)
+    losses, counts = _path(lambda: [
+        float(ex.train_step(ring, ring_opt, ids, sp_loss, seq))
+        for _ in range(steps)])
+    row = {"losses_ring": losses, "launches": counts}
+    if rank == 0:
+        model = ex.make_model(cfg, device="cuda")
+        opt = ex.make_optimizer("sgd", model, mesh.group("data"))
+        ids = torch.from_numpy(np.random.RandomState(0).randint(
+            0, cfg.vocab_size, (batch, seq_len))).cuda()
+        loss_fn = ex.make_loss_fn(0)
+        ref = [float(ex.train_step(model, opt, ids, loss_fn))
+               for _ in range(steps)]
+        for a, b in zip(losses, ref):
+            if not np.isfinite(a) or abs(a - b) > 1e-4 * abs(b):
+                raise AssertionError(f"seq-parallel parity: losses "
+                                     f"{losses} vs {ref}")
+        worst = 0.0
+        with torch.no_grad():
+            for (name, p), (_, r) in zip(ring.named_parameters(),
+                                         model.named_parameters()):
+                worst = max(worst, float((p - r).abs().max()))
+                compare(p, r, "float32", f"seq-parallel parity weight {name}")
+        row.update(losses_single=ref, max_abs_weight_diff=worst)
+        del model, opt
+    del ring, ring_opt
+    dist.barrier()
+    torch.cuda.empty_cache()
+    return row
+
+
+def _wall_ms(fn, repeats: int = 3) -> float:
+    """Median host wall time of ``fn()`` with the card synchronised
+    around it."""
+    import torch
+
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def sp_step_split(out):
+    """Where a seq-parallel step's wall time goes: the forward alone,
+    the gradient sum over ``seq`` alone (a float32 allreduce per
+    parameter over gloo), and one K/V hop of a layer (host-staged), each timed apart
+    on this rank."""
+    import torch
+
+    from horovod_tpu_torch.examples import llama_training as ex
+    from horovod_tpu_torch.parallel.exchange import ring_exchange
+
+    model, ids, group = out["model"], out["ids"], out["mesh"].group("seq")
+    cfg = model.config
+    kv = torch.zeros(ids.shape[0], ids.shape[1], cfg.num_kv_heads,
+                     cfg.dim // cfg.num_heads, dtype=cfg.dtype,
+                     device=ids.device)
+    with torch.no_grad():
+        forward = _wall_ms(lambda: out["loss_fn"](model, ids))
+    return {"forward": forward,
+            "gradient_sum": _wall_ms(lambda: ex.sum_gradients(model,
+                                                              group)),
+            "kv_hop": _wall_ms(lambda: ring_exchange([kv, kv], group))}
+
+
+def worker_sp_timed(steps: int = 3, batch: int = 4):
+    """Phase 24 timing: the seq-parallel example in bf16 (two ranks on
+    one card), and the long-context example at its defaults, both
+    layouts; the flash launches of each path."""
+    import torch
+
+    from horovod_tpu_torch.examples import llama_training as ex
+    from horovod_tpu_torch.examples import long_context_ring_attention as lc
+
+    out, counts = _path(lambda: ex.main(
+        PARALLEL_SP + ["--batch-size", str(batch), "--num-iters",
+                       str(steps)]))
+    if not all(np.isfinite(out["losses"])):
+        raise AssertionError(f"seq-parallel bf16: losses {out['losses']}")
+    row = {"tokens_per_s": out["tokens_per_s"], "step_ms": out["step_ms"],
+           "losses": out["losses"], "batch": batch, "launches": counts,
+           "split_ms": sp_step_split(out)}
+    del out
+    torch.cuda.empty_cache()
+    for layout in ("contiguous", "zigzag"):
+        rec, counts = _path(lambda: lc.main(["--layout", layout]))
+        if not rec["finite"] or rec["out_shape"] != [1, 8192, 8, 64]:
+            raise AssertionError(f"long context {layout}: {rec}")
+        row[f"long_context_{layout}"] = {**rec, "launches": counts}
+    return row
+
+
+def tp_step_split(mesh, batch: int = 8, prompt_len: int = 128):
+    """Where a TP token step's wall time goes: one bf16 Llama-300M token
+    step over ``mesh``'s ``model`` axis (b8, after a 128-token prefill),
+    and the collectives that step issues, recorded during one step and
+    replayed alone on the same tensors (gloo, CUDA tensors)."""
+    import torch
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.models.llama import LLAMA_300M, LlamaLM
+
+    model = LlamaLM(LLAMA_300M, seed=0, mesh=mesh)
+    cfg = model.config
+    prompt = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (batch, prompt_len))).to(model.device)
+    token = prompt[:, -1:]
+    real = {"all_reduce": dist.all_reduce, "all_gather": dist.all_gather}
+    calls = []
+
+    def recording(name):
+        def fn(*args, **kwargs):
+            calls.append((name, args, kwargs))
+            return real[name](*args, **kwargs)
+        return fn
+
+    def step():
+        model(token, cache=cache, cache_index=prompt_len)
+
+    def collectives():
+        for name, args, kwargs in calls:
+            real[name](*args, **kwargs)
+
+    with torch.inference_mode(), llama.decode_path_context("kernel_tp"):
+        cache = llama.init_kv_cache(cfg, batch, prompt_len + 1,
+                                    device=model.device,
+                                    kv_heads=model.kv_heads)
+        model(prompt, cache=cache, cache_index=0)
+        step()
+        for name in real:
+            setattr(dist, name, recording(name))
+        try:
+            step()
+        finally:
+            for name, fn in real.items():
+                setattr(dist, name, fn)
+        issued = len(calls)
+        step_ms = _wall_ms(step, repeats=9)
+        collectives_ms = _wall_ms(collectives, repeats=9)
+    del model, cache, calls[:]
+    torch.cuda.empty_cache()
+    return {"batch": batch, "step_ms": step_ms,
+            "collectives_ms": collectives_ms, "collectives": issued}
+
+
+def worker_tp(rank: int):
+    """Phase 25: Llama-300M float32 with tensor parallelism over the two
+    ranks: ``generate()`` (b8, prompt 128, 32 new) and the engine (8
+    requests) give the unsharded model's tokens, through both decode
+    kernels on each rank's heads; then ``tp_decode_profile`` in bf16."""
+    import torch
+
+    from horovod_tpu_torch import serving
+    from horovod_tpu_torch.examples import tp_decode_profile
+    from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.models.llama import LLAMA_300M, LlamaLM
+    from horovod_tpu_torch.parallel import make_mesh
+
+    cfg = dataclasses.replace(LLAMA_300M, dtype=torch.float32)
+    mesh = make_mesh({"data": 1, "model": 2})
+    base = LlamaLM(cfg, seed=0)
+    tp = LlamaLM(cfg, seed=0, mesh=mesh)
+    prompt = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (8, 128)))
+    want = llama.generate(base, prompt, 32)
+    got, gen_counts = _path(lambda: llama.generate(tp, prompt, 32))
+    info = llama.LAST_DECODE_PATH
+    if info.path != "kernel_tp" or not torch.equal(got, want):
+        raise AssertionError(f"tp generate: path {info.path}; tokens equal "
+                             f"{torch.equal(got, want)}")
+    if gen_counts["decode_attention"] != cfg.num_layers * 31:
+        raise AssertionError(f"tp generate: launches {gen_counts}")
+    rng = np.random.RandomState(1)
+    prompts = random_prompts(rng, 8, cfg.vocab_size, 32, 128)
+    news = [int(rng.randint(8, 33)) for _ in prompts]
+    scfg = serving.ServingConfig(max_batch=4, block_size=16, num_blocks=0,
+                                 queue_depth=64, max_seq_len=256)
+    engine = serving.ServingEngine(tp, scfg)
+    handles = [engine.submit(p, n) for p, n in zip(prompts, news)]
+    _, engine_counts = _path(engine.run_until_idle)
+    steps = engine.stats()["steps"]
+    if engine.decode_path.path != "kernel_tp" or \
+            engine_counts["paged_decode_attention"] != cfg.num_layers * steps:
+        raise AssertionError(f"tp engine: path {engine.decode_path.path}, "
+                             f"launches {engine_counts} over {steps} steps")
+    for i, (p, n, h) in enumerate(zip(prompts, news, handles)):
+        ref = llama.generate(base, torch.from_numpy(p[None]), n)
+        if h.result(timeout=0) != ref[0, len(p):].tolist():
+            raise AssertionError(f"tp engine request {i} differs from the "
+                                 "unsharded generate()")
+    engine.shutdown()
+    del base, tp, engine
+    torch.cuda.empty_cache()
+    profile, profile_counts = _path(
+        lambda: tp_decode_profile.main(PARALLEL_TP_PROFILE))
+    if profile["path"] != "kernel_tp":
+        raise AssertionError(f"tp_decode_profile: {profile}")
+    # One of the ~35 collectives of a TP decode step, alone: the sum
+    # after a block's attention at b8 in bf16 (gloo, CUDA tensors).
+    x = torch.ones(8, 1, cfg.dim, dtype=torch.bfloat16, device="cuda")
+    profile["allreduce_ms"] = _wall_ms(
+        lambda: torch.distributed.all_reduce(x, group=mesh.group("model")),
+        repeats=25)
+    profile["step_split"] = tp_step_split(mesh)
+    return {"generate": {"path": info.path, "reason": info.reason,
+                         "launches": gen_counts},
+            "engine": {"requests": len(prompts), "steps": steps,
+                       "launches": engine_counts},
+            "profile": {**profile, "launches": profile_counts}}
+
+
+def worker_pipeline(rank: int, features: int = 1024, layers: int = 2,
+                    microbatches: int = 8, rows: int = 32):
+    """Phase 26: GPipe and 1F1B over the two ranks (one stage each) equal
+    the sequential stages on one rank: outputs, loss and every gradient
+    in float32 within TOL."""
+    import torch
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.examples.pipeline_parallel import (make_stages,
+                                                              stage_fn)
+    from horovod_tpu_torch.parallel import make_mesh
+    from horovod_tpu_torch.parallel.pipeline import (collect_from_last_stage,
+                                                     pipeline_apply,
+                                                     pipeline_loss)
+
+    mesh = make_mesh({"pipe": 2})
+    pipe, stage = mesh.group("pipe"), mesh.axis_index("pipe")
+    rng = np.random.RandomState(0)
+    stages = [{k: v.cuda() for k, v in s.items()}
+              for s in make_stages(rng, 2, layers, features)]
+    x = torch.from_numpy(rng.randn(microbatches, rows, features).astype(
+        np.float32)).cuda()
+
+    def mine():
+        return {k: v.clone().requires_grad_() for k, v in stages[stage].items()}
+
+    p = mine()
+    out = pipeline_apply(stage_fn, p, x, group=pipe)
+    full = collect_from_last_stage(out, pipe)
+    loss = pipeline_loss((out ** 2).mean(dim=(1, 2)), pipe)
+    loss.backward()
+    gpipe_grads = {k: v.grad for k, v in p.items()}
+    f1b_loss, f1b_grads = pipeline_apply(
+        stage_fn, mine(), x, group=pipe, schedule="1f1b",
+        loss_fn=lambda y: (y ** 2).mean())
+    # The sequential reference, on every rank.
+    ref_p = [{k: v.clone().requires_grad_() for k, v in s.items()}
+             for s in stages]
+    h = x
+    for sp in ref_p:
+        h = stage_fn(sp, h)
+    ref_loss = (h ** 2).mean()
+    ref_loss.backward()
+    compare(full.detach(), h.detach(), "float32", "gpipe outputs")
+    ref = float(ref_loss.detach())
+    for what, got in (("gpipe", float(loss.detach())),
+                      ("1f1b", float(f1b_loss))):
+        if abs(got - ref) > 1e-6 * abs(ref):
+            raise AssertionError(f"{what} loss {got} vs sequential {ref}")
+    for k in ("w", "b"):
+        compare(gpipe_grads[k], ref_p[stage][k].grad, "float32",
+                f"gpipe grad {k} stage {stage}")
+        compare(f1b_grads[k], ref_p[stage][k].grad, "float32",
+                f"1f1b grad {k} stage {stage}")
+    dist.barrier()
+    return {"stages": 2, "features": features, "layers_per_stage": layers,
+            "microbatches": microbatches, "rows": rows,
+            "loss": ref}
+
+
+def parallel_worker(rank: int, port: int, out_path: str) -> int:
+    """One of the two ranks of phases 24-26 (``chip_smoke.py
+    --parallel-worker RANK PORT OUT``); rank 0 writes the JSON."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    import horovod_tpu_torch as hvd
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=600))
+    hvd.init()
+    if hvd.device() != torch.device("cuda", 0) or hvd.size() != 2:
+        raise AssertionError(f"worker {rank}: device {hvd.device()}, "
+                             f"size {hvd.size()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    results = {}
+    for label, fn in (("24 sp parity", lambda: worker_sp_parity(rank)),
+                      ("24 sp timed", worker_sp_timed),
+                      ("25 tp", lambda: worker_tp(rank)),
+                      ("26 pipeline", lambda: worker_pipeline(rank))):
+        t = time.perf_counter()
+        results[label] = fn()
+        results[label]["wall_s"] = time.perf_counter() - t
+        log(f"rank {rank} phase {label}: "
+            f"{results[label]['wall_s']:.1f} s")
+    # Every rank's launch counts, per path.
+    results["counts_by_rank"] = hvd.allgather_object(
+        {label: _launch_rows(row) for label, row in results.items()})
+    if rank == 0:
+        with open(out_path, "w") as f:
+            json.dump(results, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    log(f"rank {rank}: worker ok")
+    return 0
+
+
+def _launch_rows(row):
+    """Every ``launches`` dict in a phase's result, by key path."""
+    found = {}
+    if isinstance(row, dict):
+        for key, value in row.items():
+            if key == "launches":
+                found[""] = value
+            else:
+                for sub, counts in _launch_rows(value).items():
+                    found[f"{key}/{sub}".rstrip("/")] = counts
+    return found
+
+
+def run_parallel_phases(card: str):
+    """Phases 24-26 on two ranks sharing the card (see above): returns
+    the workers' results."""
+    import tempfile
+
+    import torch
+
+    torch.cuda.empty_cache()
+    port = free_port()
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    out_path = os.path.join(out_dir, "parallel.json")
+    procs = []
+    try:
+        for rank in range(2):
+            env = {k: v for k, v in os.environ.items()
+                   if not k.startswith(("HOROVOD_", "OMPI_", "PMI_"))}
+            env.update(HOROVOD_RANK=str(rank), HOROVOD_SIZE="2",
+                       HOROVOD_LOCAL_RANK="0", HOROVOD_LOCAL_SIZE="1",
+                       PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 "--parallel-worker", str(rank), str(port), out_path],
+                env=env))
+        codes = [proc.wait(timeout=900) for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if codes != [0, 0]:
+        raise AssertionError(f"parallel workers exited {codes}")
+    with open(out_path) as f:
+        results = json.load(f)
+    sp = results["24 sp parity"]
+    log(f"seq-parallel parity: llama300m f32 seq 2048 sp 2 b=2, 2 SGD "
+        f"steps; losses ring {sp['losses_ring']} vs single process "
+        f"{sp['losses_single']}; every weight within {TOL['float32']} "
+        f"(max abs diff {sp['max_abs_weight_diff']:.3g})")
+    timed = results["24 sp timed"]
+    log(f"seq-parallel training bf16 llama300m seq 2048 sp 2 b=4 (two "
+        f"ranks sharing one card): {timed['tokens_per_s']:.1f} tokens/s, "
+        f"step {timed['step_ms']:.1f} ms, losses {timed['losses']}; rank 0 "
+        f"split (ms): {json.dumps(timed['split_ms'])} [{card}]")
+    for layout in ("contiguous", "zigzag"):
+        rec = timed[f"long_context_{layout}"]
+        log(f"long context ring S=8192 H=8 D=64 bf16 {layout} (two ranks "
+            f"sharing one card): {rec['ms_per_iter']:.2f} ms/iter, "
+            f"{rec['tflops']:.2f} TFLOP/s [{card}]")
+    tp = results["25 tp"]
+    log(f"tp: llama300m f32 tp 2 generate and engine ({tp['engine']['requests']} "
+        f"requests, {tp['engine']['steps']} steps) equal the unsharded "
+        f"model; path {tp['generate']['path']} ({tp['generate']['reason']})")
+    prof = tp["profile"]
+    log(f"tp_decode_profile bf16 llama300m b8 p128 n64, two ranks sharing "
+        f"one card: tp {prof['tok_s_tp']:.1f} tok/s, unsharded "
+        f"{prof['tok_s_single_device']:.1f} tok/s per rank, parity "
+        f"mismatches {prof['token_parity_mismatches']}; one gloo allreduce "
+        f"of (8, 1, 1024) bf16 {prof['allreduce_ms']:.3f} ms; rank 0 token "
+        f"step split: {json.dumps(prof['step_split'])} [{card}]")
+    log(f"pipeline: {json.dumps(results['26 pipeline'])}")
+    return results
+
+
 def main() -> int:
     import torch
 
@@ -2358,6 +2866,8 @@ def main() -> int:
                           flush_buf.zero_)
     operand = phase("14 operand range", check_operand_range, device,
                     flush_buf.zero_)
+    ring_flash = phase("24 ring kernels (dlse)", check_flash, device,
+                       flush_buf.zero_, ring_flash_cases(), True)
     del flush_buf
 
     phase("7 collectives", run_collectives)
@@ -2416,36 +2926,61 @@ def main() -> int:
                                         run_synthetic_benchmark, card),
            "bert_parity": phase("12 bert parity", run_bert_parity)}
     bert = phase("13 bert example", run_bert_timed, card)
+    torch.cuda.empty_cache()
+    parallel = phase("24-26 parallel modes (two ranks)", run_parallel_phases,
+                     card)
     hvd.shutdown()
 
+    # The two ranks' counts of each parallel path, summed.
+    by_rank = parallel["counts_by_rank"]
+
+    def both(phase_label, key, name):
+        return sum(rank[phase_label][key][name] for rank in by_rank)
+
+    flash_names = list(flash_ops.LAUNCHES)
     flash_paths = {"llama300m training (9)": training["flash_launches"],
                    "bert-base training (13)": bert["flash_launches"],
                    "moe-small training (20)": moe_training["flash_launches"],
                    "vit-s16 --attention flash (23)":
-                       vit["flash"]["flash_launches"]}
+                       vit["flash"]["flash_launches"],
+                   "llama300m seq-parallel training (24)": {
+                       n: both("24 sp timed", "", n) for n in flash_names}}
+    forward_only = {f"long context ring {layout} (24)": both(
+        "24 sp timed", f"long_context_{layout}", "flash_forward")
+        for layout in ("contiguous", "zigzag")}
     log(f"flash launches by main path: {json.dumps(flash_paths)}")
     decode_paths = {"generate (3)": gen_launches,
                     "generation example (15)": example_launches,
                     "moe-small generate (21)": moe_gen_launches,
                     "moe-small generation example (21)":
-                        moe_example_launches}
+                        moe_example_launches,
+                    "tp generate, both ranks (25)": both(
+                        "25 tp", "generate", "decode_attention"),
+                    "tp_decode_profile, both ranks (25)": both(
+                        "25 tp", "profile", "decode_attention")}
     paged_paths = {"engine parity (4)": paged_launches,
                    "fleet parity (17)": fleet_launches,
                    "loadgen llama-300m (16)": loadgen_launches,
                    **{f"loadgen tiny {k} (18)": v[1]
                       for k, v in fleet_rows.items()},
-                   "moe-small engine parity (22)": moe_paged_launches}
+                   "moe-small engine parity (22)": moe_paged_launches,
+                   "tp engine, both ranks (25)": both(
+                       "25 tp", "engine", "paged_decode_attention")}
     log(f"decode_attention launches by main path: "
         f"{json.dumps(decode_paths)}")
     log(f"paged_decode_attention launches by main path: "
         f"{json.dumps(paged_paths)}")
-    if min(list(decode_paths.values()) + list(paged_paths.values())) <= 0:
-        raise AssertionError(f"a decode main path never ran its kernel: "
-                             f"{decode_paths} {paged_paths}")
+    log(f"flash_forward launches of the forward-only ring paths: "
+        f"{json.dumps(forward_only)}")
+    if min(list(decode_paths.values()) + list(paged_paths.values())
+           + list(forward_only.values())) <= 0:
+        raise AssertionError(f"a main path never ran its kernel: "
+                             f"{decode_paths} {paged_paths} {forward_only}")
     launches = {"decode_attention": sum(decode_paths.values()),
                 "paged_decode_attention": sum(paged_paths.values()),
                 **{name: sum(path[name] for path in flash_paths.values())
-                   for name in flash_ops.LAUNCHES}}
+                   for name in flash_names}}
+    launches["flash_forward"] += sum(forward_only.values())
     never = [f"{path}: {name}" for path, counts in flash_paths.items()
              for name, n in counts.items() if n <= 0]
     if min(launches.values()) <= 0 or never:
@@ -2482,6 +3017,8 @@ def main() -> int:
     log(f"zoo: {json.dumps({**zoo, 'bert_training': bert})}")
     log(f"moe: {json.dumps({'parity': moe_parity, 'training': moe_training, 'generation': moe_generation})}")
     log(f"vit: {json.dumps(vit)}")
+    log(f"parallel: {json.dumps(parallel)}")
+    log(f"ring kernels: {json.dumps({f'{k[0]} {k[1]}': v for k, v in ring_flash.items()})}")
     log(f"wall time: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -2491,4 +3028,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 5 and sys.argv[1] == "--parallel-worker":
+        sys.exit(parallel_worker(int(sys.argv[2]), int(sys.argv[3]),
+                                 sys.argv[4]))
     sys.exit(main())

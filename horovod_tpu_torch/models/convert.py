@@ -2,7 +2,9 @@
 parameter trees, given as nested dicts of numpy arrays, into the port's
 models (``llama_from_flax``, ``moe_from_flax``) and back
 (``llama_to_flax``, ``moe_to_flax``, from the parameters or from their
-gradients, so the two packages compare leaf by leaf).
+gradients, so the two packages compare leaf by leaf). A tensor-parallel
+``LlamaLM`` loads this rank's slice of every sharded leaf, and
+``llama_to_flax`` gathers the slices back over the axis.
 
 Every leaf is mapped; a missing key, a wrong shape or a leaf nothing
 maps raises. Weights land in the port's storage dtypes: with
@@ -22,7 +24,7 @@ transposed), and the ``batch_stats`` leaves ``mean``/``var`` become
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterator, Optional, Tuple
+from typing import Callable, Dict, Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,32 +44,57 @@ def _flat_leaves(tree, prefix=()) -> Iterator[Tuple[Tuple[str, ...],
             yield prefix + (str(key),), np.asarray(tree[key])
 
 
+class _Slice(NamedTuple):
+    """The part of a JAX leaf a parameter holds: ``dim`` cut into
+    ``parts`` equal blocks, block ``index`` kept; ``group``: the
+    tensor-parallel group to gather the blocks back over (None for an
+    expert group's rows, which ``moe_to_flax`` gives as they are)."""
+    dim: int
+    parts: int
+    index: int
+    group: object = None
+
+    def take(self, arr: np.ndarray) -> np.ndarray:
+        width = arr.shape[self.dim] // self.parts
+        return np.take(arr, range(self.index * width,
+                                  (self.index + 1) * width), axis=self.dim)
+
+
 _Leaf = Tuple[torch.nn.Parameter, Tuple[str, ...], Tuple[int, ...],
-              Optional[slice]]
+              Optional[_Slice]]
 
 
 def _mapping(model: CausalLM) -> Iterator[_Leaf]:
-    """(port parameter, JAX tree path, JAX leaf shape, rows) for every
-    leaf of a ``LlamaLM`` or ``MoeLM``; ``rows``: the slice of the leaf's
-    dim 0 the parameter holds (an expert group's rank), else None."""
+    """(port parameter, JAX tree path, JAX leaf shape, slice) for every
+    leaf of a ``LlamaLM`` or ``MoeLM``; ``slice``: the part of the leaf
+    the parameter holds (an expert group's rows, a tensor-parallel
+    rank's share), else None."""
     cfg = model.config
     hd = cfg.dim // cfg.num_heads
     h, hkv = cfg.num_heads, cfg.num_kv_heads
+    tp = model.tp
+
+    def cut(module, dim):
+        """The TP slice of a leaf whose module is sharded."""
+        if tp is None or getattr(module, "tp", tp) is None:
+            return None
+        return _Slice(dim, tp.size, tp.rank, tp.group)
+
     yield (model.tok_embeddings, ("tok_embeddings", "embedding"),
-           (cfg.vocab_size, cfg.dim), None)
+           (cfg.vocab_size, cfg.dim), cut(model, 0))
     for i, block in enumerate(model.layers):
         layer = f"layer_{i}"
         attn = block.attention
         yield (block.attention_norm.scale, (layer, "attention_norm", "scale"),
                (cfg.dim,), None)
         yield (attn.wq, (layer, "attention", "wq", "kernel"),
-               (cfg.dim, h, hd), None)
+               (cfg.dim, h, hd), cut(attn, 1))
         yield (attn.wk, (layer, "attention", "wk", "kernel"),
-               (cfg.dim, hkv, hd), None)
+               (cfg.dim, hkv, hd), cut(attn, 1))
         yield (attn.wv, (layer, "attention", "wv", "kernel"),
-               (cfg.dim, hkv, hd), None)
+               (cfg.dim, hkv, hd), cut(attn, 1))
         yield (attn.wo, (layer, "attention", "wo", "kernel"),
-               (h, hd, cfg.dim), None)
+               (h, hd, cfg.dim), cut(attn, 0))
         yield (block.ffn_norm.scale, (layer, "ffn_norm", "scale"), (cfg.dim,),
                None)
         if isinstance(block, MoeBlock):
@@ -75,27 +102,30 @@ def _mapping(model: CausalLM) -> Iterator[_Leaf]:
             e, x = cfg.num_experts, cfg.expert_hidden
             rows = None
             if ffn.expert_group is not None:
-                n = ffn.wi.shape[0]
-                r = torch.distributed.get_rank(ffn.expert_group)
-                rows = slice(r * n, (r + 1) * n)
+                rows = _Slice(0, torch.distributed.get_world_size(
+                    ffn.expert_group), torch.distributed.get_rank(
+                        ffn.expert_group))
             yield ffn.gate, (layer, "moe_ffn", "gate"), (cfg.dim, e), None
             yield ffn.wi, (layer, "moe_ffn", "wi"), (e, cfg.dim, x), rows
             yield ffn.wo, (layer, "moe_ffn", "wo"), (e, x, cfg.dim), rows
             continue
-        f = block.w_gate.shape[1]
-        yield block.w_gate, (layer, "w_gate", "kernel"), (cfg.dim, f), None
-        yield block.w_up, (layer, "w_up", "kernel"), (cfg.dim, f), None
-        yield block.w_down, (layer, "w_down", "kernel"), (f, cfg.dim), None
+        f = cfg.ffn_hidden
+        yield (block.w_gate, (layer, "w_gate", "kernel"), (cfg.dim, f),
+               cut(block, 1))
+        yield (block.w_up, (layer, "w_up", "kernel"), (cfg.dim, f),
+               cut(block, 1))
+        yield (block.w_down, (layer, "w_down", "kernel"), (f, cfg.dim),
+               cut(block, 0))
     yield model.final_norm.scale, ("final_norm", "scale"), (cfg.dim,), None
     yield (model.lm_head, ("lm_head", "kernel"), (cfg.dim, cfg.vocab_size),
-           None)
+           cut(model, 1))
 
 
 def _load(model: CausalLM, params_np: Dict, what: str):
     """Copy every leaf of ``params_np`` into ``model``; raise for a
     missing leaf, a wrong shape or a leaf nothing maps."""
     used = set()
-    for param, path, shape, _ in _mapping(model):
+    for param, path, shape, part in _mapping(model):
         node = params_np
         for key in path:
             if not isinstance(node, dict) or key not in node:
@@ -107,6 +137,8 @@ def _load(model: CausalLM, params_np: Dict, what: str):
             raise ValueError(
                 f"{what}: {'/'.join(path)} has shape {arr.shape}, "
                 f"expected {shape}")
+        if part is not None:
+            arr = part.take(arr)
         with torch.no_grad():
             param.copy_(torch.from_numpy(
                 np.array(arr, dtype=np.float32)).reshape(param.shape))
@@ -121,16 +153,28 @@ def _load(model: CausalLM, params_np: Dict, what: str):
     return model
 
 
+def _gather(arr: np.ndarray, part: _Slice, device) -> np.ndarray:
+    """The whole leaf from every rank's block of it (rank order)."""
+    mine = torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+    blocks = [torch.empty_like(mine) for _ in range(part.parts)]
+    torch.distributed.all_gather(blocks, mine, group=part.group)
+    return np.concatenate([b.cpu().numpy() for b in blocks], axis=part.dim)
+
+
 def _to_flax(model: CausalLM, grads: bool) -> Dict:
     tree: Dict = {}
-    for param, path, shape, rows in _mapping(model):
-        if rows is not None:
-            shape = tuple(param.shape)
+    for param, path, shape, part in _mapping(model):
+        if part is not None:
+            shape = list(shape)
+            shape[part.dim] //= part.parts
+            shape = tuple(shape)
         t = param.grad if grads else param
         if t is None:
             arr = np.zeros(shape, np.float32)
         else:
             arr = t.detach().float().cpu().numpy().reshape(shape)
+        if part is not None and part.group is not None:
+            arr = _gather(arr, part, param.device)
         node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
@@ -141,13 +185,18 @@ def _to_flax(model: CausalLM, grads: bool) -> Dict:
 def llama_from_flax(params_np: Dict, cfg: LlamaConfig,
                     device: DeviceLike = None,
                     attention_fn: Optional[Callable] = None,
-                    param_dtype: Optional[torch.dtype] = None) -> LlamaLM:
+                    param_dtype: Optional[torch.dtype] = None, mesh=None,
+                    tp_axis: str = "model") -> LlamaLM:
     """``params_np``: ``variables["params"]`` of the JAX ``LlamaLM`` with
     numpy leaves (``jax.tree_util.tree_map(np.asarray, ...)``);
-    ``cfg``: the port's config of the same model; ``attention_fn`` and
-    ``param_dtype`` as for ``LlamaLM``."""
+    ``cfg``: the port's config of the same model; ``attention_fn``,
+    ``param_dtype``, ``mesh`` and ``tp_axis`` as for ``LlamaLM``: with a
+    tensor-parallel axis, this rank loads its slice (the rank and size
+    are its coordinate on the axis and the axis size) of each leaf the
+    axis shards — the layout of ``llama_tp_param_specs``."""
     return _load(LlamaLM(cfg, device=device, attention_fn=attention_fn,
-                         param_dtype=param_dtype),
+                         param_dtype=param_dtype, mesh=mesh,
+                         tp_axis=tp_axis),
                  params_np, "llama_from_flax")
 
 
@@ -155,7 +204,9 @@ def llama_to_flax(model: LlamaLM, grads: bool = False) -> Dict:
     """The JAX ``LlamaLM`` parameter tree of ``model`` as nested dicts of
     float32 numpy arrays in the JAX shapes: the parameters, or with
     ``grads=True`` their ``.grad`` (zeros where a parameter has none,
-    as ``jax.grad`` reports an unused leaf)."""
+    as ``jax.grad`` reports an unused leaf). A tensor-parallel model
+    gathers its sharded leaves over the axis (a collective: every rank
+    of the axis calls this)."""
     return _to_flax(model, grads)
 
 

@@ -29,12 +29,29 @@ plugs the flash kernels in; K/V are repeated only for fns without
 block), ``return_hidden``, and the losses ``token_nll``,
 ``causal_lm_loss`` and ``chunked_causal_lm_loss``.
 
-Ported here: the single-device decode paths (paged, contiguous kernel,
-prefill at index 0, general einsum), ``generate`` (for any ``CausalLM``:
-``LlamaLM`` and ``models.moe_lm.MoeLM``), ``attention_sublayer`` (the
-one cache protocol of both models' blocks) and the training surface
-above. The TP paths (``kernel_tp``, ``sharded_*``) and the
-sequence-parallel loss wait for later slices.
+Ported here: the decode paths (paged, contiguous kernel, prefill at
+index 0, general einsum, and ``kernel_tp``), ``generate`` (for any
+``CausalLM``: ``LlamaLM`` and ``models.moe_lm.MoeLM``),
+``attention_sublayer`` (the one cache protocol of both models' blocks),
+the training surface above and the sequence-parallel loss
+``sp_causal_lm_loss``.
+
+Tensor parallelism (the counterpart of ``llama_tp_param_specs``):
+``LlamaLM(cfg, mesh=m, tp_axis="model")`` draws the full weights from
+the seed, as the unsharded model does, and keeps this rank's share on
+the ``model`` axis of ``m`` — its query and K/V heads of ``wq``/``wk``/
+``wv`` and rows of ``wo``, its slice of the FFN hidden width, and its
+vocabulary slice of ``tok_embeddings`` (masked lookup, then a sum over
+the axis) and of ``lm_head`` (logits gathered along the vocabulary).
+One allreduce follows attention and one follows the FFN (Megatron's
+column -> row pairing); the identity-forward / sum-backward at the
+entry of each sharded sublayer keeps the gradients of the replicated
+stream whole. Where the K/V heads do not split evenly, attention stays
+replicated and only the FFN and vocabulary shard; the decode-path
+classifier then says ``"einsum"``, as the JAX one does for an uneven
+head split. ``classify_decode_sharding`` reads the verdict from the
+model's mesh, the port's counterpart of reading the variables'
+shardings.
 """
 
 from __future__ import annotations
@@ -48,6 +65,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -60,6 +78,13 @@ from ..ops.decode_attention import (
     paged_decode_attention,
     paged_gather_attention,
 )
+from ..parallel.exchange import (
+    group_copy,
+    group_gather_last,
+    group_sum,
+    ring_exchange,
+)
+from ..parallel.mesh import group_rank, group_size
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,6 +128,50 @@ def _param(shape, dtype, std: Optional[float], generator,
         data = torch.randn(shape, generator=generator) * std
     return nn.Parameter(data.to(param_dtype or dtype),
                         requires_grad=param_dtype is not None)
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class TensorParallel:
+    """A model's tensor-parallel axis: ``axis`` of ``mesh``, with this
+    rank's ``group`` along it, its ``size`` and this rank's ``rank``."""
+
+    mesh: object
+    axis: str
+
+    @property
+    def group(self):
+        return self.mesh.group(self.axis)
+
+    @property
+    def size(self) -> int:
+        return self.mesh.axis_size(self.axis)
+
+    @property
+    def rank(self) -> int:
+        return self.mesh.axis_index(self.axis)
+
+
+def _tp_enter(x, tp: Optional[TensorParallel]):
+    return x if tp is None else group_copy(x, tp.group)
+
+
+def _tp_sum(x, tp: Optional[TensorParallel]):
+    return x if tp is None else group_sum(x, tp.group)
+
+
+def _keep_slice(module: nn.Module, name: str, dim: int, parts: int,
+                index: int) -> None:
+    """Replace parameter ``name`` of ``module`` by its ``index``-th of
+    ``parts`` equal slices along ``dim``."""
+    p = getattr(module, name)
+    width = p.shape[dim] // parts
+    setattr(module, name, nn.Parameter(
+        p.data.narrow(dim, index * width, width).clone(),
+        requires_grad=p.requires_grad))
 
 
 class RMSNorm(nn.Module):
@@ -191,7 +260,9 @@ def _decode_kernel_override(value: bool):
 @dataclasses.dataclass(frozen=True)
 class DecodePath:
     """Which single-token decode path ran, and why: ``"kernel"`` (the
-    hand-written decode kernels) or ``"einsum"`` (plain torch)."""
+    hand-written decode kernels), ``"kernel_tp"`` (the same kernels on
+    each rank's heads of a tensor-parallel model, whose caches hold
+    only those heads) or ``"einsum"`` (plain torch)."""
 
     path: str
     reason: str
@@ -205,8 +276,41 @@ def current_decode_path() -> DecodePath:
 
 def decode_path_context(path: str):
     """The path -> context switch shared by ``generate`` and the serving
-    engine: run under exactly the verdict that was recorded."""
-    return _decode_kernel_override(path == "kernel")
+    engine: run under exactly the verdict that was recorded. ``kernel``
+    and ``kernel_tp`` run the same kernels: under tensor parallelism a
+    rank's q and K/V already hold only its heads."""
+    return _decode_kernel_override(path in ("kernel", "kernel_tp"))
+
+
+def classify_decode_sharding(model, prompt_ids,
+                             num_kv_heads: int) -> DecodePath:
+    """Pick the single-token decode path from the model's sharding — the
+    counterpart of the JAX classifier, which reads the variables'
+    ``NamedSharding``s; here the model carries its tensor-parallel axis
+    (``model.tp``). Three verdicts, with the JAX reasons:
+
+    * not sharded (no TP axis, or one of size 1) -> ``"kernel"``;
+    * heads split on the TP axis, whose size divides ``num_kv_heads``
+      -> ``"kernel_tp"``: attention is per-head independent, so each
+      rank writes its own cache row and runs the unmodified kernel on
+      its heads (what ``ops.decode_attention.sharded_decode_step``
+      does);
+    * an uneven split (the axis does not divide ``num_kv_heads``; the
+      model then keeps attention replicated) -> ``"einsum"``.
+
+    ``prompt_ids`` are this rank's (a dp replica's own batch): eager
+    tensors carry no sharding, so the JAX verdicts on sequence-sharded
+    prompts have no counterpart here."""
+    tp = getattr(model, "tp", None)
+    if tp is None or tp.size == 1:
+        return DecodePath("kernel", "replicated: single-device kernel")
+    if num_kv_heads % tp.size:
+        return DecodePath(
+            "einsum", f"uneven head split: Hkv ({num_kv_heads}) % "
+            f"tp ({tp.size}) != 0")
+    return DecodePath(
+        "kernel_tp",
+        f"heads sharded on {tp.axis!r} (tp={tp.size}): per-rank kernel")
 
 
 #: Last :class:`DecodePath` chosen by :func:`generate` (None before any
@@ -225,7 +329,9 @@ def _cached_attention(q, k, v, cache, cache_index):
     gather einsum; a contiguous single-token step runs the decode kernel;
     prefill at index 0 attends over the fresh rows only; anything else
     (warm prefill at a nonzero index, or the kernel disabled) runs the
-    masked einsum over the whole window."""
+    masked einsum over the whole window. Under tensor parallelism the
+    heads (and the caches) are this rank's, and the paths are the
+    same."""
     b, s, h, d = q.shape
     hkv = k.shape[2]
     group = h // hkv
@@ -291,21 +397,27 @@ class LlamaAttention(nn.Module):
         self.wo = _param((cfg.num_heads * head_dim, cfg.dim), cfg.dtype,
                          (cfg.num_heads * head_dim) ** -0.5, generator,
                          param_dtype)
+        # The tensor-parallel axis when this rank holds only its heads.
+        self.tp: Optional[TensorParallel] = None
 
     def forward(self, x, positions=None, cache=None, cache_index=None):
         """``cache``/``cache_index``: decoding mode (see
-        :func:`init_kv_cache`); the cache is updated in place."""
+        :func:`init_kv_cache`); the cache is updated in place. Under
+        tensor parallelism the heads are this rank's and the output is
+        summed over the axis."""
         cfg = self.config
         b, s, _ = x.shape
         hd = cfg.dim // cfg.num_heads
+        heads, kv_heads = self.wq.shape[1] // hd, self.wk.shape[1] // hd
         dt = cfg.dtype
+        x = _tp_enter(x, self.tp)
         q = rotary_embedding(
-            (x @ self.wq.to(dt)).view(b, s, cfg.num_heads, hd),
+            (x @ self.wq.to(dt)).view(b, s, heads, hd),
             cfg.rope_theta, positions)
         k = rotary_embedding(
-            (x @ self.wk.to(dt)).view(b, s, cfg.num_kv_heads, hd),
+            (x @ self.wk.to(dt)).view(b, s, kv_heads, hd),
             cfg.rope_theta, positions)
-        v = (x @ self.wv.to(dt)).view(b, s, cfg.num_kv_heads, hd)
+        v = (x @ self.wv.to(dt)).view(b, s, kv_heads, hd)
         if cache is not None:
             ctx = _cached_attention(q, k, v, cache, cache_index)
         else:
@@ -316,7 +428,8 @@ class LlamaAttention(nn.Module):
                 ctx = fn(q, k, v, None)
             else:
                 ctx = reference_attention(q, k, v, causal=True)
-        return ctx.reshape(b, s, cfg.num_heads * hd) @ self.wo.to(dt)
+        return _tp_sum(ctx.reshape(b, s, heads * hd) @ self.wo.to(dt),
+                       self.tp)
 
 
 def init_attention_sublayer(block: nn.Module, cfg: LlamaConfig, generator,
@@ -356,13 +469,16 @@ class LlamaBlock(nn.Module):
                            cfg.dim ** -0.5, generator, param_dtype)
         self.w_down = _param((cfg.ffn_hidden, cfg.dim), cfg.dtype,
                              cfg.ffn_hidden ** -0.5, generator, param_dtype)
+        # The tensor-parallel axis when this rank holds a slice of the
+        # FFN's hidden width.
+        self.tp: Optional[TensorParallel] = None
 
     def forward(self, x, positions=None, cache=None, cache_index=None):
         x = attention_sublayer(self, x, positions, cache, cache_index)
-        h = self.ffn_norm(x)
+        h = _tp_enter(self.ffn_norm(x), self.tp)
         dt = self.dtype
         gated = F.silu(h @ self.w_gate.to(dt)) * (h @ self.w_up.to(dt))
-        return x + gated @ self.w_down.to(dt)
+        return x + _tp_sum(gated @ self.w_down.to(dt), self.tp)
 
 
 class CausalLM(nn.Module):
@@ -386,9 +502,61 @@ class CausalLM(nn.Module):
                               cfg.head_dtype or cfg.dtype, cfg.dim ** -0.5,
                               gen, param_dtype)
 
+    #: The tensor-parallel axis of a sharded model (``LlamaLM(mesh=)``).
+    tp: Optional[TensorParallel] = None
+
     @property
     def device(self) -> torch.device:
         return self.tok_embeddings.device
+
+    @property
+    def kv_heads(self) -> int:
+        """The K/V heads this rank's caches hold: all of them, or its
+        share under tensor parallelism."""
+        cfg = self.config
+        attn = self.layers[0].attention
+        return attn.wk.shape[1] // (cfg.dim // cfg.num_heads)
+
+    def _embed(self, input_ids):
+        """The f32 embedding rows; under tensor parallelism this rank
+        holds a vocabulary slice: ids outside it give zero rows, and the
+        sum over the axis has exactly one nonzero term per token."""
+        if self.tp is None:
+            return F.embedding(input_ids, self.tok_embeddings)
+        rows = self.tok_embeddings.shape[0]
+        local = input_ids - self.tp.rank * rows
+        inside = (local >= 0) & (local < rows)
+        e = F.embedding(local.clamp(0, rows - 1), self.tok_embeddings)
+        return _tp_sum(e * inside[..., None], self.tp)
+
+    def _shard(self, tp: TensorParallel) -> None:
+        """Keep this rank's share of every weight on ``tp``'s axis (see
+        the module doc). Attention shards only where the K/V heads
+        split evenly."""
+        cfg = self.config
+        n, r = tp.size, tp.rank
+        for what, value in (("vocab_size", cfg.vocab_size),
+                            ("ffn_hidden", cfg.ffn_hidden),
+                            ("num_heads", cfg.num_heads)):
+            if value % n:
+                raise ValueError(
+                    f"tensor parallelism over {n} ranks needs {what} "
+                    f"({value}) divisible by {n}")
+        heads = cfg.num_kv_heads % n == 0
+        _keep_slice(self, "tok_embeddings", 0, n, r)
+        _keep_slice(self, "lm_head", 1, n, r)
+        for block in self.layers:
+            if heads:
+                attn = block.attention
+                for name in ("wq", "wk", "wv"):
+                    _keep_slice(attn, name, 1, n, r)
+                _keep_slice(attn, "wo", 0, n, r)
+                attn.tp = tp
+            _keep_slice(block, "w_gate", 1, n, r)
+            _keep_slice(block, "w_up", 1, n, r)
+            _keep_slice(block, "w_down", 0, n, r)
+            block.tp = tp
+        self.tp = tp
 
     def _forward(self, input_ids, positions, cache, cache_index,
                  return_hidden: bool):
@@ -401,7 +569,7 @@ class CausalLM(nn.Module):
                 positions = cache_index[:, None] + steps
             else:
                 positions = int(cache_index) + steps
-        x = F.embedding(input_ids, self.tok_embeddings).to(cfg.dtype)
+        x = self._embed(input_ids).to(cfg.dtype)
         remat = cfg.remat and cache is None and torch.is_grad_enabled()
         aux = []
         for i, layer in enumerate(self.layers):
@@ -420,7 +588,9 @@ class CausalLM(nn.Module):
         if return_hidden:
             return x, aux
         head = cfg.head_dtype or cfg.dtype
-        logits = x.to(head) @ self.lm_head.to(head)
+        logits = _tp_enter(x, self.tp).to(head) @ self.lm_head.to(head)
+        if self.tp is not None:
+            logits = group_gather_last(logits, self.tp.group)
         return (logits if cache is None else (logits, cache)), aux
 
 
@@ -431,11 +601,15 @@ class LlamaLM(CausalLM):
     raises without a card. ``attention_fn``: the no-cache attention, as
     in the JAX package (None = ``reference_attention``, causal).
     ``param_dtype``: None for serving storage, ``torch.float32`` to
-    train (see the module doc)."""
+    train (see the module doc). ``mesh`` with an axis ``tp_axis`` of
+    size above 1: tensor parallelism over that axis (module doc); every
+    rank of the axis passes the same seed, or loads the same
+    checkpoint."""
 
     def __init__(self, config: LlamaConfig, device: DeviceLike = None,
                  seed: int = 0, attention_fn: Optional[Callable] = None,
-                 param_dtype: Optional[torch.dtype] = None):
+                 param_dtype: Optional[torch.dtype] = None, mesh=None,
+                 tp_axis: str = "model"):
         super().__init__()
         device = default_device(device)
         self.config = cfg = config
@@ -445,6 +619,8 @@ class LlamaLM(CausalLM):
             [LlamaBlock(cfg, gen, attention_fn, param_dtype)
              for _ in range(cfg.num_layers)])
         self._init_head(cfg, gen, param_dtype)
+        if mesh is not None and mesh.shape.get(tp_axis, 1) > 1:
+            self._shard(TensorParallel(mesh, tp_axis))
         self.to(device)
 
     def forward(self, input_ids, positions=None, cache=None,
@@ -462,18 +638,21 @@ class LlamaLM(CausalLM):
 
 def init_kv_cache(cfg: LlamaConfig, batch_size: int, max_len: int,
                   dtype: Optional[torch.dtype] = None,
-                  device: DeviceLike = None):
+                  device: DeviceLike = None,
+                  kv_heads: Optional[int] = None):
     """Per-layer K/V cache for decoding:
-    ``{layer_i: {"k"/"v": (B, max_len, num_kv_heads * head_dim)}}``, each
+    ``{layer_i: {"k"/"v": (B, max_len, kv_heads * head_dim)}}``, each
     position's GQA heads stored ROW-FLAT (the decode kernel's layout).
-    Windows above 1024 round up to a multiple of 128, as in the JAX
-    package, so both hold the same window."""
+    ``kv_heads``: the heads this rank holds (``model.kv_heads``; default
+    all of ``cfg.num_kv_heads``). Windows above 1024 round up to a
+    multiple of 128, as in the JAX package, so both hold the same
+    window."""
     dtype = dtype or cfg.dtype
     device = default_device(device)
     head_dim = cfg.dim // cfg.num_heads
     if max_len > 1024:
         max_len = (max_len + 127) // 128 * 128
-    shape = (batch_size, max_len, cfg.num_kv_heads * head_dim)
+    shape = (batch_size, max_len, (kv_heads or cfg.num_kv_heads) * head_dim)
     return {
         f"layer_{i}": {"k": torch.zeros(shape, dtype=dtype, device=device),
                        "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -500,7 +679,12 @@ def generate(model: CausalLM, prompt_ids, max_new_tokens: int,
     call contract (``LlamaLM``, ``MoeLM``). ``temperature`` 0.0 = greedy argmax;
     > 0 samples with ``generator`` (a ``torch.Generator`` on the model's
     device). Returns ``(B, prompt + max_new_tokens)`` int64 ids, prompt
-    included, on the model's device."""
+    included, on the model's device.
+
+    The path follows :func:`classify_decode_sharding`. A tensor-parallel
+    model runs on every rank of its axis with the same prompt (and the
+    same generator seed when sampling): the gathered logits are the same
+    bytes on every rank, so every rank picks the same tokens."""
     global LAST_DECODE_PATH
     cfg = model.config
     device = model.device
@@ -519,9 +703,13 @@ def generate(model: CausalLM, prompt_ids, max_new_tokens: int,
         raise ValueError("temperature sampling needs a torch.Generator")
     if max_new_tokens <= 0:
         return prompt
-    LAST_DECODE_PATH = current_decode_path()
-    with torch.inference_mode():
-        cache = init_kv_cache(cfg, b, max_len, device=device)
+    info = classify_decode_sharding(model, prompt, cfg.num_kv_heads)
+    if not _decode_kernel_on():
+        info = DecodePath("einsum", "decode_kernel_disabled()")
+    LAST_DECODE_PATH = info
+    with torch.inference_mode(), decode_path_context(info.path):
+        cache = init_kv_cache(cfg, b, max_len, device=device,
+                              kv_heads=model.kv_heads)
         logits, cache = model(prompt, cache=cache, cache_index=0)
         token = pick_tokens(logits[:, -1], temperature, generator)
         new = [token]
@@ -574,3 +762,28 @@ def chunked_causal_lm_loss(hidden, head_kernel, input_ids,
                    targets[:, i * c:(i + 1) * c], use_reentrant=False)
         for i in range(num_chunks)], dim=1)
     return nll[:, :-1].mean()
+
+
+def sp_causal_lm_loss(logits, input_ids, group=None):
+    """Sequence-parallel twin of :func:`causal_lm_loss`: ``logits`` /
+    ``input_ids`` are this rank's (contiguous-layout) sequence shards of
+    ``group``. The next-token shift crosses shard boundaries, so each
+    shard fetches its right neighbour's first token over one exchange,
+    and the global last position is masked out; every rank returns the
+    global mean. Its gradient on each rank is that rank's share of the
+    global loss's gradient: the sum over the group (the example's
+    gradient sum over ``seq``) is the whole."""
+    n = group_size(group)
+    idx = group_rank(group)
+    (nxt,) = ring_exchange([input_ids[:, :1]], group, shift=-1)
+    targets = torch.cat([input_ids[:, 1:], nxt.to(input_ids.device)], dim=1)
+    nll = token_nll(logits, targets)
+    valid = torch.ones(input_ids.shape, dtype=torch.bool,
+                       device=logits.device)
+    valid[:, -1] = idx != n - 1
+    total = torch.where(valid, nll, 0.0).sum()
+    count = valid.sum().to(torch.float32)
+    if n > 1:
+        total = group_sum(total, group)
+        dist.all_reduce(count, group=group)
+    return total / count

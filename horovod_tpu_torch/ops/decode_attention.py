@@ -301,3 +301,87 @@ def paged_cache_write(k_pool, v_pool, k_new, v_new, block_tables,
     k_pool.index_put_((blk, off), k_new.reshape(b, -1))
     v_pool.index_put_((blk, off), v_new.reshape(b, -1))
     return k_pool, v_pool
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel steps (``sharded_decode_step`` and
+# ``sharded_paged_decode_step`` of the JAX module). The JAX functions take
+# global arrays and ``shard_map`` the step over the heads axis; here each
+# rank already holds its shard, so a step is this rank's own row write
+# and the unmodified kernel on its heads. No collective runs inside the
+# step: the head concat is implicit in the layout, and the sum after
+# ``wo`` is the model's.
+
+
+def _tp_heads(name, q, k_new, num_kv_heads, mesh, head_axis):
+    """(tp, this rank's K/V heads) after the JAX functions' checks, on
+    the GLOBAL head counts this rank's shard implies."""
+    b, s, h_local, d = q.shape
+    if s != 1:
+        raise ValueError(f"{name} is single-token (s={s})")
+    tp = mesh.axis_size(head_axis)
+    hkv, h = num_kv_heads, h_local * tp
+    if hkv % tp or h % hkv:
+        raise ValueError(
+            f"heads not shardable over {head_axis!r} (size {tp}): need "
+            f"Hkv ({hkv}) % tp == 0 and H ({h}) % Hkv == 0")
+    if k_new.shape[2] != hkv // tp:
+        raise ValueError(
+            f"{name}: this rank holds {k_new.shape[2]} K/V heads, "
+            f"expected Hkv/tp = {hkv // tp}")
+    return tp, hkv // tp
+
+
+def sharded_decode_step(q, k_new, v_new, k_cache, v_cache, cache_index,
+                        num_kv_heads, *, mesh, head_axis, batch_axis=None,
+                        sm_scale=None):
+    """One TP-sharded decode step on this rank's shard: write its one
+    cache row, then run the decode kernel on its H/tp query heads and
+    Hkv/tp K/V heads.
+
+    ``q``: (B, 1, H/tp, D); ``k_new``/``v_new``: (B, 1, Hkv/tp, D) in the
+    cache dtype; ``k_cache``/``v_cache``: (B, L, (Hkv/tp)*D) row-flat,
+    updated in place. ``mesh``/``head_axis``: the axis sharding heads
+    (its size must divide ``num_kv_heads``, the model's global count);
+    ``batch_axis``: an axis sharding the batch (dp x tp serving) — each
+    rank's batch is already its own, so it is only checked to exist.
+    Returns ``(ctx, k_cache, v_cache)``."""
+    _, hkv_local = _tp_heads("sharded_decode_step", q, k_new, num_kv_heads,
+                             mesh, head_axis)
+    if batch_axis is not None:
+        mesh.axis_size(batch_axis)
+    b = q.shape[0]
+    k_cache[:, cache_index] = k_new.reshape(b, -1)
+    v_cache[:, cache_index] = v_new.reshape(b, -1)
+    ctx = decode_attention(q, k_cache, v_cache, cache_index, hkv_local,
+                           sm_scale=sm_scale)
+    return ctx, k_cache, v_cache
+
+
+def sharded_paged_decode_step(q, k_new, v_new, k_pool, v_pool, block_tables,
+                              context_lens, num_kv_heads, *, mesh,
+                              head_axis, batch_axis=None, sm_scale=None):
+    """One TP-sharded PAGED decode step: this rank's block-row write and
+    the paged kernel on its heads. The pool shards on its flat
+    head-width axis (each rank holds its Hkv/tp head columns of every
+    block: (N, block, (Hkv/tp)*D)); block tables and lengths are the
+    same on every rank.
+
+    ``batch_axis`` is refused, as in the JAX package: the pool has no
+    batch dim, so under a dp-sharded batch each dp group would write
+    only its own sequences' rows into its copy of a pool meant to be
+    one, and the copies would silently diverge — run one engine per dp
+    replica instead."""
+    _, hkv_local = _tp_heads("sharded_paged_decode_step", q, k_new,
+                             num_kv_heads, mesh, head_axis)
+    if batch_axis is not None:
+        raise NotImplementedError(
+            "paged decode does not support a dp-sharded batch: the "
+            "shared block pool has no batch dim to shard, so dp "
+            "replicas of it would diverge — run one serving engine per "
+            "dp replica instead")
+    paged_cache_write(k_pool, v_pool, k_new, v_new, block_tables,
+                      context_lens)
+    ctx = paged_decode_attention(q, k_pool, v_pool, block_tables,
+                                 context_lens, hkv_local, sm_scale=sm_scale)
+    return ctx, k_pool, v_pool

@@ -33,11 +33,27 @@ engine, so N fleet replicas in one process publish the fleet), and the
 ``schedule`` / ``prefill`` / ``decode`` spans under ``HOROVOD_TRACE_DIR``
 (``trace.serving.rank<N>.json``, written at ``shutdown()``).
 
-Not ported yet: the TP-sharded decode path.
+Tensor parallelism: a ``LlamaLM(mesh=...)`` sharded over a TP axis is
+served by one engine per rank of the axis, each holding a pool of its
+Hkv/tp K/V heads, its decode steps on the ``kernel_tp`` path (the
+classifier's verdict, as in ``generate()``). The model's forward runs
+collectives over the axis, so the ranks' engines must run in lockstep:
+every scheduling decision the same on every rank. That is settled by
+giving every rank the same submissions, in the same order, and driving
+each engine synchronously (``step()`` / ``run_until_idle()``); the
+scheduler, the block pool and the prefix cache are deterministic, and
+the gathered logits are the same bytes on every rank, so greedy picks
+and seeded samples agree. ``start()`` (whose loop would see
+submissions at different times on different ranks) is refused under
+TP, and each step checks the ranks' plans agree (a digest of the
+admitted requests, then of the decode batch, gathered over the axis)
+before running work that holds collectives, so a divergence raises
+instead of hanging.
 """
 
 from __future__ import annotations
 
+import hashlib
 import itertools
 import math
 import os
@@ -49,11 +65,18 @@ from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import metrics
 from ..common import config as hvd_config
 from ..common import hvd_logging as logging
-from ..models.llama import current_decode_path, decode_path_context, pick_tokens
+from ..models.llama import (
+    DecodePath,
+    _decode_kernel_on,
+    classify_decode_sharding,
+    decode_path_context,
+    pick_tokens,
+)
 from ..trace import TraceWriter
 from ..trace.tracer import SERVING_TRACE_FILE_FMT
 from .kv_blocks import BlockPool, padded_table
@@ -174,9 +197,8 @@ def _paged_prefill(model, pools, prompt, plen: int, table_row,
     loop overwrites them. The prompt runs the model's contiguous prefill
     on a scratch cache, then each layer's KV rows land in the pool as
     whole pages."""
-    cfg = model.config
-    f = cfg.num_kv_heads * (cfg.dim // cfg.num_heads)
     first = next(iter(pools.values()))["k"]
+    f = first.shape[2]
     block_size = first.shape[1]
     window = prompt.shape[1]
     scratch = {
@@ -208,9 +230,8 @@ def _paged_warm_prefill(model, pools, tail, plen: int, warm_table,
     same ``total_pages * block_size`` rows as a cold prefill's, and rows
     past the valid window are zeros whose masked logits contribute exact
     zeros."""
-    cfg = model.config
-    f = cfg.num_kv_heads * (cfg.dim // cfg.num_heads)
     first = next(iter(pools.values()))["k"]
+    f = first.shape[2]
     block_size = first.shape[1]
     window = total_pages * block_size
     warm_len = warm_pages * block_size
@@ -392,12 +413,21 @@ class ServingEngine:
         self._sched = Scheduler(pool, cfg.max_batch, cfg.queue_depth,
                                 max_seq, prefix_cache=self._prefix)
         # The decode-path verdict the engine's programs run under, fixed
-        # at construction (as the JAX engine classifies once).
-        self._path = current_decode_path()
+        # at construction (as the JAX engine classifies once, from the
+        # model's sharding).
+        self._path = classify_decode_sharding(
+            model, np.zeros((cfg.max_batch, 1), np.int64),
+            mcfg.num_kv_heads)
+        if not _decode_kernel_on():
+            self._path = DecodePath("einsum", "decode_kernel_disabled()")
+        # A tensor-parallel model: the engines of its axis run in
+        # lockstep (module doc).
+        tp = getattr(model, "tp", None)
+        self._tp = tp if tp is not None and tp.size > 1 else None
 
         head_dim = mcfg.dim // mcfg.num_heads
         shape = (num_blocks + 1, cfg.block_size,
-                 mcfg.num_kv_heads * head_dim)
+                 model.kv_heads * head_dim)
         self._pools = {
             f"layer_{i}": {
                 "k": torch.zeros(shape, dtype=mcfg.dtype,
@@ -515,6 +545,9 @@ class ServingEngine:
             admitted = self._sched.admit()
             self._note_live_blocks()
             running = len(self._sched.running)
+            plan = [(r.rid, len(r.current_prompt()), list(r.blocks))
+                    for r in admitted] if self._tp is not None else None
+        self._agree("admission", lambda: (plan, running))
         tracer = self._maybe_tracer()
         if tracer is not None:
             tracer.span("schedule", t_sched, time.monotonic(),
@@ -547,11 +580,13 @@ class ServingEngine:
             if metrics.on():
                 _serving_metrics().cow.inc(len(copies))
 
+        self._agree("decode batch", lambda: (
+            copies, None if arrays is None else
+            [a.tobytes() for a in arrays]))
         if arrays is not None:
             t_dec = time.monotonic()
             tokens, lens, tables, temps = arrays
-            with torch.inference_mode(), decode_path_context(
-                    self._path.path):
+            with torch.inference_mode(), decode_path_context(self._path.path):
                 out_tokens = _paged_step(
                     self._model, self._pools,
                     self._to_device(tokens, torch.int64),
@@ -582,7 +617,14 @@ class ServingEngine:
         raise RuntimeError(f"engine still busy after {max_steps} steps")
 
     def start(self) -> "ServingEngine":
-        """Spawn the background loop (daemon thread). Idempotent."""
+        """Spawn the background loop (daemon thread). Idempotent.
+        Refused for a tensor-parallel model, whose engines must be
+        driven in lockstep (module doc)."""
+        if self._tp is not None:
+            raise RuntimeError(
+                "a tensor-parallel engine runs in lockstep with the other "
+                "ranks of its axis: give every rank the same submissions "
+                "and drive each with step() / run_until_idle()")
         with self._cond:
             if self._closed:
                 raise RuntimeError("engine is shut down")
@@ -646,6 +688,25 @@ class ServingEngine:
             return s
 
     # -- internals ----------------------------------------------------------
+
+    def _agree(self, what: str, plan) -> None:
+        """Under tensor parallelism, check that every rank of the axis
+        took the same decision ``plan()`` (a digest gathered over the
+        axis); raise, naming the step's phase, if they differ."""
+        if self._tp is None:
+            return
+        digest = int.from_bytes(hashlib.blake2b(
+            repr(plan()).encode(), digest_size=8).digest(), "little",
+            signed=True)
+        mine = torch.tensor([digest], dtype=torch.int64,
+                            device=self._device)
+        parts = [torch.empty_like(mine) for _ in range(self._tp.size)]
+        dist.all_gather(parts, mine, group=self._tp.group)
+        if len({int(p) for p in parts}) != 1:
+            raise RuntimeError(
+                f"serving engine: the tensor-parallel ranks diverged at "
+                f"the {what} (rank {self._tp.rank}); give every rank the "
+                "same submissions in the same order")
 
     def _to_device(self, values, dtype=torch.int32):
         return torch.as_tensor(np.asarray(values), dtype=dtype).to(

@@ -73,10 +73,13 @@ class _DistributedOptimizer(torch.optim.Optimizer):
     the handles in ``step()``."""
 
     def __init__(self, params, named_parameters, compression,
-                 backward_passes_per_step=1):
+                 backward_passes_per_step=1, group=None):
         super(self.__class__, self).__init__(params)
         self._compression = compression
         self.backward_passes_per_step = backward_passes_per_step
+        self._group = group
+        self._reduces = (size() if group is None
+                         else torch.distributed.get_world_size(group)) > 1
 
         if named_parameters is not None:
             named_parameters = list(named_parameters)
@@ -102,7 +105,7 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         self._handles = {}
         self._grad_accs = []
         self._backward_count = collections.defaultdict(int)
-        if size() > 1:
+        if self._reduces:
             self._register_hooks()
 
     def _register_hooks(self):
@@ -118,7 +121,8 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             if self._backward_count[id(p)] % self.backward_passes_per_step == 0:
                 name = self._parameter_names.get(id(p))
                 compressed, ctx = self._compression.compress(p.grad)
-                handle = allreduce_async_(compressed, average=True, name=name)
+                handle = allreduce_async_(compressed, average=True, name=name,
+                                          group=self._group)
                 self._handles[p] = (handle, ctx, compressed)
         return hook
 
@@ -132,7 +136,7 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         self._handles.clear()
 
     def step(self, closure=None):
-        if size() > 1:
+        if self._reduces:
             self.synchronize()
         return super(self.__class__, self).step(closure)
 
@@ -149,13 +153,16 @@ def _find_duplicates(names):
 def DistributedOptimizer(optimizer: torch.optim.Optimizer,
                          named_parameters=None,
                          compression=Compression.none,
-                         backward_passes_per_step: int = 1):
+                         backward_passes_per_step: int = 1, group=None):
     """Wrap a torch optimizer with cross-rank gradient averaging: a
-    subclass of the optimizer's own class, so user code keeps its API."""
+    subclass of the optimizer's own class, so user code keeps its API.
+    ``group``: average over this process group only (the JAX
+    ``DistributedOptimizer``'s ``axis_name``, e.g. the ``data`` axis of
+    a ``data x seq`` mesh); None averages over the whole job."""
     cls = type(optimizer.__class__.__name__, (optimizer.__class__,),
                dict(_DistributedOptimizer.__dict__))
     return cls(optimizer.param_groups, named_parameters, compression,
-               backward_passes_per_step)
+               backward_passes_per_step, group)
 
 
 def broadcast_parameters(params, root_rank: int = 0) -> None:

@@ -6,7 +6,10 @@ Sync, async and in-place variants of ``allreduce``, ``grouped_allreduce``,
 ``allgather`` and ``broadcast``; ``reducescatter`` and ``alltoall``
 (differentiable); ``broadcast_object`` and ``allgather_object``;
 ``synchronize``/``poll`` on handles; ``barrier``. Each runs on the tensor's own device over the process group
-``init()`` built (NCCL on a card, gloo on the CPU). ``average=`` and
+``init()`` built (NCCL on a card, gloo on the CPU), or over ``group=``
+(a ``torch.distributed`` process group, e.g. one axis of
+``parallel.make_mesh``) where the reductions and gathers take one: the
+counterpart of the JAX package's ``axis_name=``. ``average=`` and
 ``op=`` (``Sum``/``Average``) are exclusive; neither means Average.
 ``name`` is accepted for the JAX package's signatures. At size 1 every
 op is the identity (the out-of-place ones return a copy; the object
@@ -62,8 +65,12 @@ def _resolve_average(average: Optional[bool], op: Optional[str]) -> bool:
     return True if average is None else bool(average)
 
 
-def _size() -> int:
-    return basics.size()
+def _size(group=None) -> int:
+    return basics.size() if group is None else dist.get_world_size(group)
+
+
+def _rank(group=None) -> int:
+    return basics.rank() if group is None else dist.get_rank(group)
 
 
 def _check_root(root_rank: int) -> None:
@@ -72,11 +79,13 @@ def _check_root(root_rank: int) -> None:
             f"root_rank {root_rank} out of range for size {_size()}")
 
 
-def _reduce(buf: torch.Tensor, avg: bool, result: torch.Tensor) -> Handle:
+def _reduce(buf: torch.Tensor, avg: bool, result: torch.Tensor,
+            group=None) -> Handle:
     """Sum ``buf`` across ranks in place; on join divide by the size when
     averaging (integers with floor division) and return ``result``."""
-    work = dist.all_reduce(buf, op=dist.ReduceOp.SUM, async_op=True)
-    n = _size()
+    work = dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group,
+                           async_op=True)
+    n = _size(group)
 
     def finish():
         if avg:
@@ -91,23 +100,24 @@ def _reduce(buf: torch.Tensor, avg: bool, result: torch.Tensor) -> Handle:
 
 def allreduce_async(tensor: torch.Tensor, average: Optional[bool] = None,
                     name: Optional[str] = None,
-                    op: Optional[str] = None) -> Handle:
-    """Mean (or sum) of ``tensor`` over all ranks, into a new tensor."""
+                    op: Optional[str] = None, group=None) -> Handle:
+    """Mean (or sum) of ``tensor`` over all ranks (of ``group``), into a
+    new tensor."""
     avg = _resolve_average(average, op)
     out = tensor.detach().clone()
-    if _size() == 1:
+    if _size(group) == 1:
         return Handle(out)
-    return _reduce(out, avg, out)
+    return _reduce(out, avg, out, group)
 
 
 def allreduce_async_(tensor: torch.Tensor, average: Optional[bool] = None,
                      name: Optional[str] = None,
-                     op: Optional[str] = None) -> Handle:
+                     op: Optional[str] = None, group=None) -> Handle:
     """In-place :func:`allreduce_async`: ``tensor`` receives the result."""
     avg = _resolve_average(average, op)
-    if _size() == 1:
+    if _size(group) == 1:
         return Handle(tensor)
-    return _reduce(tensor.detach(), avg, tensor)
+    return _reduce(tensor.detach(), avg, tensor, group)
 
 
 def grouped_allreduce_async(tensors, average: Optional[bool] = None,
@@ -140,24 +150,25 @@ def grouped_allreduce_(tensors, average: Optional[bool] = None,
     return [h.wait() for h in handles]
 
 
-def allgather_async(tensor: torch.Tensor,
-                    name: Optional[str] = None) -> Handle:
-    """Concatenation of ``tensor`` from all ranks along dim 0, in rank
-    order; ranks may contribute different first dims."""
+def allgather_async(tensor: torch.Tensor, name: Optional[str] = None,
+                    group=None) -> Handle:
+    """Concatenation of ``tensor`` from all ranks (of ``group``) along dim
+    0, in rank order; ranks may contribute different first dims."""
     t = tensor.detach()
-    if _size() == 1:
+    n = _size(group)
+    if n == 1:
         return Handle(t.clone(), tensor_sizes=[t.shape[0]])
-    n = _size()
     mine = torch.tensor([t.shape[0]], dtype=torch.int64, device=t.device)
     sizes = [torch.empty_like(mine) for _ in range(n)]
-    dist.all_gather(sizes, mine)
+    dist.all_gather(sizes, mine, group=group)
     sizes = [int(s) for s in sizes]
     longest = max(sizes)
     if t.shape[0] < longest:
         pad = t.new_zeros((longest - t.shape[0],) + tuple(t.shape[1:]))
         t = torch.cat([t, pad])
     parts = [torch.empty_like(t) for _ in range(n)]
-    work = dist.all_gather(parts, t.contiguous(), async_op=True)
+    work = dist.all_gather(parts, t.contiguous(), group=group,
+                           async_op=True)
     return Handle(None, work,
                   lambda: torch.cat([p[:s] for p, s in zip(parts, sizes)]),
                   tensor_sizes=sizes)
@@ -204,52 +215,55 @@ def barrier(name: Optional[str] = None) -> None:
 
 class _AllreduceFunction(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, tensor, average, name):
-        ctx.average = average
-        return allreduce_async(tensor, average, name).wait()
+    def forward(ctx, tensor, average, name, group):
+        ctx.average, ctx.group = average, group
+        return allreduce_async(tensor, average, name, group=group).wait()
 
     @staticmethod
     def backward(ctx, grad_output):
         # The gradient of a sum/mean over ranks is the same reduction of
         # the upstream gradient.
-        return allreduce_async(grad_output, ctx.average).wait(), None, None
+        return (allreduce_async(grad_output, ctx.average,
+                                group=ctx.group).wait(), None, None, None)
 
 
 def allreduce(tensor: torch.Tensor, average: Optional[bool] = None,
               name: Optional[str] = None, compression=None,
-              op: Optional[str] = None) -> torch.Tensor:
+              op: Optional[str] = None, group=None) -> torch.Tensor:
     avg = _resolve_average(average, op)
     if compression is not None:
         compressed, cctx = compression.compress(tensor)
-        out = _AllreduceFunction.apply(compressed, avg, name)
+        out = _AllreduceFunction.apply(compressed, avg, name, group)
         return compression.decompress(out, cctx)
-    return _AllreduceFunction.apply(tensor, avg, name)
+    return _AllreduceFunction.apply(tensor, avg, name, group)
 
 
 def allreduce_(tensor: torch.Tensor, average: Optional[bool] = None,
                name: Optional[str] = None,
-               op: Optional[str] = None) -> torch.Tensor:
-    return allreduce_async_(tensor, average, name, op).wait()
+               op: Optional[str] = None, group=None) -> torch.Tensor:
+    return allreduce_async_(tensor, average, name, op, group).wait()
 
 
 class _AllgatherFunction(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, tensor, name):
-        handle = allgather_async(tensor, name)
+    def forward(ctx, tensor, name, group):
+        handle = allgather_async(tensor, name, group)
         result = handle.wait()
-        ctx.dim0 = tensor.shape[0]
-        ctx.offset = sum(handle.tensor_sizes[:basics.rank()])
+        ctx.dim0, ctx.group = tensor.shape[0], group
+        ctx.offset = sum(handle.tensor_sizes[:_rank(group)])
         return result
 
     @staticmethod
     def backward(ctx, grad_output):
         # Sum the gathered gradient over ranks, then take this rank's rows.
-        grad = allreduce_async(grad_output, average=False).wait()
-        return grad[ctx.offset:ctx.offset + ctx.dim0], None
+        grad = allreduce_async(grad_output, average=False,
+                               group=ctx.group).wait()
+        return grad[ctx.offset:ctx.offset + ctx.dim0], None, None
 
 
-def allgather(tensor: torch.Tensor, name: Optional[str] = None):
-    return _AllgatherFunction.apply(tensor, name)
+def allgather(tensor: torch.Tensor, name: Optional[str] = None,
+              group=None):
+    return _AllgatherFunction.apply(tensor, name, group)
 
 
 class _BroadcastFunction(torch.autograd.Function):
@@ -311,34 +325,36 @@ class _Identity(torch.autograd.Function):
 
 class _ReducescatterFunction(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, tensor, average):
-        ctx.average = average
-        full = allreduce_async(tensor, average).wait()
-        counts = _split_counts(tensor.shape[0], _size())
-        off = sum(counts[:basics.rank()])
-        return full[off:off + counts[basics.rank()]].clone()
+    def forward(ctx, tensor, average, group):
+        ctx.average, ctx.group = average, group
+        full = allreduce_async(tensor, average, group=group).wait()
+        counts = _split_counts(tensor.shape[0], _size(group))
+        rank = _rank(group)
+        off = sum(counts[:rank])
+        return full[off:off + counts[rank]].clone()
 
     @staticmethod
     def backward(ctx, grad_output):
         # Every rank's input reaches every block: gather the blocks' cotangents
         # back to full length, scaled as the forward reduction was.
-        grad = allgather_async(grad_output.contiguous()).wait()
+        grad = allgather_async(grad_output.contiguous(),
+                               group=ctx.group).wait()
         if ctx.average:
-            grad = grad / _size()
-        return grad, None
+            grad = grad / _size(ctx.group)
+        return grad, None, None
 
 
 def reducescatter(tensor: torch.Tensor, average: Optional[bool] = None,
                   op: Optional[str] = None,
-                  name: Optional[str] = None) -> torch.Tensor:
+                  name: Optional[str] = None, group=None) -> torch.Tensor:
     """Reduce over ranks (mean by default), then keep this rank's block
     of dim 0; an uneven dim 0 splits like ``np.array_split``.
     Differentiable: the backward gathers the blocks' gradients."""
     avg = _resolve_average(average, op)
     _require_dim(tensor, "reducescatter")
-    if _size() == 1:
+    if _size(group) == 1:
         return _Identity.apply(tensor)
-    return _ReducescatterFunction.apply(tensor, avg)
+    return _ReducescatterFunction.apply(tensor, avg, group)
 
 
 def _alltoall_splits(tensor: torch.Tensor, group) -> List[int]:

@@ -465,3 +465,102 @@ def test_generate_and_engine_at_moe_tiny_run_the_kernels(cuda_device):
         want = llama.generate(model, torch.from_numpy(p[None]),
                               max_new_tokens=7)[0, len(p):].tolist()
         assert handle.result(timeout=0) == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "b,sq,sk,h,hkv,d,causal",
+    # Ring blocks of Llama-300M at seq 2048 over 2 ranks (the diagonal
+    # block and a past block), zigzag half-blocks of 512 (a triangle, and
+    # the late half over a whole block), and Ulysses' full sequence at
+    # H/2, Hkv/2 — at batch 1.
+    [(1, 1024, 1024, 16, 8, 64, True),
+     (1, 1024, 1024, 16, 8, 64, False),
+     (1, 512, 512, 16, 8, 64, True),
+     (1, 512, 1024, 16, 8, 64, False),
+     (1, 2048, 2048, 8, 4, 64, True)])
+def test_flash_backward_with_dlse_matches_plain(cuda_device, dtype, b, sq,
+                                                sk, h, hkv, d, causal):
+    """Ring attention's merge gives lse a cotangent: the backward's delta
+    shifts by it (``flash_delta(out, g, dlse)``), and kernels 2 and 3
+    take the shifted delta as they take any."""
+    from horovod_tpu_torch.parallel.sequence import _FlashBlockPair
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    q = _randn(gen, cuda_device, dtype, b, sq, h, d)
+    k = _randn(gen, cuda_device, dtype, b, sk, hkv, d)
+    v = _randn(gen, cuda_device, dtype, b, sk, hkv, d)
+    g = _randn(gen, cuda_device, dtype, b, sq, h, d)
+    dlse = torch.randn(b * h, 1, sq, generator=gen, device=cuda_device)
+    out, lse = flash.flash_attention_forward_plain(q, k, v, None, causal)
+    delta = flash.flash_delta(out, g, dlse)
+    assert not torch.equal(delta, flash.flash_delta(out, g))
+    flash.reset_launch_counts()
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    got_out, got_lse = _FlashBlockPair.apply(*leaves, None, causal, None)
+    torch.autograd.backward((got_out, got_lse), (g, dlse))
+    torch.cuda.synchronize()
+    assert flash.LAUNCHES == {"flash_forward": 1, "flash_backward_dq": 1,
+                              "flash_backward_dkdv": 1}
+    _assert_flash_close(got_out, out, dtype)
+    torch.testing.assert_close(got_lse, lse, **F32_TOL)
+    want_dq = flash.flash_backward_dq_plain(q, k, v, None, g, lse, delta,
+                                            causal)
+    want_dk, want_dv = flash.flash_backward_dkdv_plain(q, k, v, None, g, lse,
+                                                       delta, causal)
+    for leaf, want in zip(leaves, (want_dq, want_dk, want_dv)):
+        _assert_flash_close(leaf.grad, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("h,hkv", [(8, 4), (2, 1)])
+def test_decode_kernels_at_tensor_parallel_shard_shapes(cuda_device, dtype,
+                                                        h, hkv):
+    """A tensor-parallel rank's heads: Llama-300M's H16/Hkv8 over tp 2
+    (H8/Hkv4) and LLAMA_TINY's H4/Hkv2 over tp 2 (H2/Hkv1), D 64, through
+    the sharded steps (row write, then the kernel on the shard)."""
+    class OneRankOfTwo:
+        """The steps read only the axis size: one rank of a tp-2 axis."""
+
+        def axis_size(self, axis):
+            return 2
+
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    mesh = OneRankOfTwo()
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    b, window, bs, d = 8, 256, 16, 64
+    q = _randn(gen, cuda_device, dtype, b, 1, h, d)
+    kn = _randn(gen, cuda_device, dtype, b, 1, hkv, d)
+    vn = _randn(gen, cuda_device, dtype, b, 1, hkv, d)
+    k = _randn(gen, cuda_device, dtype, b, window, hkv * d)
+    v = _randn(gen, cuda_device, dtype, b, window, hkv * d)
+    idx = 200
+    ops.reset_launch_counts()
+    got, k2, v2 = ops.sharded_decode_step(q, kn, vn, k.clone(), v.clone(),
+                                          idx, 2 * hkv, mesh=mesh,
+                                          head_axis="model")
+    k[:, idx], v[:, idx] = kn.reshape(b, -1), vn.reshape(b, -1)
+    torch.testing.assert_close(k2, k, atol=0, rtol=0)
+    want = ops.decode_attention_plain(q, k, v, idx, hkv)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    slots = window // bs
+    tables = (torch.randperm(b * slots, generator=gen, device=cuda_device)
+              + 1).view(b, slots).to(torch.int32)
+    kp, vp = _pools(k, v, tables, bs)
+    lens = torch.tensor([0, 15, 16, 47, 100, 191, 240, 254],
+                        dtype=torch.int32, device=cuda_device)
+    want_p = ops.paged_decode_attention_plain(
+        q, *ops.paged_cache_write(kp.clone(), vp.clone(), kn, vn, tables,
+                                  lens), tables, lens, hkv)
+    got_p, _, _ = ops.sharded_paged_decode_step(
+        q, kn, vn, kp, vp, tables, lens, 2 * hkv, mesh=mesh,
+        head_axis="model")
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES == {"decode_attention": 1,
+                            "paged_decode_attention": 1}
+    torch.testing.assert_close(got_p.float(), want_p.float(), **tol)

@@ -259,6 +259,14 @@ def test_port_imports_no_jax_or_reference_package():
         "import horovod_tpu_torch.examples.moe_training\n"
         "import horovod_tpu_torch.examples.vit_training\n"
         "import horovod_tpu_torch.examples.mnist\n"
+        "import horovod_tpu_torch.parallel.mesh\n"
+        "import horovod_tpu_torch.parallel.exchange\n"
+        "import horovod_tpu_torch.parallel.hierarchical\n"
+        "import horovod_tpu_torch.parallel.sequence\n"
+        "import horovod_tpu_torch.parallel.pipeline\n"
+        "import horovod_tpu_torch.examples.long_context_ring_attention\n"
+        "import horovod_tpu_torch.examples.tp_decode_profile\n"
+        "import horovod_tpu_torch.examples.pipeline_parallel\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'horovod_tpu'))\n"
@@ -276,6 +284,15 @@ def test_port_sources_never_name_jax_or_the_reference_package():
     for root, _, files in os.walk(PKG):
         paths += [os.path.join(root, name) for name in sorted(files)
                   if name.endswith((".py", ".cu", ".cuh"))]
+    scanned = {os.path.relpath(p, PKG) for p in paths}
+    # The parallel modes' files are among them.
+    for name in ("parallel/mesh.py", "parallel/exchange.py",
+                 "parallel/hierarchical.py", "parallel/sequence.py",
+                 "parallel/pipeline.py",
+                 "examples/long_context_ring_attention.py",
+                 "examples/tp_decode_profile.py",
+                 "examples/pipeline_parallel.py"):
+        assert name in scanned, name
     for path in paths:
         with open(path, encoding="utf-8") as fh:
             text = fh.read()
