@@ -150,12 +150,34 @@ on ``cuda``; any failure exits non-zero:
    sharing one card);
 26. GPipe and 1F1B over the two processes (one stage each, residual MLP
    stages of width 1024) equal the sequential stages: outputs, loss and
-   gradients within TOL.
+   gradients within TOL;
+27. FSDP (``examples.llama_fsdp_training``'s pieces) at Llama-300M over
+   the two processes, seq 1024: two float32 momentum-SGD steps (b2 a
+   rank) equal one process at the same global batch (loss to 1e-4
+   relative, every weight within TOL); each rank's parameter, gradient
+   and momentum bytes equal ``sharded_size_bytes``; the flash kernels on
+   every layer (the forward twice: each block is recomputed in the
+   backward). Then the example in bf16, b8 a rank, Adam, timed (tok/s,
+   step ms split into gathers, reduce-scatters and the rest, each
+   rank's peak memory), beside replicated ``DistributedOptimizer`` at
+   the same batch, with and without block recompute;
+28. ZeRO-1 at Llama-300M over the two processes: two float32 Adam steps
+   with ``zero_sharded_optimizer`` equal ``DistributedOptimizer``, each
+   rank's moments half the replicated optimizer's; then bf16 timed as
+   27;
+29. checkpoints: ``State.commit`` with the sharded writer on, after 27's
+   float32 steps, writes the gathered weights; the files restore whole
+   and every shard's digest recomputed from the restored leaves equals
+   the manifest's. Then ``examples.imagenet_resnet50`` (ResNet-50 bf16,
+   b64, 224²) saves at step 2 of 3 and is run again: the restored tree
+   equals what was saved, and the resumed run's step 3 equals the
+   first run's (cuDNN deterministic for the check).
 
-Phases 3-5, 9, 13, 15-18 and 20-25 are the main paths: the launch
-counts in the kernels' JSON line come from them (the flash kernels' are
-the sum of 9, 13, 20, 23's flash run and 24's seq-parallel training,
-plus the forward-only long-context runs of 24; the contiguous decode
+Phases 3-5, 9, 13, 15-18, 20-25, 27 and 28 are the main paths: the
+launch counts in the kernels' JSON line come from them (the flash
+kernels' are the sum of 9, 13, 20, 23's flash run, 24's seq-parallel
+training and 27's and 28's timed training, plus the forward-only
+long-context runs of 24; the contiguous decode
 kernel's of 3, 15, 21 and 25's ``generate()`` and profile, the paged
 one's of 4, 16-18, 22 and 25's engine; a two-process path's counts are
 its two ranks' sum; each path's on a line of its own). Each phase logs
@@ -169,6 +191,7 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import socket
 import statistics
 import subprocess
@@ -2700,6 +2723,469 @@ def worker_pipeline(rank: int, features: int = 1024, layers: int = 2,
             "loss": ref}
 
 
+# ---------------------------------------------------------------------------
+# Phases 27-29: sharded training state
+
+SHARDED_BATCH = 8                    # per rank, bf16 timed runs
+SHARDED_SEQ = 1024
+
+
+def _drop(model, *optimizers) -> None:
+    """Release a finished run's card memory: every parameter, gradient
+    and optimizer state emptied in place. ``del`` alone is not enough:
+    ``DistributedOptimizer``'s gradient hooks and FSDP's units tie the
+    objects into cycles that stay alive past ``gc.collect()`` here."""
+    import torch
+
+    for opt in optimizers:
+        opt.state.clear()
+        for group in opt.param_groups:
+            for q in group["params"]:
+                q.grad = None
+                q.data = q.data.new_empty(0)
+    for q in model.parameters():
+        q.grad = None
+        q.data = q.data.new_empty(0)
+    torch.cuda.empty_cache()
+
+
+def _fresh_peak() -> float:
+    """Reset the peak; returns the GiB still allocated, which a run's
+    peak is reported above."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated() / 2 ** 30
+
+
+def _bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _state_bytes(optimizer, matrices_only: bool = False) -> int:
+    """Bytes of the tensor state ``optimizer`` holds on this rank
+    (``matrices_only``: without the 0-d entries, Adam's ``step``)."""
+    import torch
+
+    return sum(v.numel() * v.element_size()
+               for entry in optimizer.state.values() for v in entry.values()
+               if torch.is_tensor(v) and (v.ndim > 0 or not matrices_only))
+
+
+def expected_fsdp_bytes(cfg, specs, make_optimizer, n: int):
+    """(parameter, state) bytes a rank holds under ``specs`` over ``n``
+    ranks, from the spec functions on the model built on ``meta``."""
+    import torch
+
+    from horovod_tpu_torch.models.llama import LlamaLM
+    from horovod_tpu_torch.torch.fsdp import (fsdp_state_specs,
+                                              sharded_size_bytes)
+    from horovod_tpu_torch.torch.partition import abstract_state
+
+    with torch.device("meta"):
+        model = LlamaLM(cfg, device="meta", param_dtype=torch.float32)
+    params = dict(model.named_parameters())
+    optimizer = make_optimizer(model.named_parameters())
+    state = abstract_state(optimizer, {k: (p, tuple(p.shape), p.dtype)
+                                       for k, p in params.items()})
+    sspecs = fsdp_state_specs(optimizer, specs)
+    axes = {"data": n}
+    return (sharded_size_bytes(params, specs, axes),
+            sharded_size_bytes(state, sspecs, axes))
+
+
+def fsdp_step_split(model, optimizer, ids, step_ms: float):
+    """Where an FSDP step's time goes, timed apart on this rank (both
+    ranks run it: the collectives need their peer): one all-gather of
+    every unit's shards, one reduce-scatter of every unit's gradient
+    buffer, and the step's rest. A step gathers each block twice (its
+    forward and its recompute) and the root once, and reduce-scatters
+    each unit once."""
+    import torch
+
+    from horovod_tpu_torch.torch import fsdp
+    from horovod_tpu_torch.torch.partition import reduce_scatter_rows
+
+    units = [u for u in model._fsdp_units if u.entries]
+    blocks = [u for u in units if u.recompute]
+    root = [u for u in units if not u.recompute]
+
+    def gather(us):
+        with torch.no_grad():
+            for u in us:
+                fsdp._GatherFn.apply(u, *u.shards())
+
+    bufs = [torch.zeros(u.n, sum(s.numel() for s in u.shards()),
+                        device=ids.device) for u in units]
+
+    def scatter():
+        for u, b in zip(units, bufs):
+            reduce_scatter_rows(b.clone(), u.group)
+
+    g_blocks, g_root = _wall_ms(lambda: gather(blocks)), \
+        _wall_ms(lambda: gather(root))
+    rs = _wall_ms(scatter)
+    gathers = 2 * g_blocks + g_root
+    return {"step": step_ms, "gathers": gathers, "reduce_scatters": rs,
+            "rest": step_ms - gathers - rs,
+            "one_pass_gather_blocks": g_blocks, "gather_root": g_root}
+
+
+def worker_fsdp(rank: int, ckpt_dir: str, batch: int = 2, steps: int = 2):
+    """Phase 27 (and 29's commit): Llama-300M FSDP over the two ranks.
+    Float32, two momentum-SGD steps through the example's pieces equal
+    one process at the same global batch (rank 0 runs it after): the
+    loss to 1e-4 relative, every weight within TOL; each rank's
+    parameter, gradient and state bytes equal ``sharded_size_bytes``;
+    the flash kernels on every layer (the forward twice: the block's
+    recompute). ``State.commit`` with the sharded writer on saves the
+    gathered weights after the last step (rank 0 checks the files in
+    phase 29). Then the example in bf16, timed, with the per-rank peak
+    memory, beside replicated ``DistributedOptimizer`` at the same batch."""
+    import torch
+    import torch.distributed as dist
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.examples import llama_fsdp_training as fx
+    from horovod_tpu_torch.examples import llama_training as lx
+    from horovod_tpu_torch.models.llama import LLAMA_300M
+    from horovod_tpu_torch.ops import attention as A
+
+    cfg = dataclasses.replace(LLAMA_300M, dtype=torch.float32)
+    specs = fx.make_specs(cfg, 2)
+
+    def sgd(params):
+        return torch.optim.SGD(params, lr=0.1, momentum=0.9)
+
+    model = fx.make_model(cfg, specs, "cuda")
+    opt = sgd(model.named_parameters())
+    ids = fx.batch_ids(cfg, batch, SHARDED_SEQ, 2, rank, "cuda")
+    state = hvd.elastic.State(step=0, params=model.full_state_dict())
+    state.enable_sharded_checkpoint(ckpt_dir)
+    losses, counts = _path(lambda: [
+        float(hvd.allreduce(fx.train_step(model, opt, ids)))
+        for _ in range(steps)])
+    per_step = {"flash_forward": 2 * LAYERS * steps,
+                "flash_backward_dq": LAYERS * steps,
+                "flash_backward_dkdv": LAYERS * steps}
+    if any(counts[k] != v for k, v in per_step.items()):
+        raise AssertionError(f"fsdp parity: flash launches {counts}, "
+                             f"expected {per_step}")
+    want_p, want_s = expected_fsdp_bytes(cfg, specs, sgd, 2)
+    got = {"params": _bytes(model.parameters()),
+           "grads": _bytes(p.grad for p in model.parameters()),
+           "state": _state_bytes(opt)}
+    if got != {"params": want_p, "grads": want_p, "state": want_s}:
+        raise AssertionError(f"fsdp bytes {got}, sharded_size_bytes "
+                             f"params {want_p} state {want_s}")
+    full = model.full_state_dict()
+    state.params = full
+    state.step = steps
+    t = time.perf_counter()
+    state.commit()
+    commit_ms = (time.perf_counter() - t) * 1e3
+    if not state.flush_checkpoints(300.0):
+        raise AssertionError("fsdp: the sharded writer did not drain")
+    row = {"losses_fsdp": losses, "launches": counts, "bytes": got,
+           "commit_ms": commit_ms}
+    dist.barrier()                   # both ranks' shards are on disk
+    if rank == 0:
+        row["checkpoint"] = check_sharded_commit(ckpt_dir, full, steps)
+    if rank == 0:
+        ref = lx.make_model(cfg, device="cuda")
+        ropt = sgd(ref.parameters())
+        ref_ids = torch.from_numpy(np.random.RandomState(0).randint(
+            0, cfg.vocab_size, (2 * batch, SHARDED_SEQ))).cuda()
+        ref_losses = [float(fx.train_step(ref, ropt, ref_ids))
+                      for _ in range(steps)]
+        for a, b in zip(losses, ref_losses):
+            if not np.isfinite(a) or abs(a - b) > 1e-4 * abs(b):
+                raise AssertionError(f"fsdp parity: losses {losses} vs "
+                                     f"{ref_losses}")
+        worst = 0.0
+        for name, r in ref.state_dict().items():
+            worst = max(worst, float((full[name] - r).abs().max()))
+            compare(full[name], r, "float32", f"fsdp parity weight {name}")
+        row.update(losses_single=ref_losses, max_abs_weight_diff=worst)
+        _drop(ref, ropt)
+        del ref, ropt
+    state.close()
+    _drop(model, opt)
+    del model, opt, state, full
+    dist.barrier()
+
+    # bf16, timed: the example's main path, then replicated data
+    # parallelism at the same batch (the training example's pieces, Adam).
+    timed_args = ["--model", "300m", "--seq-len", str(SHARDED_SEQ),
+                  "--batch-per-shard", str(SHARDED_BATCH), "--num-iters", "3"]
+    before = _fresh_peak()
+    out, timed_counts = _path(lambda: fx.main(timed_args))
+    if not all(np.isfinite(out["losses"])):
+        raise AssertionError(f"fsdp bf16: losses {out['losses']}")
+    row["timed"] = {"tokens_per_s": out["tokens_per_s"],
+                    "step_ms": out["step_ms"], "losses": out["losses"],
+                    "batch_per_rank": SHARDED_BATCH,
+                    "peak_memory_gib":
+                        torch.cuda.max_memory_allocated() / 2 ** 30 - before,
+                    "allocated_before_gib": before,
+                    "launches": timed_counts,
+                    "split_ms": fsdp_step_split(out["model"],
+                                                out["optimizer"], out["ids"],
+                                                out["step_ms"])}
+    _drop(out["model"], out["optimizer"])
+    del out
+    row["replicated"] = replicated_timed(rank)
+    row["replicated_remat"] = replicated_timed(rank, remat=True)
+    return row
+
+
+def replicated_timed(rank: int, optimizer: str = "adam", steps: int = 3,
+                     remat: bool = False):
+    """Llama-300M bf16, seq 1024, the same per-rank batch, replicated
+    parameters: Adam(3e-4) under ``DistributedOptimizer`` (``adam``) or
+    under the ZeRO-1 wrapper (``zero``); ``remat``: each block
+    recomputed in the backward, as FSDP's are. tok/s over both ranks,
+    step ms, this rank's peak memory and optimizer-state bytes."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.examples import llama_fsdp_training as fx
+    from horovod_tpu_torch.examples import llama_training as lx
+    from horovod_tpu_torch.models.llama import LLAMA_300M
+
+    before = _fresh_peak()
+    model = lx.make_model(dataclasses.replace(LLAMA_300M, remat=remat),
+                          device="cuda")
+    inner = torch.optim.Adam(model.parameters(), lr=3e-4)
+    opt = (hvd.zero_sharded_optimizer(inner) if optimizer == "zero" else
+           hvd.DistributedOptimizer(
+               inner, named_parameters=model.named_parameters()))
+    ids = fx.batch_ids(LLAMA_300M, SHARDED_BATCH, SHARDED_SEQ, 2, rank,
+                       "cuda")
+    loss_fn = lx.make_loss_fn(0)
+
+    def step():
+        return lx.train_step(model, opt, ids, loss_fn)
+
+    losses = [float(step())]
+    t = time.perf_counter()
+    losses += [step() for _ in range(steps)]
+    losses[-1] = float(hvd.allreduce(losses[-1]))
+    dt = time.perf_counter() - t
+    out = {"optimizer": optimizer, "remat": remat, "tokens_per_s":
+           2 * SHARDED_BATCH * SHARDED_SEQ * steps / dt,
+           "step_ms": dt / steps * 1e3,
+           "losses": [float(x) for x in losses],
+           "peak_memory_gib":
+               torch.cuda.max_memory_allocated() / 2 ** 30 - before,
+           "allocated_before_gib": before,
+           "state_bytes": _state_bytes(opt)}
+    if optimizer == "zero":
+        out["split_ms"] = zero_step_split(opt, out["step_ms"])
+    _drop(model, opt, inner)
+    del model, opt, inner
+    return out
+
+
+def zero_step_split(opt, step_ms: float):
+    """A ZeRO step's collectives timed apart on this rank: the
+    reduce-scatter of every gradient (one flat buffer a dtype) and the
+    all-gather of the updated slices."""
+    import torch
+
+    from horovod_tpu_torch.torch.partition import (gather_rows,
+                                                   reduce_scatter_rows)
+
+    n = opt._world
+    rows = torch.zeros(n, sum(s.numel() for _, s in opt._pairs),
+                       device="cuda")
+    flat = torch.zeros(rows.shape[1], device="cuda")
+    rs = _wall_ms(lambda: reduce_scatter_rows(rows.clone(), opt._group))
+    ag = _wall_ms(lambda: gather_rows(flat, opt._group))
+    return {"step": step_ms, "reduce_scatter": rs, "all_gather": ag,
+            "rest": step_ms - rs - ag}
+
+
+def worker_zero(rank: int, batch: int = 2, steps: int = 2):
+    """Phase 28: ZeRO-1 at Llama-300M over the two ranks. Float32, two
+    Adam steps with ``zero_sharded_optimizer`` equal two with
+    ``DistributedOptimizer`` on the same rank's batch (every weight
+    within TOL, the loss to 1e-4 relative); the moments a rank holds are
+    half the replicated optimizer's. Then bf16 timed, beside the
+    replicated run of phase 27."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.examples import llama_fsdp_training as fx
+    from horovod_tpu_torch.examples import llama_training as lx
+    from horovod_tpu_torch.models.llama import LLAMA_300M
+
+    cfg = dataclasses.replace(LLAMA_300M, dtype=torch.float32)
+    ids = fx.batch_ids(cfg, batch, SHARDED_SEQ, 2, rank, "cuda")
+    loss_fn = lx.make_loss_fn(0)
+    runs = {}
+    for kind in ("zero", "replicated"):
+        model = lx.make_model(cfg, device="cuda")
+        inner = torch.optim.Adam(model.parameters(), lr=1e-4)
+        opt = (hvd.zero_sharded_optimizer(inner) if kind == "zero" else
+               hvd.DistributedOptimizer(
+                   inner, named_parameters=model.named_parameters()))
+        losses, counts = _path(lambda: [
+            float(hvd.allreduce(lx.train_step(model, opt, ids, loss_fn)))
+            for _ in range(steps)])
+        runs[kind] = (model, opt, losses, counts)
+    (zm, zo, zl, zc), (rm, ro, rl, _) = runs["zero"], runs["replicated"]
+    for a, b in zip(zl, rl):
+        if not np.isfinite(a) or abs(a - b) > 1e-4 * abs(b):
+            raise AssertionError(f"zero parity: losses {zl} vs {rl}")
+    worst = 0.0
+    with torch.no_grad():
+        for (name, p), (_, r) in zip(zm.named_parameters(),
+                                     rm.named_parameters()):
+            worst = max(worst, float((p - r).abs().max()))
+            compare(p, r, "float32", f"zero parity weight {name}")
+    z_state, r_state = _state_bytes(zo, True), _state_bytes(ro, True)
+    if 2 * z_state != r_state:
+        raise AssertionError(f"zero: moments {z_state} bytes on rank "
+                             f"{rank}, replicated {r_state}")
+    row = {"losses_zero": zl, "losses_replicated": rl,
+           "max_abs_weight_diff": worst, "launches": zc,
+           "moment_bytes": {"zero": z_state, "replicated": r_state},
+           "state_bytes": {"zero": _state_bytes(zo),
+                           "replicated": _state_bytes(ro)}}
+    _drop(zm, zo)
+    _drop(rm, ro)
+    del runs, zm, zo, rm, ro, model, inner, opt
+    timed, counts = _path(lambda: replicated_timed(rank, "zero"))
+    row["timed"] = {**timed, "launches": counts}
+    return row
+
+
+def check_sharded_commit(ckpt_dir: str, full, step: int):
+    """Phase 29, the disk tier: the newest complete sharded step holds
+    the committed weights; every shard's digest, recomputed from the
+    restored leaves, equals the manifest's, and every leaf equals the
+    gathered weight, bitwise."""
+    import torch
+
+    from horovod_tpu_torch.utils import checkpoint as ckpt
+
+    t = time.perf_counter()
+    latest = ckpt.latest_sharded_checkpoint(ckpt_dir)
+    if latest is None:
+        raise AssertionError(f"sharded checkpoint: nothing complete under "
+                             f"{ckpt_dir}")
+    saved_step, manifest = latest
+    like = {"params": full, "step": 0}
+    got_step, tree = ckpt.restore_latest_sharded(ckpt_dir, like)
+    flat, _ = ckpt.tree_flatten(tree)
+    digests = [ckpt.shard_digest([flat[i] for i in ids])
+               for ids in manifest["layout"]]
+    if digests != manifest["digests"] or got_step != saved_step:
+        raise AssertionError(f"sharded checkpoint: digests {digests} vs "
+                             f"manifest {manifest['digests']}")
+    if tree["step"] != step or any(not torch.equal(tree["params"][k], v)
+                                   for k, v in full.items()):
+        raise AssertionError("sharded checkpoint: restored leaves differ "
+                             "from the committed weights")
+    return {"step": saved_step, "world_size": manifest["world_size"],
+            "shards": len(manifest["layout"]), "leaves": len(flat),
+            "bytes": sum(ckpt.leaf_nbytes(x) for x in flat
+                         if ckpt.is_array(x)),
+            "digests_equal": True, "restore_ms":
+                (time.perf_counter() - t) * 1e3}
+
+
+def _host_tree(tree):
+    from horovod_tpu_torch.utils import checkpoint as ckpt
+
+    leaves, structure = ckpt.tree_flatten(tree)
+    return ckpt.tree_unflatten(structure, [
+        leaf.detach().cpu().clone() if hasattr(leaf, "detach") else leaf
+        for leaf in leaves])
+
+
+def run_checkpoint_resume(card: str):
+    """Phase 29: ``examples.imagenet_resnet50`` at ResNet-50 bf16, b64,
+    224², 3 steps with a checkpoint at step 2, then the same command
+    again, which resumes there: the restored tree equals what was saved,
+    bitwise, and the resumed run's last step equals the first run's,
+    with cuDNN deterministic for the check."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from horovod_tpu_torch.examples import imagenet_resnet50 as ex
+    from horovod_tpu_torch.utils import checkpoint as ckpt
+
+    directory = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    args = ["--batch-per-chip", "64", "--steps", "3", "--checkpoint-every",
+            "2", "--checkpoint-dir", directory]
+    saved = {}
+    save = ex.save_checkpoint
+
+    def keep(path, tree):
+        save(path, tree)
+        saved[path] = _host_tree(tree)
+
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    ex.save_checkpoint = keep
+    try:
+        t = time.perf_counter()
+        first = ex.main(args)
+        first_s = time.perf_counter() - t
+        ex.save_checkpoint = save
+        (path, tree), = saved.items()
+        t = time.perf_counter()
+        restored = ckpt.restore_checkpoint(path)
+        restore_s = time.perf_counter() - t
+        a, sa = ckpt.tree_flatten(tree)
+        b, sb = ckpt.tree_flatten(restored)
+        if sa != sb or any(
+                not (torch.equal(x, y) if torch.is_tensor(x) else x == y)
+                for x, y in zip(a, b)):
+            raise AssertionError("checkpoint: the restored tree differs "
+                                 "from what was saved")
+        nbytes = sum(x.numel() * x.element_size() for x in a
+                     if torch.is_tensor(x))
+        second = ex.main(args)
+    finally:
+        ex.save_checkpoint = save
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+        shutil.rmtree(directory, ignore_errors=True)
+    if second["start_step"] != 2 or len(second["losses"]) != 1:
+        raise AssertionError(f"checkpoint: the second run started at "
+                             f"{second['start_step']}")
+    worst, bitwise = 0.0, True
+    with torch.no_grad():
+        for (name, p), (_, q) in zip(first["model"].named_parameters(),
+                                     second["model"].named_parameters()):
+            bitwise &= torch.equal(p, q)
+            worst = max(worst, float((p - q).abs().max()))
+            compare(q, p, "float32", f"resumed step, weight {name}")
+    row = {"saved_bytes": nbytes, "restore_s": restore_s,
+           "first_run_s": first_s, "losses_first": first["losses"],
+           "loss_resumed": second["losses"], "bitwise_equal": bitwise,
+           "max_abs_weight_diff": worst}
+    log(f"checkpoint resume: resnet50 bf16 b64, saved at step 2 "
+        f"({nbytes / 2 ** 20:.1f} MiB, restored bitwise equal in "
+        f"{restore_s:.2f} s); the resumed step 3 equals the first run's "
+        f"(bitwise {bitwise}, max abs diff {worst:.3g}; cuDNN "
+        f"deterministic) [{card}]")
+    del first, second
+    torch.cuda.empty_cache()
+    return row
+
+
 def parallel_worker(rank: int, port: int, out_path: str) -> int:
     """One of the two ranks of phases 24-26 (``chip_smoke.py
     --parallel-worker RANK PORT OUT``); rank 0 writes the JSON."""
@@ -2724,10 +3210,13 @@ def parallel_worker(rank: int, port: int, out_path: str) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     results = {}
+    ckpt_dir = os.path.join(os.path.dirname(out_path), "sharded_ckpt")
     for label, fn in (("24 sp parity", lambda: worker_sp_parity(rank)),
                       ("24 sp timed", worker_sp_timed),
                       ("25 tp", lambda: worker_tp(rank)),
-                      ("26 pipeline", lambda: worker_pipeline(rank))):
+                      ("26 pipeline", lambda: worker_pipeline(rank)),
+                      ("27 fsdp", lambda: worker_fsdp(rank, ckpt_dir)),
+                      ("28 zero", lambda: worker_zero(rank))):
         t = time.perf_counter()
         results[label] = fn()
         results[label]["wall_s"] = time.perf_counter() - t
@@ -2791,6 +3280,7 @@ def run_parallel_phases(card: str):
         raise AssertionError(f"parallel workers exited {codes}")
     with open(out_path) as f:
         results = json.load(f)
+    shutil.rmtree(out_dir, ignore_errors=True)
     sp = results["24 sp parity"]
     log(f"seq-parallel parity: llama300m f32 seq 2048 sp 2 b=2, 2 SGD "
         f"steps; losses ring {sp['losses_ring']} vs single process "
@@ -2818,7 +3308,40 @@ def run_parallel_phases(card: str):
         f"of (8, 1, 1024) bf16 {prof['allreduce_ms']:.3f} ms; rank 0 token "
         f"step split: {json.dumps(prof['step_split'])} [{card}]")
     log(f"pipeline: {json.dumps(results['26 pipeline'])}")
+    log_sharded(results, card)
     return results
+
+
+def log_sharded(results, card: str):
+    """Phases 27-29's lines, from the two ranks' results."""
+    fsdp, zero = results["27 fsdp"], results["28 zero"]
+    log(f"fsdp parity: llama300m f32 seq {SHARDED_SEQ} dp 2 b=2 a rank, 2 "
+        f"momentum-SGD steps; losses fsdp {fsdp['losses_fsdp']} vs single "
+        f"process {fsdp['losses_single']}; every weight within "
+        f"{TOL['float32']} (max abs diff {fsdp['max_abs_weight_diff']:.3g});"
+        f" rank 0 bytes {json.dumps(fsdp['bytes'])} == sharded_size_bytes; "
+        f"flash launches {json.dumps(fsdp['launches'])}")
+    ck = fsdp["checkpoint"]
+    log(f"sharded checkpoint (phase 29): State.commit of the gathered "
+        f"weights, step {ck['step']}, {ck['shards']} shards, "
+        f"{ck['bytes'] / 2 ** 20:.1f} MiB; digests recomputed from the "
+        f"restored leaves equal the manifest's; commit {fsdp['commit_ms']:.1f}"
+        f" ms on the step loop")
+    log(f"zero-1 parity: llama300m f32 dp 2, 2 Adam steps; losses zero "
+        f"{zero['losses_zero']} vs DistributedOptimizer "
+        f"{zero['losses_replicated']}; max abs weight diff "
+        f"{zero['max_abs_weight_diff']:.3g}; moments a rank "
+        f"{json.dumps(zero['moment_bytes'])}")
+    for label, row in (("fsdp", fsdp["timed"]),
+                       ("replicated", fsdp["replicated"]),
+                       ("replicated remat", fsdp["replicated_remat"]),
+                       ("zero-1", zero["timed"])):
+        log(f"{label} bf16 llama300m seq {SHARDED_SEQ} b{SHARDED_BATCH} a "
+            f"rank, dp 2 (two ranks sharing one card): "
+            f"{row['tokens_per_s']:.1f} tokens/s, step {row['step_ms']:.1f} "
+            f"ms, rank 0 peak memory {row['peak_memory_gib']:.2f} GiB above "
+            f"the {row['allocated_before_gib']:.2f} allocated before; "
+            f"split (ms) {json.dumps(row.get('split_ms'))} [{card}]")
 
 
 def main() -> int:
@@ -2927,8 +3450,9 @@ def main() -> int:
            "bert_parity": phase("12 bert parity", run_bert_parity)}
     bert = phase("13 bert example", run_bert_timed, card)
     torch.cuda.empty_cache()
-    parallel = phase("24-26 parallel modes (two ranks)", run_parallel_phases,
-                     card)
+    parallel = phase("24-28 parallel modes and sharded state (two ranks)",
+                     run_parallel_phases, card)
+    resume = phase("29 checkpoint resume", run_checkpoint_resume, card)
     hvd.shutdown()
 
     # The two ranks' counts of each parallel path, summed.
@@ -2944,7 +3468,11 @@ def main() -> int:
                    "vit-s16 --attention flash (23)":
                        vit["flash"]["flash_launches"],
                    "llama300m seq-parallel training (24)": {
-                       n: both("24 sp timed", "", n) for n in flash_names}}
+                       n: both("24 sp timed", "", n) for n in flash_names},
+                   "llama300m fsdp training (27)": {
+                       n: both("27 fsdp", "timed", n) for n in flash_names},
+                   "llama300m zero-1 training (28)": {
+                       n: both("28 zero", "timed", n) for n in flash_names}}
     forward_only = {f"long context ring {layout} (24)": both(
         "24 sp timed", f"long_context_{layout}", "flash_forward")
         for layout in ("contiguous", "zigzag")}
@@ -3018,6 +3546,7 @@ def main() -> int:
     log(f"moe: {json.dumps({'parity': moe_parity, 'training': moe_training, 'generation': moe_generation})}")
     log(f"vit: {json.dumps(vit)}")
     log(f"parallel: {json.dumps(parallel)}")
+    log(f"checkpoint resume: {json.dumps(resume)}")
     log(f"ring kernels: {json.dumps({f'{k[0]} {k[1]}': v for k, v in ring_flash.items()})}")
     log(f"wall time: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -46,3 +46,4 @@ def default_device(device: DeviceLike = None) -> _torch.device:
 
 
 from .torch import *  # noqa: E402,F401,F403
+from . import elastic  # noqa: E402,F401

@@ -122,6 +122,51 @@ def trace_max_events() -> int:
     return max(1024, _env_int("HOROVOD_TRACE_MAX_EVENTS", 1 << 20))
 
 
+def restart_epoch() -> int:
+    """``HOROVOD_RESTART_EPOCH``: supervision attempt number, bumped by
+    the launcher per relaunch. 0 on the first launch, outside the
+    launcher, and for garbage values (a malformed relaunch env must look
+    like a fresh start, not crash resume logic)."""
+    try:
+        return max(0, int(os.environ.get("HOROVOD_RESTART_EPOCH", "0")))
+    except ValueError:
+        return 0
+
+
+def elastic_enabled() -> bool:
+    """``HOROVOD_ELASTIC``: opt-in elastic membership. The port has no
+    controller yet, so the knob only selects ``State.restore``'s path
+    (with ``elastic_restore_mode``); membership changes wait for it."""
+    return _env_bool("HOROVOD_ELASTIC")
+
+
+def elastic_ckpt_dir() -> Optional[str]:
+    """``HOROVOD_CKPT_DIR``: directory for the continuous async sharded
+    checkpoints. When set, every ``elastic.State.commit()`` also hands
+    this rank's shard of the committed tree to the background
+    ``hvd-ckpt-writer`` thread. Unset (the default), commits stay
+    in memory."""
+    val = env_str("HOROVOD_CKPT_DIR")
+    return val.strip() if val and val.strip() else None
+
+
+def elastic_ckpt_keep() -> int:
+    """``HOROVOD_CKPT_KEEP``: complete sharded-checkpoint steps the async
+    writer keeps on disk. Minimum/default 2: the double buffer that
+    leaves a complete previous step visible at any kill point."""
+    return max(2, _env_int("HOROVOD_CKPT_KEEP", 2))
+
+
+def elastic_restore_mode() -> str:
+    """``HOROVOD_ELASTIC_RESTORE``: ``broadcast`` (rank 0 re-broadcasts
+    the committed tree) or ``p2p`` (the default; digest-matched
+    survivors keep their copies). Garbage falls back to p2p. The port
+    runs the broadcast path in either mode until the p2p shard plane
+    lands."""
+    val = (env_str("HOROVOD_ELASTIC_RESTORE") or "").strip().lower()
+    return "broadcast" if val == "broadcast" else "p2p"
+
+
 def _env_bool(name: str, default: bool = False) -> bool:
     val = os.environ.get(name)
     if val is None:

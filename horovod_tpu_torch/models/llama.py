@@ -636,6 +636,32 @@ class LlamaLM(CausalLM):
                              return_hidden)[0]
 
 
+_TP_RULES = {"wq": (None, 0), "wk": (None, 0), "wv": (None, 0),
+             "wo": (0, None), "w_gate": (None, 0), "w_up": (None, 0),
+             "w_down": (0, None), "lm_head": (None, 0),
+             "tok_embeddings": (0, None)}
+
+
+def llama_tp_param_specs(params, axis: str = "model"):
+    """The tensor-parallel layout of ``LlamaLM(mesh=, tp_axis=axis)`` as
+    specs (``torch.partition.PartitionSpec``) by parameter name, the
+    counterpart of the JAX function of this name: the heads of
+    ``wq``/``wk``/``wv`` and the rows of ``wo``, the FFN hidden width,
+    and the vocabulary of the embedding and the head; norm scales
+    replicated. ``params``: ``dict(model.named_parameters())`` (tensors
+    or shapes). Where the K/V heads do not split evenly the model keeps
+    attention replicated; this layout assumes they do. The base spec of
+    ``fsdp_param_specs`` for dp x tp."""
+    from ..torch.partition import PartitionSpec
+
+    out = {}
+    for name in params:
+        rule = _TP_RULES.get(name.rpartition(".")[2])
+        out[name] = (PartitionSpec() if rule is None else PartitionSpec(
+            *(None if e is None else axis for e in rule)))
+    return out
+
+
 def init_kv_cache(cfg: LlamaConfig, batch_size: int, max_len: int,
                   dtype: Optional[torch.dtype] = None,
                   device: DeviceLike = None,

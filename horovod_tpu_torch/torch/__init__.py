@@ -3,7 +3,9 @@ re-exports this module) — the port's counterpart of
 ``horovod_tpu/torch/__init__.py``: ``DistributedOptimizer`` with
 per-parameter gradient hooks, ``broadcast_parameters``,
 ``broadcast_optimizer_state`` and the collectives of ``.mpi_ops``, on the
-card through NCCL.
+card through NCCL; and the sharded-state layer the JAX front end exports
+beside them: ZeRO-1 (``zero_sharded_optimizer``, ``.zero``) and FSDP
+(``fsdp_param_specs``, ``fsdp_state_specs``, ``fully_shard``, ``.fsdp``).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from ..common.basics import (  # noqa: F401
     size,
 )
 from .compression import Compression  # noqa: F401
+from .fsdp import fsdp_param_specs, fsdp_state_specs, fully_shard  # noqa: F401
 from .mpi_ops import (  # noqa: F401
     Average,
     Handle,
@@ -52,6 +55,7 @@ from .mpi_ops import (  # noqa: F401
     reducescatter,
     synchronize,
 )
+from .zero import zero_sharded_optimizer  # noqa: F401
 
 __all__ = [
     "init", "shutdown", "is_initialized", "device", "rank", "size",
@@ -63,7 +67,8 @@ __all__ = [
     "broadcast_async", "broadcast_async_", "synchronize", "poll", "barrier",
     "reducescatter", "alltoall", "broadcast_object", "allgather_object",
     "DistributedOptimizer", "broadcast_parameters",
-    "broadcast_optimizer_state",
+    "broadcast_optimizer_state", "zero_sharded_optimizer",
+    "fsdp_param_specs", "fsdp_state_specs", "fully_shard",
 ]
 
 

@@ -267,9 +267,18 @@ def test_port_imports_no_jax_or_reference_package():
         "import horovod_tpu_torch.examples.long_context_ring_attention\n"
         "import horovod_tpu_torch.examples.tp_decode_profile\n"
         "import horovod_tpu_torch.examples.pipeline_parallel\n"
+        "import horovod_tpu_torch.torch.partition\n"
+        "import horovod_tpu_torch.torch.zero\n"
+        "import horovod_tpu_torch.torch.fsdp\n"
+        "import horovod_tpu_torch.utils\n"
+        "import horovod_tpu_torch.utils.checkpoint\n"
+        "import horovod_tpu_torch.elastic\n"
+        "import horovod_tpu_torch.examples.llama_fsdp_training\n"
+        "import horovod_tpu_torch.examples.fsdp_hbm_budget\n"
+        "import horovod_tpu_torch.examples.imagenet_resnet50\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'horovod_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'horovod_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -291,13 +300,19 @@ def test_port_sources_never_name_jax_or_the_reference_package():
                  "parallel/pipeline.py",
                  "examples/long_context_ring_attention.py",
                  "examples/tp_decode_profile.py",
-                 "examples/pipeline_parallel.py"):
+                 "examples/pipeline_parallel.py",
+                 # The sharded-state slice's.
+                 "torch/partition.py", "torch/zero.py", "torch/fsdp.py",
+                 "utils/checkpoint.py", "elastic/__init__.py",
+                 "examples/llama_fsdp_training.py",
+                 "examples/fsdp_hbm_budget.py",
+                 "examples/imagenet_resnet50.py"):
         assert name in scanned, name
     for path in paths:
         with open(path, encoding="utf-8") as fh:
             text = fh.read()
         for needle in ("import jax", "from jax", "import flax",
-                       "horovod_tpu."):
+                       "import optax", "import orbax", "horovod_tpu."):
             if needle in text:
                 offenders.append(f"{os.path.relpath(path, REPO)}: "
                                  f"{needle!r}")
