@@ -171,12 +171,32 @@ on ``cuda``; any failure exits non-zero:
    the manifest's. Then ``examples.imagenet_resnet50`` (ResNet-50 bf16,
    b64, 224²) saves at step 2 of 3 and is run again: the restored tree
    equals what was saved, and the resumed run's step 3 equals the
-   first run's (cuDNN deterministic for the check).
+   first run's (cuDNN deterministic for the check);
+30. the eager-tier controller, two ranks sharing the card, launched by
+   the port's launcher (``python -m horovod_tpu_torch.run -np 2 ...
+   chip_smoke.py --controller-worker OUT``; each rank builds a gloo
+   group before ``init(device="cuda:0")``, which starts the controller):
+   (a) float32, bfloat16 and int32 allreduce (sum and average), in-place
+   allreduce, an allgather of uneven first dims, a broadcast from root 1
+   and a grouped allreduce of 64 tensors, all on CUDA tensors, equal bit
+   for bit to the same ops on CPU copies through the controller and to
+   the gloo group's, the 64 in fewer fused responses; (b) Llama-300M
+   float32, seq 1024, b2 a rank, two AdamW steps of
+   ``DistributedOptimizer`` through the controller equal to the same
+   through the gloo group (loss to 1e-4 relative, every weight within
+   TOL); (c) Llama-300M bf16, seq 1024, b8 a rank, AdamW, one warm and
+   three timed steps through the controller: tok/s, each step's host
+   wall time split into negotiation, pack + D2H, star exchange and
+   H2D + unpack, its responses and cache hits (every gradient from the
+   first timed step) and flash launches (16 a kernel a rank); rank 0's
+   timeline parses and holds the fusion-buffer copies, the card's copies
+   and the star exchange of every allreduce response, and negotiations;
+   and the host's one-thread HMAC-SHA256 rate.
 
-Phases 3-5, 9, 13, 15-18, 20-25, 27 and 28 are the main paths: the
+Phases 3-5, 9, 13, 15-18, 20-25, 27, 28 and 30 are the main paths: the
 launch counts in the kernels' JSON line come from them (the flash
 kernels' are the sum of 9, 13, 20, 23's flash run, 24's seq-parallel
-training and 27's and 28's timed training, plus the forward-only
+training, 27's and 28's timed training and 30's, plus the forward-only
 long-context runs of 24; the contiguous decode
 kernel's of 3, 15, 21 and 25's ``generate()`` and profile, the paged
 one's of 4, 16-18, 22 and 25's engine; a two-process path's counts are
@@ -1386,7 +1406,7 @@ def run_collectives():
 
     os.environ.update(HOROVOD_RANK="0", HOROVOD_SIZE="1",
                       HOROVOD_LOCAL_RANK="0", HOROVOD_LOCAL_SIZE="1",
-                      HOROVOD_CONTROLLER_ADDR=f"127.0.0.1:{free_port()}")
+                      HOROVOD_SPMD_COORDINATOR=f"127.0.0.1:{free_port()}")
     hvd.init()
     if not dist.is_initialized() or dist.get_backend() != "nccl" \
             or hvd.device() != torch.device("cuda", 0):
@@ -3344,6 +3364,335 @@ def log_sharded(results, card: str):
             f"split (ms) {json.dumps(row.get('split_ms'))} [{card}]")
 
 
+# ---------------------------------------------------------------------------
+# Phase 30: the eager-tier controller on the card (two ranks, horovodrun)
+
+
+CONTROLLER_BATCH_PARITY = 2          # per rank, float32 parity
+CONTROLLER_SEQ = 1024
+
+
+def _same_bits(a, b) -> bool:
+    """Equal dtype, shape and bits (floats compared as their bytes)."""
+    import torch
+
+    a, b = a.detach().cpu(), b.detach().cpu()
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+def controller_collectives(rank: int, ctl):
+    """Phase 30 (a): CUDA tensors through the controller against CPU
+    copies through it and against the gloo group, bitwise."""
+    import torch
+    import torch.distributed as dist
+
+    import horovod_tpu_torch as hvd
+
+    world = dist.group.WORLD
+    dev = torch.device("cuda", 0)
+    rng = np.random.RandomState(300 + rank)
+    checked = []
+
+    def check(what, card, host, ref):
+        if card.device != dev:
+            raise AssertionError(f"{what}: result on {card.device}")
+        if not (_same_bits(card, host) and _same_bits(host, ref)):
+            raise AssertionError(
+                f"{what}: card {card.flatten()[:4].tolist()} host "
+                f"{host.flatten()[:4].tolist()} gloo "
+                f"{ref.flatten()[:4].tolist()}")
+        checked.append(what)
+
+    inputs = {
+        "float32": torch.from_numpy(rng.randn(1 << 16).astype(np.float32)),
+        "bfloat16": torch.from_numpy(
+            rng.randn(1 << 16).astype(np.float32) * 3).bfloat16(),
+        "int32": torch.from_numpy(
+            rng.randint(-1000, 1000, 1 << 16).astype(np.int32)),
+    }
+    for dtype, x in inputs.items():
+        for avg in (False, True):
+            label = f"allreduce {dtype} {'average' if avg else 'sum'}"
+            card = hvd.allreduce(x.to(dev), average=avg, name=label)
+            host = hvd.allreduce(x, average=avg, name=label + " cpu")
+            ref = hvd.allreduce(x, average=avg, group=world)
+            torch.cuda.synchronize()
+            if card.dtype != x.dtype:
+                raise AssertionError(f"{label}: dtype {card.dtype}")
+            check(label, card, host, ref)
+    x = inputs["float32"]
+    y = x.to(dev, copy=True)
+    got = hvd.allreduce_(y, average=False, name="in-place")
+    if got is not y:
+        raise AssertionError("allreduce_ returned a new tensor")
+    check("allreduce_ in place", y,
+          hvd.allreduce(x, average=False, name="in-place cpu"),
+          hvd.allreduce(x, average=False, group=world))
+    part = torch.from_numpy(rng.randn(rank + 3, 5).astype(np.float32))
+    check("allgather uneven first dims",
+          hvd.allgather(part.to(dev), name="gather"),
+          hvd.allgather(part, name="gather cpu"),
+          hvd.allgather(part, group=world))
+    ref = x.clone()
+    dist.broadcast(ref, src=1)
+    check("broadcast root 1", hvd.broadcast(x.to(dev), 1, name="bcast"),
+          hvd.broadcast(x, 1, name="bcast cpu"), ref)
+    small = [torch.from_numpy(rng.randn(100 + i).astype(np.float32))
+             for i in range(64)]
+    before = ctl.counters()
+    cards = hvd.grouped_allreduce([t.to(dev) for t in small], name="g64")
+    torch.cuda.synchronize()
+    after = ctl.counters()
+    fused = after["responses"] - before["responses"]
+    hosts = hvd.grouped_allreduce(small, name="g64 cpu")
+    for i, (card, host) in enumerate(zip(cards, hosts)):
+        check(f"grouped {i}", card, host,
+              hvd.allreduce(small[i], group=world))
+    if not fused < 64:
+        raise AssertionError(f"64 tensors in {fused} responses")
+    return {"checked": len(checked), "grouped_responses": fused,
+            "grouped_tensors": after["tensors"] - before["tensors"]}
+
+
+def controller_parity(rank: int, steps: int = 2):
+    """Phase 30 (b): Llama-300M float32, seq 1024, b2 a rank, AdamW:
+    ``DistributedOptimizer`` through the controller against the same
+    steps through the gloo group."""
+    import torch
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.examples import llama_fsdp_training as fx
+    from horovod_tpu_torch.examples import llama_training as lx
+    from horovod_tpu_torch.models.llama import LLAMA_300M
+
+    cfg = dataclasses.replace(LLAMA_300M, dtype=torch.float32)
+    ids = fx.batch_ids(cfg, CONTROLLER_BATCH_PARITY, CONTROLLER_SEQ, 2, rank,
+                       "cuda")
+    loss_fn = lx.make_loss_fn(0)
+    runs = {}
+    for label, group in (("controller", None),
+                         ("group", dist.group.WORLD)):
+        model = lx.make_model(cfg, device="cuda")
+        opt = lx.make_optimizer("adamw", model, group=group)
+        losses = [float(lx.train_step(model, opt, ids, loss_fn))
+                  for _ in range(steps)]
+        runs[label] = (losses, {n: p.detach().cpu()
+                                for n, p in model.named_parameters()})
+        _drop(model, opt)
+        del model, opt
+    (closs, cw), (gloss, gw) = runs["controller"], runs["group"]
+    for a, b in zip(closs, gloss):
+        if not np.isfinite(a) or abs(a - b) > 1e-4 * abs(b):
+            raise AssertionError(f"controller parity: losses {closs} vs "
+                                 f"{gloss}")
+    worst = 0.0
+    for name in sorted(cw):
+        worst = max(worst, float((cw[name] - gw[name]).abs().max()))
+        compare(cw[name], gw[name], "float32",
+                f"controller parity weight {name}")
+    return {"losses_controller": closs, "losses_group": gloss,
+            "max_abs_weight_diff": worst}
+
+
+def controller_timed(rank: int, ctl, steps: int = 3):
+    """Phase 30 (c): Llama-300M bf16 (f32 weights), seq 1024, b8 a rank,
+    AdamW through the controller: one warm step, then ``steps`` timed
+    ones, each with its host wall time, the controller's counters and
+    the flash launches."""
+    import torch
+
+    from horovod_tpu_torch.examples import llama_fsdp_training as fx
+    from horovod_tpu_torch.examples import llama_training as lx
+    from horovod_tpu_torch.models.llama import LLAMA_300M
+
+    model = lx.make_model(LLAMA_300M, device="cuda")
+    opt = lx.make_optimizer("adamw", model)
+    ids = fx.batch_ids(LLAMA_300M, SHARDED_BATCH, SHARDED_SEQ, 2, rank,
+                       "cuda")
+    loss_fn = lx.make_loss_fn(0)
+    grads = sum(1 for p in model.parameters() if p.requires_grad)
+    rows = []
+    for step in range(steps + 1):
+        torch.cuda.synchronize()
+        before = ctl.counters()
+        _reset_counts()
+        t = time.perf_counter()
+        loss = float(lx.train_step(model, opt, ids, loss_fn))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        after = ctl.counters()
+        rows.append({"step": step, "loss": loss, "wall_s": wall,
+                     "launches": _counts(),
+                     **{k: after[k] - before[k] for k in sorted(after)}})
+    timed = rows[1:]
+    wall = sum(r["wall_s"] for r in timed)
+    for r in timed:
+        if r["cache_hits"] != grads or r["tensors"] != grads:
+            raise AssertionError(
+                f"step {r['step']}: {r['cache_hits']} cache hits, "
+                f"{r['tensors']} tensors, {grads} gradients")
+    from horovod_tpu_torch.ops import attention as A
+
+    for r in rows:
+        if any(r["launches"][n] != LAYERS for n in A.LAUNCHES):
+            raise AssertionError(f"step {r['step']}: flash launches "
+                                 f"{r['launches']}")
+    if not all(np.isfinite(r["loss"]) for r in rows):
+        raise AssertionError(f"losses {[r['loss'] for r in rows]}")
+    _drop(model, opt)
+    del model, opt
+    return {"gradients": grads, "steps": rows,
+            "tokens_per_s": 2 * SHARDED_BATCH * SHARDED_SEQ * steps / wall,
+            "step_s": wall / steps,
+            "launches": {n: sum(r["launches"][n] for r in rows)
+                         for n in rows[0]["launches"]}}
+
+
+def controller_worker(out_path: str) -> int:
+    """One rank of phase 30 (``horovodrun -np 2 ... chip_smoke.py
+    --controller-worker OUT``): both ranks share ``cuda:0`` over a gloo
+    group built here (NCCL refuses two ranks on one device); ``init()``
+    adopts it and starts the controller. Rank 0 writes the JSON."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common import basics, config
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    torch.cuda.set_device(0)
+    rank = int(os.environ["HOROVOD_RANK"])
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://{config.spmd_coordinator()}", rank=rank,
+        world_size=int(os.environ["HOROVOD_SIZE"]),
+        timeout=datetime.timedelta(seconds=600))
+    hvd.init(device="cuda:0")
+    ctl = basics.controller()
+    if ctl is None or hvd.size() != 2 or hvd.device() != torch.device(
+            "cuda", 0):
+        raise AssertionError(f"rank {rank}: controller {ctl}, size "
+                             f"{hvd.size()}, device {hvd.device()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    results = {}
+    for label, fn in (("a", lambda: controller_collectives(rank, ctl)),
+                      ("b", lambda: controller_parity(rank)),
+                      ("c", lambda: controller_timed(rank, ctl))):
+        t = time.perf_counter()
+        results[label] = fn()
+        results[label]["wall_s"] = time.perf_counter() - t
+        log(f"rank {rank} phase 30 ({label}): "
+            f"{results[label]['wall_s']:.1f} s")
+    results["by_rank"] = hvd.allgather_object(
+        {"c": results["c"], "counters": ctl.counters()})
+    hvd.shutdown()
+    dist.destroy_process_group()
+    if rank == 0:
+        with open(out_path, "w") as f:
+            json.dump(results, f)
+    log(f"rank {rank}: controller worker ok")
+    return 0
+
+
+TIMELINE_ACTIVITIES = ("MEMCPY_IN_FUSION_BUFFER", "TCP_COLLECTIVE",
+                       "MEMCPY_OUT_FUSION_BUFFER")
+
+
+def check_timeline(path: str):
+    """Rank 0's timeline parses as JSON and holds, per executed allreduce
+    response, the fusion-buffer copies and the star exchange; the card's
+    responses also their copies to and from the host (the CPU copies of
+    phase 30 (a) have none); and negotiations."""
+    with open(path) as f:
+        events = json.load(f)
+    counts = {}
+    for ev in events:
+        if ev.get("ph") == "B":
+            counts[ev["name"]] = counts.get(ev["name"], 0) + 1
+    allreduces = counts.get("ALLREDUCE", 0)
+    card = counts.get("MEMCPY_D2H", 0)
+    if not allreduces or any(counts.get(a, 0) != allreduces
+                             for a in TIMELINE_ACTIVITIES) \
+            or not 0 < card == counts.get("MEMCPY_H2D") < allreduces \
+            or not counts.get("NEGOTIATE_ALLREDUCE"):
+        raise AssertionError(f"timeline: {counts}")
+    return counts
+
+
+def hmac_rate(nbytes: int = 1 << 28) -> float:
+    """GB/s of one thread's HMAC-SHA256 on this host: the wire's digest
+    over each DATA frame's payload."""
+    import hashlib
+    import hmac
+
+    data = bytes(nbytes)
+    t = time.perf_counter()
+    hmac.new(bytes(32), data, hashlib.sha256).digest()
+    return nbytes / (time.perf_counter() - t) / 1e9
+
+
+def run_controller_phase(card: str):
+    """Phase 30: ``python -m horovod_tpu_torch.run -np 2 ... chip_smoke.py
+    --controller-worker OUT``; returns rank 0's results."""
+    import tempfile
+
+    import torch
+
+    torch.cuda.empty_cache()
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_controller_")
+    out_path = os.path.join(out_dir, "controller.json")
+    timeline = os.path.join(out_dir, "timeline.json")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("HOROVOD_", "OMPI_", "PMI_"))}
+    here = os.path.dirname(os.path.abspath(__file__))
+    env.update(PYTHONPATH=here, HOROVOD_TIMELINE=timeline)
+    proc = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.run", "-np", "2",
+         sys.executable, os.path.abspath(__file__), "--controller-worker",
+         out_path], cwd=here, env=env, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"controller job exited {proc.returncode}")
+    with open(out_path) as f:
+        results = json.load(f)
+    counts = check_timeline(timeline)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    results["hmac_sha256_gb_s"] = hmac_rate()
+    a, b, c = results["a"], results["b"], results["c"]
+    log(f"controller (a): {a['checked']} collectives of CUDA tensors "
+        f"bitwise equal to CPU copies through the controller and to the "
+        f"gloo group; 64 grouped tensors in {a['grouped_responses']} fused "
+        f"responses")
+    log(f"controller (b): llama300m f32 seq {CONTROLLER_SEQ} "
+        f"b{CONTROLLER_BATCH_PARITY} a rank, 2 AdamW steps; losses "
+        f"controller {b['losses_controller']} vs gloo group "
+        f"{b['losses_group']}; max abs weight diff "
+        f"{b['max_abs_weight_diff']:.3g}")
+    for r, row in enumerate(results["by_rank"]):
+        for step in row["c"]["steps"]:
+            log(f"controller (c) rank {r} step {step['step']}: wall "
+                f"{step['wall_s'] * 1e3:.1f} ms, {step['responses']} "
+                f"responses, {step['cache_hits']} cache hits of "
+                f"{row['c']['gradients']} gradients, negotiate "
+                f"{step['negotiate_s'] * 1e3:.1f} ms, pack+D2H "
+                f"{step['pack_s'] * 1e3:.1f} ms, star exchange "
+                f"{step['exchange_s'] * 1e3:.1f} ms, H2D+unpack "
+                f"{step['unpack_s'] * 1e3:.1f} ms, flash "
+                f"{json.dumps(step['launches'])}")
+    log(f"controller (c): llama300m bf16 seq {SHARDED_SEQ} b{SHARDED_BATCH} "
+        f"a rank, AdamW, dp 2 through the controller (two ranks sharing "
+        f"one card): {c['tokens_per_s']:.1f} tokens/s, step "
+        f"{c['step_s'] * 1e3:.1f} ms; timeline events {json.dumps(counts)}; "
+        f"this host hashes HMAC-SHA256 (every DATA frame, at both ends) at "
+        f"{results['hmac_sha256_gb_s']:.3f} GB/s on one thread [{card}]")
+    results["timeline"] = counts
+    return results
+
+
 def main() -> int:
     import torch
 
@@ -3454,6 +3803,8 @@ def main() -> int:
                      run_parallel_phases, card)
     resume = phase("29 checkpoint resume", run_checkpoint_resume, card)
     hvd.shutdown()
+    controller = phase("30 controller (two ranks, horovodrun)",
+                       run_controller_phase, card)
 
     # The two ranks' counts of each parallel path, summed.
     by_rank = parallel["counts_by_rank"]
@@ -3472,7 +3823,11 @@ def main() -> int:
                    "llama300m fsdp training (27)": {
                        n: both("27 fsdp", "timed", n) for n in flash_names},
                    "llama300m zero-1 training (28)": {
-                       n: both("28 zero", "timed", n) for n in flash_names}}
+                       n: both("28 zero", "timed", n) for n in flash_names},
+                   "llama300m training through the controller (30)": {
+                       n: sum(r["c"]["launches"][n]
+                              for r in controller["by_rank"])
+                       for n in flash_names}}
     forward_only = {f"long context ring {layout} (24)": both(
         "24 sp timed", f"long_context_{layout}", "flash_forward")
         for layout in ("contiguous", "zigzag")}
@@ -3547,6 +3902,7 @@ def main() -> int:
     log(f"vit: {json.dumps(vit)}")
     log(f"parallel: {json.dumps(parallel)}")
     log(f"checkpoint resume: {json.dumps(resume)}")
+    log(f"controller: {json.dumps(controller)}")
     log(f"ring kernels: {json.dumps({f'{k[0]} {k[1]}': v for k, v in ring_flash.items()})}")
     log(f"wall time: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
@@ -3560,4 +3916,6 @@ if __name__ == "__main__":
     if len(sys.argv) == 5 and sys.argv[1] == "--parallel-worker":
         sys.exit(parallel_worker(int(sys.argv[2]), int(sys.argv[3]),
                                  sys.argv[4]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--controller-worker":
+        sys.exit(controller_worker(sys.argv[2]))
     sys.exit(main())

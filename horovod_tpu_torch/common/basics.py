@@ -2,14 +2,27 @@
 ``horovod_tpu/common/basics.py`` (``init`` .. ``local_num_devices``).
 
 ``init()`` reads the topology (``common/topology.py``), binds this
-process's card, ``cuda:{local_rank}`` (or the CPU when the caller passes
-``device="cpu"``), and, whenever the launcher environment is present,
-builds the ``torch.distributed`` process group the collectives run on:
-NCCL on a card, gloo on the CPU. Its rendezvous is given explicitly:
-``HOROVOD_CONTROLLER_ADDR`` (``host:port``, rank 0 listens) or
-``HOROVOD_RENDEZVOUS_FILE`` (a ``FileStore``); a launched job of size 1
-with neither keeps an in-process store. The JAX package's controller,
-native engine, timeline, metrics and elastic parts are not ported.
+process's card, ``cuda:{local_rank}`` (or the device the caller passes,
+e.g. ``device="cpu"``), and builds the job's two tiers:
+
+* the **process group** (``torch.distributed``: NCCL on a card, gloo on
+  the CPU), whenever the launcher environment is present and no group
+  exists yet. Its rendezvous is given explicitly:
+  ``HOROVOD_SPMD_COORDINATOR`` (``host:port``, a ``TCPStore`` rank 0
+  listens on) or ``HOROVOD_RENDEZVOUS_FILE`` (a ``FileStore``); a
+  launched job of size 1 with neither keeps an in-process store. The
+  code whose JAX counterpart runs inside ``jit``/``shard_map`` calls it,
+  and so does every ``group=`` collective;
+* the **controller** (``controller/controller.py``, the eager tier over
+  the TCP star), when the job has more than one rank and the launcher
+  exported ``HOROVOD_CONTROLLER_ADDR`` — the JAX rule. The world-group
+  collectives of ``horovod_tpu_torch.torch`` then run through it. If it
+  fails to start, ``init()`` raises; nothing falls back to the process
+  group. Rank 0 writes the timeline (``HOROVOD_TIMELINE``).
+
+The controller runs beside the process group, never instead of it: a
+launched job of more than one rank needs the group's rendezvous too.
+The native engine and elastic membership are not ported.
 """
 
 from __future__ import annotations
@@ -24,6 +37,7 @@ import torch.distributed as dist
 
 from .. import DeviceLike
 from . import config
+from . import hvd_logging as logging
 from .topology import Topology, detect
 
 # How long a rank waits for its peers at the rendezvous and in a
@@ -37,6 +51,18 @@ class _State:
         self.topology = topology
         self.device = device
         self.owns_group = owns_group
+        self.controller = None
+        self.timeline = None
+
+    def close(self) -> None:
+        if self.controller is not None:
+            self.controller.shutdown()
+            self.controller = None
+        if self.timeline is not None:
+            self.timeline.close()
+            self.timeline = None
+        if self.owns_group and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 _state: Optional[_State] = None
@@ -44,43 +70,54 @@ _state_lock = threading.Lock()
 
 
 def _store(topology: Topology):
+    """The process group's rendezvous."""
     path = config.rendezvous_file()
     if path:
         return dist.FileStore(path, topology.size)
-    addr = config.controller_addr()
+    addr = config.spmd_coordinator()
     if addr:
         host, _, port = addr.rpartition(":")
         if not host or not port.isdigit():
             raise ValueError(
-                f"HOROVOD_CONTROLLER_ADDR must be host:port, got {addr!r}")
+                f"HOROVOD_SPMD_COORDINATOR must be host:port, got {addr!r}")
         return dist.TCPStore(host, int(port), topology.size,
                              topology.rank == 0, timeout=_TIMEOUT)
     if topology.size == 1:
         return dist.HashStore()
     raise RuntimeError(
         f"a job of size {topology.size} needs a rendezvous: set "
-        "HOROVOD_CONTROLLER_ADDR=host:port or HOROVOD_RENDEZVOUS_FILE")
+        "HOROVOD_SPMD_COORDINATOR=host:port or HOROVOD_RENDEZVOUS_FILE, or "
+        "launch with horovodrun")
 
 
 def init(ranks: Optional[Sequence[int]] = None,
          device: DeviceLike = None) -> None:
     """Initialize. Idempotent. ``ranks`` narrows the job to a subset of
     processes; ``device=None`` binds ``cuda:{local_rank}`` and raises
-    without a card, ``device="cpu"`` runs the job on the CPU (gloo)."""
+    without a card, ``device="cpu"`` runs the job on the CPU (gloo), and
+    ``device="cuda:N"`` binds that card."""
     global _state
     with _state_lock:
         if _state is not None:
             return
+        cfg = config.Config.from_env()
+        logging.configure(cfg.log_level, cfg.log_hide_timestamp)
+        # Launcher-spawned ranks die with their launcher.
+        from ..run.watchdog import maybe_install_from_env
+
+        maybe_install_from_env()
         topology = detect(ranks)
+        logging.set_rank(topology.rank)
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
                     "horovod_tpu_torch.init: no CUDA device is available; "
                     "pass device='cpu' explicitly to run on the CPU")
             dev = torch.device("cuda", topology.device_index)
-            torch.cuda.set_device(dev)
         else:
             dev = torch.device(device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
         owns_group = False
         if topology.launched and not dist.is_initialized():
             backend = "nccl" if dev.type == "cuda" else "gloo"
@@ -89,16 +126,32 @@ def init(ranks: Optional[Sequence[int]] = None,
                 backend, store=_store(topology), rank=topology.rank,
                 world_size=topology.size, timeout=_TIMEOUT, **kwargs)
             owns_group = True
-        _state = _State(topology, dev, owns_group)
+        state = _State(topology, dev, owns_group)
+        try:
+            if topology.size > 1 and config.controller_addr():
+                if cfg.timeline_filename and topology.rank == 0:
+                    from .timeline import Timeline
+
+                    state.timeline = Timeline(
+                        cfg.timeline_filename,
+                        mark_cycles=cfg.timeline_mark_cycles)
+                from ..controller.controller import Controller
+
+                state.controller = Controller(cfg, topology,
+                                              timeline=state.timeline)
+        except BaseException:
+            state.close()
+            raise
+        _state = state
 
 
 def shutdown() -> None:
-    """Tear down the process group ``init`` built."""
+    """Stop the controller, close the timeline and tear down the process
+    group ``init`` built."""
     global _state
     with _state_lock:
-        if _state is not None and _state.owns_group \
-                and dist.is_initialized():
-            dist.destroy_process_group()
+        if _state is not None:
+            _state.close()
         _state = None
 
 
@@ -114,6 +167,12 @@ def _ensure_initialized() -> _State:
 
 def is_initialized() -> bool:
     return _state is not None
+
+
+def controller():
+    """The running eager-tier controller, or None (size 1, ``--spmd``, or
+    no launcher)."""
+    return _ensure_initialized().controller
 
 
 def device() -> torch.device:

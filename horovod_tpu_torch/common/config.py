@@ -1,14 +1,56 @@
 """Environment knobs the port reads — its own copy of the accessors in
-``horovod_tpu/common/config.py`` that the serving and training slices
-need (the port imports nothing of ``horovod_tpu``). Same variable names,
-same parsing: unset/empty/garbage falls back to the default, one place
-per knob. ``HOROVOD_RENDEZVOUS_FILE`` is the port's own: a FileStore
-rendezvous for ``torch.distributed``."""
+``horovod_tpu/common/config.py`` that the serving, training and
+controller slices need (the port imports nothing of ``horovod_tpu``).
+Same variable names, same defaults, same parsing: unset/empty/garbage
+falls back to the default, one place per knob. ``HOROVOD_RENDEZVOUS_FILE``
+is the port's own: a FileStore rendezvous for ``torch.distributed``.
+:class:`Config` is the snapshot of the knobs the eager-tier controller
+reads, taken at ``init()``."""
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Optional
+
+DEFAULT_FUSION_THRESHOLD_BYTES = 64 * 1024 * 1024
+DEFAULT_CYCLE_TIME_MS = 5.0
+DEFAULT_CACHE_CAPACITY = 1024
+DEFAULT_STALL_CHECK_SECONDS = 60.0
+DEFAULT_START_TIMEOUT_SECONDS = 120.0
+# Liveness bound for the post-rendezvous control plane: a blocked recv that
+# sees no frame (not even a heartbeat) for this long declares the peer dead.
+DEFAULT_COMM_TIMEOUT_SECONDS = 120.0
+
+
+def start_timeout_seconds(
+        default: float = DEFAULT_START_TIMEOUT_SECONDS) -> float:
+    """``HOROVOD_START_TIMEOUT`` (``horovodrun --start-timeout``): the
+    rendezvous accept/connect window. Garbage and non-positive values fall
+    back to ``default``."""
+    try:
+        val = float(os.environ.get("HOROVOD_START_TIMEOUT", ""))
+    except (ValueError, OverflowError):
+        return default
+    return val if val > 0 else default
+
+
+def comm_timeout_seconds() -> float:
+    """``HOROVOD_COMM_TIMEOUT_SECONDS``: per-recv liveness deadline on the
+    eager control plane. 0 (or negative) disables the deadline."""
+    val = _env_float("HOROVOD_COMM_TIMEOUT_SECONDS",
+                     DEFAULT_COMM_TIMEOUT_SECONDS)
+    return val if val > 0 else 0.0
+
+
+def heartbeat_interval_seconds() -> float:
+    """``HOROVOD_HEARTBEAT_INTERVAL_SECONDS``: idle heartbeat frame period
+    (0 disables). Defaults to a quarter of the comm timeout capped at 10 s;
+    with the deadline disabled, heartbeats default off too."""
+    timeout = comm_timeout_seconds()
+    default = min(10.0, timeout / 4.0) if timeout else 0.0
+    val = _env_float("HOROVOD_HEARTBEAT_INTERVAL_SECONDS", default)
+    return val if val > 0 else 0.0
 
 
 def env_rank() -> Optional[int]:
@@ -134,9 +176,10 @@ def restart_epoch() -> int:
 
 
 def elastic_enabled() -> bool:
-    """``HOROVOD_ELASTIC``: opt-in elastic membership. The port has no
-    controller yet, so the knob only selects ``State.restore``'s path
-    (with ``elastic_restore_mode``); membership changes wait for it."""
+    """``HOROVOD_ELASTIC``: opt-in elastic membership. The port's
+    controller has no membership changes yet and refuses the knob; it
+    otherwise selects only ``State.restore``'s path (with
+    ``elastic_restore_mode``)."""
     return _env_bool("HOROVOD_ELASTIC")
 
 
@@ -184,11 +227,30 @@ def _env_int(name: str, default: int) -> int:
         return default
 
 
+def _env_float(name: str, default: float) -> float:
+    val = os.environ.get(name)
+    if val is None or not val.strip():
+        return default
+    try:
+        return float(val)
+    except ValueError:
+        return default
+
+
 def controller_addr() -> Optional[str]:
-    """``HOROVOD_CONTROLLER_ADDR``: ``host:port`` of the job's rendezvous
-    (rank 0 listens there); None when unset. The port builds its
-    ``torch.distributed`` process group on it."""
+    """``HOROVOD_CONTROLLER_ADDR``: the coordinator's TCP star endpoint
+    (``host:port``, rank 0 listens), exported by ``horovodrun`` in eager
+    mode; None outside a launched eager job. ``init()`` starts the
+    controller on it when the job has more than one rank."""
     return os.environ.get("HOROVOD_CONTROLLER_ADDR") or None
+
+
+def spmd_coordinator() -> Optional[str]:
+    """``HOROVOD_SPMD_COORDINATOR``: ``host:port`` of the device tier's
+    rendezvous — the ``TCPStore`` the ``torch.distributed`` process group
+    is built on (rank 0 listens); None when unset. ``horovodrun`` exports
+    it in both modes, on a port of its own."""
+    return os.environ.get("HOROVOD_SPMD_COORDINATOR") or None
 
 
 def rendezvous_file() -> Optional[str]:
@@ -196,3 +258,74 @@ def rendezvous_file() -> Optional[str]:
     ``torch.distributed.FileStore`` rendezvous instead of TCP (tests and
     single-host jobs that want no port); None when unset."""
     return os.environ.get("HOROVOD_RENDEZVOUS_FILE") or None
+
+
+def engine() -> Optional[str]:
+    """``HOROVOD_ENGINE`` (native/python); None when unset. The port has
+    the Python controller only."""
+    return os.environ.get("HOROVOD_ENGINE") or None
+
+
+def secret_key_hex() -> Optional[str]:
+    """``HOROVOD_SECRET_KEY`` (hex), the per-job HMAC key minted by the
+    launcher. None means the hermetic single-job default applies
+    (``common/wire.job_secret``)."""
+    return os.environ.get("HOROVOD_SECRET_KEY") or None
+
+
+def ring_addrs() -> Optional[str]:
+    """``HOROVOD_RING_ADDRS``: per-rank addresses of the native ring data
+    plane, which the port has not ported (the controller refuses them)."""
+    return os.environ.get("HOROVOD_RING_ADDRS") or None
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    """The knobs the eager-tier controller reads, snapshotted at
+    ``init()`` — the JAX package's names and defaults."""
+
+    # Liveness: per-recv deadline (0 = none) and idle heartbeat period
+    # (0 = none). No field defaults: the heartbeat's default follows the
+    # deadline, so both come from ``comm_timeout_seconds()`` and
+    # ``heartbeat_interval_seconds()`` in :meth:`from_env`.
+    comm_timeout_seconds: float
+    heartbeat_interval_seconds: float
+    # Tensor Fusion: fused allreduce buffers up to this many bytes.
+    fusion_threshold_bytes: int = DEFAULT_FUSION_THRESHOLD_BYTES
+    # Background controller tick, ms.
+    cycle_time_ms: float = DEFAULT_CYCLE_TIME_MS
+    # Response-cache entries; 0 disables.
+    cache_capacity: int = DEFAULT_CACHE_CAPACITY
+    # Chrome-trace timeline written by rank 0.
+    timeline_filename: Optional[str] = None
+    timeline_mark_cycles: bool = False
+    # Stall detection: warn after stall_check_seconds, shut the job down
+    # after stall_shutdown_seconds (0 = never).
+    stall_check_disable: bool = False
+    stall_check_seconds: float = DEFAULT_STALL_CHECK_SECONDS
+    stall_shutdown_seconds: float = 0.0
+    log_level: str = "warning"
+    log_hide_timestamp: bool = False
+
+    @staticmethod
+    def from_env() -> "Config":
+        return Config(
+            fusion_threshold_bytes=_env_int(
+                "HOROVOD_FUSION_THRESHOLD", DEFAULT_FUSION_THRESHOLD_BYTES),
+            cycle_time_ms=_env_float("HOROVOD_CYCLE_TIME",
+                                     DEFAULT_CYCLE_TIME_MS),
+            cache_capacity=_env_int("HOROVOD_CACHE_CAPACITY",
+                                    DEFAULT_CACHE_CAPACITY),
+            timeline_filename=os.environ.get("HOROVOD_TIMELINE") or None,
+            timeline_mark_cycles=_env_bool("HOROVOD_TIMELINE_MARK_CYCLES"),
+            stall_check_disable=_env_bool("HOROVOD_STALL_CHECK_DISABLE"),
+            stall_check_seconds=_env_float(
+                "HOROVOD_STALL_CHECK_TIME_SECONDS",
+                DEFAULT_STALL_CHECK_SECONDS),
+            stall_shutdown_seconds=_env_float(
+                "HOROVOD_STALL_SHUTDOWN_TIME_SECONDS", 0.0),
+            comm_timeout_seconds=comm_timeout_seconds(),
+            heartbeat_interval_seconds=heartbeat_interval_seconds(),
+            log_level=log_level_name(),
+            log_hide_timestamp=_env_bool("HOROVOD_LOG_HIDE_TIME"),
+        )

@@ -10,7 +10,9 @@ The JAX process model of step 2 there has no counterpart: a torch job is
 one process per card, launched with the environment above.
 
 Device counts come from ``torch.cuda.device_count()``: one process binds
-one card, ``cuda:{local_rank}``.
+one card, ``cuda:{local_rank}`` — or ``cuda:0`` when
+``CUDA_VISIBLE_DEVICES`` names a single card (``horovodrun
+--bind-chips`` gives each local rank its own).
 """
 
 from __future__ import annotations
@@ -65,6 +67,15 @@ class Topology:
                 f"{self.local_size}")
 
 
+def _device_index(local_rank: int) -> int:
+    """The card this process binds: ``cuda:{local_rank}``, or the one
+    card ``CUDA_VISIBLE_DEVICES`` leaves it."""
+    visible = (env_str("CUDA_VISIBLE_DEVICES") or "").strip()
+    if visible and "," not in visible:
+        return 0
+    return local_rank
+
+
 def detect(ranks: Optional[Sequence[int]] = None) -> Topology:
     """Discover the topology. ``ranks`` narrows the job to a subset of
     processes, renumbered in the order given."""
@@ -111,7 +122,7 @@ def detect(ranks: Optional[Sequence[int]] = None) -> Topology:
             rank=new_rank, size=len(ranks), local_rank=0, local_size=1,
             cross_rank=new_rank, cross_size=len(ranks),
             num_devices=num_devices, local_num_devices=local_num_devices,
-            launched=launched, device_index=local_rank)
+            launched=launched, device_index=_device_index(local_rank))
         topo.validate()
         return topo
 
@@ -119,6 +130,6 @@ def detect(ranks: Optional[Sequence[int]] = None) -> Topology:
         rank=rank, size=size, local_rank=local_rank, local_size=local_size,
         cross_rank=cross_rank, cross_size=cross_size,
         num_devices=num_devices, local_num_devices=local_num_devices,
-        launched=launched, device_index=local_rank)
+        launched=launched, device_index=_device_index(local_rank))
     topo.validate()
     return topo

@@ -1,0 +1,350 @@
+"""Authenticated framed TCP transport for the control plane — the port's
+copy of ``horovod_tpu/common/wire.py``, frame for frame. Every frame is
+
+    [1-byte kind][4-byte big-endian payload length][32-byte HMAC-SHA256][payload]
+
+with the HMAC keyed by the per-job secret and computed over kind+payload
+(the kind is authenticated, so a tamperer cannot turn a data frame into
+an abort). Kinds handled here:
+
+* ``DATA`` — control payloads are pickled messages; tensor payloads are
+  raw buffer bytes (no pickling on the data path).
+* ``HEARTBEAT`` — liveness frame; receivers skip it transparently, so
+  heartbeats may interleave anywhere in the lockstep protocol (a per-wire
+  send lock keeps frames whole). A non-empty payload is the JAX package's
+  clock-sync ping-pong, which the port does not run: it is skipped too.
+* ``ABORT`` — coordinated failure notice (pickled ``{"message",
+  "dead_rank", "op"}``); any recv raises :class:`RemoteAbortError`.
+
+``JOIN``, ``RESHAPE``, ``SHARD_FETCH`` and ``SHARD_DATA`` keep their kind
+bytes, so frames stay compatible, but the elastic membership and shard
+planes that use them are not ported (ROADMAP Queue 1 item 8): receiving
+one raises :class:`AuthError`.
+
+Receives honour a per-wire deadline (:meth:`Wire.set_deadline`, wired to
+``HOROVOD_COMM_TIMEOUT_SECONDS``): a recv that sees no bytes for that long
+raises :class:`CommTimeoutError`.
+
+Large payloads cost one pass each for the digest and the socket and no
+copies: the digest is fed the kind byte and then the payload, the header
+and the payload go out as two writes under one lock, and a payload is
+received into one buffer. The bytes on the socket are the same as
+hashing and sending their concatenation.
+
+The secret comes from ``HOROVOD_SECRET_KEY`` (hex), generated by the
+launcher per job. ``run/task_fn.py`` (the standalone ssh-piped NIC probe)
+re-implements this frame layout; keep them byte-compatible.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import hmac
+import os
+import pickle
+import select
+import socket
+import struct
+import threading
+import time
+from typing import Any, Optional
+
+from .. import metrics
+from .config import secret_key_hex
+
+DIGEST_LEN = 32
+_HDR = struct.Struct(">BI")  # frame kind, payload length
+MAX_FRAME = 1 << 31  # sanity bound
+
+FRAME_DATA = 0
+FRAME_HEARTBEAT = 1
+FRAME_ABORT = 2
+# Reserved: elastic membership and the checkpoint-shard plane.
+FRAME_JOIN = 3
+FRAME_RESHAPE = 4
+FRAME_SHARD_FETCH = 5
+FRAME_SHARD_DATA = 6
+_KNOWN_KINDS = (FRAME_DATA, FRAME_HEARTBEAT, FRAME_ABORT, FRAME_JOIN,
+                FRAME_RESHAPE, FRAME_SHARD_FETCH, FRAME_SHARD_DATA)
+_KIND_NAMES = {FRAME_DATA: "data", FRAME_HEARTBEAT: "heartbeat",
+               FRAME_ABORT: "abort", FRAME_JOIN: "join",
+               FRAME_RESHAPE: "reshape",
+               FRAME_SHARD_FETCH: "shard_fetch",
+               FRAME_SHARD_DATA: "shard_data"}
+
+_m = None
+
+
+def _wire_metrics():
+    """Lazy registration, with per-kind children pre-resolved so the frame
+    path is one cached lookup + a locked add."""
+    global _m
+    if _m is None:
+        from types import SimpleNamespace
+
+        frames_sent = metrics.counter(
+            "hvd_wire_frames_sent_total",
+            "Control-plane frames sent, by frame kind.", ("kind",))
+        bytes_sent = metrics.counter(
+            "hvd_wire_bytes_sent_total",
+            "Control-plane bytes sent (header + payload), by frame kind.",
+            ("kind",))
+        frames_recv = metrics.counter(
+            "hvd_wire_frames_recv_total",
+            "Control-plane frames received, by frame kind.", ("kind",))
+        bytes_recv = metrics.counter(
+            "hvd_wire_bytes_recv_total",
+            "Control-plane bytes received (header + payload), by frame "
+            "kind.", ("kind",))
+        deadline = metrics.counter(
+            "hvd_wire_deadline_trips_total",
+            "Liveness deadline expiries (CommTimeoutError), by side.",
+            ("side",))
+        _m = SimpleNamespace(
+            sent={k: (frames_sent.labels(v), bytes_sent.labels(v))
+                  for k, v in _KIND_NAMES.items()},
+            recv={k: (frames_recv.labels(v), bytes_recv.labels(v))
+                  for k, v in _KIND_NAMES.items()},
+            recv_wait=metrics.histogram(
+                "hvd_wire_recv_wait_seconds",
+                "Time a blocked recv waited for its data frame."),
+            trip_recv=deadline.labels("recv"),
+            trip_send=deadline.labels("send"),
+        )
+    return _m
+
+
+def job_secret() -> bytes:
+    """Per-job HMAC key, minted by the launcher and exported to every
+    rank."""
+    key = secret_key_hex()
+    if key:
+        return bytes.fromhex(key)
+    # Hermetic single-job default (tests / manual runs without the launcher).
+    return b"horovod-tpu-default-insecure-key"
+
+
+def make_secret() -> str:
+    return os.urandom(32).hex()
+
+
+def parse_addr(addr: str) -> "tuple[str, int]":
+    """``host:port`` → ``(host, port)``, empty host meaning loopback."""
+    host, _, port = addr.rpartition(":")
+    return host or "127.0.0.1", int(port)
+
+
+class AuthError(RuntimeError):
+    pass
+
+
+class CommTimeoutError(ConnectionError):
+    """No frame (not even a heartbeat) arrived within the deadline: the
+    peer process is dead, wedged, or partitioned."""
+
+
+class RemoteAbortError(RuntimeError):
+    """The peer broadcast a coordinated abort (ABORT frame): the job is
+    failing and this rank must fail its pending work with the attached
+    diagnosis instead of waiting out its own timeout."""
+
+    def __init__(self, message: str, dead_rank: Optional[int] = None,
+                 op: Optional[str] = None):
+        super().__init__(message)
+        self.dead_rank = dead_rank
+        self.op = op
+
+
+def _as_bytes_view(payload) -> memoryview:
+    """A flat byte view of any contiguous buffer (bytes, bytearray, a
+    numpy array)."""
+    view = memoryview(payload)
+    return view if view.format == "B" and view.ndim == 1 else view.cast("B")
+
+
+class Wire:
+    """Frame/unframe over a connected socket."""
+
+    # A peer that stops draining (SIGSTOP, wedged in native code) never
+    # closes its socket: a send may sit in flow control at most this
+    # multiple of the recv deadline before the peer is declared dead.
+    SEND_STALL_FACTOR = 8
+
+    def __init__(self, sock: socket.socket, secret: Optional[bytes] = None):
+        self._sock = sock
+        self._secret = secret if secret is not None else job_secret()
+        # Heartbeats ride a background thread; frames must never
+        # interleave mid-send.
+        self._send_lock = threading.Lock()
+        self._deadline: Optional[float] = None
+        self._first_deadline: Optional[float] = None
+
+    def set_deadline(self, seconds: Optional[float],
+                     first: Optional[float] = None) -> None:
+        """Per-recv liveness bound; None or <=0 restores blocking mode.
+        ``first`` optionally bounds only the first frame with a longer
+        one-shot deadline (the rendezvous window)."""
+        self._deadline = seconds if seconds and seconds > 0 else None
+        self._first_deadline = first if first and first > 0 else None
+        self._sock.settimeout(self._first_deadline or self._deadline)
+
+    def _digest(self, kind: int, payload) -> bytes:
+        mac = hmac.new(self._secret, bytes((kind,)), hashlib.sha256)
+        mac.update(payload)
+        return mac.digest()
+
+    def _header(self, kind: int, view: memoryview) -> bytes:
+        return _HDR.pack(kind, view.nbytes) + self._digest(kind, view)
+
+    def _count_sent(self, kind: int, nbytes: int) -> None:
+        if metrics.on():
+            frames, counted = _wire_metrics().sent[kind]
+            frames.inc()
+            counted.inc(_HDR.size + DIGEST_LEN + nbytes)
+
+    def _send_frame(self, kind: int, payload) -> None:
+        view = _as_bytes_view(payload)
+        header = self._header(kind, view)
+        with self._send_lock:
+            self._sendall(header)
+            self._sendall(view)
+        self._count_sent(kind, view.nbytes)
+
+    def _try_send_frame(self, kind: int, payload: bytes) -> bool:
+        """Non-blocking frame send: never lets one stalled wire starve the
+        heartbeat thread's loop over the other wires. Skips (False) when a
+        bulk send holds the lock (frames are flowing — that is liveness)
+        or when the peer's buffer cannot take a frame."""
+        if not self._send_lock.acquire(blocking=False):
+            return False
+        try:
+            poller = select.poll()
+            poller.register(self._sock, select.POLLOUT)
+            if not poller.poll(0):
+                return False  # send buffer full: don't block the loop
+            view = _as_bytes_view(payload)
+            self._sendall(self._header(kind, view) + bytes(view))
+            self._count_sent(kind, view.nbytes)
+            return True
+        finally:
+            self._send_lock.release()
+
+    def try_send_heartbeat(self) -> bool:
+        """Idle-cycle liveness frame."""
+        return self._try_send_frame(FRAME_HEARTBEAT, b"")
+
+    def _sendall(self, data) -> None:
+        """sendall that tolerates the recv deadline: ``settimeout`` applies
+        to sends too, and a send that raised after one timeout would be a
+        spurious failure (a full buffer is flow control) and a stream
+        desync. Timed-out sends keep going until the stall bound."""
+        view = _as_bytes_view(data)
+        sent = 0
+        stalled = 0.0
+        while sent < view.nbytes:
+            try:
+                sent += self._sock.send(view[sent:])
+                stalled = 0.0  # progress resets the stall clock
+            except socket.timeout:
+                deadline = self._first_deadline or self._deadline
+                stalled += deadline or 0.0
+                if deadline and stalled >= self.SEND_STALL_FACTOR * deadline:
+                    if metrics.on():
+                        _wire_metrics().trip_send.inc()
+                    raise CommTimeoutError(
+                        f"peer stopped draining its socket for {stalled:.0f}s "
+                        f"({self.SEND_STALL_FACTOR}x the "
+                        "HOROVOD_COMM_TIMEOUT_SECONDS deadline) — peer alive "
+                        "but wedged")
+
+    def send_bytes(self, payload) -> None:
+        """One DATA frame carrying ``payload`` (any contiguous buffer)."""
+        self._send_frame(FRAME_DATA, payload)
+
+    def send_heartbeat(self) -> None:
+        self._send_frame(FRAME_HEARTBEAT, b"")
+
+    def send_abort(self, message: str, dead_rank: Optional[int] = None,
+                   op: Optional[str] = None) -> None:
+        info = {"message": message, "dead_rank": dead_rank, "op": op}
+        self._send_frame(
+            FRAME_ABORT, pickle.dumps(info, protocol=pickle.HIGHEST_PROTOCOL))
+
+    def recv_bytes(self) -> bytearray:
+        """Lockstep data-stream read: the next DATA frame's payload, in a
+        writable buffer of its own."""
+        mon = metrics.on()
+        t0 = time.monotonic() if mon else 0.0
+        while True:
+            kind, payload = self._recv_frame()
+            if kind == FRAME_HEARTBEAT:
+                continue  # liveness only; invisible to the protocol
+            if kind == FRAME_ABORT:
+                info = pickle.loads(payload)
+                raise RemoteAbortError(info.get("message", "job aborted"),
+                                       dead_rank=info.get("dead_rank"),
+                                       op=info.get("op"))
+            if kind == FRAME_DATA:
+                if mon:
+                    _wire_metrics().recv_wait.observe(time.monotonic() - t0)
+                return payload
+            raise AuthError(
+                f"unexpected {_KIND_NAMES[kind]} frame in the data stream: "
+                "elastic membership and the shard plane are not ported "
+                "(ROADMAP Queue 1 item 8)")
+
+    def _recv_frame(self) -> tuple:
+        header = self._recv_exact(_HDR.size + DIGEST_LEN)
+        kind, length = _HDR.unpack(header[:_HDR.size])
+        if length > MAX_FRAME:
+            raise AuthError(f"oversized frame ({length} bytes)")
+        digest = bytes(header[_HDR.size:])
+        payload = self._recv_exact(length)
+        if not hmac.compare_digest(digest, self._digest(kind, payload)):
+            raise AuthError("HMAC digest mismatch on control frame")
+        if kind not in _KNOWN_KINDS:
+            # Authenticated but unknown: version skew inside one job.
+            raise AuthError(f"unknown frame kind {kind}")
+        if metrics.on():
+            frames, nbytes = _wire_metrics().recv[kind]
+            frames.inc()
+            nbytes.inc(len(header) + length)
+        if self._first_deadline is not None:
+            # First frame arrived: the rendezvous grace is spent.
+            self._first_deadline = None
+            self._sock.settimeout(self._deadline)
+        return kind, payload
+
+    def send_obj(self, obj: Any) -> None:
+        self.send_bytes(pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL))
+
+    def recv_obj(self) -> Any:
+        return pickle.loads(self.recv_bytes())
+
+    def _recv_exact(self, n: int) -> bytearray:
+        buf = bytearray(n)
+        view = memoryview(buf)
+        got = 0
+        while got < n:
+            try:
+                k = self._sock.recv_into(view[got:], min(n - got, 1 << 24))
+            except socket.timeout:
+                bound = (self._first_deadline or self._deadline
+                         or self._sock.gettimeout())
+                if metrics.on():
+                    _wire_metrics().trip_recv.inc()
+                raise CommTimeoutError(
+                    f"no frame within {bound}s "
+                    "(HOROVOD_COMM_TIMEOUT_SECONDS or the rendezvous "
+                    "window) — peer dead, wedged, or silent")
+            if not k:
+                raise ConnectionError("peer closed connection")
+            got += k
+        return buf
+
+    def close(self) -> None:
+        try:
+            self._sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+        self._sock.close()

@@ -1,0 +1,1099 @@
+"""Background controller: the eager tier's negotiation + execution engine —
+the port's copy of ``horovod_tpu/controller/controller.py`` over the TCP
+star, on torch tensors (CPU or CUDA).
+
+Reference: ``horovod/common/operations.cc`` — a background thread per
+process ticks every ``cycle_time_ms`` (``RunLoopOnce``), drains the
+request queue, negotiates globally-ready tensors (the coordinator gathers
+RequestLists and broadcasts the fused ResponseList), packs Tensor Fusion
+groups (``FuseResponses``), executes, and fires completion callbacks. A
+bit-indexed response cache short-circuits negotiation for repeat tensors
+(``RunBypass``), and the coordinator warns/aborts on stalled ranks.
+
+Protocol per cycle (lockstep), the JAX package's:
+  worker → coordinator   {"rank", "cache_mask", "invalid_mask",
+                          "requests": RequestList}
+  coordinator → workers  {"bypass_bits", "invalid_mask",
+                          "responses": ResponseList}
+  then, for each bypass bit and each response, in identical order on every
+  rank: one raw-buffer data exchange (send shard / recv result).
+
+The data plane meets on host bytes, whatever the device: a CUDA tensor on
+one rank and a CPU tensor on another exchange the same bytes, so no data
+phase branches on the device. A CUDA entry is read after the event its
+caller recorded at enqueue (the caller's stream may still be writing it,
+as autograd's is when a gradient hook fires); a fused response of CUDA
+entries is packed on the card into one persistent buffer of the fusion
+threshold's size, copied to pinned host memory once, sent, and the result
+copied back once and split, all on a side stream whose event the
+handle's ``wait()`` hands to the caller's stream. The coordinator sums in
+the tensors' dtype and in rank order (``acc = acc + peer``), so every add
+rounds as the JAX package's numpy sum does.
+
+Not ported (ROADMAP Queue 1 item 8): the native ring and hierarchical
+data planes, wire compression, elastic reshape, the autotuner, the
+doctor and the tracer spans. ``HOROVOD_ELASTIC=1`` and exported ring
+addresses are refused, never silently replaced.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Any, Dict, List, Optional
+
+import torch
+
+from ..common import config as config_mod
+from ..common import hvd_logging as logging
+from ..common import timeline as tl
+from ..common.config import Config
+from ..common.handles import Handle, HandleManager
+from ..common.message import (
+    Request,
+    RequestList,
+    RequestType,
+    Response,
+    ResponseList,
+    ResponseType,
+    construct_response,
+)
+from ..common.reduction import average
+from ..common.response_cache import ResponseCache
+from ..common.topology import Topology
+from ..common.wire import RemoteAbortError
+from .. import metrics
+from .service import CoordinatorService, PeerFailureError, WorkerClient
+
+_OP_NAMES = {
+    RequestType.ALLREDUCE: "ALLREDUCE",
+    RequestType.ALLGATHER: "ALLGATHER",
+    RequestType.BROADCAST: "BROADCAST",
+}
+
+# Unsigned widths torch cannot add on the host: summed in a signed type
+# of the same or twice the width, then narrowed (the wrap-around numpy's
+# unsigned sums have).
+_WIDENED_SUM = {torch.uint16: torch.int32, torch.uint32: torch.int64}
+
+_m = None
+
+
+def _ctl_metrics():
+    """Lazy-registered controller series (no import-time registration)."""
+    global _m
+    if _m is None:
+        from types import SimpleNamespace
+
+        _m = SimpleNamespace(
+            cycle=metrics.histogram(
+                "hvd_controller_cycle_seconds",
+                "Controller cycle duration (tick build + negotiation + "
+                "data phases)."),
+            tensors=metrics.counter(
+                "hvd_controller_tensors_total",
+                "Tensors executed by the eager controller."),
+            fused_bytes=metrics.counter(
+                "hvd_controller_fused_bytes_total",
+                "Payload bytes executed via (possibly fused) responses."),
+            cache_hits=metrics.counter(
+                "hvd_controller_cache_hits_total",
+                "Response-cache hits at tick build."),
+            cache_misses=metrics.counter(
+                "hvd_controller_cache_misses_total",
+                "Requests that missed the response cache and negotiated."),
+            stalls=metrics.counter(
+                "hvd_controller_stall_warnings_total",
+                "Stall warnings issued by the coordinator."),
+            aborts=metrics.counter(
+                "hvd_controller_aborts_total",
+                "Times _fail_all failed pending work on a transport "
+                "failure."),
+            ops=metrics.counter(
+                "hvd_collective_ops_total",
+                "Eager collectives enqueued, by op and dtype.",
+                ("op", "dtype")),
+            op_bytes=metrics.counter(
+                "hvd_collective_bytes_total",
+                "Eager collective payload bytes enqueued, by op and dtype.",
+                ("op", "dtype")),
+            tick_lateness=metrics.histogram(
+                "hvd_controller_tick_lateness_seconds",
+                "Per-rank tick lateness observed by the coordinator: time "
+                "it sat blocked on a rank's tick beyond the cycle-time "
+                "pacing allowance.", ("rank",)),
+        )
+    return _m
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """numpy's name for a torch dtype (``"float32"``, ``"bfloat16"``,
+    ``"bool"``): what ``Request.tensor_dtype`` carries, so fusion groups
+    and mismatch errors read as the JAX package's."""
+    return str(dtype).rpartition(".")[2]
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _byte_view(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous tensor's bytes as a flat uint8 tensor (shares
+    memory)."""
+    return t.reshape(-1).view(torch.uint8)
+
+
+def _from_bytes(buf, dtype: torch.dtype) -> torch.Tensor:
+    """A flat CPU tensor over a received (writable) buffer."""
+    if len(buf) == 0:
+        return torch.empty(0, dtype=dtype)
+    return torch.frombuffer(buf, dtype=dtype)
+
+
+def _host_sum(acc: torch.Tensor, peer: torch.Tensor) -> torch.Tensor:
+    """``acc + peer`` in the operands' dtype (bool: logical OR)."""
+    wide = _WIDENED_SUM.get(acc.dtype)
+    if wide is not None:
+        return (acc.to(wide) + peer.to(wide)).to(acc.dtype)
+    if acc.dtype == torch.uint64:
+        return (acc.view(torch.int64) + peer.view(torch.int64)).view(
+            torch.uint64)
+    return acc + peer
+
+
+class _Pending:
+    """Tensor-table entry (reference ``TensorTableEntry``)."""
+
+    __slots__ = ("name", "tensor", "request", "handle", "average",
+                 "target", "ready", "stream", "enqueued_at")
+
+    def __init__(self, name: str, tensor: torch.Tensor, request: Request,
+                 handle: Handle, average: bool,
+                 target: Optional[torch.Tensor]):
+        self.name = name
+        # Contiguous, detached input. ``target``: the caller's tensor that
+        # receives the result (in-place ops), else None.
+        self.tensor = tensor
+        self.request = request
+        self.handle = handle
+        self.average = average
+        self.target = target
+        self.ready = None
+        self.stream = None
+        if tensor.is_cuda:
+            # The caller's stream may still be producing the tensor.
+            self.stream = torch.cuda.current_stream(tensor.device)
+            self.ready = torch.cuda.Event()
+            self.ready.record(self.stream)
+        self.enqueued_at = time.monotonic()
+
+    @property
+    def nbytes(self) -> int:
+        return _nbytes(self.tensor)
+
+
+class ShutdownError(RuntimeError):
+    """Delivered to pending callbacks at teardown (reference
+    ``operations.cc:1107-1122`` "Horovod has been shut down")."""
+
+
+# Keys of Controller.counters(): responses executed (a fused group counts
+# once), tensors executed, cache hits at tick build, and the seconds this
+# rank spent in each phase — the tick exchange of cycles that carried
+# work, packing (with the card-to-host copy), the star exchange, and the
+# host-to-card copy with the unpack.
+COUNTERS = ("responses", "tensors", "cache_hits", "negotiate_s", "pack_s",
+            "exchange_s", "unpack_s")
+
+
+class Controller:
+    def __init__(self, config: Config, topology: Topology,
+                 timeline: Optional[tl.Timeline] = None):
+        if config_mod.elastic_enabled():
+            raise RuntimeError(
+                "HOROVOD_ELASTIC=1: the port's controller has no elastic "
+                "membership yet (ROADMAP Queue 1 item 8, elastic "
+                "membership); launch without --elastic")
+        if config_mod.engine() == "native":
+            raise RuntimeError(
+                "HOROVOD_ENGINE=native: the port has no native engine yet "
+                "(ROADMAP Queue 1 item 8, the native engine); unset it to "
+                "run the Python controller")
+        if config_mod.ring_addrs():
+            raise RuntimeError(
+                "HOROVOD_RING_ADDRS is set: the port's controller has no "
+                "native ring data plane yet (ROADMAP Queue 1 item 8, the "
+                "native engine); unset it to run on the TCP star")
+        self.cfg = config
+        self.topo = topology
+        self.timeline = timeline
+        self.handles = HandleManager()
+        # Guards the queue/table/cache state; reached from user threads
+        # (enqueue), the controller thread, and teardown.
+        self._lock = threading.Lock()
+        self._queue: List[str] = []           # names awaiting negotiation
+        self._table: Dict[str, _Pending] = {}  # name -> entry
+        self._bit_pending: Dict[int, str] = {}  # cache bit -> name (hits)
+        self._cache = ResponseCache(config.cache_capacity)
+        self._cache_enabled = config.cache_capacity > 0
+        self._autoname_counter: Dict[str, int] = {}
+        self._shutdown_requested = False
+        self._closed = threading.Event()
+        # The diagnosed transport failure, if any: ops enqueued after the
+        # job died resolve with the same descriptive error.
+        self._failure: Optional[BaseException] = None
+        self._stall_warned: Dict[str, float] = {}
+        self._fusion_threshold = config.fusion_threshold_bytes
+        self._cycle_time_ms = config.cycle_time_ms
+        self._counters = dict.fromkeys(COUNTERS, 0)
+        # The card side of the data plane, made on first use by the
+        # controller thread: a side stream per device, the persistent
+        # device fusion buffer, and the pinned host staging buffer.
+        self._streams: Dict[torch.device, Any] = {}
+        self._device_buffers: Dict[torch.device, torch.Tensor] = {}
+        self._host_buffer: Optional[torch.Tensor] = None
+        self._resolved: list = []
+
+        addr = config_mod.controller_addr()
+        if addr is None:
+            raise RuntimeError(
+                "HOROVOD_CONTROLLER_ADDR is not set; the Python controller "
+                "requires the horovodrun-exported TCP star endpoint")
+        if topology.rank == 0:
+            self._service = CoordinatorService(
+                addr, topology.size,
+                comm_timeout=config.comm_timeout_seconds)
+            self._client = None
+            # Coordinator's MessageTable: name -> {rank: Request}; plus
+            # first-seen stamps for the stall check.
+            self._message_table: Dict[str, Dict[int, Request]] = {}
+            self._first_seen: Dict[str, float] = {}
+            self._service.start_heartbeats(config.heartbeat_interval_seconds)
+        else:
+            self._service = None
+            self._client = WorkerClient(
+                addr, topology.rank,
+                comm_timeout=config.comm_timeout_seconds)
+            self._client.start_heartbeats(config.heartbeat_interval_seconds)
+
+        self._thread = threading.Thread(
+            target=self._run_loop, name="hvd-controller", daemon=True)
+        self._thread.start()
+
+    # ------------------------------------------------------------------ API
+
+    def counters(self) -> Dict[str, float]:
+        """This rank's running totals (see ``COUNTERS``); callers diff two
+        reads around the work they measure."""
+        with self._lock:
+            return dict(self._counters)
+
+    def _count(self, key: str, amount: float) -> None:
+        with self._lock:
+            self._counters[key] += amount
+
+    def _autoname(self, kind: str, name: Optional[str]) -> str:
+        if name is not None:
+            return name
+        # Deterministic per-type counters: identical call order across
+        # ranks yields identical names.
+        with self._lock:
+            n = self._autoname_counter.get(kind, 0)
+            self._autoname_counter[kind] = n + 1
+        return f"{kind}.noname.{n}"
+
+    def _enqueue(self, kind: str, name: Optional[str], tensor: torch.Tensor,
+                 request_type: RequestType, average: bool = False,
+                 root_rank: int = -1, inplace: bool = False,
+                 priority: int = 0) -> Handle:
+        name = self._autoname(kind, name)
+        target = tensor if inplace else None
+        tensor = tensor.detach()
+        if not tensor.is_contiguous():
+            tensor = tensor.contiguous()
+        dtype = dtype_name(tensor.dtype)
+        req = Request(
+            request_rank=self.topo.rank, request_type=request_type,
+            tensor_name=name, tensor_dtype=dtype,
+            tensor_shape=tuple(tensor.shape), root_rank=root_rank,
+            priority=int(priority))
+        if metrics.on():
+            m = _ctl_metrics()
+            m.ops.labels(kind, dtype).inc()
+            m.op_bytes.labels(kind, dtype).inc(_nbytes(tensor))
+        handle = self.handles.allocate()
+        entry = _Pending(name, tensor, req, handle, average, target)
+        with self._lock:
+            # _failure is part of the closed predicate: _fail_all runs
+            # (and clears the table) before _run_loop's finally sets
+            # _closed.
+            if (self._closed.is_set() or self._shutdown_requested
+                    or self._failure is not None):
+                handle.set_error(self._failure or ShutdownError(
+                    "Horovod has been shut down"))
+                return handle
+            if name in self._table:
+                # Reference IncrementTensorCount duplicate-name error.
+                handle.set_error(RuntimeError(
+                    f"Duplicate tensor name {name!r}: a collective with this "
+                    "name is already pending; names must be unique until the "
+                    "operation completes."))
+                return handle
+            self._table[name] = entry
+            self._queue.append(name)
+        return handle
+
+    def allreduce_async(self, tensor: torch.Tensor, average: bool = True,
+                        name: Optional[str] = None, inplace: bool = False,
+                        priority: int = 0) -> Handle:
+        """Sum (or mean) of ``tensor`` over the ranks. ``inplace``: the
+        result is written into ``tensor``, which the handle returns.
+        ``priority``: launch priority — nonzero moves this cycle's
+        highest-priority fused group to the front on every rank; never
+        changes results."""
+        return self._enqueue("allreduce", name, tensor,
+                             RequestType.ALLREDUCE, average=average,
+                             inplace=inplace, priority=priority)
+
+    def allgather_async(self, tensor: torch.Tensor,
+                        name: Optional[str] = None) -> Handle:
+        return self._enqueue("allgather", name, tensor,
+                             RequestType.ALLGATHER)
+
+    def broadcast_async(self, tensor: torch.Tensor, root_rank: int,
+                        name: Optional[str] = None,
+                        inplace: bool = False) -> Handle:
+        if not 0 <= root_rank < self.topo.size:
+            # Fail fast: an out-of-range root would pass validation on
+            # every rank (they all agree) and hang the data phase.
+            h = self.handles.allocate()
+            h.set_error(ValueError(
+                f"root_rank {root_rank} out of range for size "
+                f"{self.topo.size}"))
+            return h
+        return self._enqueue("broadcast", name, tensor,
+                             RequestType.BROADCAST, root_rank=root_rank,
+                             inplace=inplace)
+
+    def allreduce(self, tensor, average: bool = True,
+                  name: Optional[str] = None):
+        return self.allreduce_async(tensor, average, name).wait()
+
+    def allgather(self, tensor, name: Optional[str] = None):
+        return self.allgather_async(tensor, name).wait()
+
+    def broadcast(self, tensor, root_rank: int, name: Optional[str] = None):
+        return self.broadcast_async(tensor, root_rank, name).wait()
+
+    def shutdown(self) -> None:
+        """Cooperative teardown: the flag travels with the next tick and
+        the coordinator echoes it to everyone."""
+        with self._lock:
+            self._shutdown_requested = True
+        self._thread.join(timeout=30.0)
+        if self._thread.is_alive():
+            logging.warning("controller thread did not exit within 30s")
+
+    # ------------------------------------------------------------ cycle loop
+
+    def _run_loop(self) -> None:
+        try:
+            while not self._closed.is_set():
+                started = time.monotonic()
+                if self.timeline:
+                    self.timeline.mark_cycle_start()
+                try:
+                    self._cycle()
+                except PeerFailureError as exc:
+                    if not self._shutdown_requested:
+                        raise
+                    # Teardown race: a worker whose own shutdown was
+                    # requested may close its wire before this
+                    # coordinator's next recv. The job is ending either
+                    # way.
+                    logging.debug(
+                        "shutdown: rank %d closed its wire before "
+                        "the final echo (%s)", exc.rank, exc.cause)
+                    self._closed.set()
+                    self._fail_all(ShutdownError(
+                        "Horovod has been shut down"))
+                    continue
+                if self.topo.rank != 0:
+                    # Workers pace the lockstep; the coordinator is paced
+                    # by their arrivals.
+                    delay = (self._cycle_time_ms / 1e3
+                             - (time.monotonic() - started))
+                    if delay > 0 and not self._shutdown_requested:
+                        time.sleep(delay)
+        except Exception as exc:  # transport failure: fail all pending work
+            logging.error("controller loop failed: %s", exc)
+            self._fail_all(self._diagnose_failure(exc))
+        finally:
+            self._closed.set()
+            if self._service:
+                self._service.close()
+            if self._client:
+                self._client.close()
+
+    def _inflight_summary(self) -> str:
+        """Which ops were pending when the job died."""
+        with self._lock:
+            names = sorted(self._table)
+        if not names:
+            return "none"
+        shown = ", ".join(repr(n) for n in names[:8])
+        if len(names) > 8:
+            shown += f", ... ({len(names)} total)"
+        return shown
+
+    def _diagnose_failure(self, exc: BaseException) -> RuntimeError:
+        """Turn a raw transport failure into one descriptive engine error,
+        and — on the coordinator — broadcast the diagnosis as a
+        coordinated abort so every surviving rank fails the same way
+        immediately."""
+        inflight = self._inflight_summary()
+        if isinstance(exc, PeerFailureError):
+            msg = (f"Horovod controller failed: rank {exc.rank} died or "
+                   f"became unreachable ({exc.cause}); in-flight ops: "
+                   f"{inflight}")
+            if self._service is not None:
+                self._service.send_abort_all(
+                    msg, dead_rank=exc.rank,
+                    op=None if inflight == "none" else inflight)
+            return RuntimeError(msg)
+        if isinstance(exc, RemoteAbortError):
+            return RuntimeError(f"Horovod controller failed: job aborted by "
+                                f"coordinator: {exc}")
+        if self._client is not None and isinstance(exc, (ConnectionError,
+                                                         OSError)):
+            return RuntimeError(
+                f"Horovod controller failed: lost contact with the "
+                f"coordinator (rank 0): {exc}; in-flight ops: {inflight}")
+        if not isinstance(exc, RuntimeError):
+            return RuntimeError(f"Horovod controller failed: {exc} "
+                                "(a peer process likely died)")
+        return exc
+
+    def _build_tick(self) -> dict:
+        hits = 0
+        with self._lock:
+            names = self._queue
+            self._queue = []
+            cache_mask = 0
+            invalid_mask = 0
+            uncached: List[Request] = []
+            for name in names:
+                entry = self._table[name]
+                bit = (self._cache.lookup(entry.request)
+                       if self._cache_enabled else None)
+                if bit is not None:
+                    self._bit_pending[bit] = name
+                    hits += 1
+                    continue
+                if self._cache_enabled:
+                    stale = self._cache.stale_bit(entry.request)
+                    if stale is not None:
+                        invalid_mask |= 1 << stale
+                uncached.append(entry.request)
+            for bit in self._bit_pending:
+                cache_mask |= 1 << bit
+            shutdown = self._shutdown_requested
+            self._counters["cache_hits"] += hits
+        if metrics.on() and self._cache_enabled and (hits or uncached):
+            m = _ctl_metrics()
+            if hits:
+                m.cache_hits.inc(hits)
+            if uncached:
+                m.cache_misses.inc(len(uncached))
+        return {
+            "rank": self.topo.rank,
+            "cache_mask": cache_mask,
+            "invalid_mask": invalid_mask,
+            "requests": RequestList(requests=uncached, shutdown=shutdown),
+        }
+
+    def _cycle(self) -> None:
+        mon = metrics.on()
+        t_start = time.monotonic()
+        tick = self._build_tick()
+        if self.topo.rank == 0:
+            reply = self._coordinate(tick)
+        else:
+            self._client.send(tick)
+            reply = self._client.recv()
+        if (tick["requests"].requests or tick["cache_mask"]
+                or reply["bypass_bits"] or reply["responses"].responses):
+            self._count("negotiate_s", time.monotonic() - t_start)
+        # Both sides of the rank conditional run _process_reply on the
+        # same negotiated response list, so every rank executes identical
+        # collectives.
+        self._process_reply(reply)
+        if mon:
+            _ctl_metrics().cycle.observe(time.monotonic() - t_start)
+
+    # ------------------------------------------------------- coordinator side
+
+    def _coordinate(self, my_tick: dict) -> dict:
+        size = self.topo.size
+        ticks = {0: my_tick}
+        # Per-rank tick waits: a cumulative allowance of one cycle time is
+        # free; anything beyond it is lateness charged to the rank being
+        # waited on.
+        measure = metrics.on()
+        waits: Dict[int, float] = {}
+        for rank in range(1, size):
+            t_r = time.monotonic() if measure else 0.0
+            ticks[rank] = self._service.recv_from(rank)
+            if measure:
+                waits[rank] = time.monotonic() - t_r
+        if measure:
+            allowance = self._cycle_time_ms / 1e3
+            for rank in sorted(waits):
+                lateness = max(0.0, waits[rank] - allowance)
+                allowance = max(0.0, allowance - waits[rank])
+                _ctl_metrics().tick_lateness.labels(
+                    str(rank)).observe(lateness)
+
+        rank_order_ticks = [t for _, t in sorted(ticks.items())]
+        shutdown = any(t["requests"].shutdown for t in rank_order_ticks)
+        invalid_mask = 0
+        for t in rank_order_ticks:
+            invalid_mask |= t["invalid_mask"]
+        and_mask = ticks[0]["cache_mask"]
+        for t in rank_order_ticks:
+            and_mask &= t["cache_mask"]
+        and_mask &= ~invalid_mask
+        bypass_bits = ResponseCache.mask_to_bits(and_mask)
+
+        # Negotiation: accumulate per-tensor requests; a tensor is ready
+        # when every rank reported it.
+        now = time.monotonic()
+        ready: List[Response] = []
+        for rank in sorted(ticks):
+            for req in ticks[rank]["requests"].requests:
+                entry = self._message_table.setdefault(req.tensor_name, {})
+                if not entry:
+                    self._first_seen[req.tensor_name] = now
+                    if self.timeline:
+                        self.timeline.negotiate_start(
+                            req.tensor_name, _OP_NAMES[req.request_type])
+                if self.timeline:
+                    self.timeline.negotiate_rank_ready(req.tensor_name, rank)
+                entry[rank] = req
+        for name in list(self._message_table):
+            entry = self._message_table[name]
+            if len(entry) == size:
+                requests = [entry[r] for r in range(size)]
+                response = construct_response(requests, size)
+                ready.append(response)
+                del self._message_table[name]
+                self._first_seen.pop(name, None)
+                self._stall_warned.pop(name, None)
+                if self.timeline:
+                    self.timeline.negotiate_end(
+                        name, _OP_NAMES[requests[0].request_type])
+
+        self._check_stalls(now)
+        responses = self._prioritize_responses(self._fuse_responses(ready))
+        reply = {
+            "bypass_bits": bypass_bits,
+            "invalid_mask": invalid_mask,
+            "responses": ResponseList(responses=responses, shutdown=shutdown),
+        }
+        self._service.send_all(reply)
+        return reply
+
+    def _fuse_responses(self, responses: List[Response]) -> List[Response]:
+        """Tensor Fusion packing (reference ``FuseResponses``): join
+        ALLREDUCE responses of equal dtype while the fused byte count stays
+        under the threshold, looking ahead past mismatched dtypes. Only
+        allreduce fuses; byte sizes come from the negotiated shapes,
+        identical on all ranks."""
+        out: List[Response] = []
+        pending = list(responses)
+        while pending:
+            first = pending.pop(0)
+            if first.response_type != ResponseType.ALLREDUCE:
+                out.append(first)
+                continue
+            fused = first
+            dtype = self._response_dtype(first)
+            total = self._response_bytes(first)
+            i = 0
+            while i < len(pending):
+                cand = pending[i]
+                if (cand.response_type == ResponseType.ALLREDUCE
+                        and self._response_dtype(cand) == dtype):
+                    nbytes = self._response_bytes(cand)
+                    if total + nbytes <= self._fusion_threshold:
+                        fused.tensor_names.extend(cand.tensor_names)
+                        total += nbytes
+                        pending.pop(i)
+                        continue
+                i += 1  # look-ahead (reference operations.cc:483-499)
+            out.append(fused)
+        return out
+
+    def _prioritize_responses(
+            self, responses: List[Response]) -> List[Response]:
+        """Stable-sort the cycle's responses by each one's highest member
+        priority, descending; the sorted order rides the reply, so every
+        rank launches in the same order. A no-op when no tensor this
+        cycle carries a priority."""
+        if len(responses) <= 1:
+            return responses
+        prios = []
+        for r in responses:
+            p = 0
+            for n in r.tensor_names:
+                entry = self._table.get(n)
+                if entry is not None:
+                    p = max(p, entry.request.priority)
+            prios.append(p)
+        if not any(p > 0 for p in prios):
+            return responses
+        order = sorted(range(len(responses)), key=lambda i: -prios[i])
+        return [responses[i] for i in order]
+
+    def _response_dtype(self, response: Response) -> str:
+        return self._table[response.tensor_names[0]].request.tensor_dtype
+
+    def _response_bytes(self, response: Response) -> int:
+        return sum(self._table[n].nbytes for n in response.tensor_names)
+
+    def _check_stalls(self, now: float) -> None:
+        """Reference ``CheckForStalledTensors`` (operations.cc:688-769)."""
+        if self.cfg.stall_check_disable:
+            return
+        for name, first in sorted(self._first_seen.items()):
+            age = now - first
+            if age > self.cfg.stall_check_seconds:
+                last = self._stall_warned.get(name, 0.0)
+                if now - last > self.cfg.stall_check_seconds:
+                    seen = sorted(self._message_table.get(name, {}))
+                    missing = [r for r in range(self.topo.size)
+                               if r not in seen]
+                    logging.warning(
+                        "One or more tensors were submitted to be reduced, "
+                        "gathered or broadcasted by subset of ranks and are "
+                        "waiting for remainder of ranks for more than %ds. "
+                        "Stalled op: %s [missing ranks: %s]",
+                        int(self.cfg.stall_check_seconds), name,
+                        ", ".join(map(str, missing)))
+                    self._stall_warned[name] = now
+                    if metrics.on():
+                        _ctl_metrics().stalls.inc()
+                if (self.cfg.stall_shutdown_seconds > 0
+                        and age > self.cfg.stall_shutdown_seconds):
+                    logging.error(
+                        "Stall duration exceeded "
+                        "HOROVOD_STALL_SHUTDOWN_TIME_SECONDS: aborting job "
+                        "(stalled op: %s)", name)
+                    with self._lock:
+                        self._shutdown_requested = True
+
+    # ----------------------------------------------------------- both sides
+
+    def _process_reply(self, reply: dict) -> None:
+        for bit in ResponseCache.mask_to_bits(reply["invalid_mask"]):
+            with self._lock:
+                self._cache.evict_bit(bit)
+                name = self._bit_pending.pop(bit, None)
+                if name is not None:
+                    # Cache entry died under a pending hit: renegotiate.
+                    self._queue.append(name)
+
+        for bit in reply["bypass_bits"]:
+            # Cached fast path (reference RunBypass).
+            _, response = self._cache.get(bit)
+            with self._lock:
+                self._cache.touch(bit)
+                name = self._bit_pending.pop(bit)
+            self._execute(Response(
+                response_type=response.response_type,
+                tensor_names=[name],
+                tensor_sizes=list(response.tensor_sizes)), cache_put=False)
+
+        rlist: ResponseList = reply["responses"]
+        for response in rlist.responses:
+            self._execute(response, cache_put=self._cache_enabled)
+
+        if rlist.shutdown or self._shutdown_requested:
+            # Close before failing: once _fail_all empties the table, a
+            # concurrently-enqueued op must take the closed branch.
+            self._closed.set()
+            self._fail_all(ShutdownError("Horovod has been shut down"))
+
+    def _fail_all(self, exc: BaseException) -> None:
+        with self._lock:
+            if self._failure is None and not isinstance(exc, ShutdownError):
+                self._failure = exc
+            # Sorted by tensor name so failure callbacks fire in the same
+            # order on every rank.
+            entries = [self._table[n] for n in sorted(self._table)]
+            self._table.clear()
+            self._queue.clear()
+            self._bit_pending.clear()
+        for entry in entries:
+            if not entry.handle.done():
+                entry.handle.set_error(exc)
+        if not isinstance(exc, ShutdownError) and metrics.on():
+            _ctl_metrics().aborts.inc()
+
+    # ------------------------------------------------------------ data plane
+
+    def _execute(self, response: Response, cache_put: bool) -> None:
+        names = response.tensor_names
+        if response.response_type == ResponseType.ERROR:
+            with self._lock:
+                entries = [self._table.pop(n) for n in names]
+            for entry in entries:
+                entry.handle.set_error(RuntimeError(response.error_message))
+            return
+
+        with self._lock:
+            entries = [self._table[n] for n in names]
+        tname = names[0] if len(names) == 1 else f"fused[{len(names)}]"
+        # (entry, result, CUDA event) of this response, resolved only once
+        # the entries left the table: a caller woken by its handle may
+        # enqueue the same name again at once.
+        self._resolved = []
+        if self.timeline:
+            self.timeline.start(tname, response.response_type.name)
+
+        if response.response_type == ResponseType.ALLREDUCE:
+            self._execute_allreduce(entries, tname)
+        elif response.response_type == ResponseType.ALLGATHER:
+            self._execute_allgather(entries[0], response)
+        else:
+            self._execute_broadcast(entries[0])
+
+        with self._lock:
+            for entry in entries:
+                self._table.pop(entry.name, None)
+                if cache_put:
+                    self._cache.put(
+                        entry.request,
+                        Response(response_type=response.response_type,
+                                 tensor_names=[entry.name],
+                                 tensor_sizes=list(response.tensor_sizes)))
+            self._counters["responses"] += 1
+            self._counters["tensors"] += len(entries)
+        for entry, value, ready in self._resolved:
+            entry.handle.set_result(value, ready=ready)
+        self._resolved = []
+        if self.timeline:
+            self.timeline.end(tname)
+        if metrics.on():
+            m = _ctl_metrics()
+            m.tensors.inc(len(entries))
+            m.fused_bytes.inc(sum(e.nbytes for e in entries))
+
+    # -- the card side ------------------------------------------------------
+
+    def _stream(self, device: torch.device):
+        """This controller's side stream on ``device``."""
+        stream = self._streams.get(device)
+        if stream is None:
+            stream = self._streams[device] = torch.cuda.Stream(device)
+        return stream
+
+    def _device_buffer(self, device: torch.device,
+                       nbytes: int) -> torch.Tensor:
+        """The persistent device fusion buffer (the reference's
+        ``PersistentBuffer``), sized to the fusion threshold."""
+        buf = self._device_buffers.get(device)
+        if buf is None or buf.numel() < nbytes:
+            buf = torch.empty(max(nbytes, self._fusion_threshold),
+                              dtype=torch.uint8, device=device)
+            self._device_buffers[device] = buf
+        return buf[:nbytes]
+
+    def _staging(self, nbytes: int) -> torch.Tensor:
+        """The pinned host buffer a fused CUDA response leaves the card
+        through; grows to the largest response."""
+        buf = self._host_buffer
+        if buf is None or buf.numel() < nbytes:
+            buf = torch.empty(max(nbytes, self._fusion_threshold),
+                              dtype=torch.uint8, pin_memory=True)
+            self._host_buffer = buf
+        return buf[:nbytes]
+
+    def _activity(self, tname: str, name: str):
+        if self.timeline:
+            self.timeline.activity_start(tname, name)
+
+    def _activity_end(self, tname: str):
+        if self.timeline:
+            self.timeline.activity_end(tname)
+
+    @staticmethod
+    def _card_of(entries: List[_Pending]) -> Optional[torch.device]:
+        """The one CUDA device every entry lives on, else None (then each
+        entry takes the host path)."""
+        devices = {e.tensor.device for e in entries}
+        if len(devices) == 1:
+            (device,) = devices
+            if device.type == "cuda":
+                return device
+        return None
+
+    def _host_bytes(self, entry: _Pending) -> torch.Tensor:
+        """An entry's bytes on the host (a view for a CPU tensor)."""
+        if entry.ready is None:
+            return _byte_view(entry.tensor)
+        device = entry.tensor.device
+        stream = self._stream(device)
+        with torch.cuda.device(device), torch.cuda.stream(stream):
+            stream.wait_event(entry.ready)
+            return _byte_view(entry.tensor).to("cpu")
+
+    def _pack(self, entries: List[_Pending], tname: str) -> torch.Tensor:
+        """The response's input as one flat uint8 host tensor (reference
+        ``MemcpyInFusionBuffer``)."""
+        device = self._card_of(entries)
+        if device is None:
+            parts = [self._host_bytes(e) for e in entries]
+            return parts[0] if len(parts) == 1 else torch.cat(parts)
+        stream = self._stream(device)
+        total = sum(e.nbytes for e in entries)
+        with torch.cuda.device(device), torch.cuda.stream(stream):
+            for e in entries:
+                stream.wait_event(e.ready)
+            if len(entries) == 1:
+                src = _byte_view(entries[0].tensor)
+            else:
+                src = self._device_buffer(device, total)
+                offset = 0
+                for e in entries:
+                    src[offset:offset + e.nbytes].copy_(_byte_view(e.tensor))
+                    offset += e.nbytes
+            host = self._staging(total)
+            self._activity(tname, tl.MEMCPY_D2H)
+            host.copy_(src, non_blocking=True)
+            stream.synchronize()
+            self._activity_end(tname)
+        return host
+
+    def _finalize(self, entry: _Pending,
+                  value: torch.Tensor) -> torch.Tensor:
+        """``entry``'s result from ``value`` (already on its device):
+        averaged, and written into the caller's tensor when in-place."""
+        if entry.average:
+            value = average(value, self.topo.size)
+        if entry.target is not None:
+            if entry.target.data_ptr() != value.data_ptr():
+                entry.target.copy_(value)
+            return entry.target
+        if entry.stream is not None:
+            # Made on the side stream, used on the caller's.
+            value.record_stream(entry.stream)
+        return value
+
+    def _resolve_on_card(self, entries: List[_Pending],
+                         values: List[torch.Tensor]) -> None:
+        """Finish CUDA entries on the current (side) stream: one event
+        after the last kernel, which each handle's ``wait()`` hands to
+        its caller's stream."""
+        outs = [self._finalize(e, v) for e, v in zip(entries, values)]
+        done = torch.cuda.Event()
+        done.record()
+        self._resolved.extend(
+            (e, out, done) for e, out in zip(entries, outs))
+
+    def _to_card(self, entry: _Pending, value: torch.Tensor) -> None:
+        """Deliver a host result to a CUDA entry, on the side stream."""
+        device = entry.tensor.device
+        stream = self._stream(device)
+        with torch.cuda.device(device), torch.cuda.stream(stream):
+            self._resolve_on_card([entry], [value.to(device)])
+
+    def _unpack(self, entries: List[_Pending], result: torch.Tensor,
+                tname: str) -> None:
+        """Split the flat host result into the entries' results (reference
+        ``MemcpyOutFusionBuffer``)."""
+        device = self._card_of(entries)
+        if device is None:
+            offset = 0
+            for e in entries:
+                n = e.tensor.numel()
+                value = result[offset:offset + n].view(e.tensor.shape)
+                offset += n
+                if e.ready is not None:
+                    self._to_card(e, value)
+                else:
+                    self._resolved.append(
+                        (e, self._finalize(e, value.clone()), None))
+            return
+        stream = self._stream(device)
+        raw = _byte_view(result)
+        with torch.cuda.device(device), torch.cuda.stream(stream):
+            if len(entries) == 1:
+                e = entries[0]
+                out = (e.target if e.target is not None
+                       and e.target.is_contiguous() else
+                       torch.empty_like(e.tensor))
+                self._activity(tname, tl.MEMCPY_H2D)
+                _byte_view(out).copy_(raw)
+                self._activity_end(tname)
+                self._resolve_on_card(entries, [out])
+                return
+            buf = self._device_buffer(device, raw.numel())
+            self._activity(tname, tl.MEMCPY_H2D)
+            buf.copy_(raw)
+            self._activity_end(tname)
+            values, offset = [], 0
+            for e in entries:
+                values.append(buf[offset:offset + e.nbytes].view(
+                    e.tensor.dtype).view(e.tensor.shape).clone())
+                offset += e.nbytes
+            self._resolve_on_card(entries, values)
+
+    def _execute_allreduce(self, entries: List[_Pending], tname: str) -> None:
+        t0 = time.monotonic()
+        self._activity(tname, tl.MEMCPY_IN_FUSION_BUFFER)
+        host = self._pack(entries, tname)
+        self._activity_end(tname)
+        t1 = time.monotonic()
+        dtype = entries[0].tensor.dtype
+        self._activity(tname, tl.TCP_COLLECTIVE)
+        if self.topo.rank == 0:
+            acc = host.view(dtype)
+            for rank in range(1, self.topo.size):
+                peer = _from_bytes(self._service.recv_bytes_from(rank), dtype)
+                acc = _host_sum(acc, peer)
+            payload = _byte_view(acc).numpy()
+            for rank in range(1, self.topo.size):
+                self._service.send_bytes_to(rank, payload)
+            result = acc
+        else:
+            self._client.send_bytes(host.numpy())
+            result = _from_bytes(self._client.recv_bytes(), dtype)
+        self._activity_end(tname)
+        t2 = time.monotonic()
+        self._activity(tname, tl.MEMCPY_OUT_FUSION_BUFFER)
+        self._unpack(entries, result, tname)
+        self._activity_end(tname)
+        t3 = time.monotonic()
+        with self._lock:
+            self._counters["pack_s"] += t1 - t0
+            self._counters["exchange_s"] += t2 - t1
+            self._counters["unpack_s"] += t3 - t2
+
+    def _execute_allgather(self, entry: _Pending, response: Response) -> None:
+        t0 = time.monotonic()
+        dtype = entry.tensor.dtype
+        rest = tuple(entry.tensor.shape[1:])
+        # The negotiated per-rank first dims on the handle: autograd's
+        # backward locates its slice without a second sizes-allgather.
+        entry.handle.tensor_sizes = [int(s) for s in response.tensor_sizes]
+        mine = self._host_bytes(entry)
+        t1 = time.monotonic()
+        if self.topo.rank == 0:
+            parts = [mine]
+            for rank in range(1, self.topo.size):
+                parts.append(_from_bytes(
+                    self._service.recv_bytes_from(rank), torch.uint8))
+            full = torch.cat(parts)
+            payload = full.numpy()
+            for rank in range(1, self.topo.size):
+                self._service.send_bytes_to(rank, payload)
+        else:
+            self._client.send_bytes(mine.numpy())
+            full = _from_bytes(self._client.recv_bytes(), torch.uint8)
+        t2 = time.monotonic()
+        value = full.view(dtype).view((sum(response.tensor_sizes),) + rest)
+        if entry.ready is not None:
+            self._to_card(entry, value)
+        else:
+            self._resolved.append(
+                (entry, self._finalize(entry, value.clone()), None))
+        with self._lock:
+            self._counters["pack_s"] += t1 - t0
+            self._counters["exchange_s"] += t2 - t1
+            self._counters["unpack_s"] += time.monotonic() - t2
+
+    def _execute_broadcast(self, entry: _Pending) -> None:
+        t0 = time.monotonic()
+        root = entry.request.root_rank
+        rank = self.topo.rank
+        mine = self._host_bytes(entry) if rank == root else None
+        t1 = time.monotonic()
+        if rank == 0:
+            data = mine if root == 0 else _from_bytes(
+                self._service.recv_bytes_from(root), torch.uint8)
+            payload = data.numpy()
+            for peer in range(1, self.topo.size):
+                if peer != root:
+                    self._service.send_bytes_to(peer, payload)
+        elif rank == root:
+            self._client.send_bytes(mine.numpy())
+            data = mine
+        else:
+            data = _from_bytes(self._client.recv_bytes(), torch.uint8)
+        t2 = time.monotonic()
+        value = data.view(entry.tensor.dtype).view(entry.tensor.shape)
+        if entry.ready is not None:
+            if rank == root:
+                # The root's result is its own input, already on the card.
+                value = entry.tensor.clone() if entry.target is None \
+                    else entry.tensor
+                stream = self._stream(entry.tensor.device)
+                with torch.cuda.device(entry.tensor.device), \
+                        torch.cuda.stream(stream):
+                    stream.wait_event(entry.ready)
+                    self._resolve_on_card([entry], [value])
+            else:
+                self._to_card(entry, value)
+        else:
+            self._resolved.append(
+                (entry, self._finalize(entry, value.clone()), None))
+        with self._lock:
+            self._counters["pack_s"] += t1 - t0
+            self._counters["exchange_s"] += t2 - t1
+            self._counters["unpack_s"] += time.monotonic() - t2
+
+
+# ---------------------------------------------------------------------------
+# The composed eager alltoall (the JAX package's): correctness first — it
+# gathers the full payload. (The eager reduce-scatter is a block of an
+# allreduce, ``torch/mpi_ops.reducescatter``.) Bandwidth-optimal forms run
+# on the process group (``group=``).
+
+
+def alltoall_dims(ctl: Controller, tensor: torch.Tensor,
+                  name: Optional[str] = None) -> List[int]:
+    """Every rank's first dim, agreed through an allgather, so that an
+    indivisible one raises the same error on every rank instead of
+    hanging the data phase."""
+    size = ctl.topo.size
+    dims = [int(d) for d in ctl.allgather(
+        torch.tensor([tensor.shape[0]], dtype=torch.int64),
+        name=None if name is None else f"{name}.dims")]
+    for r, d in enumerate(dims):
+        if d % size != 0:
+            raise ValueError(
+                f"alltoall requires every rank's first dimension to be "
+                f"divisible by size {size}; rank {r} has dim 0 = {d}")
+    return dims
+
+
+def composed_alltoall(ctl: Controller, tensor: torch.Tensor,
+                      name: Optional[str] = None,
+                      dims: Optional[List[int]] = None) -> torch.Tensor:
+    """Exchange dim-0 splits: rank r's output is the concatenation of
+    every rank's r-th block. Each rank's own first dim must be divisible
+    by the world size (block sizes may differ between ranks)."""
+    if tensor.ndim == 0:
+        raise ValueError(
+            "alltoall requires at least one dimension (got a scalar)")
+    size, rank = ctl.topo.size, ctl.topo.rank
+    if dims is None:
+        dims = alltoall_dims(ctl, tensor, name)
+    gathered = ctl.allgather(tensor, name=name)
+    parts, start = [], 0
+    for j in range(size):
+        seg = dims[j] // size
+        parts.append(gathered[start + rank * seg:start + (rank + 1) * seg])
+        start += dims[j]
+    return torch.cat(parts, dim=0)

@@ -4,10 +4,11 @@ of ``examples/jax_llama_training.py``:
     python -m horovod_tpu_torch.examples.llama_training --model 300m \\
         --seq-len 1024 --batch-size 8 --num-iters 10
 
-One process per card. Under a launcher environment (``HOROVOD_RANK``,
-``HOROVOD_SIZE``, ``HOROVOD_LOCAL_RANK``, ``HOROVOD_LOCAL_SIZE`` and
-``HOROVOD_CONTROLLER_ADDR``) every rank trains on its slice of the batch
-and ``DistributedOptimizer`` averages the gradients over NCCL.
+One process per card. Launched by ``python -m horovod_tpu_torch.run -np
+N`` every rank trains on its slice of the batch and
+``DistributedOptimizer`` averages the gradients through the eager-tier
+controller (``--spmd``: over the NCCL process group, whose rendezvous is
+``HOROVOD_SPMD_COORDINATOR``).
 Attention runs the flash kernels from ``FLASH_AUTO_MIN_SEQ`` upward
 (``--no-flash``: the plain path). Parameters are f32, cast to the
 model's bf16 compute dtype at each use.

@@ -1,19 +1,31 @@
-"""Collectives over ``torch.distributed`` — the port's counterpart of
-``horovod_tpu/torch/mpi_ops.py`` with the semantics of
-``horovod_tpu/ops/collective_ops.py``.
+"""Collectives — the port's counterpart of ``horovod_tpu/torch/mpi_ops.py``
+with the semantics of ``horovod_tpu/ops/collective_ops.py``.
 
 Sync, async and in-place variants of ``allreduce``, ``grouped_allreduce``,
 ``allgather`` and ``broadcast``; ``reducescatter`` and ``alltoall``
 (differentiable); ``broadcast_object`` and ``allgather_object``;
-``synchronize``/``poll`` on handles; ``barrier``. Each runs on the tensor's own device over the process group
-``init()`` built (NCCL on a card, gloo on the CPU), or over ``group=``
-(a ``torch.distributed`` process group, e.g. one axis of
-``parallel.make_mesh``) where the reductions and gathers take one: the
-counterpart of the JAX package's ``axis_name=``. ``average=`` and
-``op=`` (``Sum``/``Average``) are exclusive; neither means Average.
-``name`` is accepted for the JAX package's signatures. At size 1 every
-op is the identity (the out-of-place ones return a copy; the object
-collectives a pickled round trip), as in the JAX package.
+``synchronize``/``poll`` on handles; ``barrier``. ``average=`` and
+``op=`` (``Sum``/``Average``) are exclusive; neither means Average. At
+size 1 every op is the identity (the out-of-place ones return a copy;
+the object collectives a pickled round trip), as in the JAX package.
+
+Two tiers, as in the JAX package (``horovod_tpu/ops/collective_ops.py:13-24``:
+eager calls go to the controller, traced code to the device
+collectives):
+
+* **the controller** (``controller/controller.py``): while ``init()``
+  runs one (``horovodrun`` without ``--spmd``, more than one rank), the
+  world-group calls — ``group=None`` — are negotiated, fused, cached,
+  timelined and stall-checked by it, CPU and CUDA tensors alike:
+  allreduce (and ``DistributedOptimizer``'s hooks), allgather,
+  broadcast, the composed reducescatter/alltoall, the object collectives
+  and ``barrier``;
+* **the process group** (``torch.distributed``: NCCL on a card, gloo on
+  the CPU): every call with ``group=`` (a process group, e.g. one axis of
+  ``parallel.make_mesh``, the counterpart of the JAX package's
+  ``axis_name=``), every call when no controller runs, and the modules
+  whose JAX counterparts run inside ``jit``/``shard_map``, which call it
+  directly. ``name`` is accepted there for the JAX package's signatures.
 """
 
 from __future__ import annotations
@@ -25,6 +37,7 @@ import torch
 import torch.distributed as dist
 
 from ..common import basics
+from ..common.reduction import average_
 
 Sum = "Sum"
 Average = "Average"
@@ -65,6 +78,12 @@ def _resolve_average(average: Optional[bool], op: Optional[str]) -> bool:
     return True if average is None else bool(average)
 
 
+def _controller(group=None):
+    """The controller when this call takes it: a world-group call while
+    one runs; else None (the process group)."""
+    return basics.controller() if group is None else None
+
+
 def _size(group=None) -> int:
     return basics.size() if group is None else dist.get_world_size(group)
 
@@ -82,17 +101,15 @@ def _check_root(root_rank: int) -> None:
 def _reduce(buf: torch.Tensor, avg: bool, result: torch.Tensor,
             group=None) -> Handle:
     """Sum ``buf`` across ranks in place; on join divide by the size when
-    averaging (integers with floor division) and return ``result``."""
+    averaging (as the controller does: integers truncated toward zero)
+    and return ``result``."""
     work = dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group,
                            async_op=True)
     n = _size(group)
 
     def finish():
         if avg:
-            if buf.is_floating_point() or buf.is_complex():
-                buf.div_(n)
-            else:
-                buf.floor_divide_(n)
+            average_(buf, n)
         return result
 
     return Handle(result, work, finish)
@@ -104,9 +121,12 @@ def allreduce_async(tensor: torch.Tensor, average: Optional[bool] = None,
     """Mean (or sum) of ``tensor`` over all ranks (of ``group``), into a
     new tensor."""
     avg = _resolve_average(average, op)
-    out = tensor.detach().clone()
     if _size(group) == 1:
-        return Handle(out)
+        return Handle(tensor.detach().clone())
+    ctl = _controller(group)
+    if ctl is not None:
+        return ctl.allreduce_async(tensor, average=avg, name=name)
+    out = tensor.detach().clone()
     return _reduce(out, avg, out, group)
 
 
@@ -117,18 +137,28 @@ def allreduce_async_(tensor: torch.Tensor, average: Optional[bool] = None,
     avg = _resolve_average(average, op)
     if _size(group) == 1:
         return Handle(tensor)
+    ctl = _controller(group)
+    if ctl is not None:
+        return ctl.allreduce_async(tensor, average=avg, name=name,
+                                   inplace=True)
     return _reduce(tensor.detach(), avg, tensor, group)
+
+
+def _member_name(name: Optional[str], i: Any) -> Optional[str]:
+    return None if name is None else f"{name}.{i}"
 
 
 def grouped_allreduce_async(tensors, average: Optional[bool] = None,
                             name: Optional[str] = None,
                             op: Optional[str] = None) -> list:
-    """One handle per member of the list, in order."""
+    """One handle per member of the list, in order; the whole list is
+    enqueued before any join, so the controller fuses it."""
     if not isinstance(tensors, (list, tuple)):
         raise TypeError(
             "grouped_allreduce_async expects a list/tuple of tensors")
     avg = _resolve_average(average, op)
-    return [allreduce_async(t, average=avg) for t in tensors]
+    return [allreduce_async(t, average=avg, name=_member_name(name, i))
+            for i, t in enumerate(tensors)]
 
 
 def grouped_allreduce(tensors, average: Optional[bool] = None,
@@ -146,7 +176,8 @@ def grouped_allreduce_(tensors, average: Optional[bool] = None,
     if not isinstance(tensors, (list, tuple)):
         raise TypeError("grouped_allreduce_ expects a list/tuple of tensors")
     avg = _resolve_average(average, op)
-    handles = [allreduce_async_(t, average=avg) for t in tensors]
+    handles = [allreduce_async_(t, average=avg, name=_member_name(name, i))
+               for i, t in enumerate(tensors)]
     return [h.wait() for h in handles]
 
 
@@ -158,6 +189,9 @@ def allgather_async(tensor: torch.Tensor, name: Optional[str] = None,
     n = _size(group)
     if n == 1:
         return Handle(t.clone(), tensor_sizes=[t.shape[0]])
+    ctl = _controller(group)
+    if ctl is not None:
+        return ctl.allgather_async(tensor, name=name)
     mine = torch.tensor([t.shape[0]], dtype=torch.int64, device=t.device)
     sizes = [torch.empty_like(mine) for _ in range(n)]
     dist.all_gather(sizes, mine, group=group)
@@ -178,9 +212,12 @@ def broadcast_async(tensor: torch.Tensor, root_rank: int,
                     name: Optional[str] = None) -> Handle:
     """Root's ``tensor`` on every rank, into a new tensor."""
     _check_root(root_rank)
-    out = tensor.detach().clone()
     if _size() == 1:
-        return Handle(out)
+        return Handle(tensor.detach().clone())
+    ctl = _controller()
+    if ctl is not None:
+        return ctl.broadcast_async(tensor, root_rank, name=name)
+    out = tensor.detach().clone()
     return Handle(out, dist.broadcast(out, src=root_rank, async_op=True))
 
 
@@ -190,6 +227,10 @@ def broadcast_async_(tensor: torch.Tensor, root_rank: int,
     _check_root(root_rank)
     if _size() == 1:
         return Handle(tensor)
+    ctl = _controller()
+    if ctl is not None:
+        return ctl.broadcast_async(tensor, root_rank, name=name,
+                                   inplace=True)
     return Handle(tensor, dist.broadcast(tensor.detach(), src=root_rank,
                                          async_op=True))
 
@@ -204,8 +245,15 @@ def poll(handle: Handle) -> bool:
 
 
 def barrier(name: Optional[str] = None) -> None:
-    """Block until every rank has reached the barrier."""
-    if _size() > 1:
+    """Block until every rank has reached the barrier (on the controller:
+    a 1-byte allreduce, which completes only when every rank joined)."""
+    if _size() == 1:
+        return
+    ctl = _controller()
+    if ctl is not None:
+        ctl.allreduce(torch.zeros(1, dtype=torch.uint8), average=False,
+                      name=name)
+    else:
         dist.barrier()
 
 
@@ -293,8 +341,8 @@ def broadcast_(tensor: torch.Tensor, root_rank: int,
 
 # ---------------------------------------------------------------------------
 # reducescatter, alltoall and the object collectives
-# (``horovod_tpu/ops/collective_ops.py:325-438`` with the semantics of
-# ``controller.composed_reducescatter`` / ``composed_alltoall``)
+# (``horovod_tpu/ops/collective_ops.py:325-438`` with the semantics of the
+# JAX controller's ``composed_reducescatter`` / ``composed_alltoall``)
 
 
 def _require_dim(tensor: torch.Tensor, op: str) -> None:
@@ -325,9 +373,9 @@ class _Identity(torch.autograd.Function):
 
 class _ReducescatterFunction(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, tensor, average, group):
+    def forward(ctx, tensor, average, name, group):
         ctx.average, ctx.group = average, group
-        full = allreduce_async(tensor, average, group=group).wait()
+        full = allreduce_async(tensor, average, name, group=group).wait()
         counts = _split_counts(tensor.shape[0], _size(group))
         rank = _rank(group)
         off = sum(counts[:rank])
@@ -341,7 +389,7 @@ class _ReducescatterFunction(torch.autograd.Function):
                                group=ctx.group).wait()
         if ctx.average:
             grad = grad / _size(ctx.group)
-        return grad, None, None
+        return grad, None, None, None
 
 
 def reducescatter(tensor: torch.Tensor, average: Optional[bool] = None,
@@ -354,7 +402,7 @@ def reducescatter(tensor: torch.Tensor, average: Optional[bool] = None,
     _require_dim(tensor, "reducescatter")
     if _size(group) == 1:
         return _Identity.apply(tensor)
-    return _ReducescatterFunction.apply(tensor, avg, group)
+    return _ReducescatterFunction.apply(tensor, avg, name, group)
 
 
 def _alltoall_splits(tensor: torch.Tensor, group) -> List[int]:
@@ -401,6 +449,31 @@ class _AlltoallFunction(torch.autograd.Function):
                 None, None)
 
 
+class _ComposedAlltoallFunction(torch.autograd.Function):
+    """:func:`alltoall` on the controller: the JAX package's composition
+    over allgathers."""
+
+    @staticmethod
+    def forward(ctx, tensor, name):
+        from ..controller.controller import alltoall_dims, composed_alltoall
+
+        ctl = basics.controller()
+        dims = alltoall_dims(ctl, tensor, name)
+        ctx.dims = dims
+        return composed_alltoall(ctl, tensor.detach(), name, dims)
+
+    @staticmethod
+    def backward(ctx, grad_output):
+        # Rows [off_r, off_r + d_r/n) of rank j's output are rank r's
+        # block j: gather every output's gradient and take ours.
+        n, r = basics.size(), basics.rank()
+        recv = [d // n for d in ctx.dims]
+        rows, off = sum(recv), sum(recv[:r])
+        full = allgather_async(grad_output.contiguous()).wait()
+        return torch.cat([full[j * rows + off:j * rows + off + recv[r]]
+                          for j in range(n)]), None
+
+
 def alltoall(tensor: torch.Tensor, name: Optional[str] = None,
              group=None) -> torch.Tensor:
     """Exchange dim-0 blocks: rank r's result is the concatenation, in
@@ -412,6 +485,8 @@ def alltoall(tensor: torch.Tensor, name: Optional[str] = None,
     size = _size() if group is None else dist.get_world_size(group)
     if size == 1:
         return _Identity.apply(tensor)
+    if _controller(group) is not None:
+        return _ComposedAlltoallFunction.apply(tensor, name)
     return _AlltoallFunction.apply(tensor, group, False)
 
 
@@ -445,19 +520,20 @@ def broadcast_object(obj: Any, root_rank: int = 0,
     else:
         payload = None
         length = torch.zeros(1, dtype=torch.int64, device=dev)
-    dist.broadcast(length, src=root_rank)
+    broadcast_async_(length, root_rank, _member_name(name, "len")).wait()
     if payload is None:
         payload = torch.empty(int(length[0]), dtype=torch.uint8, device=dev)
-    dist.broadcast(payload, src=root_rank)
+    broadcast_async_(payload, root_rank, _member_name(name, "data")).wait()
     return pickle.loads(payload.cpu().numpy().tobytes())
 
 
 def allgather_object(obj: Any, name: Optional[str] = None) -> list:
-    """One picklable object per rank, in rank order: the lengths are
-    gathered first, then the bytes (padded to the longest)."""
+    """One picklable object per rank, in rank order: one allgather of
+    the pickled bytes (ranks may differ in length), split by the sizes
+    it gathered."""
     if _size() == 1:
         return [pickle.loads(pickle.dumps(obj))]
-    blob = allgather_async(_byte_tensor(pickle.dumps(obj)))
+    blob = allgather_async(_byte_tensor(pickle.dumps(obj)), name=name)
     data = blob.wait().cpu().numpy()
     out, off = [], 0
     for n in blob.tensor_sizes:

@@ -583,7 +583,8 @@ def test_state_construction_before_init_stays_local():
             "print('PREINIT_OK', state._commit_world)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     for scrub in ("HOROVOD_RANK", "HOROVOD_SIZE", "HOROVOD_CKPT_DIR",
-                  "HOROVOD_CONTROLLER_ADDR", "HOROVOD_RENDEZVOUS_FILE"):
+                  "HOROVOD_CONTROLLER_ADDR", "HOROVOD_SPMD_COORDINATOR",
+                  "HOROVOD_RENDEZVOUS_FILE"):
         env.pop(scrub, None)
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)

@@ -37,7 +37,8 @@ LAUNCH_VARS = ("HOROVOD_RANK", "HOROVOD_SIZE", "HOROVOD_LOCAL_RANK",
                "HOROVOD_CROSS_SIZE", "OMPI_COMM_WORLD_RANK",
                "OMPI_COMM_WORLD_SIZE", "OMPI_COMM_WORLD_LOCAL_RANK",
                "OMPI_COMM_WORLD_LOCAL_SIZE", "PMI_RANK", "PMI_SIZE",
-               "HOROVOD_CONTROLLER_ADDR", "HOROVOD_RENDEZVOUS_FILE")
+               "HOROVOD_CONTROLLER_ADDR", "HOROVOD_SPMD_COORDINATOR",
+               "HOROVOD_RENDEZVOUS_FILE")
 
 
 @pytest.fixture
@@ -160,7 +161,7 @@ def collectives():
         raise AssertionError("average= with op= did not raise")
     except ValueError:
         pass
-    ints = torch.tensor([3, 4]) + r            # mean 3.5, 4.5 -> floor
+    ints = torch.tensor([3, 4]) + r            # mean 3.5, 4.5 -> 3, 4
     assert torch.equal(hvd.allreduce(ints), torch.tensor([3, 4]))
     y = x.clone()
     hvd.allreduce_(y)

@@ -30,7 +30,8 @@ LAUNCH_VARS = ("HOROVOD_RANK", "HOROVOD_SIZE", "HOROVOD_LOCAL_RANK",
                "HOROVOD_CROSS_SIZE", "OMPI_COMM_WORLD_RANK",
                "OMPI_COMM_WORLD_SIZE", "OMPI_COMM_WORLD_LOCAL_RANK",
                "OMPI_COMM_WORLD_LOCAL_SIZE", "PMI_RANK", "PMI_SIZE",
-               "HOROVOD_CONTROLLER_ADDR", "HOROVOD_RENDEZVOUS_FILE")
+               "HOROVOD_CONTROLLER_ADDR", "HOROVOD_SPMD_COORDINATOR",
+               "HOROVOD_RENDEZVOUS_FILE")
 
 
 @pytest.fixture

@@ -276,6 +276,21 @@ def test_port_imports_no_jax_or_reference_package():
         "import horovod_tpu_torch.examples.llama_fsdp_training\n"
         "import horovod_tpu_torch.examples.fsdp_hbm_budget\n"
         "import horovod_tpu_torch.examples.imagenet_resnet50\n"
+        "import horovod_tpu_torch.common.message\n"
+        "import horovod_tpu_torch.common.handles\n"
+        "import horovod_tpu_torch.common.retry\n"
+        "import horovod_tpu_torch.common.wire\n"
+        "import horovod_tpu_torch.common.response_cache\n"
+        "import horovod_tpu_torch.common.timeline\n"
+        "import horovod_tpu_torch.common.reduction\n"
+        "import horovod_tpu_torch.controller\n"
+        "import horovod_tpu_torch.controller.service\n"
+        "import horovod_tpu_torch.controller.controller\n"
+        "import horovod_tpu_torch.run\n"
+        "import horovod_tpu_torch.run.launch\n"
+        "import horovod_tpu_torch.run.watchdog\n"
+        "import horovod_tpu_torch.run.task_fn\n"
+        "import horovod_tpu_torch.run.nic_discovery\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'horovod_tpu'))\n"
@@ -306,7 +321,16 @@ def test_port_sources_never_name_jax_or_the_reference_package():
                  "utils/checkpoint.py", "elastic/__init__.py",
                  "examples/llama_fsdp_training.py",
                  "examples/fsdp_hbm_budget.py",
-                 "examples/imagenet_resnet50.py"):
+                 "examples/imagenet_resnet50.py",
+                 # The eager-tier controller slice's.
+                 "common/message.py", "common/handles.py",
+                 "common/retry.py", "common/wire.py",
+                 "common/response_cache.py", "common/timeline.py",
+                 "common/reduction.py",
+                 "controller/__init__.py", "controller/service.py",
+                 "controller/controller.py", "run/__init__.py",
+                 "run/__main__.py", "run/launch.py", "run/watchdog.py",
+                 "run/task_fn.py", "run/nic_discovery.py"):
         assert name in scanned, name
     for path in paths:
         with open(path, encoding="utf-8") as fh:

@@ -35,7 +35,8 @@ LAUNCH_VARS = ("HOROVOD_RANK", "HOROVOD_SIZE", "HOROVOD_LOCAL_RANK",
                "HOROVOD_CROSS_SIZE", "OMPI_COMM_WORLD_RANK",
                "OMPI_COMM_WORLD_SIZE", "OMPI_COMM_WORLD_LOCAL_RANK",
                "OMPI_COMM_WORLD_LOCAL_SIZE", "PMI_RANK", "PMI_SIZE",
-               "HOROVOD_CONTROLLER_ADDR", "HOROVOD_RENDEZVOUS_FILE")
+               "HOROVOD_CONTROLLER_ADDR", "HOROVOD_SPMD_COORDINATOR",
+               "HOROVOD_RENDEZVOUS_FILE")
 
 # (top-k, capacity factor): 0.5 binds (drops assignments), 4.0 is ample.
 ROUTES = [(1, 0.5), (1, 4.0), (2, 0.5), (2, 4.0)]
