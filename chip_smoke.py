@@ -191,13 +191,31 @@ on ``cuda``; any failure exits non-zero:
    first timed step) and flash launches (16 a kernel a rank); rank 0's
    timeline parses and holds the fusion-buffer copies, the card's copies
    and the star exchange of every allreduce response, and negotiations;
-   and the host's one-thread HMAC-SHA256 rate.
+   and the host's one-thread HMAC-SHA256 rate. The job is pinned to the
+   star (``HOROVOD_CPU_OPS=star``): the launcher exports ring addresses;
+31. the native data plane, the same two ranks under the port's launcher
+   (``chip_smoke.py --controller-worker OUT MODE``): 30's (a)-(c) once
+   with ``HOROVOD_ENGINE=python`` (the Python controller on the native
+   TCP ring) and once on the default, the native C++ engine, with (a)
+   also held to the star's arithmetic (rank-order sums of the ranks'
+   inputs), (b) to a maximum weight difference of 0, and (c) one warm and
+   two timed steps split by the plane's counters (the engine's bytes,
+   cycles, busy seconds, cache hits and pipeline stalls, and the staging
+   seconds on either side of it), the engine's own timeline parsed (its
+   activities, no card copies); (d) one native step pair under
+   ``HOROVOD_RING_WIRE_DTYPE=int8``: the loss falls and the int8 wire's
+   error-feedback residuals are non-zero; (e) four ranks on the card as
+   two groups of two (``-H localhost:2,127.0.0.1:2``,
+   ``HOROVOD_HIERARCHICAL_ALLREDUCE/ALLGATHER=1``): 30's collectives on
+   the engine's two-level plane (the /dev/shm local plane and a ring of
+   the group roots), bitwise against the CPU copies and the two-level
+   sum order.
 
-Phases 3-5, 9, 13, 15-18, 20-25, 27, 28 and 30 are the main paths: the
-launch counts in the kernels' JSON line come from them (the flash
+Phases 3-5, 9, 13, 15-18, 20-25, 27, 28, 30 and 31 are the main paths:
+the launch counts in the kernels' JSON line come from them (the flash
 kernels' are the sum of 9, 13, 20, 23's flash run, 24's seq-parallel
-training, 27's and 28's timed training and 30's, plus the forward-only
-long-context runs of 24; the contiguous decode
+training, 27's and 28's timed training and 30's and 31's (c), plus
+the forward-only long-context runs of 24; the contiguous decode
 kernel's of 3, 15, 21 and 25's ``generate()`` and profile, the paged
 one's of 4, 16-18, 22 and 25's engine; a two-process path's counts are
 its two ranks' sum; each path's on a line of its own). Each phase logs
@@ -3381,15 +3399,40 @@ def _same_bits(a, b) -> bool:
         a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
 
 
+def pairwise_sum(x, average: bool):
+    """The sum a plane of this job computes of every rank's ``x`` (CPU),
+    gathered through the gloo group: adjacent ranks first, then adjacent
+    pairs — at two ranks the star's rank-order sum, at four in two groups
+    of two the two-level plane's (group sums, then their sum); each add
+    rounds in the dtype as the planes' do. Averaged as the planes
+    average."""
+    import torch
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.common.reduction import average as mean
+    from horovod_tpu_torch.controller.controller import _host_sum
+
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, x)
+    n = len(parts)
+    while len(parts) > 1:
+        parts = [_host_sum(parts[i], parts[i + 1])
+                 for i in range(0, len(parts), 2)]
+    return mean(parts[0], n) if average else parts[0]
+
+
 def controller_collectives(rank: int, ctl):
-    """Phase 30 (a): CUDA tensors through the controller against CPU
-    copies through it and against the gloo group, bitwise."""
+    """Phase 30 (a), 31 (a) and (e): CUDA tensors through the eager tier
+    against CPU copies through it, against the sum order of its plane
+    (:func:`pairwise_sum`) and, at two ranks, against the gloo group,
+    bitwise."""
     import torch
     import torch.distributed as dist
 
     import horovod_tpu_torch as hvd
 
     world = dist.group.WORLD
+    size = dist.get_world_size()
     dev = torch.device("cuda", 0)
     rng = np.random.RandomState(300 + rank)
     checked = []
@@ -3400,7 +3443,7 @@ def controller_collectives(rank: int, ctl):
         if not (_same_bits(card, host) and _same_bits(host, ref)):
             raise AssertionError(
                 f"{what}: card {card.flatten()[:4].tolist()} host "
-                f"{host.flatten()[:4].tolist()} gloo "
+                f"{host.flatten()[:4].tolist()} reference "
                 f"{ref.flatten()[:4].tolist()}")
         checked.append(what)
 
@@ -3416,11 +3459,13 @@ def controller_collectives(rank: int, ctl):
             label = f"allreduce {dtype} {'average' if avg else 'sum'}"
             card = hvd.allreduce(x.to(dev), average=avg, name=label)
             host = hvd.allreduce(x, average=avg, name=label + " cpu")
-            ref = hvd.allreduce(x, average=avg, group=world)
             torch.cuda.synchronize()
             if card.dtype != x.dtype:
                 raise AssertionError(f"{label}: dtype {card.dtype}")
-            check(label, card, host, ref)
+            check(label, card, host, pairwise_sum(x, avg))
+            if size == 2:
+                check(label + " (gloo)", card, host,
+                      hvd.allreduce(x, average=avg, group=world))
     x = inputs["float32"]
     y = x.to(dev, copy=True)
     got = hvd.allreduce_(y, average=False, name="in-place")
@@ -3428,7 +3473,7 @@ def controller_collectives(rank: int, ctl):
         raise AssertionError("allreduce_ returned a new tensor")
     check("allreduce_ in place", y,
           hvd.allreduce(x, average=False, name="in-place cpu"),
-          hvd.allreduce(x, average=False, group=world))
+          pairwise_sum(x, False))
     part = torch.from_numpy(rng.randn(rank + 3, 5).astype(np.float32))
     check("allgather uneven first dims",
           hvd.allgather(part.to(dev), name="gather"),
@@ -3447,8 +3492,7 @@ def controller_collectives(rank: int, ctl):
     fused = after["responses"] - before["responses"]
     hosts = hvd.grouped_allreduce(small, name="g64 cpu")
     for i, (card, host) in enumerate(zip(cards, hosts)):
-        check(f"grouped {i}", card, host,
-              hvd.allreduce(small[i], group=world))
+        check(f"grouped {i}", card, host, pairwise_sum(small[i], True))
     if not fused < 64:
         raise AssertionError(f"64 tensors in {fused} responses")
     return {"checked": len(checked), "grouped_responses": fused,
@@ -3549,11 +3593,55 @@ def controller_timed(rank: int, ctl, steps: int = 3):
                          for n in rows[0]["launches"]}}
 
 
-def controller_worker(out_path: str) -> int:
-    """One rank of phase 30 (``horovodrun -np 2 ... chip_smoke.py
-    --controller-worker OUT``): both ranks share ``cuda:0`` over a gloo
-    group built here (NCCL refuses two ranks on one device); ``init()``
-    adopts it and starts the controller. Rank 0 writes the JSON."""
+def int8_steps(rank: int, ctl, steps: int = 2):
+    """Phase 31 (d): Llama-300M bf16 (f32 weights), seq 1024, b2 a rank,
+    AdamW through the native engine under the int8 wire: the loss of the
+    second step (after the first update, same batch) is below the
+    first's, and the error-feedback residuals the engine's ring wrote are
+    non-zero."""
+    import torch
+
+    from horovod_tpu_torch.examples import llama_fsdp_training as fx
+    from horovod_tpu_torch.examples import llama_training as lx
+    from horovod_tpu_torch.models.llama import LLAMA_300M
+
+    model = lx.make_model(LLAMA_300M, device="cuda")
+    opt = lx.make_optimizer("adamw", model)
+    ids = fx.batch_ids(LLAMA_300M, CONTROLLER_BATCH_PARITY, CONTROLLER_SEQ,
+                       2, rank, "cuda")
+    loss_fn = lx.make_loss_fn(0)
+    losses = [float(lx.train_step(model, opt, ids, loss_fn))
+              for _ in range(steps)]
+    torch.cuda.synchronize()
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    res = {n: ctl.residual(n) for n in names}
+    nonzero = sum(1 for r in res.values()
+                  if r is not None and float(r.abs().max()) > 0)
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"int8 wire: losses {losses}")
+    if nonzero == 0:
+        raise AssertionError("int8 wire: every residual is zero or absent")
+    from horovod_tpu_torch.core import bindings
+
+    wire = bindings.wire_stats()
+    _drop(model, opt)
+    del model, opt
+    return {"losses": losses, "gradients": len(names),
+            "nonzero_residuals": nonzero,
+            "residual_max": max(float(r.abs().max()) for r in res.values()
+                                if r is not None),
+            "tx_bytes_int8": wire["tx_bytes"]["int8"],
+            "logical_bytes_int8": wire["logical_bytes"]["int8"]}
+
+
+def controller_worker(out_path: str, mode: str = "train") -> int:
+    """One rank of phases 30 and 31 (``horovodrun -np N ... chip_smoke.py
+    --controller-worker OUT MODE``): the ranks share ``cuda:0`` over a
+    gloo group built here (NCCL refuses two ranks on one device);
+    ``init()`` adopts it and starts the eager tier the environment asks
+    for. ``MODE``: ``train`` runs (a)-(c), ``int8`` phase 31 (d),
+    ``collectives`` (a) alone, ``timed`` (c) alone with three timed steps
+    (:func:`compare_planes`). Rank 0 writes the JSON."""
     import datetime
 
     import torch
@@ -3573,23 +3661,33 @@ def controller_worker(out_path: str) -> int:
         timeout=datetime.timedelta(seconds=600))
     hvd.init(device="cuda:0")
     ctl = basics.controller()
-    if ctl is None or hvd.size() != 2 or hvd.device() != torch.device(
-            "cuda", 0):
-        raise AssertionError(f"rank {rank}: controller {ctl}, size "
-                             f"{hvd.size()}, device {hvd.device()}")
+    if ctl is None or hvd.device() != torch.device("cuda", 0):
+        raise AssertionError(f"rank {rank}: controller {ctl}, device "
+                             f"{hvd.device()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    results = {}
-    for label, fn in (("a", lambda: controller_collectives(rank, ctl)),
-                      ("b", lambda: controller_parity(rank)),
-                      ("c", lambda: controller_timed(rank, ctl))):
+    steps = 3 if config.cpu_ops() == "star" else 2
+    parts = {
+        "train": (("a", lambda: controller_collectives(rank, ctl)),
+                  ("b", lambda: controller_parity(rank)),
+                  ("c", lambda: controller_timed(rank, ctl, steps))),
+        "int8": (("d", lambda: int8_steps(rank, ctl)),),
+        "timed": (("c", lambda: controller_timed(rank, ctl, 3)),),
+        "collectives": (("a", lambda: controller_collectives(rank, ctl)),),
+    }[mode]
+    results = {"engine": type(ctl).__name__,
+               "ring": getattr(ctl, "_ring", None) is not None,
+               "hierarchical": bool(
+                   getattr(ctl, "hierarchical_active", False)
+                   or getattr(ctl, "_local_ring", None) is not None)}
+    for label, fn in parts:
         t = time.perf_counter()
         results[label] = fn()
         results[label]["wall_s"] = time.perf_counter() - t
-        log(f"rank {rank} phase 30 ({label}): "
+        log(f"rank {rank} {mode} ({label}), {results['engine']}: "
             f"{results[label]['wall_s']:.1f} s")
     results["by_rank"] = hvd.allgather_object(
-        {"c": results["c"], "counters": ctl.counters()})
+        {"c": results.get("c"), "counters": ctl.counters()})
     hvd.shutdown()
     dist.destroy_process_group()
     if rank == 0:
@@ -3603,17 +3701,22 @@ TIMELINE_ACTIVITIES = ("MEMCPY_IN_FUSION_BUFFER", "TCP_COLLECTIVE",
                        "MEMCPY_OUT_FUSION_BUFFER")
 
 
-def check_timeline(path: str):
-    """Rank 0's timeline parses as JSON and holds, per executed allreduce
-    response, the fusion-buffer copies and the star exchange; the card's
-    responses also their copies to and from the host (the CPU copies of
-    phase 30 (a) have none); and negotiations."""
+def timeline_counts(path: str):
+    """Rank 0's timeline, parsed: begin events by name."""
     with open(path) as f:
         events = json.load(f)
     counts = {}
     for ev in events:
         if ev.get("ph") == "B":
             counts[ev["name"]] = counts.get(ev["name"], 0) + 1
+    return counts
+
+
+def check_timeline(counts):
+    """Rank 0's timeline (the Python controller's) holds, per executed
+    allreduce response, the fusion-buffer copies and the exchange; the
+    card's responses also their copies to and from the host (the CPU
+    copies of (a) have none); and negotiations."""
     allreduces = counts.get("ALLREDUCE", 0)
     card = counts.get("MEMCPY_D2H", 0)
     if not allreduces or any(counts.get(a, 0) != allreduces
@@ -3636,31 +3739,46 @@ def hmac_rate(nbytes: int = 1 << 28) -> float:
     return nbytes / (time.perf_counter() - t) / 1e9
 
 
-def run_controller_phase(card: str):
-    """Phase 30: ``python -m horovod_tpu_torch.run -np 2 ... chip_smoke.py
-    --controller-worker OUT``; returns rank 0's results."""
+def launch_eager_job(mode: str, env_extra: dict, np_: int = 2,
+                     launcher_args=(), timeline: bool = True):
+    """``python -m horovod_tpu_torch.run -np N ... chip_smoke.py
+    --controller-worker OUT MODE`` with ``env_extra``; returns rank 0's
+    results and the timeline's begin events by name (or None)."""
     import tempfile
 
     import torch
 
     torch.cuda.empty_cache()
-    out_dir = tempfile.mkdtemp(prefix="chip_smoke_controller_")
-    out_path = os.path.join(out_dir, "controller.json")
-    timeline = os.path.join(out_dir, "timeline.json")
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_eager_")
+    out_path = os.path.join(out_dir, "results.json")
+    path = os.path.join(out_dir, "timeline.json")
     env = {k: v for k, v in os.environ.items()
            if not k.startswith(("HOROVOD_", "OMPI_", "PMI_"))}
     here = os.path.dirname(os.path.abspath(__file__))
-    env.update(PYTHONPATH=here, HOROVOD_TIMELINE=timeline)
-    proc = subprocess.run(
-        [sys.executable, "-m", "horovod_tpu_torch.run", "-np", "2",
-         sys.executable, os.path.abspath(__file__), "--controller-worker",
-         out_path], cwd=here, env=env, timeout=600)
-    if proc.returncode != 0:
-        raise AssertionError(f"controller job exited {proc.returncode}")
-    with open(out_path) as f:
-        results = json.load(f)
-    counts = check_timeline(timeline)
-    shutil.rmtree(out_dir, ignore_errors=True)
+    env.update(PYTHONPATH=here, **env_extra)
+    if timeline:
+        env["HOROVOD_TIMELINE"] = path
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "horovod_tpu_torch.run", "-np", str(np_),
+             *launcher_args, sys.executable, os.path.abspath(__file__),
+             "--controller-worker", out_path, mode], cwd=here, env=env,
+            timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"eager job {mode} {env_extra} exited "
+                                 f"{proc.returncode}")
+        with open(out_path) as f:
+            results = json.load(f)
+        return results, (timeline_counts(path) if timeline else None)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def run_controller_phase(card: str):
+    """Phase 30: the Python controller on the TCP star; returns rank 0's
+    results."""
+    results, counts = launch_eager_job("train", {"HOROVOD_CPU_OPS": "star"})
+    check_timeline(counts)
     results["hmac_sha256_gb_s"] = hmac_rate()
     a, b, c = results["a"], results["b"], results["c"]
     log(f"controller (a): {a['checked']} collectives of CUDA tensors "
@@ -3691,6 +3809,141 @@ def run_controller_phase(card: str):
         f"{results['hmac_sha256_gb_s']:.3f} GB/s on one thread [{card}]")
     results["timeline"] = counts
     return results
+
+
+def check_engine_timeline(counts):
+    """Rank 0's timeline as the native engine's C++ writer wrote it: its
+    negotiations and allreduces, and no card copies (those are the
+    Python side's)."""
+    if not counts.get("ALLREDUCE") or not counts.get("NEGOTIATE_ALLREDUCE") \
+            or counts.get("MEMCPY_D2H") or counts.get("MEMCPY_H2D"):
+        raise AssertionError(f"engine timeline: {counts}")
+
+
+# Phase 31 (c)'s split of a step, per plane: the counters that are
+# seconds, and the counts beside them.
+RING_SPLIT = {
+    "python": (("negotiate_s", "negotiate"), ("pack_s", "pack+D2H"),
+               ("exchange_s", "ring exchange"), ("unpack_s", "H2D+unpack")),
+    "native": (("stage_s", "D2H staging"), ("busy_s", "engine busy"),
+               ("unstage_s", "H2D issue")),
+}
+RING_COUNTS = {
+    "python": ("responses", "cache_hits"),
+    "native": ("responses", "cache_hits", "cycles", "processed_bytes",
+               "pipeline_stall_us"),
+}
+
+
+def run_ring_phase(card: str):
+    """Phase 31: (a)-(c) on the Python controller over the native ring and
+    on the native engine, (d) the int8 wire on the engine, (e) the
+    engine's two-level plane at four ranks; returns rank 0's results."""
+    from horovod_tpu_torch.core import bindings
+
+    t = time.perf_counter()
+    lib = bindings.build()
+    gxx = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True).stdout.splitlines()[0]
+    log(f"native core: {lib.name} built by {gxx} in "
+        f"{time.perf_counter() - t:.1f} s")
+    out = {"gxx": gxx}
+    for plane, env in (("python", {"HOROVOD_ENGINE": "python"}),
+                       ("native", {})):
+        results, counts = launch_eager_job("train", env)
+        want = "Controller" if plane == "python" else "NativeController"
+        if results["engine"] != want or (plane == "python"
+                                         and not results["ring"]):
+            raise AssertionError(f"{plane}: ran {results['engine']}, "
+                                 f"ring {results['ring']}")
+        (check_timeline if plane == "python" else
+         check_engine_timeline)(counts)
+        a, b, c = results["a"], results["b"], results["c"]
+        if b["max_abs_weight_diff"] != 0:
+            raise AssertionError(f"{plane}: weights differ from the gloo "
+                                 f"group's by {b['max_abs_weight_diff']}")
+        log(f"ring {plane} (a): {a['checked']} collectives of CUDA tensors "
+            f"bitwise equal to CPU copies, the star's sums and the gloo "
+            f"group; 64 grouped tensors in {a['grouped_responses']} fused "
+            f"responses")
+        log(f"ring {plane} (b): llama300m f32 seq {CONTROLLER_SEQ} "
+            f"b{CONTROLLER_BATCH_PARITY} a rank, 2 AdamW steps; losses "
+            f"{b['losses_controller']} vs gloo group {b['losses_group']}; "
+            f"max abs weight diff {b['max_abs_weight_diff']}")
+        for r, row in enumerate(results["by_rank"]):
+            for step in row["c"]["steps"]:
+                split = ", ".join(f"{what} {step[k] * 1e3:.1f} ms"
+                                  for k, what in RING_SPLIT[plane])
+                tally = ", ".join(f"{k} {step[k]}"
+                                  for k in RING_COUNTS[plane])
+                log(f"ring {plane} (c) rank {r} step {step['step']}: wall "
+                    f"{step['wall_s'] * 1e3:.1f} ms, {split}; {tally}; "
+                    f"flash {json.dumps(step['launches'])}")
+        log(f"ring {plane} (c): llama300m bf16 seq {SHARDED_SEQ} "
+            f"b{SHARDED_BATCH} a rank, AdamW, dp 2 (two ranks sharing one "
+            f"card): {c['tokens_per_s']:.1f} tokens/s, step "
+            f"{c['step_s'] * 1e3:.1f} ms; timeline events "
+            f"{json.dumps(counts)} [{card}]")
+        results["timeline"] = counts
+        out[plane] = results
+    d, _ = launch_eager_job("int8", {"HOROVOD_RING_WIRE_DTYPE": "int8"},
+                            timeline=False)
+    dd = d["d"]
+    log(f"ring native (d) int8 wire: llama300m bf16 b{CONTROLLER_BATCH_PARITY}"
+        f" a rank, losses {dd['losses']}; {dd['nonzero_residuals']} of "
+        f"{dd['gradients']} residuals non-zero (max {dd['residual_max']:.3g});"
+        f" int8 wire bytes {dd['tx_bytes_int8']} for "
+        f"{dd['logical_bytes_int8']} f32 bytes [{card}]")
+    e, _ = launch_eager_job(
+        "collectives", {"HOROVOD_HIERARCHICAL_ALLREDUCE": "1",
+                        "HOROVOD_HIERARCHICAL_ALLGATHER": "1"}, np_=4,
+        launcher_args=("-H", "localhost:2,127.0.0.1:2"), timeline=False)
+    if e["engine"] != "NativeController" or not e["hierarchical"]:
+        raise AssertionError(f"(e) ran {e['engine']}, two-level "
+                             f"{e['hierarchical']}")
+    log(f"ring native (e) four ranks as 2x2, two-level plane: "
+        f"{e['a']['checked']} collectives of CUDA tensors bitwise equal to "
+        f"CPU copies and the two-level sum order")
+    out["int8"], out["hierarchical"] = d, e
+    return out
+
+
+def compare_planes(rounds: int) -> int:
+    """``python3 chip_smoke.py --compare-planes N``: phase 31 (c) alone
+    (one warm and three timed steps), on the Python controller over the
+    ring and on the native engine in turns — python, native, native,
+    python, N rounds — because the host's share of a two-rank step drifts
+    by 10% and more between jobs of one call. Logs each job's tok/s and
+    rank 0's mean split, then the medians, beside the card's name and
+    power limit."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    from horovod_tpu_torch.core import bindings
+    from horovod_tpu_torch.ops import _build
+
+    _build.build_all()
+    bindings.build()
+    card = card_line()
+    planes = {"python": {"HOROVOD_ENGINE": "python"}, "native": {}}
+    got = {plane: [] for plane in planes}
+    for _ in range(rounds):
+        for plane in ("python", "native", "native", "python"):
+            results, _ = launch_eager_job("timed", planes[plane],
+                                          timeline=False)
+            c = results["c"]
+            got[plane].append(c["tokens_per_s"])
+            split = {k: statistics.mean(s[k] for s in c["steps"][1:])
+                     for k, _ in RING_SPLIT[plane]}
+            log(f"{plane}: {c['tokens_per_s']:.1f} tokens/s, step "
+                f"{c['step_s'] * 1e3:.1f} ms, rank 0 mean split (s) "
+                f"{json.dumps(split)} [{card}]")
+    log("medians: " + ", ".join(
+        f"{plane} {statistics.median(v):.1f} tokens/s of {len(v)} jobs"
+        for plane, v in sorted(got.items())) + f" [{card}]")
+    return 0
 
 
 def main() -> int:
@@ -3805,6 +4058,7 @@ def main() -> int:
     hvd.shutdown()
     controller = phase("30 controller (two ranks, horovodrun)",
                        run_controller_phase, card)
+    ring = phase("31 native data plane (horovodrun)", run_ring_phase, card)
 
     # The two ranks' counts of each parallel path, summed.
     by_rank = parallel["counts_by_rank"]
@@ -3827,7 +4081,12 @@ def main() -> int:
                    "llama300m training through the controller (30)": {
                        n: sum(r["c"]["launches"][n]
                               for r in controller["by_rank"])
-                       for n in flash_names}}
+                       for n in flash_names},
+                   **{f"llama300m training, {plane} on the ring (31)": {
+                       n: sum(r["c"]["launches"][n]
+                              for r in ring[plane]["by_rank"])
+                       for n in flash_names}
+                      for plane in ("python", "native")}}
     forward_only = {f"long context ring {layout} (24)": both(
         "24 sp timed", f"long_context_{layout}", "flash_forward")
         for layout in ("contiguous", "zigzag")}
@@ -3903,6 +4162,7 @@ def main() -> int:
     log(f"parallel: {json.dumps(parallel)}")
     log(f"checkpoint resume: {json.dumps(resume)}")
     log(f"controller: {json.dumps(controller)}")
+    log(f"native data plane: {json.dumps(ring)}")
     log(f"ring kernels: {json.dumps({f'{k[0]} {k[1]}': v for k, v in ring_flash.items()})}")
     log(f"wall time: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
@@ -3916,6 +4176,8 @@ if __name__ == "__main__":
     if len(sys.argv) == 5 and sys.argv[1] == "--parallel-worker":
         sys.exit(parallel_worker(int(sys.argv[2]), int(sys.argv[3]),
                                  sys.argv[4]))
-    if len(sys.argv) == 3 and sys.argv[1] == "--controller-worker":
-        sys.exit(controller_worker(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--compare-planes":
+        sys.exit(compare_planes(int(sys.argv[2])))
+    if len(sys.argv) == 4 and sys.argv[1] == "--controller-worker":
+        sys.exit(controller_worker(sys.argv[2], sys.argv[3]))
     sys.exit(main())

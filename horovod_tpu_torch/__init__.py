@@ -47,3 +47,5 @@ def default_device(device: DeviceLike = None) -> _torch.device:
 
 from .torch import *  # noqa: E402,F401,F403
 from . import elastic  # noqa: E402,F401
+from . import serving  # noqa: E402,F401
+from . import trace  # noqa: E402,F401

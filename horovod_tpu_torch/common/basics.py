@@ -13,16 +13,22 @@ e.g. ``device="cpu"``), and builds the job's two tiers:
   launched job of size 1 with neither keeps an in-process store. The
   code whose JAX counterpart runs inside ``jit``/``shard_map`` calls it,
   and so does every ``group=`` collective;
-* the **controller** (``controller/controller.py``, the eager tier over
-  the TCP star), when the job has more than one rank and the launcher
-  exported ``HOROVOD_CONTROLLER_ADDR`` — the JAX rule. The world-group
-  collectives of ``horovod_tpu_torch.torch`` then run through it. If it
-  fails to start, ``init()`` raises; nothing falls back to the process
-  group. Rank 0 writes the timeline (``HOROVOD_TIMELINE``).
+* the **controller** of the eager tier, when the job has more than one
+  rank — the JAX rule: the native engine (``controller/native.py``, the
+  C++ engine over the TCP ring) whenever the launcher exported ring
+  addresses, unless ``HOROVOD_ENGINE=python`` or ``HOROVOD_CPU_OPS=star``;
+  else the Python controller (``controller/controller.py``, on the ring
+  or, under ``HOROVOD_CPU_OPS=star``, the TCP star) when
+  ``HOROVOD_CONTROLLER_ADDR`` was exported. The world-group collectives
+  of ``horovod_tpu_torch.torch`` then run through it. If it fails to
+  start (the native core fails to build, ``HOROVOD_ENGINE=native``
+  without ring addresses), ``init()`` raises; nothing falls back to
+  another plane. Rank 0 writes the timeline (``HOROVOD_TIMELINE``): the
+  engine's C++ writer under the native engine, the Python one otherwise.
 
 The controller runs beside the process group, never instead of it: a
 launched job of more than one rank needs the group's rendezvous too.
-The native engine and elastic membership are not ported.
+Elastic membership is not ported.
 """
 
 from __future__ import annotations
@@ -128,7 +134,11 @@ def init(ranks: Optional[Sequence[int]] = None,
             owns_group = True
         state = _State(topology, dev, owns_group)
         try:
-            if topology.size > 1 and config.controller_addr():
+            if topology.size > 1 and config.selected_engine() == "native":
+                from ..controller.native import NativeController
+
+                state.controller = NativeController(cfg, topology)
+            elif topology.size > 1 and config.controller_addr():
                 if cfg.timeline_filename and topology.rank == 0:
                     from .timeline import Timeline
 
@@ -173,6 +183,14 @@ def controller():
     """The running eager-tier controller, or None (size 1, ``--spmd``, or
     no launcher)."""
     return _ensure_initialized().controller
+
+
+def mpi_threads_supported() -> bool:
+    """Whether collectives may be called from several threads at once:
+    True once initialised (both controllers take concurrent enqueues), as
+    in the JAX package."""
+    _ensure_initialized()
+    return True
 
 
 def device() -> torch.device:

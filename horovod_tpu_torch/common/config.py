@@ -261,8 +261,9 @@ def rendezvous_file() -> Optional[str]:
 
 
 def engine() -> Optional[str]:
-    """``HOROVOD_ENGINE`` (native/python); None when unset. The port has
-    the Python controller only."""
+    """``HOROVOD_ENGINE`` (native/python), None when the launcher left
+    the choice to :func:`ring_data_plane_enabled`. Every rank derives the
+    same answer from the same launcher-exported env."""
     return os.environ.get("HOROVOD_ENGINE") or None
 
 
@@ -274,9 +275,146 @@ def secret_key_hex() -> Optional[str]:
 
 
 def ring_addrs() -> Optional[str]:
-    """``HOROVOD_RING_ADDRS``: per-rank addresses of the native ring data
-    plane, which the port has not ported (the controller refuses them)."""
+    """``HOROVOD_RING_ADDRS``: per-rank addresses for the native ring
+    data plane (launcher-exported, identical on every rank)."""
     return os.environ.get("HOROVOD_RING_ADDRS") or None
+
+
+def local_ring_addrs() -> Optional[str]:
+    """``HOROVOD_LOCAL_RING_ADDRS``: the addresses of this rank's group
+    ring (the hierarchical plane's intra-node hop)."""
+    return os.environ.get("HOROVOD_LOCAL_RING_ADDRS") or None
+
+
+def cross_ring_addrs() -> Optional[str]:
+    """``HOROVOD_CROSS_RING_ADDRS``: the addresses of the local roots'
+    ring (the hierarchical plane's inter-node hop)."""
+    return os.environ.get("HOROVOD_CROSS_RING_ADDRS") or None
+
+
+def cpu_ops() -> str:
+    """``HOROVOD_CPU_OPS``: "star" forces the TCP star data plane under
+    the Python controller; anything else (default "ring") allows the
+    native rings."""
+    return os.environ.get("HOROVOD_CPU_OPS", "ring")
+
+
+def selected_engine() -> str:
+    """The eager tier's engine, "native" or "python": ``HOROVOD_ENGINE``
+    when set, else native whenever :func:`ring_data_plane_enabled`."""
+    return engine() or ("native" if ring_data_plane_enabled() else "python")
+
+
+def ring_data_plane_enabled() -> bool:
+    """True when the launcher exported per-rank ring addresses and the
+    operator did not force the star data plane. The one predicate for
+    engine selection (``basics.init``) and the Python controller's ring
+    construction: identical on every rank."""
+    return bool(ring_addrs()) and cpu_ops() != "star"
+
+
+# Wire dtypes the ring can put f32 allreduce payloads on the wire as;
+# must match core.bindings.WIRE_DTYPE_CODES.
+RING_WIRE_DTYPES = ("none", "bf16", "fp16", "int8")
+
+# Default wire dtype per link class: fast intra-node/ICI links lose more
+# to the casts than the saved bytes buy back; TCP/DCN-class links are
+# where int8 with error feedback pays.
+RING_WIRE_DTYPE_BY_LINK = {
+    "local": "none",
+    "ici": "none",
+    "tcp": "int8",
+    "dcn": "int8",
+}
+
+# Default transfer-chunk bytes per link class.
+RING_CHUNK_BYTES_BY_LINK = {
+    "local": 1 << 20,
+    "tcp": 256 << 10,
+    "dcn": 512 << 10,
+    "ici": 2 << 20,
+}
+
+
+def ring_wire_dtype() -> str:
+    """``HOROVOD_RING_WIRE_DTYPE``: on-the-wire representation of f32
+    payloads in the flat ring's allreduce data phases (``bf16``/``fp16``
+    halve the bytes, accumulation stays f32; ``int8`` quarters them with
+    per-block scales and error feedback). Unset/garbage -> ``none``, the
+    uncompressed stream."""
+    val = (os.environ.get("HOROVOD_RING_WIRE_DTYPE") or "").strip().lower()
+    return val if val in RING_WIRE_DTYPES else "none"
+
+
+def _link_class_env(name: str) -> Optional[str]:
+    val = (os.environ.get(name) or "").strip().lower()
+    return val if val in RING_CHUNK_BYTES_BY_LINK else None
+
+
+def _inferred_link_class(env_name: str, addrs: Optional[str]) -> str:
+    val = _link_class_env(env_name)
+    if val is not None:
+        return val
+    from ..run.nic_discovery import infer_link_class
+
+    return infer_link_class(addrs)
+
+
+def ring_link_class() -> str:
+    """``HOROVOD_RING_LINK_CLASS`` (local/tcp/dcn/ici) of the flat ring;
+    unset -> inferred from its addresses."""
+    return _inferred_link_class("HOROVOD_RING_LINK_CLASS", ring_addrs())
+
+
+def local_ring_link_class() -> str:
+    """``HOROVOD_LOCAL_RING_LINK_CLASS`` of the hierarchical plane's
+    intra-node ring; unset -> inferred from its addresses."""
+    return _inferred_link_class("HOROVOD_LOCAL_RING_LINK_CLASS",
+                                local_ring_addrs())
+
+
+def cross_ring_link_class() -> str:
+    """``HOROVOD_CROSS_RING_LINK_CLASS`` of the local roots' ring; unset
+    -> inferred from its addresses."""
+    return _inferred_link_class("HOROVOD_CROSS_RING_LINK_CLASS",
+                                cross_ring_addrs())
+
+
+def _wire_dtype_for(env_name: str, link_class: str) -> str:
+    val = (os.environ.get(env_name) or "").strip().lower()
+    if val in RING_WIRE_DTYPES:
+        return val
+    return RING_WIRE_DTYPE_BY_LINK[link_class]
+
+
+def ring_wire_dtype_local() -> str:
+    """``HOROVOD_RING_WIRE_DTYPE_LOCAL``: the wire dtype of the
+    hierarchical plane's local hop; default by its link class."""
+    return _wire_dtype_for("HOROVOD_RING_WIRE_DTYPE_LOCAL",
+                           local_ring_link_class())
+
+
+def ring_wire_dtype_cross() -> str:
+    """``HOROVOD_RING_WIRE_DTYPE_CROSS``: the wire dtype of the
+    hierarchical plane's cross hop; default by its link class."""
+    return _wire_dtype_for("HOROVOD_RING_WIRE_DTYPE_CROSS",
+                           cross_ring_link_class())
+
+
+def pipeline_enabled() -> bool:
+    """``HOROVOD_PIPELINE``: the native engine's double-buffered data
+    plane (a wire thread runs fused group N on the ring while the engine
+    thread packs N+1). Default on; ``0`` gives the serial stream. Results
+    are byte-identical either way."""
+    return _env_bool("HOROVOD_PIPELINE", True)
+
+
+def resolved_ring_chunk_bytes() -> int:
+    """The chunk size the rings start at: ``HOROVOD_RING_CHUNK_BYTES``
+    (per rank; ranks need not agree), else, when it is unset, 0 or
+    garbage, the flat ring's link-class default."""
+    return (max(0, _env_int("HOROVOD_RING_CHUNK_BYTES", 0))
+            or RING_CHUNK_BYTES_BY_LINK[ring_link_class()])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -304,6 +442,10 @@ class Config:
     stall_check_disable: bool = False
     stall_check_seconds: float = DEFAULT_STALL_CHECK_SECONDS
     stall_shutdown_seconds: float = 0.0
+    # Two-level data plane (a ring inside each host plus a ring of the
+    # hosts' first ranks), when the launcher exported the group rings.
+    hierarchical_allreduce: bool = False
+    hierarchical_allgather: bool = False
     log_level: str = "warning"
     log_hide_timestamp: bool = False
 
@@ -324,6 +466,10 @@ class Config:
                 DEFAULT_STALL_CHECK_SECONDS),
             stall_shutdown_seconds=_env_float(
                 "HOROVOD_STALL_SHUTDOWN_TIME_SECONDS", 0.0),
+            hierarchical_allreduce=_env_bool(
+                "HOROVOD_HIERARCHICAL_ALLREDUCE"),
+            hierarchical_allgather=_env_bool(
+                "HOROVOD_HIERARCHICAL_ALLGATHER"),
             comm_timeout_seconds=comm_timeout_seconds(),
             heartbeat_interval_seconds=heartbeat_interval_seconds(),
             log_level=log_level_name(),

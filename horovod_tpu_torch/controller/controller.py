@@ -18,7 +18,23 @@ Protocol per cycle (lockstep), the JAX package's:
   then, for each bypass bit and each response, in identical order on every
   rank: one raw-buffer data exchange (send shard / recv result).
 
-The data plane meets on host bytes, whatever the device: a CUDA tensor on
+Data planes, chosen identically on every rank from the launcher's
+environment, as the JAX package's controller chooses them:
+
+* the native ring (``core/src/ring.cc`` through ``core/bindings.py``):
+  reduce-scatter + allgather allreduce, allgatherv and broadcast over
+  authenticated TCP connections, when ``horovodrun`` exported
+  ``HOROVOD_RING_ADDRS``; ``HOROVOD_RING_WIRE_DTYPE=bf16|fp16`` puts
+  float32 payloads on the wire in half width (int8 needs the native
+  engine's error-feedback residuals and falls back, loudly, to the
+  uncompressed stream);
+* the two-level plane (``HOROVOD_HIERARCHICAL_ALLREDUCE`` /
+  ``_ALLGATHER`` with the exported group rings): a ring inside each host,
+  a ring of the hosts' first ranks, and a broadcast back;
+* the TCP star through the coordinator, for ``HOROVOD_CPU_OPS=star`` and
+  for dtypes the ring cannot carry (uint32, uint64).
+
+Every plane meets on host bytes, whatever the device: a CUDA tensor on
 one rank and a CPU tensor on another exchange the same bytes, so no data
 phase branches on the device. A CUDA entry is read after the event its
 caller recorded at enqueue (the caller's stream may still be writing it,
@@ -28,16 +44,17 @@ threshold's size, copied to pinned host memory once, sent, and the result
 copied back once and split, all on a side stream whose event the
 handle's ``wait()`` hands to the caller's stream. The coordinator sums in
 the tensors' dtype and in rank order (``acc = acc + peer``), so every add
-rounds as the JAX package's numpy sum does.
+rounds as the JAX package's numpy sum does; the ring sums in its own
+order, the JAX ring's.
 
-Not ported (ROADMAP Queue 1 item 8): the native ring and hierarchical
-data planes, wire compression, elastic reshape, the autotuner, the
-doctor and the tracer spans. ``HOROVOD_ELASTIC=1`` and exported ring
-addresses are refused, never silently replaced.
+Not ported (ROADMAP Queue 1 item 8): elastic reshape, the autotuner,
+the doctor and the tracer spans. ``HOROVOD_ELASTIC=1`` is refused, never
+silently replaced.
 """
 
 from __future__ import annotations
 
+import math
 import threading
 import time
 from typing import Any, Dict, List, Optional
@@ -61,7 +78,8 @@ from ..common.message import (
 from ..common.reduction import average
 from ..common.response_cache import ResponseCache
 from ..common.topology import Topology
-from ..common.wire import RemoteAbortError
+from ..common.wire import RemoteAbortError, job_secret
+from ..core import bindings
 from .. import metrics
 from .service import CoordinatorService, PeerFailureError, WorkerClient
 
@@ -192,6 +210,23 @@ class _Pending:
         return _nbytes(self.tensor)
 
 
+def _python_engine_wire(wire: str, which: str) -> str:
+    """The wire dtype the Python controller can honour: bf16/fp16 are
+    stateless casts; int8 needs the per-tensor error-feedback residuals
+    of the native engine, so it keeps the uncompressed stream — with a
+    warning only when the environment asked for int8 explicitly (the
+    link-class defaults may pick it for a hop nobody configured)."""
+    if wire != "int8":
+        return wire
+    if (config_mod.env_str(which) or "").strip().lower() == "int8":
+        logging.warning(
+            "%s=int8 requires the native engine (error-feedback residuals "
+            "live in controller/native.py); the Python engine keeps the "
+            "uncompressed wire — unset HOROVOD_ENGINE=python, or use "
+            "bf16/fp16 here", which)
+    return "none"
+
+
 class ShutdownError(RuntimeError):
     """Delivered to pending callbacks at teardown (reference
     ``operations.cc:1107-1122`` "Horovod has been shut down")."""
@@ -214,16 +249,6 @@ class Controller:
                 "HOROVOD_ELASTIC=1: the port's controller has no elastic "
                 "membership yet (ROADMAP Queue 1 item 8, elastic "
                 "membership); launch without --elastic")
-        if config_mod.engine() == "native":
-            raise RuntimeError(
-                "HOROVOD_ENGINE=native: the port has no native engine yet "
-                "(ROADMAP Queue 1 item 8, the native engine); unset it to "
-                "run the Python controller")
-        if config_mod.ring_addrs():
-            raise RuntimeError(
-                "HOROVOD_RING_ADDRS is set: the port's controller has no "
-                "native ring data plane yet (ROADMAP Queue 1 item 8, the "
-                "native engine); unset it to run on the TCP star")
         self.cfg = config
         self.topo = topology
         self.timeline = timeline
@@ -253,6 +278,10 @@ class Controller:
         self._device_buffers: Dict[torch.device, torch.Tensor] = {}
         self._host_buffer: Optional[torch.Tensor] = None
         self._resolved: list = []
+        self._ring = self._local_ring = self._cross_ring = None
+        self._wire_code = self._wire_local_code = self._wire_cross_code = 0
+        if topology.size > 1:
+            self._start_rings(config, topology)
 
         addr = config_mod.controller_addr()
         if addr is None:
@@ -279,6 +308,59 @@ class Controller:
         self._thread = threading.Thread(
             target=self._run_loop, name="hvd-controller", daemon=True)
         self._thread.start()
+
+    def _start_rings(self, config: Config, topology: Topology) -> None:
+        """The native rings, before the star (the JAX order). A ring that
+        fails to start raises: the path choice must be the same on every
+        rank or the lockstep data phases deadlock."""
+        if config_mod.ring_data_plane_enabled():
+            self._ring = bindings.RingBackend(
+                topology.rank, topology.size, config_mod.ring_addrs(),
+                job_secret())
+            self._wire_code = bindings.WIRE_DTYPE_CODES[_python_engine_wire(
+                config_mod.ring_wire_dtype(), "HOROVOD_RING_WIRE_DTYPE")]
+        local_addrs = config_mod.local_ring_addrs()
+        cross_addrs = config_mod.cross_ring_addrs()
+        # Both or neither of the group rings, and only for a real two-level
+        # layout; HOROVOD_CPU_OPS=star turns them off with the flat ring.
+        if ((config.hierarchical_allreduce or config.hierarchical_allgather)
+                and topology.local_size > 1 and topology.cross_size > 1
+                and config_mod.cpu_ops() != "star"
+                and local_addrs and cross_addrs):
+            self._local_ring = bindings.RingBackend(
+                topology.local_rank, topology.local_size, local_addrs,
+                job_secret())
+            self._local_ring.set_link("local")
+            if topology.local_rank == 0:
+                self._cross_ring = bindings.RingBackend(
+                    topology.cross_rank, topology.cross_size, cross_addrs,
+                    job_secret())
+                self._cross_ring.set_link("cross")
+            self._wire_local_code = bindings.WIRE_DTYPE_CODES[
+                _python_engine_wire(config_mod.ring_wire_dtype_local(),
+                                    "HOROVOD_RING_WIRE_DTYPE_LOCAL")]
+            self._wire_cross_code = bindings.WIRE_DTYPE_CODES[
+                _python_engine_wire(config_mod.ring_wire_dtype_cross(),
+                                    "HOROVOD_RING_WIRE_DTYPE_CROSS")]
+        if self._ring is not None or self._local_ring is not None:
+            # Process-wide in the core: every ring pipelines on it.
+            bindings.set_chunk_bytes(config_mod.resolved_ring_chunk_bytes())
+
+    def _close_rings(self) -> None:
+        for ring in (self._ring, self._local_ring, self._cross_ring):
+            if ring is not None:
+                ring.shutdown()
+        self._ring = self._local_ring = self._cross_ring = None
+
+    def _use_ring(self, dtype: torch.dtype) -> bool:
+        """Whether the flat ring carries ``dtype``: global ring
+        availability and the negotiated dtype, the same on every rank."""
+        return (self._ring is not None
+                and bindings.dtype_code(dtype) is not None)
+
+    def _use_hierarchical(self, dtype: torch.dtype, enabled: bool) -> bool:
+        return (enabled and self._local_ring is not None
+                and bindings.dtype_code(dtype) is not None)
 
     # ------------------------------------------------------------------ API
 
@@ -430,6 +512,7 @@ class Controller:
             self._fail_all(self._diagnose_failure(exc))
         finally:
             self._closed.set()
+            self._close_rings()
             if self._service:
                 self._service.close()
             if self._client:
@@ -957,7 +1040,24 @@ class Controller:
         t1 = time.monotonic()
         dtype = entries[0].tensor.dtype
         self._activity(tname, tl.TCP_COLLECTIVE)
-        if self.topo.rank == 0:
+        hier = self._use_hierarchical(dtype, self.cfg.hierarchical_allreduce)
+        if hier or self._use_ring(dtype):
+            if len(entries) == 1 and entries[0].ready is None:
+                # A view of the caller's CPU tensor: reduce a copy.
+                host = host.clone()
+            result = host.view(dtype)
+            if hier:
+                # Sum inside the host, exchange the host sums over the
+                # local roots' ring, fan the result back out.
+                self._local_ring.allreduce_(
+                    result, wire_dtype=self._wire_local_code)
+                if self.topo.local_rank == 0:
+                    self._cross_ring.allreduce_(
+                        result, wire_dtype=self._wire_cross_code)
+                self._local_ring.broadcast_(result, 0)
+            else:
+                self._ring.allreduce_(result, wire_dtype=self._wire_code)
+        elif self.topo.rank == 0:
             acc = host.view(dtype)
             for rank in range(1, self.topo.size):
                 peer = _from_bytes(self._service.recv_bytes_from(rank), dtype)
@@ -989,7 +1089,27 @@ class Controller:
         entry.handle.tensor_sizes = [int(s) for s in response.tensor_sizes]
         mine = self._host_bytes(entry)
         t1 = time.monotonic()
-        if self.topo.rank == 0:
+        sizes = [int(s) for s in response.tensor_sizes]
+        rest_elems = math.prod(rest)
+        if self._use_hierarchical(dtype, self.cfg.hierarchical_allgather):
+            # Gather inside the host, the local roots exchange the host
+            # blobs, then fan the whole back out (contiguous rank groups:
+            # host order is rank order).
+            ls, cr = self.topo.local_size, self.topo.cross_rank
+            local = self._local_ring.allgather(
+                mine.view(dtype),
+                [s * rest_elems for s in sizes[cr * ls:(cr + 1) * ls]])
+            if self.topo.local_rank == 0:
+                flat = self._cross_ring.allgather(local, [
+                    sum(sizes[g * ls:(g + 1) * ls]) * rest_elems
+                    for g in range(self.topo.cross_size)])
+            else:
+                flat = torch.empty(sum(sizes) * rest_elems, dtype=dtype)
+            full = _byte_view(self._local_ring.broadcast_(flat, 0))
+        elif self._use_ring(dtype):
+            full = _byte_view(self._ring.allgather(
+                mine.view(dtype), [s * rest_elems for s in sizes]))
+        elif self.topo.rank == 0:
             parts = [mine]
             for rank in range(1, self.topo.size):
                 parts.append(_from_bytes(
@@ -1019,7 +1139,13 @@ class Controller:
         rank = self.topo.rank
         mine = self._host_bytes(entry) if rank == root else None
         t1 = time.monotonic()
-        if rank == 0:
+        if self._use_ring(entry.tensor.dtype):
+            if mine is None:
+                data = torch.empty(entry.nbytes, dtype=torch.uint8)
+            else:
+                data = mine.clone() if entry.ready is None else mine
+            self._ring.broadcast_(data.view(entry.tensor.dtype), root)
+        elif rank == 0:
             data = mine if root == 0 else _from_bytes(
                 self._service.recv_bytes_from(root), torch.uint8)
             payload = data.numpy()

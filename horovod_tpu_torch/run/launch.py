@@ -23,6 +23,13 @@ ZeRO and FSDP run on it), so this is the one place the two launchers
 differ. ``--spmd`` exports the store's address only: no controller
 starts, and every collective runs on the process group.
 
+Eager mode also exports the native ring data plane's per-rank addresses
+(``HOROVOD_RING_ADDRS``) and, for layouts of several equal host groups,
+the hierarchical pair (``HOROVOD_LOCAL_RING_ADDRS`` /
+``HOROVOD_CROSS_RING_ADDRS``), exactly as the JAX launcher does:
+``init()`` then starts the native engine unless ``HOROVOD_ENGINE=python``
+or ``HOROVOD_CPU_OPS=star`` asks otherwise.
+
 Local ranks are direct children; remote hosts (``-H host:slots``) fan out
 over ssh with the env inlined. ``--bind-chips`` gives each local rank
 its own card through ``CUDA_VISIBLE_DEVICES`` (the rank then binds
@@ -130,9 +137,10 @@ def build_rank_env(base: Dict[str, str], rank: int, size: int,
     if spmd:
         # Process-group mode: no controller. Scrub any eager-tier
         # endpoints inherited from the launcher's own environment.
-        env.pop("HOROVOD_CONTROLLER_ADDR", None)
-        env.pop("HOROVOD_RING_ADDRS", None)
-        env.pop("HOROVOD_ENGINE", None)
+        for var in ("HOROVOD_CONTROLLER_ADDR", "HOROVOD_RING_ADDRS",
+                    "HOROVOD_LOCAL_RING_ADDRS", "HOROVOD_CROSS_RING_ADDRS",
+                    "HOROVOD_ENGINE"):
+            env.pop(var, None)
         env["HOROVOD_SPMD_COORDINATOR"] = controller_addr
     else:
         env["HOROVOD_CONTROLLER_ADDR"] = controller_addr
@@ -421,6 +429,55 @@ def _run_attempt(args: argparse.Namespace, restart_epoch: int = 0,
     # slots, trailing -H entries receive no ranks and must not count.
     cross_size = len({a[4] for a in assignments})
 
+    # Per-rank addresses of the native ring data plane (eager mode only).
+    # Local entries bind loopback on verified-free ports; remote ones
+    # derive a port from a common base (override: HOROVOD_RING_ADDRS).
+    ring_addrs_env = None
+    ring_base = _free_port()
+    if not args.spmd:
+        ring_addrs_env = config_mod.ring_addrs() or ",".join(
+            f"{_public_host(host)}:{_free_port()}" if _is_local(host)
+            else f"{_public_host(host)}:{_derived_port(ring_base, r)}"
+            for r, host, _, _, _ in assignments)
+
+    # The hierarchical plane's rings: one inside each host entry plus a
+    # ring of the entries' first ranks, exported only for homogeneous
+    # layouts (every populated group the same size, > 1) — with mixed
+    # sizes the per-rank gates would diverge and the lockstep data phases
+    # deadlock. Remote ports sit in disjoint bands of ring_base: flat
+    # [0, size), local [size, 2*size), cross [2*size, 3*size).
+    local_ring_by_rank: Dict[int, str] = {}
+    cross_ring_env = None
+    groups: Dict[int, list] = {}
+    for a in assignments:
+        groups.setdefault(a[4], []).append(a)
+    group_sizes = {len(m) for m in groups.values()}
+    if not args.spmd and len(groups) > 1 and len(group_sizes) == 1 \
+            and max(group_sizes) > 1:
+
+        def _group_addr(host, offset):
+            if _is_local(host):
+                return f"{_public_host(host)}:{_free_port()}"
+            return f"{_public_host(host)}:{_derived_port(ring_base, offset)}"
+
+        cross_addrs = []
+        for cr in sorted(groups):
+            members = groups[cr]
+            addrs = ",".join(_group_addr(host, size + r)
+                             for r, host, _, _, _ in members)
+            for r, _, _, _, _ in members:
+                local_ring_by_rank[r] = addrs
+            root_r, root_host = members[0][0], members[0][1]
+            cross_addrs.append(_group_addr(root_host, 2 * size + root_r))
+        cross_ring_env = ",".join(cross_addrs)
+        if ("HOROVOD_LOCAL_RING_ADDRS" in os.environ) != \
+                ("HOROVOD_CROSS_RING_ADDRS" in os.environ):
+            sys.stderr.write(
+                "horovodrun: only one of HOROVOD_LOCAL_RING_ADDRS/"
+                "HOROVOD_CROSS_RING_ADDRS is set; ignoring it in favor of "
+                "the launcher-computed hierarchical rings (set both to "
+                "override)\n")
+
     procs: List[subprocess.Popen] = []
     threads = []
 
@@ -431,6 +488,16 @@ def _run_attempt(args: argparse.Namespace, restart_epoch: int = 0,
             spmd=args.spmd, restart_epoch=restart_epoch,
             spmd_addr=store_addr)
         env["HOROVOD_START_TIMEOUT"] = str(args.start_timeout)
+        if ring_addrs_env is not None:
+            env["HOROVOD_RING_ADDRS"] = ring_addrs_env
+            # A complete user-set hierarchical pair wins (inherited with
+            # the base env); anything less gets the computed pair, since
+            # both consumers need both.
+            if rank in local_ring_by_rank and not (
+                    "HOROVOD_LOCAL_RING_ADDRS" in os.environ
+                    and "HOROVOD_CROSS_RING_ADDRS" in os.environ):
+                env["HOROVOD_LOCAL_RING_ADDRS"] = local_ring_by_rank[rank]
+                env["HOROVOD_CROSS_RING_ADDRS"] = cross_ring_env
         if _is_local(host):
             cmd = args.command
         else:

@@ -33,6 +33,33 @@ from .task_fn import (  # noqa: F401  (re-exported shared implementation)
 )
 
 
+def infer_link_class(ring_addrs) -> str:
+    """Classify a ring's link from its launcher-exported addresses
+    (comma-separated ``host:port``): every host loopback, or the one
+    non-loopback host being this machine, -> ``local``; anything else ->
+    ``tcp``. DCN/ICI fabrics cannot be told from plain ethernet by
+    address, so operators export ``HOROVOD_RING_LINK_CLASS``. Keys the
+    link-class tables in ``common.config``."""
+    if not ring_addrs:
+        return "local"
+    hosts = set()
+    for addr in str(ring_addrs).split(","):
+        host = addr.rsplit(":", 1)[0].strip().lower()
+        if host:
+            hosts.add(host)
+    local_names = {"127.0.0.1", "localhost", "::1", "0.0.0.0"}
+    if hosts <= local_names:
+        return "local"
+    if len(hosts - local_names) == 1:
+        try:
+            own = {ip.lower() for _, ip in list_interfaces()}
+            if hosts - local_names <= own:
+                return "local"
+        except OSError:
+            pass
+    return "tcp"
+
+
 class NICDriverService:
     """Rendezvous for the probe tasks. One instance per launch; threads
     serve each task connection."""

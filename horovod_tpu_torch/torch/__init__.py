@@ -23,6 +23,7 @@ from ..common.basics import (  # noqa: F401
     local_num_devices,
     local_rank,
     local_size,
+    mpi_threads_supported,
     num_devices,
     rank,
     shutdown,
@@ -54,17 +55,18 @@ from .mpi_ops import (  # noqa: F401
     poll,
     reducescatter,
     synchronize,
+    wait,
 )
 from .zero import zero_sharded_optimizer  # noqa: F401
 
 __all__ = [
     "init", "shutdown", "is_initialized", "device", "rank", "size",
     "local_rank", "local_size", "cross_rank", "cross_size", "num_devices",
-    "local_num_devices", "Compression", "Sum", "Average", "Handle",
+    "local_num_devices", "mpi_threads_supported", "Compression", "Sum", "Average", "Handle",
     "allreduce", "allreduce_", "allreduce_async", "allreduce_async_",
     "grouped_allreduce", "grouped_allreduce_", "grouped_allreduce_async",
     "allgather", "allgather_async", "broadcast", "broadcast_",
-    "broadcast_async", "broadcast_async_", "synchronize", "poll", "barrier",
+    "broadcast_async", "broadcast_async_", "synchronize", "wait", "poll", "barrier",
     "reducescatter", "alltoall", "broadcast_object", "allgather_object",
     "DistributedOptimizer", "broadcast_parameters",
     "broadcast_optimizer_state", "zero_sharded_optimizer",

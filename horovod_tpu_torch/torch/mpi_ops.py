@@ -13,10 +13,12 @@ Two tiers, as in the JAX package (``horovod_tpu/ops/collective_ops.py:13-24``:
 eager calls go to the controller, traced code to the device
 collectives):
 
-* **the controller** (``controller/controller.py``): while ``init()``
-  runs one (``horovodrun`` without ``--spmd``, more than one rank), the
-  world-group calls — ``group=None`` — are negotiated, fused, cached,
-  timelined and stall-checked by it, CPU and CUDA tensors alike:
+* **the controller** (``controller/native.py``, the C++ engine, by
+  default; ``controller/controller.py`` under ``HOROVOD_ENGINE=python``
+  or ``HOROVOD_CPU_OPS=star``): while ``init()`` runs one (``horovodrun``
+  without ``--spmd``, more than one rank), the world-group calls —
+  ``group=None`` — are negotiated, fused, cached, timelined and
+  stall-checked by it, CPU and CUDA tensors alike:
   allreduce (and ``DistributedOptimizer``'s hooks), allgather,
   broadcast, the composed reducescatter/alltoall, the object collectives
   and ``barrier``;
@@ -237,6 +239,11 @@ def broadcast_async_(tensor: torch.Tensor, root_rank: int,
 
 def synchronize(handle: Handle) -> torch.Tensor:
     """Join an async op and return its result."""
+    return handle.wait()
+
+
+def wait(handle: Handle) -> torch.Tensor:
+    """The JAX package's name for :func:`synchronize`."""
     return handle.wait()
 
 

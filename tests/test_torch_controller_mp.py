@@ -532,6 +532,10 @@ SCENARIOS = ["allreduce", "fusion", "grouped", "allgather", "broadcast",
              "reducescatter_alltoall", "objects", "torch", "priority"]
 PARITY = ["allreduce", "fusion", "torch", "priority"]
 SIZES = [2, 3]
+# These jobs hold the Python controller's TCP star (its rank-order sums);
+# the launcher's default, the native engine on the ring, is held by
+# tests/test_torch_native_engine.py.
+STAR = {"HOROVOD_CPU_OPS": "star"}
 
 _inputs = {}
 exec(INPUTS_SRC, _inputs)
@@ -546,7 +550,7 @@ def jobs(tmp_path_factory):
     for size in SIZES:
         started[("port", size)] = torch_gloo.start_launched(
             tmp_path_factory.mktemp(f"port{size}"), size, PORT_WORKER, {},
-            {"scenarios": SCENARIOS})
+            {"scenarios": SCENARIOS}, env=STAR)
         started[("jax", size)] = torch_gloo.start_reference(
             tmp_path_factory.mktemp(f"jax{size}"), size, REFERENCE_WORKER,
             {}, {"scenarios": PARITY})
@@ -720,7 +724,7 @@ print("worker ok", flush=True)
 def test_stall_warns_and_completes(tmp_path):
     job = torch_gloo.start_launched(
         tmp_path, 2, STALL_WORKER, {}, {},
-        env={"HOROVOD_STALL_CHECK_TIME_SECONDS": "1"}, timeout=120)
+        env={"HOROVOD_STALL_CHECK_TIME_SECONDS": "1", **STAR}, timeout=120)
     codes, outputs = job.finish()
     text = "\n".join(outputs)
     assert codes == [0], text

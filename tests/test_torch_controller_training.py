@@ -78,8 +78,10 @@ print("worker ok", flush=True)
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     jobs = {
+        # The Python controller on the TCP star, as the JAX reference.
         "controller": torch_gloo.start_launched(
-            tmp_path_factory.mktemp("ctl"), 2, PORT_WORKER, {}, {}),
+            tmp_path_factory.mktemp("ctl"), 2, PORT_WORKER, {}, {},
+            env={"HOROVOD_CPU_OPS": "star"}),
         "group": torch_gloo.start_launched(
             tmp_path_factory.mktemp("pg"), 2, PORT_WORKER, {}, {},
             launcher_args=("--spmd",)),

@@ -1,8 +1,10 @@
 """The port's ``horovodrun`` (``horovod_tpu_torch.run``) against the JAX
 package's (``horovod_tpu.run``): ``parse_hosts`` and ``build_rank_env``
 agree on the keys both export; the launcher runs a 2-rank job with
-rank-prefixed output, propagates a rank's failure (tearing the others
-down), relaunches under ``--max-restarts``, prints its version, refuses
+rank-prefixed output, exports the ring data plane's addresses as the
+JAX launcher does (the flat ring, and the hierarchical pair for equal
+host groups), propagates a rank's failure (tearing the others down),
+relaunches under ``--max-restarts``, prints its version, refuses
 ``--elastic`` and ``--trace`` (later slices) by name, and under
 ``--spmd`` starts no controller while the eager default starts one.
 
@@ -73,22 +75,75 @@ PRINT_RANK = ("import os; print('rank', os.environ['HOROVOD_RANK'], "
               "'of', os.environ['HOROVOD_SIZE'], "
               "os.environ['HOROVOD_LOCAL_RANK'], "
               "bool(os.environ.get('HOROVOD_CONTROLLER_ADDR')), "
-              "bool(os.environ.get('HOROVOD_SPMD_COORDINATOR')))")
+              "bool(os.environ.get('HOROVOD_SPMD_COORDINATOR')), "
+              "len(os.environ.get('HOROVOD_RING_ADDRS', '').split(',')))")
 
 
 def test_np2_runs_with_rank_prefixed_output(capsys):
     code, out, _ = _run(capsys, "-np", "2", sys.executable, "-c",
                         PRINT_RANK)
     assert code == 0
-    assert "[0]: rank 0 of 2 0 True True" in out
-    assert "[1]: rank 1 of 2 1 True True" in out
+    # The star, the store, and one ring address a rank.
+    assert "[0]: rank 0 of 2 0 True True 2" in out
+    assert "[1]: rank 1 of 2 1 True True 2" in out
 
 
 def test_spmd_exports_the_store_only(capsys):
     code, out, _ = _run(capsys, "-np", "2", "--spmd", sys.executable, "-c",
                         PRINT_RANK)
     assert code == 0
-    assert "[1]: rank 1 of 2 1 False True" in out
+    # No star and no ring ("".split(",") is one empty field).
+    assert "[1]: rank 1 of 2 1 False True 1" in out
+
+
+PRINT_RINGS = ("import json, os; print('rings', json.dumps({k: "
+               "os.environ.get('HOROVOD_' + k) for k in ('RANK', "
+               "'RING_ADDRS', 'LOCAL_RING_ADDRS', 'CROSS_RING_ADDRS')}))")
+
+
+def _rings(out):
+    import json
+
+    return {int(v["RANK"]): v for v in (
+        json.loads(line.split("rings ", 1)[1])
+        for line in out.splitlines() if "rings {" in line)}
+
+
+@pytest.mark.parametrize("launcher", ["port", "jax"])
+@pytest.mark.parametrize("hosts,np_,hier", [
+    ("localhost:2,127.0.0.1:2", 4, True),
+    ("localhost:2,127.0.0.1:1", 3, False),
+    ("localhost:4", 4, False)])
+def test_ring_addresses_are_exported_as_the_jax_launcher_does(
+        capsys, launcher, hosts, np_, hier):
+    """The flat ring always (eager mode); the hierarchical pair only for
+    several equal host groups: a ring inside each group, one of the
+    groups' first ranks; every address a port of its own."""
+    main = (tlaunch if launcher == "port" else jlaunch).main
+    code = main(["-np", str(np_), "-H", hosts, sys.executable, "-c",
+                 PRINT_RINGS])
+    out = capsys.readouterr().out
+    assert code == 0, out
+    rings = _rings(out)
+    assert sorted(rings) == list(range(np_))
+    rows = [rings[r] for r in range(np_)]
+    flat = {v["RING_ADDRS"] for v in rows}
+    assert len(flat) == 1 and len(flat.pop().split(",")) == np_
+    if not hier:
+        assert all(v["LOCAL_RING_ADDRS"] is None
+                   and v["CROSS_RING_ADDRS"] is None
+                   for v in rows)
+        return
+    cross = {v["CROSS_RING_ADDRS"] for v in rows}
+    assert len(cross) == 1
+    cross = cross.pop().split(",")
+    assert len(cross) == 2
+    local = [rings[r]["LOCAL_RING_ADDRS"].split(",") for r in range(4)]
+    assert local[0] == local[1] and local[2] == local[3]
+    assert len(local[0]) == 2 and local[0] != local[2]
+    ports = (rings[0]["RING_ADDRS"].split(",") + local[0] + local[2]
+             + cross)
+    assert len(set(ports)) == len(ports) == 10
 
 
 def test_a_rank_failure_propagates_and_tears_the_job_down(capsys):
@@ -157,7 +212,9 @@ TIER = ("import torch, torch.distributed as dist\n"
 
 @pytest.mark.parametrize("spmd", [False, True])
 def test_the_tier_follows_the_mode(spmd):
-    env = dict(os.environ, PYTHONPATH=REPO)
+    # The Python controller on the TCP star (the native engine's tier is
+    # held by tests/test_torch_native_engine.py).
+    env = dict(os.environ, PYTHONPATH=REPO, HOROVOD_CPU_OPS="star")
     for var in ("HOROVOD_RANK", "HOROVOD_SIZE", "HOROVOD_CONTROLLER_ADDR",
                 "HOROVOD_SPMD_COORDINATOR", "HOROVOD_RENDEZVOUS_FILE"):
         env.pop(var, None)

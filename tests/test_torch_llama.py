@@ -286,6 +286,9 @@ def test_port_imports_no_jax_or_reference_package():
         "import horovod_tpu_torch.controller\n"
         "import horovod_tpu_torch.controller.service\n"
         "import horovod_tpu_torch.controller.controller\n"
+        "import horovod_tpu_torch.controller.native\n"
+        "import horovod_tpu_torch.core\n"
+        "import horovod_tpu_torch.core.bindings\n"
         "import horovod_tpu_torch.run\n"
         "import horovod_tpu_torch.run.launch\n"
         "import horovod_tpu_torch.run.watchdog\n"
@@ -307,7 +310,7 @@ def test_port_sources_never_name_jax_or_the_reference_package():
     paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(PKG):
         paths += [os.path.join(root, name) for name in sorted(files)
-                  if name.endswith((".py", ".cu", ".cuh"))]
+                  if name.endswith((".py", ".cu", ".cuh", ".cc", ".h"))]
     scanned = {os.path.relpath(p, PKG) for p in paths}
     # The parallel modes' files are among them.
     for name in ("parallel/mesh.py", "parallel/exchange.py",
@@ -330,7 +333,11 @@ def test_port_sources_never_name_jax_or_the_reference_package():
                  "controller/__init__.py", "controller/service.py",
                  "controller/controller.py", "run/__init__.py",
                  "run/__main__.py", "run/launch.py", "run/watchdog.py",
-                 "run/task_fn.py", "run/nic_discovery.py"):
+                 "run/task_fn.py", "run/nic_discovery.py",
+                 # The native data plane's.
+                 "core/__init__.py", "core/bindings.py",
+                 "controller/native.py", "core/src/ring.cc",
+                 "core/src/engine.cc", "core/src/shm.cc"):
         assert name in scanned, name
     for path in paths:
         with open(path, encoding="utf-8") as fh:
