@@ -123,7 +123,7 @@ on ``cuda``; any failure exits non-zero:
    into flash, matmuls, routing and gathers, and the rest;
 21. ``generate()`` at ``MOE_SMALL`` in float32 through the decode kernel
    equals the einsum path, then the generation example at
-   ``--model moe-small``, bf16, prompt 128, 256 new, batch 8 and 32, and
+   ``--model moe-small``, bf16, prompt 128, 128 new, batch 8 and 32, and
    its model's greedy tokens at b=8 against the einsum path's (reported);
 22. ``ServingEngine`` at ``MOE_SMALL`` in float32 over 12 requests: each
    equals ``generate()`` alone, through the paged kernel;
@@ -144,7 +144,7 @@ on ``cuda``; any failure exits non-zero:
    D 64), both layouts;
 25. tensor parallelism over the two processes: ``generate()`` (b8,
    prompt 128, 32 new) and ``ServingEngine`` (8 requests) at Llama-300M
-   float32 give the unsharded model's tokens through both decode kernels
+   float32 (``PARITY_LAYERS`` deep) give the unsharded model's tokens through both decode kernels
    on each rank's heads (H 8, Hkv 4; phase 2 holds the kernels at that
    shape), then ``examples.tp_decode_profile`` in bf16 (tok/s, two ranks
    sharing one card);
@@ -185,7 +185,7 @@ on ``cuda``; any failure exits non-zero:
    ``DistributedOptimizer`` through the controller equal to the same
    through the gloo group (loss to 1e-4 relative, every weight within
    TOL); (c) Llama-300M bf16, seq 1024, b8 a rank, AdamW, one warm and
-   three timed steps through the controller: tok/s, each step's host
+   two timed steps through the controller: tok/s, each step's host
    wall time split into negotiation, pack + D2H, star exchange and
    H2D + unpack, its responses and cache hits (every gradient from the
    first timed step) and flash launches (16 a kernel a rank); rank 0's
@@ -209,12 +209,35 @@ on ``cuda``; any failure exits non-zero:
    ``HOROVOD_HIERARCHICAL_ALLREDUCE/ALLGATHER=1``): 30's collectives on
    the engine's two-level plane (the /dev/shm local plane and a ring of
    the group roots), bitwise against the CPU copies and the two-level
-   sum order.
+   sum order;
+32. elastic membership: ``python -m horovod_tpu_torch.run --elastic -np
+   2 --min-ranks 1 --max-ranks 2 --elastic-respawns 1`` over
+   ``examples.elastic_llama_training`` (Llama-300M float32, seq 1024,
+   b2 a rank, AdamW, ``DistributedOptimizer`` through the Python
+   controller on the star, ``State(step=, model=, optimizer=)``
+   committed every step), the ranks and the respawned joiner sharing
+   the card. Rank 1 SIGKILLs itself in step 3 after its backward; the
+   shrink must land at epoch 2 (size 1) and the grow at epoch 3 (size
+   2), at least one step must roll back, the joiner must fetch every
+   shard over the p2p plane while rank 0 moves none, both ranks' commits
+   hashed on the card after the grow must equal rank 0's digests, the
+   final float32 weights must equal a one-process replay of rank 0's
+   logged schedule (TOL), and flash forward, dq and dk/dv must launch in
+   every process, the joiner included. Logged: each reshape's seconds,
+   kill to the first step at epochs 2 and 3, the joiner's restore
+   seconds and bytes, the digest pass per commit, rank 0's peak memory,
+   tok/s before and after; then ``examples.elastic_restore_probe`` (3
+   ranks on the card, 16 and 64 MiB, p2p and broadcast restores).
 
-Phases 3-5, 9, 13, 15-18, 20-25, 27, 28, 30 and 31 are the main paths:
+The float32 parity runs of phases 24, 25, 27, 28, 30 and 31 build
+Llama-300M at 2 of its 16 layers (``PARITY_LAYERS``), to keep the script
+inside its time limit; their timed runs keep the full depth.
+
+Phases 3-5, 9, 13, 15-18, 20-25, 27, 28 and 30-32 are the main paths:
 the launch counts in the kernels' JSON line come from them (the flash
 kernels' are the sum of 9, 13, 20, 23's flash run, 24's seq-parallel
-training, 27's and 28's timed training and 30's and 31's (c), plus
+training, 27's and 28's timed training, 30's and 31's (c) and 32's
+three processes, plus
 the forward-only long-context runs of 24; the contiguous decode
 kernel's of 3, 15, 21 and 25's ``generate()`` and profile, the paged
 one's of 4, 16-18, 22 and 25's engine; a two-process path's counts are
@@ -262,6 +285,11 @@ REPLACES = {
     "flash_backward_dkdv": "horovod_tpu/ops/attention.py:343",
 }
 LAYERS = 16                          # Llama-300M
+# The float32 parity runs of the two-process paths (24, 25, 27, 28, 30,
+# 31) build their models at 2 of the 16 layers: the script's time limit
+# holds phase 32 too. Their timed runs, and every other path, keep all
+# 16 layers.
+PARITY_LAYERS = 2
 # Kernel names as ptxas and the profiler report them.
 FLASH_KERNELS = r"(?:bf16|fma)_(?:fwd|dq|dkdv)(?:_tma)?_kernel"
 DECODE_KERNELS = r"decode_(?:combine_)?kernel"
@@ -2226,11 +2254,16 @@ def run_moe_training_timed(card: str):
     return numbers
 
 
+# New tokens of phase 21's generation example runs (cut to 128 for the
+# script's time limit; phase 15's Llama-300M rows keep the bench's 256).
+MOE_GEN_NEW = 128
+
+
 def run_moe_generation(card: str):
     """``generate()`` at MOE_SMALL in float32 through the decode kernel
     (tokens equal the einsum path's), then the generation example at
-    ``--model moe-small``, bf16, prompt 128, 256 new, batch 8 and 32:
-    tokens/s and peak memory. Returns the numbers and the contiguous
+    ``--model moe-small``, bf16, prompt 128, ``MOE_GEN_NEW`` new, batch 8
+    and 32: tokens/s and peak memory. Returns the numbers and the contiguous
     decode kernel's launches of the example's runs and of generate()."""
     import torch
 
@@ -2245,23 +2278,25 @@ def run_moe_generation(card: str):
     for batch in (8, 32):
         out = llama_generation.main([
             "--model", "moe-small", "--prompt-len", "128",
-            "--max-new-tokens", "256", "--batch-size", str(batch)])
+            "--max-new-tokens", str(MOE_GEN_NEW), "--batch-size",
+            str(batch)])
         tokens = out["out"]
-        if tuple(tokens.shape) != (batch, 384) or not bool(
+        if tuple(tokens.shape) != (batch, 128 + MOE_GEN_NEW) or not bool(
                 ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
             raise AssertionError(f"moe generation example b={batch}: bad "
                                  f"output {tuple(tokens.shape)}")
         rows[f"b{batch}"] = {
             "tokens_per_s": out["tokens_per_s"], "seconds": out["seconds"],
             "peak_memory_gib": out["peak_memory_bytes"] / 2 ** 30}
-        log(f"generation example moe-small bf16 p=128 n=256 b={batch}: "
+        log(f"generation example moe-small bf16 p=128 n={MOE_GEN_NEW} "
+            f"b={batch}: "
             f"{out['tokens_per_s']:.1f} decode tokens/s "
             f"({out['seconds']:.3f} s), peak memory "
             f"{rows[f'b{batch}']['peak_memory_gib']:.3f} GiB [{card}]")
         del out, tokens
         torch.cuda.empty_cache()
     launches = ops.LAUNCHES["decode_attention"]
-    want = 2 * 2 * cfg.num_layers * 255
+    want = 2 * 2 * cfg.num_layers * (MOE_GEN_NEW - 1)
     if launches != want:
         raise AssertionError(f"moe generation example: decode_attention "
                              f"launched {launches} times, expected {want}")
@@ -2478,7 +2513,8 @@ def worker_sp_parity(rank: int, batch: int = 2, steps: int = 2):
     from horovod_tpu_torch.models.llama import LLAMA_300M
     from horovod_tpu_torch.parallel import make_mesh
 
-    cfg = dataclasses.replace(LLAMA_300M, dtype=torch.float32)
+    cfg = dataclasses.replace(LLAMA_300M, dtype=torch.float32,
+                              num_layers=PARITY_LAYERS)
     seq_len = int(PARALLEL_SP[PARALLEL_SP.index("--seq-len") + 1])
     mesh = make_mesh({"data": 1, "seq": 2})
     seq = mesh.group("seq")
@@ -2636,8 +2672,8 @@ def tp_step_split(mesh, batch: int = 8, prompt_len: int = 128):
 
 
 def worker_tp(rank: int):
-    """Phase 25: Llama-300M float32 with tensor parallelism over the two
-    ranks: ``generate()`` (b8, prompt 128, 32 new) and the engine (8
+    """Phase 25: Llama-300M float32 (``PARITY_LAYERS`` deep) with tensor
+    parallelism over the two ranks: ``generate()`` (b8, prompt 128, 32 new) and the engine (8
     requests) give the unsharded model's tokens, through both decode
     kernels on each rank's heads; then ``tp_decode_profile`` in bf16."""
     import torch
@@ -2648,7 +2684,8 @@ def worker_tp(rank: int):
     from horovod_tpu_torch.models.llama import LLAMA_300M, LlamaLM
     from horovod_tpu_torch.parallel import make_mesh
 
-    cfg = dataclasses.replace(LLAMA_300M, dtype=torch.float32)
+    cfg = dataclasses.replace(LLAMA_300M, dtype=torch.float32,
+                              num_layers=PARITY_LAYERS)
     mesh = make_mesh({"data": 1, "model": 2})
     base = LlamaLM(cfg, seed=0)
     tp = LlamaLM(cfg, seed=0, mesh=mesh)
@@ -2893,7 +2930,8 @@ def worker_fsdp(rank: int, ckpt_dir: str, batch: int = 2, steps: int = 2):
     from horovod_tpu_torch.models.llama import LLAMA_300M
     from horovod_tpu_torch.ops import attention as A
 
-    cfg = dataclasses.replace(LLAMA_300M, dtype=torch.float32)
+    cfg = dataclasses.replace(LLAMA_300M, dtype=torch.float32,
+                              num_layers=PARITY_LAYERS)
     specs = fx.make_specs(cfg, 2)
 
     def sgd(params):
@@ -2907,9 +2945,9 @@ def worker_fsdp(rank: int, ckpt_dir: str, batch: int = 2, steps: int = 2):
     losses, counts = _path(lambda: [
         float(hvd.allreduce(fx.train_step(model, opt, ids)))
         for _ in range(steps)])
-    per_step = {"flash_forward": 2 * LAYERS * steps,
-                "flash_backward_dq": LAYERS * steps,
-                "flash_backward_dkdv": LAYERS * steps}
+    per_step = {"flash_forward": 2 * cfg.num_layers * steps,
+                "flash_backward_dq": cfg.num_layers * steps,
+                "flash_backward_dkdv": cfg.num_layers * steps}
     if any(counts[k] != v for k, v in per_step.items()):
         raise AssertionError(f"fsdp parity: flash launches {counts}, "
                              f"expected {per_step}")
@@ -3062,7 +3100,8 @@ def worker_zero(rank: int, batch: int = 2, steps: int = 2):
     from horovod_tpu_torch.examples import llama_training as lx
     from horovod_tpu_torch.models.llama import LLAMA_300M
 
-    cfg = dataclasses.replace(LLAMA_300M, dtype=torch.float32)
+    cfg = dataclasses.replace(LLAMA_300M, dtype=torch.float32,
+                              num_layers=PARITY_LAYERS)
     ids = fx.batch_ids(cfg, batch, SHARDED_SEQ, 2, rank, "cuda")
     loss_fn = lx.make_loss_fn(0)
     runs = {}
@@ -3320,7 +3359,8 @@ def run_parallel_phases(card: str):
         results = json.load(f)
     shutil.rmtree(out_dir, ignore_errors=True)
     sp = results["24 sp parity"]
-    log(f"seq-parallel parity: llama300m f32 seq 2048 sp 2 b=2, 2 SGD "
+    log(f"seq-parallel parity: llama300m f32 ({PARITY_LAYERS} layers) seq "
+        f"2048 sp 2 b=2, 2 SGD "
         f"steps; losses ring {sp['losses_ring']} vs single process "
         f"{sp['losses_single']}; every weight within {TOL['float32']} "
         f"(max abs diff {sp['max_abs_weight_diff']:.3g})")
@@ -3335,7 +3375,8 @@ def run_parallel_phases(card: str):
             f"sharing one card): {rec['ms_per_iter']:.2f} ms/iter, "
             f"{rec['tflops']:.2f} TFLOP/s [{card}]")
     tp = results["25 tp"]
-    log(f"tp: llama300m f32 tp 2 generate and engine ({tp['engine']['requests']} "
+    log(f"tp: llama300m f32 ({PARITY_LAYERS} layers) tp 2 generate and "
+        f"engine ({tp['engine']['requests']} "
         f"requests, {tp['engine']['steps']} steps) equal the unsharded "
         f"model; path {tp['generate']['path']} ({tp['generate']['reason']})")
     prof = tp["profile"]
@@ -3353,7 +3394,8 @@ def run_parallel_phases(card: str):
 def log_sharded(results, card: str):
     """Phases 27-29's lines, from the two ranks' results."""
     fsdp, zero = results["27 fsdp"], results["28 zero"]
-    log(f"fsdp parity: llama300m f32 seq {SHARDED_SEQ} dp 2 b=2 a rank, 2 "
+    log(f"fsdp parity: llama300m f32 ({PARITY_LAYERS} layers) seq "
+        f"{SHARDED_SEQ} dp 2 b=2 a rank, 2 "
         f"momentum-SGD steps; losses fsdp {fsdp['losses_fsdp']} vs single "
         f"process {fsdp['losses_single']}; every weight within "
         f"{TOL['float32']} (max abs diff {fsdp['max_abs_weight_diff']:.3g});"
@@ -3365,7 +3407,8 @@ def log_sharded(results, card: str):
         f"{ck['bytes'] / 2 ** 20:.1f} MiB; digests recomputed from the "
         f"restored leaves equal the manifest's; commit {fsdp['commit_ms']:.1f}"
         f" ms on the step loop")
-    log(f"zero-1 parity: llama300m f32 dp 2, 2 Adam steps; losses zero "
+    log(f"zero-1 parity: llama300m f32 ({PARITY_LAYERS} layers) dp 2, 2 "
+        f"Adam steps; losses zero "
         f"{zero['losses_zero']} vs DistributedOptimizer "
         f"{zero['losses_replicated']}; max abs weight diff "
         f"{zero['max_abs_weight_diff']:.3g}; moments a rank "
@@ -3510,7 +3553,8 @@ def controller_parity(rank: int, steps: int = 2):
     from horovod_tpu_torch.examples import llama_training as lx
     from horovod_tpu_torch.models.llama import LLAMA_300M
 
-    cfg = dataclasses.replace(LLAMA_300M, dtype=torch.float32)
+    cfg = dataclasses.replace(LLAMA_300M, dtype=torch.float32,
+                              num_layers=PARITY_LAYERS)
     ids = fx.batch_ids(cfg, CONTROLLER_BATCH_PARITY, CONTROLLER_SEQ, 2, rank,
                        "cuda")
     loss_fn = lx.make_loss_fn(0)
@@ -3666,7 +3710,9 @@ def controller_worker(out_path: str, mode: str = "train") -> int:
                              f"{hvd.device()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    steps = 3 if config.cpu_ops() == "star" else 2
+    # Two timed steps on every plane: the script's time limit holds
+    # phase 32 too.
+    steps = 2
     parts = {
         "train": (("a", lambda: controller_collectives(rank, ctl)),
                   ("b", lambda: controller_parity(rank)),
@@ -3785,7 +3831,8 @@ def run_controller_phase(card: str):
         f"bitwise equal to CPU copies through the controller and to the "
         f"gloo group; 64 grouped tensors in {a['grouped_responses']} fused "
         f"responses")
-    log(f"controller (b): llama300m f32 seq {CONTROLLER_SEQ} "
+    log(f"controller (b): llama300m f32 ({PARITY_LAYERS} layers) seq "
+        f"{CONTROLLER_SEQ} "
         f"b{CONTROLLER_BATCH_PARITY} a rank, 2 AdamW steps; losses "
         f"controller {b['losses_controller']} vs gloo group "
         f"{b['losses_group']}; max abs weight diff "
@@ -3866,7 +3913,8 @@ def run_ring_phase(card: str):
             f"bitwise equal to CPU copies, the star's sums and the gloo "
             f"group; 64 grouped tensors in {a['grouped_responses']} fused "
             f"responses")
-        log(f"ring {plane} (b): llama300m f32 seq {CONTROLLER_SEQ} "
+        log(f"ring {plane} (b): llama300m f32 ({PARITY_LAYERS} layers) seq "
+            f"{CONTROLLER_SEQ} "
             f"b{CONTROLLER_BATCH_PARITY} a rank, 2 AdamW steps; losses "
             f"{b['losses_controller']} vs gloo group {b['losses_group']}; "
             f"max abs weight diff {b['max_abs_weight_diff']}")
@@ -3905,6 +3953,166 @@ def run_ring_phase(card: str):
         f"{e['a']['checked']} collectives of CUDA tensors bitwise equal to "
         f"CPU copies and the two-level sum order")
     out["int8"], out["hierarchical"] = d, e
+    return out
+
+
+ELASTIC_ARGS = ("--model", "300m", "--seq-len", "1024", "--batch-size",
+                "2", "--device", "cuda:0")
+
+
+def _median(values):
+    return statistics.median(values) if values else None
+
+
+def run_elastic_phase(card: str):
+    """Phase 32: the elastic job under the port's launcher, its checks,
+    the replay of rank 0's schedule, and the restore probe."""
+    import tempfile
+
+    import torch
+
+    from horovod_tpu_torch.examples import elastic_llama_training as ex
+
+    torch.cuda.empty_cache()
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("HOROVOD_", "OMPI_", "PMI_"))}
+    here = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = here
+    try:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "horovod_tpu_torch.run", "--elastic",
+             "-np", "2", "--min-ranks", "1", "--max-ranks", "2",
+             "--elastic-respawns", "1", sys.executable, "-m",
+             "horovod_tpu_torch.examples.elastic_llama_training",
+             *ELASTIC_ARGS, "--out", out_dir], cwd=here, env=env,
+            timeout=300)
+        job_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"elastic job exited {proc.returncode}")
+        recs = {}
+        for role in ("rank0", "joiner", "kill"):
+            with open(os.path.join(out_dir, f"{role}.json")) as f:
+                recs[role] = json.load(f)
+        r0, joiner, kill = recs["rank0"], recs["joiner"], recs["kill"]
+        for rec in (r0, joiner):
+            log(f"elastic (32) {rec['role']}: restores "
+                f"{json.dumps(rec['restores'])}; steps "
+                f"{json.dumps(rec['steps'])}; reshapes "
+                f"{json.dumps(rec['reshapes'])}; digest passes "
+                f"{rec['digest_seconds']}; started {rec['started']}; "
+                f"start-up {json.dumps(rec['startup_s'])}")
+        log(f"elastic (32) kill: {json.dumps(kill)}")
+        shapes = [(r["epoch"], r["size"], r["lost"], r["joined"])
+                  for r in r0["reshapes"]]
+        if shapes != [(2, 1, [1], 0), (3, 2, [], 1)]:
+            raise AssertionError(f"elastic: reshapes {shapes}, expected a "
+                                 "shrink to 1 at epoch 2, a grow to 2 at 3")
+        rolled_back = r0["started"] - r0["final_step"]
+        if rolled_back < 1 or joiner["final_step"] != r0["final_step"]:
+            raise AssertionError(
+                f"elastic: {rolled_back} steps rolled back; final steps "
+                f"{r0['final_step']} vs the joiner's {joiner['final_step']}")
+        grow_r0 = [r for r in r0["restores"] if r["epoch"] == 3][0]
+        grow_j = [r for r in joiner["restores"] if r["epoch"] == 3][0]
+        if grow_r0["fetched_bytes"] != 0 or grow_j["fetched_shards"] != \
+                grow_j["shards"] or grow_j["fetched_bytes"] != \
+                joiner["commit_bytes"] or grow_j["local_bytes"] != 0:
+            raise AssertionError(f"elastic: grow restores rank 0 {grow_r0} "
+                                 f"joiner {grow_j}")
+        authority = r0["grow_entry"]["authority"]
+        for rec in (r0, joiner):
+            if rec["grow_entry"]["digests"] != authority:
+                raise AssertionError(
+                    f"elastic: {rec['role']}'s commit hashes to "
+                    f"{rec['grow_entry']['digests']}, rank 0 published "
+                    f"{authority}")
+        processes = {"rank0": r0["launches"], "rank1": kill["launches"],
+                     "joiner": joiner["launches"]}
+        if any(n <= 0 for counts in processes.values()
+               for n in counts.values()):
+            raise AssertionError(f"elastic: flash launches {processes}")
+        t1 = time.perf_counter()
+        want = ex.replay("300m", r0["schedule"], 2, 1024, 0, "cuda")
+        got = torch.load(os.path.join(out_dir, "final.pt"))
+        worst = 0.0
+        for name in sorted(want):
+            compare(got[name], want[name], "float32",
+                    f"elastic replay weight {name}")
+            worst = max(worst, float((got[name] - want[name]).abs().max()))
+        replay_s = time.perf_counter() - t1
+        del want, got
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+    def first(epoch):
+        return min(s["t_done"] for s in r0["steps"]
+                   if s["epoch"] == epoch) - kill["t_kill"]
+
+    def tok_s(epoch):
+        """Rank 0's tok/s over an epoch's steps after its first (which
+        carries the restore wait and the warm-up), with every step's
+        seconds: epochs 1 and 3 commit two steps each, so the rate is
+        one host-timed step."""
+        secs = [s["seconds"] for s in r0["steps"] if s["epoch"] == epoch]
+        return 2 * 2 * 1024 / _median(secs[1:]), secs
+
+    before, before_steps = tok_s(1)
+    after, after_steps = tok_s(3)
+    t2 = time.perf_counter()
+    probe = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.examples."
+         "elastic_restore_probe", "--device", "cuda:0", "--small-mib", "16",
+         "--factor", "4", "--reps", "3", "--timeout", "200"], cwd=here,
+        env=env, capture_output=True, text=True, timeout=240)
+    if probe.returncode != 0:
+        raise AssertionError(f"restore probe exited {probe.returncode}: "
+                             f"{probe.stdout[-2000:]}{probe.stderr[-2000:]}")
+    probe_rec = json.loads(probe.stdout.strip().splitlines()[-1])
+    probe_s = time.perf_counter() - t2
+    out = {
+        "job_s": job_s, "replay_s": replay_s, "probe_s": probe_s,
+        "schedule": r0["schedule"], "rolled_back": rolled_back,
+        "reshapes": r0["reshapes"],
+        "kill_to_first_step_s": {"epoch2": first(2), "epoch3": first(3)},
+        "joiner_restore": {k: grow_j[k] for k in (
+            "seconds", "fetched_shards", "fetched_bytes", "shards")},
+        "rank0_grow_restore": {k: grow_r0[k] for k in (
+            "seconds", "fetched_bytes", "local_bytes")},
+        "digest_seconds": {"rank0": r0["digest_seconds"],
+                           "joiner": joiner["digest_seconds"]},
+        "peak_gib": {"rank0": r0["peak_bytes"] / 2**30,
+                     "joiner": joiner["peak_bytes"] / 2**30},
+        "commit_gib": r0["commit_bytes"] / 2**30,
+        "tokens_per_s": {"epoch1": before, "epoch3": after},
+        "step_s": {"epoch1": before_steps, "epoch3": after_steps,
+                   "epoch2": [s["seconds"] for s in r0["steps"]
+                              if s["epoch"] == 2]},
+        "max_abs_weight_diff": worst, "launches": processes,
+        "probe": probe_rec}
+    log(f"elastic (32): llama300m f32 seq 1024 b2 a rank, AdamW, dp 2 on "
+        f"the star; schedule {r0['schedule']} (world size per committed "
+        f"step), {rolled_back} step(s) rolled back; reshapes "
+        + ", ".join(f"epoch {r['epoch']} size {r['size']} in "
+                    f"{r['seconds']:.4f} s" for r in r0["reshapes"])
+        + f"; kill to the first step at epoch 2 {first(2):.2f} s, at "
+        f"epoch 3 {first(3):.2f} s; joiner restore {grow_j['seconds']:.2f} s "
+        f"fetching {grow_j['fetched_shards']}/{grow_j['shards']} shards, "
+        f"{grow_j['fetched_bytes'] / 2**30:.3f} GiB, rank 0 "
+        f"{grow_r0['fetched_bytes']} bytes in {grow_r0['seconds']:.2f} s; "
+        f"digest pass per commit {_median(r0['digest_seconds']):.2f} s "
+        f"(median of {len(r0['digest_seconds'])}); commit "
+        f"{out['commit_gib']:.2f} GiB; rank 0 peak "
+        f"{out['peak_gib']['rank0']:.2f} GiB; {before:.1f} tok/s before "
+        f"(one step; epoch 1 step seconds {before_steps}), {after:.1f} after "
+        f"(one step; epoch 3 step seconds {after_steps}); replay max abs "
+        f"weight diff {worst:.3g}; flash "
+        f"launches {json.dumps(processes)}; job {job_s:.1f} s, replay "
+        f"{replay_s:.1f} s [{card}]")
+    log(f"elastic restore probe (32): {json.dumps(probe_rec)} "
+        f"({probe_s:.1f} s) [{card}]")
     return out
 
 
@@ -4059,6 +4267,8 @@ def main() -> int:
     controller = phase("30 controller (two ranks, horovodrun)",
                        run_controller_phase, card)
     ring = phase("31 native data plane (horovodrun)", run_ring_phase, card)
+    elastic = phase("32 elastic membership (horovodrun --elastic)",
+                    run_elastic_phase, card)
 
     # The two ranks' counts of each parallel path, summed.
     by_rank = parallel["counts_by_rank"]
@@ -4086,7 +4296,10 @@ def main() -> int:
                        n: sum(r["c"]["launches"][n]
                               for r in ring[plane]["by_rank"])
                        for n in flash_names}
-                      for plane in ("python", "native")}}
+                      for plane in ("python", "native")},
+                   "llama300m elastic training, both ranks and the joiner "
+                   "(32)": {n: sum(p[n] for p in elastic["launches"].values())
+                            for n in flash_names}}
     forward_only = {f"long context ring {layout} (24)": both(
         "24 sp timed", f"long_context_{layout}", "flash_forward")
         for layout in ("contiguous", "zigzag")}
@@ -4163,6 +4376,7 @@ def main() -> int:
     log(f"checkpoint resume: {json.dumps(resume)}")
     log(f"controller: {json.dumps(controller)}")
     log(f"native data plane: {json.dumps(ring)}")
+    log(f"elastic: {json.dumps(elastic)}")
     log(f"ring kernels: {json.dumps({f'{k[0]} {k[1]}': v for k, v in ring_flash.items()})}")
     log(f"wall time: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

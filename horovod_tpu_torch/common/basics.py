@@ -26,9 +26,26 @@ e.g. ``device="cpu"``), and builds the job's two tiers:
   another plane. Rank 0 writes the timeline (``HOROVOD_TIMELINE``): the
   engine's C++ writer under the native engine, the Python one otherwise.
 
-The controller runs beside the process group, never instead of it: a
-launched job of more than one rank needs the group's rendezvous too.
-Elastic membership is not ported.
+Outside elastic mode the controller runs beside the process group,
+never instead of it: a launched job of more than one rank needs the
+group's rendezvous too.
+
+Under elastic membership (``HOROVOD_ELASTIC=1``, ``horovodrun
+--elastic``) the controller runs *instead of* the group: the job builds
+no ``torch.distributed`` process group, because that group is a static
+world (a dead rank wedges it and a joiner cannot enter it). Every
+world-group call rides the controller, which is always the Python one
+(an exported native engine is overridden with a warning: its ring is
+fixed-membership), and ``group=`` collectives, ZeRO, FSDP and the
+parallel modes raise, naming elastic (:func:`require_process_group`).
+A reshape replaces the topology (:func:`replace_topology`) but never the
+card: a process keeps the device ``init`` bound.
+
+The card's acquisition and the process group's join run under the
+port's bounded retries (``common/retry.py``: ``HOROVOD_TPU_INIT_RETRIES``,
+``HOROVOD_TPU_INIT_BACKOFF``) and carry the fault plan's ``init`` and
+``init_distributed`` hooks. An exhausted budget raises; nothing falls
+back to the CPU.
 """
 
 from __future__ import annotations
@@ -42,8 +59,10 @@ import torch
 import torch.distributed as dist
 
 from .. import DeviceLike
+from .. import fault
 from . import config
 from . import hvd_logging as logging
+from . import retry
 from .topology import Topology, detect
 
 # How long a rank waits for its peers at the rendezvous and in a
@@ -96,6 +115,33 @@ def _store(topology: Topology):
         "launch with horovodrun")
 
 
+def _bounded(fn, site: str, describe: str, seed: int) -> None:
+    """``fn`` under the init retry budget, each attempt behind the fault
+    plan's ``site`` hook. An exhausted budget raises ``RetryError``."""
+
+    def attempt():
+        fault.hook(site)
+        fn()
+
+    attempts, backoff = config.init_retry_env()
+    retry.retry_call(attempt, attempts=attempts, backoff=backoff, seed=seed,
+                     describe=describe)
+
+
+def require_process_group(what: str) -> None:
+    """Raise, naming elastic, when ``what`` needs the
+    ``torch.distributed`` process group and the job is elastic (no group
+    is built then)."""
+    if config.elastic_enabled():
+        raise RuntimeError(
+            f"{what} runs on the torch.distributed process group, which an "
+            "elastic job (HOROVOD_ELASTIC=1, horovodrun --elastic) does not "
+            "build: the group is a static world that a dead rank wedges "
+            "and a joiner cannot enter. Elastic jobs run world-group "
+            "collectives through the controller; launch without --elastic "
+            "for group=, ZeRO, FSDP and the parallel modes")
+
+
 def init(ranks: Optional[Sequence[int]] = None,
          device: DeviceLike = None) -> None:
     """Initialize. Idempotent. ``ranks`` narrows the job to a subset of
@@ -122,19 +168,29 @@ def init(ranks: Optional[Sequence[int]] = None,
             dev = torch.device("cuda", topology.device_index)
         else:
             dev = torch.device(device)
-        if dev.type == "cuda":
-            torch.cuda.set_device(dev)
+        seed = config.env_rank() or 0
+        _bounded((lambda: torch.cuda.set_device(dev)) if dev.type == "cuda"
+                 else (lambda: None), "init", "card acquisition", seed)
+        elastic = config.elastic_enabled()
         owns_group = False
-        if topology.launched and not dist.is_initialized():
+        if topology.launched and not dist.is_initialized() and not elastic:
             backend = "nccl" if dev.type == "cuda" else "gloo"
             kwargs = {"device_id": dev} if dev.type == "cuda" else {}
-            dist.init_process_group(
+            _bounded(lambda: dist.init_process_group(
                 backend, store=_store(topology), rank=topology.rank,
-                world_size=topology.size, timeout=_TIMEOUT, **kwargs)
+                world_size=topology.size, timeout=_TIMEOUT, **kwargs),
+                "init_distributed", "torch.distributed process group join",
+                seed)
             owns_group = True
         state = _State(topology, dev, owns_group)
+        engine = config.selected_engine()
+        if elastic and engine == "native":
+            logging.warning(
+                "HOROVOD_ELASTIC=1 requires the python controller engine; "
+                "overriding the native engine selection")
+            engine = "python"
         try:
-            if topology.size > 1 and config.selected_engine() == "native":
+            if topology.size > 1 and engine == "native":
                 from ..controller.native import NativeController
 
                 state.controller = NativeController(cfg, topology)
@@ -149,10 +205,24 @@ def init(ranks: Optional[Sequence[int]] = None,
 
                 state.controller = Controller(cfg, topology,
                                               timeline=state.timeline)
+                # A joiner's identity is its admission assignment.
+                state.topology = state.controller.topo
+                logging.set_rank(state.topology.rank)
         except BaseException:
             state.close()
             raise
         _state = state
+
+
+def replace_topology(topology: Topology) -> None:
+    """Elastic-reshape hook (``controller/controller.py``): swap the
+    topology after a membership change, so ``hvd.rank()``/``hvd.size()``
+    and the log prefix follow the re-formed world. Runs on the controller
+    thread; lock-free, since the reference swap is atomic. The bound
+    device is left alone."""
+    if _state is not None:
+        _state.topology = topology
+    logging.set_rank(topology.rank)
 
 
 def shutdown() -> None:

@@ -176,11 +176,37 @@ def restart_epoch() -> int:
 
 
 def elastic_enabled() -> bool:
-    """``HOROVOD_ELASTIC``: opt-in elastic membership. The port's
-    controller has no membership changes yet and refuses the knob; it
-    otherwise selects only ``State.restore``'s path (with
-    ``elastic_restore_mode``)."""
+    """``HOROVOD_ELASTIC``: opt-in elastic membership. When set, a dead
+    rank triggers a coordinator-led reshape (survivors re-form at a
+    bumped membership epoch) instead of a job-wide abort, and late worker
+    hellos are admitted at the next epoch boundary. The job then runs on
+    the Python controller's TCP star and builds no ``torch.distributed``
+    process group (a static world). Unset, behaviour is the static
+    fault-tolerance contract."""
     return _env_bool("HOROVOD_ELASTIC")
+
+
+def elastic_join() -> bool:
+    """``HOROVOD_ELASTIC_JOIN``: this worker is a late joiner — it sends
+    a JOIN hello to a live coordinator and waits for its (rank, size,
+    epoch) assignment instead of taking part in the initial rendezvous.
+    Exported by ``horovodrun --elastic`` when it respawns a dead worker
+    slot."""
+    return _env_bool("HOROVOD_ELASTIC_JOIN")
+
+
+def elastic_min_ranks() -> int:
+    """``HOROVOD_ELASTIC_MIN_RANKS``: smallest world size an elastic
+    reshape may re-form (coordinator included). Below it the job aborts
+    exactly like the non-elastic path. Default 1."""
+    return max(1, _env_int("HOROVOD_ELASTIC_MIN_RANKS", 1))
+
+
+def elastic_max_ranks() -> int:
+    """``HOROVOD_ELASTIC_MAX_RANKS``: largest world size joiners may grow
+    the job to; joiners beyond it stay parked until a slot frees. 0 (the
+    default) means unbounded."""
+    return max(0, _env_int("HOROVOD_ELASTIC_MAX_RANKS", 0))
 
 
 def elastic_ckpt_dir() -> Optional[str]:
@@ -203,11 +229,30 @@ def elastic_ckpt_keep() -> int:
 def elastic_restore_mode() -> str:
     """``HOROVOD_ELASTIC_RESTORE``: ``broadcast`` (rank 0 re-broadcasts
     the committed tree) or ``p2p`` (the default; digest-matched
-    survivors keep their copies). Garbage falls back to p2p. The port
-    runs the broadcast path in either mode until the p2p shard plane
-    lands."""
+    survivors keep their copies and only missing shards are fetched
+    from peers). Garbage falls back to p2p."""
     val = (env_str("HOROVOD_ELASTIC_RESTORE") or "").strip().lower()
     return "broadcast" if val == "broadcast" else "p2p"
+
+
+def fault_plan_raw() -> Optional[str]:
+    """``HOROVOD_FAULT_PLAN``: inline JSON or ``@file`` reference for the
+    deterministic fault-injection plan (``fault/plan.py``); None/blank
+    disables."""
+    val = os.environ.get("HOROVOD_FAULT_PLAN")
+    if not val or not val.strip():
+        return None
+    return val
+
+
+def init_retry_env() -> "tuple[int, float]":
+    """(max attempts, base backoff seconds) for ``hvd.init``'s card
+    acquisition and process-group join: ``HOROVOD_TPU_INIT_RETRIES``
+    (default 3, at least 1) and ``HOROVOD_TPU_INIT_BACKOFF`` (default
+    1.0 s), the JAX package's knobs."""
+    attempts = max(1, _env_int("HOROVOD_TPU_INIT_RETRIES", 3))
+    backoff = max(0.0, _env_float("HOROVOD_TPU_INIT_BACKOFF", 1.0))
+    return attempts, backoff
 
 
 def _env_bool(name: str, default: bool = False) -> bool:

@@ -15,11 +15,26 @@ an abort). Kinds handled here:
   clock-sync ping-pong, which the port does not run: it is skipped too.
 * ``ABORT`` — coordinated failure notice (pickled ``{"message",
   "dead_rank", "op"}``); any recv raises :class:`RemoteAbortError`.
+* ``JOIN`` — elastic membership, two payloads: a join hello ``{"join":
+  True, "rank": <previous rank or None>}`` from a late worker dialling a
+  live job, and a reshape acknowledgement ``{"ack": <epoch>}`` a member
+  returns after applying a RESHAPE. JOIN frames belong to the
+  rendezvous and reshape seams only (:meth:`Wire.recv_hello`,
+  :meth:`Wire.recv_reshape_ack`); one in the data stream raises
+  :class:`AuthError`.
+* ``RESHAPE`` — the coordinator's new-membership assignment (pickled
+  ``{"rank", "size", "epoch"}``): any recv raises
+  :class:`RanksChangedError` carrying this rank's place in the re-formed
+  world, tearing in-flight work of the dead epoch out of a blocked
+  receiver at the frame boundary where that epoch ends.
+* ``SHARD_FETCH`` / ``SHARD_DATA`` — the peer-to-peer checkpoint-shard
+  plane (``elastic/shards.py``): a pickled request for one committed
+  shard, addressed by content digest, and its reply. Invisible to the
+  lockstep protocol: ``recv_bytes`` hands them to the wire's shard
+  callback (:meth:`Wire.set_shard_callback`) and keeps reading.
 
-``JOIN``, ``RESHAPE``, ``SHARD_FETCH`` and ``SHARD_DATA`` keep their kind
-bytes, so frames stay compatible, but the elastic membership and shard
-planes that use them are not ported (ROADMAP Queue 1 item 8): receiving
-one raises :class:`AuthError`.
+``send_bytes`` and ``recv_bytes`` carry the fault plan's ``wire_send``
+and ``wire_recv`` hooks (``fault/``): no-ops without a plan.
 
 Receives honour a per-wire deadline (:meth:`Wire.set_deadline`, wired to
 ``HOROVOD_COMM_TIMEOUT_SECONDS``): a recv that sees no bytes for that long
@@ -49,6 +64,7 @@ import threading
 import time
 from typing import Any, Optional
 
+from .. import fault
 from .. import metrics
 from .config import secret_key_hex
 
@@ -59,7 +75,6 @@ MAX_FRAME = 1 << 31  # sanity bound
 FRAME_DATA = 0
 FRAME_HEARTBEAT = 1
 FRAME_ABORT = 2
-# Reserved: elastic membership and the checkpoint-shard plane.
 FRAME_JOIN = 3
 FRAME_RESHAPE = 4
 FRAME_SHARD_FETCH = 5
@@ -155,6 +170,32 @@ class RemoteAbortError(RuntimeError):
         self.op = op
 
 
+class RanksChangedError(RuntimeError):
+    """Cluster membership changed (elastic reshape): the coordinator
+    re-formed the world at a new epoch and this process's place in it is
+    attached. In-flight collectives of the dead epoch fail with this
+    error; ``hvd.elastic.run`` catches it, restores the last commit
+    consistent with rank 0, and resumes the training loop."""
+
+    def __init__(self, message: str, rank: Optional[int] = None,
+                 size: Optional[int] = None, epoch: Optional[int] = None):
+        super().__init__(message)
+        self.rank = rank
+        self.size = size
+        self.epoch = epoch
+
+
+def _pickled(obj) -> bytes:
+    return pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL)
+
+
+def _abort_error(payload) -> RemoteAbortError:
+    info = pickle.loads(payload)
+    return RemoteAbortError(info.get("message", "job aborted"),
+                            dead_rank=info.get("dead_rank"),
+                            op=info.get("op"))
+
+
 def _as_bytes_view(payload) -> memoryview:
     """A flat byte view of any contiguous buffer (bytes, bytearray, a
     numpy array)."""
@@ -178,6 +219,10 @@ class Wire:
         self._send_lock = threading.Lock()
         self._deadline: Optional[float] = None
         self._first_deadline: Optional[float] = None
+        # The shard plane's consumer: cb("fetch"|"data", info), called
+        # from whatever recv loop drains the frame. None drops them (the
+        # requester's own timeout diagnoses an unserviced fetch).
+        self._shard_cb = None
 
     def set_deadline(self, seconds: Optional[float],
                      first: Optional[float] = None) -> None:
@@ -259,6 +304,8 @@ class Wire:
 
     def send_bytes(self, payload) -> None:
         """One DATA frame carrying ``payload`` (any contiguous buffer)."""
+        if fault.hook("wire_send") == "drop":
+            return  # injected frame loss: the peer's deadline must catch it
         self._send_frame(FRAME_DATA, payload)
 
     def send_heartbeat(self) -> None:
@@ -266,13 +313,104 @@ class Wire:
 
     def send_abort(self, message: str, dead_rank: Optional[int] = None,
                    op: Optional[str] = None) -> None:
-        info = {"message": message, "dead_rank": dead_rank, "op": op}
-        self._send_frame(
-            FRAME_ABORT, pickle.dumps(info, protocol=pickle.HIGHEST_PROTOCOL))
+        self._send_frame(FRAME_ABORT, _pickled(
+            {"message": message, "dead_rank": dead_rank, "op": op}))
+
+    # -- elastic membership frames -------------------------------------------
+
+    def send_join(self, info: dict) -> None:
+        """Join hello (``{"join": True, ...}``) or reshape acknowledgement
+        (``{"ack": epoch}``): the worker-side halves of the elastic
+        handshake."""
+        self._send_frame(FRAME_JOIN, _pickled(info))
+
+    def send_reshape(self, rank: int, size: int, epoch: int) -> None:
+        """New-membership assignment: the receiver's next recv, wherever
+        it is blocked in the lockstep protocol, raises RanksChangedError
+        with this (rank, size, epoch)."""
+        self._send_frame(FRAME_RESHAPE, _pickled(
+            {"rank": rank, "size": size, "epoch": epoch}))
+
+    def recv_hello(self) -> "tuple[int, Any]":
+        """Rendezvous/admission read: the next DATA (initial hello) or
+        JOIN (elastic late hello) frame as ``(kind, obj)``, skipping
+        heartbeats. Any other kind during a hello is a protocol
+        violation."""
+        while True:
+            kind, payload = self._recv_frame()
+            if kind == FRAME_HEARTBEAT:
+                continue
+            if kind in (FRAME_DATA, FRAME_JOIN):
+                return kind, pickle.loads(payload)
+            raise AuthError(
+                f"unexpected {_KIND_NAMES[kind]} frame during hello")
+
+    def recv_reshape_ack(self, epoch: int) -> None:
+        """Drain this wire until the peer acknowledges membership epoch
+        ``epoch``. DATA and shard frames seen on the way are in-flight
+        traffic of the dead epoch and are discarded; this drain lets the
+        re-formed lockstep start from a clean stream. A stale ack (of a
+        reshape attempt superseded mid-handshake) is skipped the same
+        way."""
+        while True:
+            kind, payload = self._recv_frame()
+            if kind in (FRAME_HEARTBEAT, FRAME_DATA, FRAME_SHARD_FETCH,
+                        FRAME_SHARD_DATA):
+                continue  # liveness, or dead-epoch traffic: discard
+            if kind == FRAME_JOIN:
+                info = pickle.loads(payload)
+                ack = info.get("ack")
+                if ack == epoch:
+                    return
+                if ack is not None and ack < epoch:
+                    continue  # a superseded reshape attempt's ack
+                raise AuthError(
+                    f"unexpected join payload {info!r} while draining for "
+                    f"epoch {epoch} ack")
+            if kind == FRAME_ABORT:
+                raise _abort_error(payload)
+            # Members never originate reshapes: both sides think they are
+            # the coordinator. Fail loudly, don't desync.
+            raise AuthError(f"unexpected {_KIND_NAMES[kind]} frame while "
+                            f"draining for epoch {epoch} ack")
+
+    # -- the p2p checkpoint-shard frames -------------------------------------
+
+    def set_shard_callback(self, cb) -> None:
+        """Install the shard plane's consumer: ``cb(event, info)`` with
+        ``event`` ``"fetch"`` or ``"data"`` and ``info`` the unpickled
+        payload dict. It runs on whatever thread drains the frame and
+        must not block on this wire's own traffic."""
+        self._shard_cb = cb
+
+    def send_shard_fetch(self, info: dict) -> None:
+        """Request one committed shard by content digest (``{"shard",
+        "digest", "leaves", "req", "owner", "nonce"}``)."""
+        self._send_frame(FRAME_SHARD_FETCH, _pickled(info))
+
+    def send_shard_data(self, info: dict) -> None:
+        """Answer (or relay) one shard fetch: the request's keys plus
+        ``found`` and ``data`` (the packed leaf bytes)."""
+        self._send_frame(FRAME_SHARD_DATA, _pickled(info))
+
+    def _handle_shard_frame(self, kind: int, payload) -> None:
+        """Hand a shard frame to the callback. Never raises into the recv
+        path it rides: a lost or unserviced fetch is diagnosed by the
+        requester's own timeout."""
+        cb = self._shard_cb
+        if cb is None:
+            return
+        try:
+            cb("fetch" if kind == FRAME_SHARD_FETCH else "data",
+               pickle.loads(payload))
+        except Exception:
+            pass  # the exchange logs its own failures
 
     def recv_bytes(self) -> bytearray:
         """Lockstep data-stream read: the next DATA frame's payload, in a
-        writable buffer of its own."""
+        writable buffer of its own. Every other kind is dispatched
+        explicitly."""
+        fault.hook("wire_recv")
         mon = metrics.on()
         t0 = time.monotonic() if mon else 0.0
         while True:
@@ -280,18 +418,27 @@ class Wire:
             if kind == FRAME_HEARTBEAT:
                 continue  # liveness only; invisible to the protocol
             if kind == FRAME_ABORT:
+                raise _abort_error(payload)
+            if kind == FRAME_RESHAPE:
                 info = pickle.loads(payload)
-                raise RemoteAbortError(info.get("message", "job aborted"),
-                                       dead_rank=info.get("dead_rank"),
-                                       op=info.get("op"))
+                raise RanksChangedError(
+                    "cluster membership changed: this process is now rank "
+                    f"{info.get('rank')} of {info.get('size')} at membership "
+                    f"epoch {info.get('epoch')}",
+                    rank=info.get("rank"), size=info.get("size"),
+                    epoch=info.get("epoch"))
+            if kind in (FRAME_SHARD_FETCH, FRAME_SHARD_DATA):
+                self._handle_shard_frame(kind, payload)
+                continue
             if kind == FRAME_DATA:
                 if mon:
                     _wire_metrics().recv_wait.observe(time.monotonic() - t0)
                 return payload
+            # JOIN: hellos and acks belong to the rendezvous and reshape
+            # seams only; here the two sides disagree about elastic mode.
             raise AuthError(
-                f"unexpected {_KIND_NAMES[kind]} frame in the data stream: "
-                "elastic membership and the shard plane are not ported "
-                "(ROADMAP Queue 1 item 8)")
+                f"unexpected {_KIND_NAMES[kind]} frame in the data stream "
+                "(is the coordinator running without HOROVOD_ELASTIC?)")
 
     def _recv_frame(self) -> tuple:
         header = self._recv_exact(_HDR.size + DIGEST_LEN)

@@ -47,9 +47,18 @@ the tensors' dtype and in rank order (``acc = acc + peer``), so every add
 rounds as the JAX package's numpy sum does; the ring sums in its own
 order, the JAX ring's.
 
-Not ported (ROADMAP Queue 1 item 8): elastic reshape, the autotuner,
-the doctor and the tracer spans. ``HOROVOD_ELASTIC=1`` is refused, never
-silently replaced.
+Elastic membership (``HOROVOD_ELASTIC=1``), as in the JAX package: the
+coordinator keeps a join listener open, a dead worker re-forms the world
+at a bumped membership epoch instead of failing it, parked joiners are
+admitted at the next epoch boundary (up to ``HOROVOD_ELASTIC_MAX_RANKS``),
+and every in-flight collective of the dead epoch fails with the
+retryable ``RanksChangedError``. Ops enqueued after the drain fail the
+same way until ``hvd.elastic.run`` acknowledges the reshape (the fence).
+The rings are fixed-membership, so an elastic job stays on the star. A
+process keeps the card ``init`` bound whatever rank it becomes.
+
+Not ported (ROADMAP Queue 1 item 8): the autotuner, the doctor and the
+tracer spans.
 """
 
 from __future__ import annotations
@@ -78,8 +87,9 @@ from ..common.message import (
 from ..common.reduction import average
 from ..common.response_cache import ResponseCache
 from ..common.topology import Topology
-from ..common.wire import RemoteAbortError, job_secret
+from ..common.wire import RanksChangedError, RemoteAbortError, job_secret
 from ..core import bindings
+from .. import fault
 from .. import metrics
 from .service import CoordinatorService, PeerFailureError, WorkerClient
 
@@ -142,6 +152,42 @@ def _ctl_metrics():
                 "pacing allowance.", ("rank",)),
         )
     return _m
+
+
+_em = None
+
+
+def _elastic_metrics():
+    """Membership series, registered lazily under the JAX package's
+    names. The epoch and size gauges are published by every
+    metrics-enabled multi-rank job; the transition, reshape and
+    departure series move only on elastic ones."""
+    global _em
+    if _em is None:
+        from types import SimpleNamespace
+
+        _em = SimpleNamespace(
+            epoch=metrics.gauge(
+                "hvd_membership_epoch",
+                "Current membership epoch (1 at rendezvous; bumped by "
+                "every elastic reshape)."),
+            size=metrics.gauge(
+                "hvd_membership_size",
+                "Current world size as adopted by this rank."),
+            transitions=metrics.counter(
+                "hvd_membership_transitions_total",
+                "Elastic membership transitions, by direction.", ("kind",)),
+            reshape_seconds=metrics.histogram(
+                "hvd_elastic_reshape_seconds",
+                "Wall time of one elastic reshape: failure detection to "
+                "re-formed lockstep (assignment broadcast + ack drain + "
+                "epoch drain)."),
+            departures=metrics.counter(
+                "hvd_membership_rank_departures_total",
+                "Ranks lost to elastic reshapes, by the departing rank's "
+                "old global rank.", ("rank",)),
+        )
+    return _em
 
 
 def dtype_name(dtype: torch.dtype) -> str:
@@ -244,11 +290,6 @@ COUNTERS = ("responses", "tensors", "cache_hits", "negotiate_s", "pack_s",
 class Controller:
     def __init__(self, config: Config, topology: Topology,
                  timeline: Optional[tl.Timeline] = None):
-        if config_mod.elastic_enabled():
-            raise RuntimeError(
-                "HOROVOD_ELASTIC=1: the port's controller has no elastic "
-                "membership yet (ROADMAP Queue 1 item 8, elastic "
-                "membership); launch without --elastic")
         self.cfg = config
         self.topo = topology
         self.timeline = timeline
@@ -278,9 +319,32 @@ class Controller:
         self._device_buffers: Dict[torch.device, torch.Tensor] = {}
         self._host_buffer: Optional[torch.Tensor] = None
         self._resolved: list = []
+        # The coordinator's record of each reshape (epoch, size, lost
+        # ranks, admitted joiners, seconds), oldest first.
+        self.reshapes: List[dict] = []
+        # Elastic membership: the versioned epoch, and the fence that
+        # fails ops enqueued between a reshape's drain and the user's
+        # acknowledgement (hvd.elastic.run clears it before the restore):
+        # a lone post-drain enqueue would negotiate a tensor no peer
+        # knows about and hang the new epoch.
+        self._elastic = config_mod.elastic_enabled()
+        self._elastic_max = (config_mod.elastic_max_ranks()
+                             if self._elastic else 0)
+        self._epoch = 1
+        self._reshape_fence: Optional[RanksChangedError] = None
         self._ring = self._local_ring = self._cross_ring = None
         self._wire_code = self._wire_local_code = self._wire_cross_code = 0
-        if topology.size > 1:
+        if self._elastic and topology.size > 1 and (
+                config_mod.ring_data_plane_enabled()
+                or config.hierarchical_allreduce
+                or config.hierarchical_allgather):
+            # Every ring member binds a pre-assigned address: the rings
+            # are fixed-membership, and an elastic job stays on the star,
+            # whose endpoints survive a reshape.
+            logging.warning(
+                "elastic: ring/hierarchical data planes are static-"
+                "membership; using the TCP star data plane")
+        elif topology.size > 1:
             self._start_rings(config, topology)
 
         addr = config_mod.controller_addr()
@@ -297,13 +361,32 @@ class Controller:
             # first-seen stamps for the stall check.
             self._message_table: Dict[str, Dict[int, Request]] = {}
             self._first_seen: Dict[str, float] = {}
+            if self._elastic:
+                self._service.start_join_listener()
             self._service.start_heartbeats(config.heartbeat_interval_seconds)
         else:
             self._service = None
+            joining = self._elastic and config_mod.elastic_join()
             self._client = WorkerClient(
                 addr, topology.rank,
-                comm_timeout=config.comm_timeout_seconds)
+                comm_timeout=config.comm_timeout_seconds, join=joining)
+            if joining:
+                # Late joiner: the assignment (the first frame) is this
+                # process's identity; the launcher's provisional topology
+                # is discarded.
+                assignment = self._client.await_assignment()
+                self._epoch = assignment.epoch
+                self._set_topology(assignment.rank, assignment.size)
+                self._client.wire.send_join({"ack": assignment.epoch})
+                logging.info(
+                    "elastic: joined the job at membership epoch %d as "
+                    "rank %d of %d", assignment.epoch, assignment.rank,
+                    assignment.size)
             self._client.start_heartbeats(config.heartbeat_interval_seconds)
+        if metrics.on():
+            em = _elastic_metrics()
+            em.epoch.set(self._epoch)
+            em.size.set(self.topo.size)
 
         self._thread = threading.Thread(
             target=self._run_loop, name="hvd-controller", daemon=True)
@@ -414,6 +497,12 @@ class Controller:
                 handle.set_error(self._failure or ShutdownError(
                     "Horovod has been shut down"))
                 return handle
+            if self._reshape_fence is not None:
+                # Membership changed under this caller: fail the op with
+                # the retryable error its in-flight siblings got, until
+                # hvd.elastic.run acknowledges the reshape.
+                handle.set_error(self._reshape_fence)
+                return handle
             if name in self._table:
                 # Reference IncrementTensorCount duplicate-name error.
                 handle.set_error(RuntimeError(
@@ -485,24 +574,48 @@ class Controller:
                 if self.timeline:
                     self.timeline.mark_cycle_start()
                 try:
+                    if (self._elastic and self._service is not None
+                            and self._service.parked_joiner_count()
+                            and (self._elastic_max == 0
+                                 or self.topo.size < self._elastic_max)):
+                        # Epoch boundary: absorb parked joiners before the
+                        # next tick exchange. At max-ranks a parked joiner
+                        # waits: a reshape here would admit nobody yet
+                        # bump the epoch and drain in-flight work every
+                        # cycle (a livelock).
+                        self._elastic_reshape(set())
                     self._cycle()
                 except PeerFailureError as exc:
-                    if not self._shutdown_requested:
+                    if self._shutdown_requested:
+                        # Teardown race: a worker whose own shutdown was
+                        # requested may close its wire before this
+                        # coordinator's next recv. The job is ending
+                        # either way; never re-form a dying world.
+                        logging.debug(
+                            "shutdown: rank %d closed its wire before "
+                            "the final echo (%s)", exc.rank, exc.cause)
+                        self._closed.set()
+                        self._fail_all(ShutdownError(
+                            "Horovod has been shut down"))
+                        continue
+                    # With elastic on, a dead worker re-forms the world
+                    # (re-raising below min-ranks); without it, the
+                    # static abort path.
+                    if not self._elastic or self._service is None:
                         raise
-                    # Teardown race: a worker whose own shutdown was
-                    # requested may close its wire before this
-                    # coordinator's next recv. The job is ending either
-                    # way.
-                    logging.debug(
-                        "shutdown: rank %d closed its wire before "
-                        "the final echo (%s)", exc.rank, exc.cause)
-                    self._closed.set()
-                    self._fail_all(ShutdownError(
-                        "Horovod has been shut down"))
+                    self._elastic_reshape({exc.rank}, cause=exc)
                     continue
-                if self.topo.rank != 0:
+                except RanksChangedError as exc:
+                    # Worker side: the coordinator re-formed the world and
+                    # a RESHAPE frame tore this rank out of the dead epoch.
+                    if not self._elastic or self._client is None:
+                        raise
+                    self._apply_reshape(exc)
+                    continue
+                if self.topo.rank != 0 or self.topo.size == 1:
                     # Workers pace the lockstep; the coordinator is paced
-                    # by their arrivals.
+                    # by their arrivals, or, alone after an elastic
+                    # shrink, by the cycle time too (else it would spin).
                     delay = (self._cycle_time_ms / 1e3
                              - (time.monotonic() - started))
                     if delay > 0 and not self._shutdown_requested:
@@ -596,6 +709,7 @@ class Controller:
         }
 
     def _cycle(self) -> None:
+        fault.hook("cycle")  # chaos seam: kill/delay/raise at cycle N
         mon = metrics.on()
         t_start = time.monotonic()
         tick = self._build_tick()
@@ -822,6 +936,130 @@ class Controller:
                 entry.handle.set_error(exc)
         if not isinstance(exc, ShutdownError) and metrics.on():
             _ctl_metrics().aborts.inc()
+
+    # ------------------------------------------------------ elastic reshape
+
+    @property
+    def membership_epoch(self) -> int:
+        """Current membership epoch (1 at rendezvous; bumped per reshape)."""
+        return self._epoch
+
+    def clear_reshape_fence(self) -> None:
+        """User-level acknowledgement of a reshape (``hvd.elastic.run``
+        calls it before restoring state): new enqueues ride the new
+        epoch."""
+        with self._lock:
+            self._reshape_fence = None
+
+    def _set_topology(self, new_rank: int, new_size: int) -> None:
+        """Swap in the re-formed world. Elastic jobs are one process per
+        member (the launcher respawns workers one by one), so local and
+        cross collapse to the subset shape. The card stays the one
+        ``init`` bound: a process keeps its device."""
+        old = self.topo
+        topo = Topology(
+            rank=new_rank, size=new_size, local_rank=0, local_size=1,
+            cross_rank=new_rank, cross_size=new_size,
+            num_devices=old.num_devices,
+            local_num_devices=old.local_num_devices,
+            launched=old.launched, device_index=old.device_index)
+        self.topo = topo
+        from ..common import basics
+
+        basics.replace_topology(topo)
+
+    def _drain_epoch(self, exc: RanksChangedError) -> None:
+        """Discard every trace of the dead epoch: pending entries fail
+        with the retryable ``exc`` (not recorded as a job failure: new
+        enqueues stay allowed behind the fence), and the negotiation
+        state, the response cache and the autonaming counters reset, so
+        every member of the new epoch starts from the same blank slate,
+        joiners included."""
+        with self._lock:
+            self._reshape_fence = exc
+            entries = [self._table[n] for n in sorted(self._table)]
+            self._table.clear()
+            self._queue.clear()
+            self._bit_pending.clear()
+            self._cache = ResponseCache(self.cfg.cache_capacity)
+            self._autoname_counter.clear()
+        if self._service is not None:
+            self._message_table.clear()
+            self._first_seen.clear()
+            self._stall_warned.clear()
+        for entry in entries:
+            if not entry.handle.done():
+                entry.handle.set_error(exc)
+
+    @staticmethod
+    def _reshape_error(epoch: int, rank: int,
+                       size: int) -> RanksChangedError:
+        return RanksChangedError(
+            f"cluster membership changed at epoch {epoch} (this process is "
+            f"now rank {rank} of {size}); in-flight collectives were "
+            "discarded — wrap the training loop in hvd.elastic.run to "
+            "restore state from rank 0 and resume", rank=rank, size=size,
+            epoch=epoch)
+
+    def _elastic_reshape(self, dead: set,
+                         cause: Optional[PeerFailureError] = None) -> None:
+        """Coordinator: re-form the world without ``dead`` and with any
+        parked joiners, then resume ticking at the new epoch. Raises the
+        original failure when the survivors fall below min-ranks; the
+        loop's outer handler then aborts like a static job."""
+        t0 = time.monotonic()
+        old_size = self.topo.size
+        res = self._service.reform(
+            dead, min_ranks=config_mod.elastic_min_ranks(),
+            max_ranks=config_mod.elastic_max_ranks())
+        if res is None:
+            if cause is not None:
+                raise cause
+            raise RuntimeError(
+                "elastic: survivors fell below HOROVOD_ELASTIC_MIN_RANKS "
+                f"({config_mod.elastic_min_ranks()}); aborting")
+        self._epoch = res.epoch
+        # The topology first: a waiter the drain wakes must already see
+        # the new world (the JAX package swaps it after the drain, so a
+        # restore racing the swap reads the old size).
+        self._set_topology(0, res.size)
+        self._drain_epoch(self._reshape_error(res.epoch, 0, res.size))
+        took = time.monotonic() - t0
+        logging.warning(
+            "elastic: re-formed at membership epoch %d: size %d -> %d "
+            "(lost ranks %s, admitted %d joiner(s)) in %.3fs",
+            res.epoch, old_size, res.size,
+            list(res.lost) or "none", res.joined, took)
+        self.reshapes.append({"epoch": res.epoch, "size": res.size,
+                              "lost": list(res.lost), "joined": res.joined,
+                              "seconds": took})
+        if metrics.on():
+            em = _elastic_metrics()
+            em.epoch.set(res.epoch)
+            em.size.set(res.size)
+            if res.lost:
+                em.transitions.labels("shrink").inc()
+                for rank in res.lost:
+                    em.departures.labels(str(rank)).inc()
+            if res.joined:
+                em.transitions.labels("grow").inc()
+            em.reshape_seconds.observe(took)
+
+    def _apply_reshape(self, exc: RanksChangedError) -> None:
+        """Worker: adopt the RESHAPE assignment, drain the dead epoch, and
+        acknowledge so the coordinator knows this wire's stream is
+        clean."""
+        self._epoch = exc.epoch
+        self._set_topology(exc.rank, exc.size)
+        self._drain_epoch(self._reshape_error(exc.epoch, exc.rank, exc.size))
+        self._client.wire.send_join({"ack": exc.epoch})
+        logging.warning(
+            "elastic: membership epoch %d: this process is now rank %d "
+            "of %d", exc.epoch, exc.rank, exc.size)
+        if metrics.on():
+            em = _elastic_metrics()
+            em.epoch.set(exc.epoch)
+            em.size.set(exc.size)
 
     # ------------------------------------------------------------ data plane
 

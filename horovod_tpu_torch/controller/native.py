@@ -167,9 +167,9 @@ class NativeController:
                 "horovodrun); set HOROVOD_ENGINE=python to use the TCP star")
         if config_mod.elastic_enabled():
             raise RuntimeError(
-                "HOROVOD_ELASTIC=1: the port has no elastic membership yet "
-                "(ROADMAP Queue 1 item 8, elastic membership); launch "
-                "without --elastic")
+                "HOROVOD_ELASTIC=1: the native engine's ring is fixed-"
+                "membership; elastic membership runs on the Python "
+                "controller, which hvd.init selects under HOROVOD_ELASTIC")
         self._lib = lib = bindings.load()
         self.cfg = config
         self.topo = topology

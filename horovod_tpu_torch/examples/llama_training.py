@@ -98,22 +98,25 @@ def make_model(cfg: LlamaConfig, no_flash: bool = False,
                    param_dtype=torch.float32)
 
 
-def make_optimizer(name: str, model: LlamaLM,
-                   group=None) -> torch.optim.Optimizer:
+def make_inner_optimizer(name: str, params) -> torch.optim.Optimizer:
     """The JAX example's optax optimizers in torch: ``optax.adamw(3e-4)``
     (whose weight decay defaults to 1e-4) and ``optax.sgd(0.1,
-    momentum=0.9)``, wrapped in ``DistributedOptimizer`` averaging over
-    ``group`` (None: every rank)."""
-    params = model.parameters()
+    momentum=0.9)``."""
     if name == "adamw":
-        inner = torch.optim.AdamW(params, lr=3e-4, betas=(0.9, 0.999),
-                                  eps=1e-8, weight_decay=1e-4)
-    elif name == "sgd":
-        inner = torch.optim.SGD(params, lr=0.1, momentum=0.9)
-    else:
-        raise ValueError(f"unknown optimizer {name!r}")
+        return torch.optim.AdamW(params, lr=3e-4, betas=(0.9, 0.999),
+                                 eps=1e-8, weight_decay=1e-4)
+    if name == "sgd":
+        return torch.optim.SGD(params, lr=0.1, momentum=0.9)
+    raise ValueError(f"unknown optimizer {name!r}")
+
+
+def make_optimizer(name: str, model: LlamaLM,
+                   group=None) -> torch.optim.Optimizer:
+    """:func:`make_inner_optimizer` wrapped in ``DistributedOptimizer``
+    averaging over ``group`` (None: every rank)."""
     return hvd.DistributedOptimizer(
-        inner, named_parameters=model.named_parameters(), group=group)
+        make_inner_optimizer(name, model.parameters()),
+        named_parameters=model.named_parameters(), group=group)
 
 
 def make_loss_fn(chunked_loss: int = 0) -> Callable:

@@ -27,6 +27,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..common import basics
+
 DATA_AXIS = "data"
 
 _lock = threading.Lock()
@@ -35,7 +37,10 @@ _global_mesh: Optional["Mesh"] = None
 
 def group_size(group=None) -> int:
     """Ranks in ``group``; ``None`` is the job's world (one process when
-    no process group was initialised)."""
+    no process group was initialised). Raises in an elastic job, which
+    builds no process group."""
+    basics.require_process_group("a process-group collective (mesh, "
+                                 "ZeRO, FSDP, the parallel modes)")
     if group is None and not dist.is_initialized():
         return 1
     return dist.get_world_size(group)
@@ -43,6 +48,8 @@ def group_size(group=None) -> int:
 
 def group_rank(group=None) -> int:
     """This process's index in ``group`` (0 without a process group)."""
+    basics.require_process_group("a process-group collective (mesh, "
+                                 "ZeRO, FSDP, the parallel modes)")
     if group is None and not dist.is_initialized():
         return 0
     return dist.get_rank(group)

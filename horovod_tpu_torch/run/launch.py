@@ -33,8 +33,19 @@ or ``HOROVOD_CPU_OPS=star`` asks otherwise.
 Local ranks are direct children; remote hosts (``-H host:slots``) fan out
 over ssh with the env inlined. ``--bind-chips`` gives each local rank
 its own card through ``CUDA_VISIBLE_DEVICES`` (the rank then binds
-``cuda:0``). Elastic membership and cluster tracing are later slices:
-``--elastic*`` and ``--trace`` are refused.
+``cuda:0``).
+
+``--elastic`` (with ``--min-ranks``, ``--max-ranks``,
+``--elastic-respawns``), as in the JAX launcher: every rank gets
+``HOROVOD_ELASTIC=1`` and its bounds, the Python controller engine is
+pinned and the three ring-address variables are scrubbed (the rings are
+fixed-membership), and no process-group store is exported (an elastic
+job builds no ``torch.distributed`` group). A dead worker's slot is
+respawned as a joiner (``HOROVOD_ELASTIC_JOIN=1``) up to
+``--elastic-respawns`` times, with the slot's assignment and the
+launcher's environment; a worker that exits with 0 left on purpose and
+is not respawned; the coordinator's exit ends the job. Cluster tracing
+is a later slice: ``--trace`` is refused.
 """
 
 from __future__ import annotations
@@ -110,11 +121,16 @@ def build_rank_env(base: Dict[str, str], rank: int, size: int,
                    cross_size: int, controller_addr: str, secret: str,
                    bind_chips: bool, spmd: bool = False,
                    restart_epoch: int = 0,
-                   spmd_addr: Optional[str] = None) -> Dict[str, str]:
+                   spmd_addr: Optional[str] = None, elastic: bool = False,
+                   min_ranks: int = 1, max_ranks: int = 0,
+                   elastic_join: bool = False) -> Dict[str, str]:
     """One rank's environment. Eager mode: ``controller_addr`` is the
     controller's star and ``spmd_addr`` the process group's store;
     ``spmd``: ``controller_addr`` is the store's address (as the JAX
-    launcher's single coordinator address) and no star is exported."""
+    launcher's single coordinator address) and no star is exported.
+    ``elastic``: the elastic knobs, the Python engine pinned, the ring
+    addresses scrubbed, and ``HOROVOD_ELASTIC_JOIN`` for a respawned
+    slot (``elastic_join``) only."""
     env = dict(base)
     env.update({
         "HOROVOD_RANK": str(rank),
@@ -128,8 +144,25 @@ def build_rank_env(base: Dict[str, str], rank: int, size: int,
         # key restart-vs-fresh on this (utils.checkpoint.restart_epoch()).
         "HOROVOD_RESTART_EPOCH": str(restart_epoch),
     })
-    env.pop("HOROVOD_ELASTIC", None)
-    env.pop("HOROVOD_ELASTIC_JOIN", None)
+    if elastic:
+        env.update({
+            "HOROVOD_ELASTIC": "1",
+            "HOROVOD_ELASTIC_MIN_RANKS": str(min_ranks),
+            "HOROVOD_ELASTIC_MAX_RANKS": str(max_ranks),
+            "HOROVOD_ENGINE": "python",
+        })
+        for var in ("HOROVOD_RING_ADDRS", "HOROVOD_LOCAL_RING_ADDRS",
+                    "HOROVOD_CROSS_RING_ADDRS"):
+            env.pop(var, None)
+        if elastic_join:
+            env["HOROVOD_ELASTIC_JOIN"] = "1"
+        else:
+            # A rendezvous rank must not inherit a stale join flag from
+            # the launcher's own environment.
+            env.pop("HOROVOD_ELASTIC_JOIN", None)
+    else:
+        env.pop("HOROVOD_ELASTIC", None)
+        env.pop("HOROVOD_ELASTIC_JOIN", None)
     # Ranks we spawn watch their parent and die when orphaned (local: this
     # launcher; remote: the ssh session's shell). HOROVOD_PARENT_WATCHDOG=0
     # in the launcher's env opts out and is inherited via `base`.
@@ -412,9 +445,11 @@ def _run_attempt(args: argparse.Namespace, restart_epoch: int = 0,
 
     coord_host = _public_host(coord_host)
     coord_addr = args.controller_addr or f"{coord_host}:{_free_port()}"
+    elastic = bool(getattr(args, "elastic", False))
     # Eager mode: the process group's store listens on a port of its own
-    # on the same host.
-    store_addr = None if args.spmd else f"{coord_host}:{_free_port()}"
+    # on the same host (none under --elastic: no group is built).
+    store_addr = (None if args.spmd or elastic
+                  else f"{coord_host}:{_free_port()}")
 
     assignments = []  # (rank, host, local_rank, local_size, cross_rank)
     rank = 0
@@ -434,7 +469,7 @@ def _run_attempt(args: argparse.Namespace, restart_epoch: int = 0,
     # derive a port from a common base (override: HOROVOD_RING_ADDRS).
     ring_addrs_env = None
     ring_base = _free_port()
-    if not args.spmd:
+    if not args.spmd and not elastic:
         ring_addrs_env = config_mod.ring_addrs() or ",".join(
             f"{_public_host(host)}:{_free_port()}" if _is_local(host)
             else f"{_public_host(host)}:{_derived_port(ring_base, r)}"
@@ -452,8 +487,8 @@ def _run_attempt(args: argparse.Namespace, restart_epoch: int = 0,
     for a in assignments:
         groups.setdefault(a[4], []).append(a)
     group_sizes = {len(m) for m in groups.values()}
-    if not args.spmd and len(groups) > 1 and len(group_sizes) == 1 \
-            and max(group_sizes) > 1:
+    if not args.spmd and not elastic and len(groups) > 1 \
+            and len(group_sizes) == 1 and max(group_sizes) > 1:
 
         def _group_addr(host, offset):
             if _is_local(host):
@@ -481,12 +516,14 @@ def _run_attempt(args: argparse.Namespace, restart_epoch: int = 0,
     procs: List[subprocess.Popen] = []
     threads = []
 
-    def spawn(rank, host, local_rank, local_size, cross_rank):
+    def spawn(rank, host, local_rank, local_size, cross_rank, join=False):
         env = build_rank_env(
             dict(os.environ), rank, size, local_rank, local_size,
             cross_rank, cross_size, coord_addr, secret, args.bind_chips,
             spmd=args.spmd, restart_epoch=restart_epoch,
-            spmd_addr=store_addr)
+            spmd_addr=store_addr, elastic=elastic,
+            min_ranks=getattr(args, "min_ranks", 1),
+            max_ranks=getattr(args, "max_ranks", 0), elastic_join=join)
         env["HOROVOD_START_TIMEOUT"] = str(args.start_timeout)
         if ring_addrs_env is not None:
             env["HOROVOD_RING_ADDRS"] = ring_addrs_env
@@ -534,23 +571,54 @@ def _run_attempt(args: argparse.Namespace, restart_epoch: int = 0,
     previous = {sig: signal.signal(sig, _terminate_all)
                 for sig in (signal.SIGINT, signal.SIGTERM)}
     exit_code = 0
+    assignment_by_rank = {a[0]: a for a in assignments}
+    # Elastic: a dead worker is respawned on its own as a joiner, up to
+    # --elastic-respawns times a slot; the job ends with the coordinator.
+    respawns_left = {a[0]: getattr(args, "elastic_respawns", 0)
+                     for a in assignments if a[0] != 0}
     try:
         for a in assignments:
             spawn(*a)
         pending = [(a[0], procs[i]) for i, a in enumerate(assignments)]
-        while pending:
+        done = False
+        while pending and not done:
             for rank_id, p in list(pending):
                 rc = p.poll()
                 if rc is None:
                     continue
                 pending.remove((rank_id, p))
-                if rc != 0 and exit_code == 0:
+                if not elastic:
+                    if rc != 0 and exit_code == 0:
+                        exit_code = rc
+                        sys.stderr.write(
+                            f"horovodrun: rank {rank_id} exited with code "
+                            f"{rc}; terminating remaining ranks\n")
+                        _terminate_all()
+                    continue
+                if rank_id == 0:
+                    # The coordinator is the job in elastic mode: its
+                    # exit, clean or not, ends the run.
                     exit_code = rc
-                    sys.stderr.write(
-                        f"horovodrun: rank {rank_id} exited with code "
-                        f"{rc}; terminating remaining ranks\n")
+                    done = True
                     _terminate_all()
-            if pending:
+                    break
+                if rc == 0 or (interrupted is not None
+                               and interrupted.is_set()):
+                    continue  # graceful leave or operator teardown
+                if respawns_left.get(rank_id, 0) > 0:
+                    respawns_left[rank_id] -= 1
+                    sys.stderr.write(
+                        f"horovodrun: rank {rank_id} exited with code {rc}; "
+                        "respawning its slot as an elastic joiner "
+                        f"({respawns_left[rank_id]} respawn(s) left)\n")
+                    pending.append((rank_id, spawn(
+                        *assignment_by_rank[rank_id], join=True)))
+                else:
+                    sys.stderr.write(
+                        f"horovodrun: rank {rank_id} exited with code {rc}; "
+                        "elastic respawn budget exhausted — continuing with "
+                        "the survivors\n")
+            if pending and not done:
                 time.sleep(0.05)
     finally:
         _terminate_all()
@@ -569,10 +637,6 @@ def _run_attempt(args: argparse.Namespace, restart_epoch: int = 0,
 
 # Options of the JAX launcher whose slices are still to come.
 _LATER_SLICES = {
-    "--elastic": "elastic membership (ROADMAP Queue 1 item 8)",
-    "--min-ranks": "elastic membership (ROADMAP Queue 1 item 8)",
-    "--max-ranks": "elastic membership (ROADMAP Queue 1 item 8)",
-    "--elastic-respawns": "elastic membership (ROADMAP Queue 1 item 8)",
     "--trace": "cluster tracing (ROADMAP Queue 1 item 8)",
 }
 
@@ -612,6 +676,25 @@ def main(argv: Optional[List[str]] = None) -> int:
                         help="seconds to wait for all ranks to start and "
                              "rendezvous before aborting (reference "
                              "horovodrun --start-timeout)")
+    parser.add_argument("--elastic", action="store_true",
+                        help="elastic membership: a dead rank re-forms the "
+                             "job with the survivors at a bumped membership "
+                             "epoch instead of aborting it, dead worker "
+                             "slots are respawned one by one as joiners, "
+                             "and late workers are admitted at epoch "
+                             "boundaries; pins the python controller "
+                             "engine and builds no process group")
+    parser.add_argument("--min-ranks", type=int, default=1,
+                        help="elastic: abort (like a static job) if a "
+                             "reshape would drop below this world size "
+                             "(default 1)")
+    parser.add_argument("--max-ranks", type=int, default=0,
+                        help="elastic: park joiners beyond this world size "
+                             "until a slot frees (default 0 = unbounded)")
+    parser.add_argument("--elastic-respawns", type=int, default=3,
+                        help="elastic: times each dead worker slot is "
+                             "respawned as a joiner before the job simply "
+                             "continues with the survivors (default 3)")
     parser.add_argument("--max-restarts", type=int, default=0,
                         help="on a non-zero rank exit, tear the job down "
                              "and relaunch up to N times with exponential "
@@ -631,9 +714,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         # Parsed as the JAX launcher parses them, so the command that
         # follows stays the command.
         parser.add_argument(flag, dest=flag.lstrip("-").replace("-", "_"),
-                            default=None, help=argparse.SUPPRESS,
-                            **({"action": "store_const", "const": True}
-                               if flag == "--elastic" else {}))
+                            default=None, help=argparse.SUPPRESS)
     parser.add_argument("command", nargs=argparse.REMAINDER,
                         help="training command")
     args = parser.parse_args(argv)
@@ -643,6 +724,12 @@ def main(argv: Optional[List[str]] = None) -> int:
                          f"{what} is a later slice")
     if not args.command:
         parser.error("no command given")
+    if args.spmd and args.elastic:
+        parser.error("--spmd and --elastic conflict: the torch.distributed "
+                     "process group is a static world; elastic membership "
+                     "lives in the eager controller tier")
+    if args.elastic and args.min_ranks > args.np:
+        parser.error(f"--min-ranks {args.min_ranks} exceeds -np {args.np}")
     if args.command[0] == "--":
         args.command = args.command[1:]
     return run(args)

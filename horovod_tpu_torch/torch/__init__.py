@@ -29,8 +29,10 @@ from ..common.basics import (  # noqa: F401
     shutdown,
     size,
 )
+from ..common import config
 from .compression import Compression  # noqa: F401
 from .fsdp import fsdp_param_specs, fsdp_state_specs, fully_shard  # noqa: F401
+from .mpi_ops import _size
 from .mpi_ops import (  # noqa: F401
     Average,
     Handle,
@@ -77,7 +79,15 @@ __all__ = [
 class _DistributedOptimizer(torch.optim.Optimizer):
     """Fires ``allreduce_async_`` per parameter as soon as its gradient
     is accumulated (``register_post_accumulate_grad_hook``), then joins
-    the handles in ``step()``."""
+    the handles in ``step()``.
+
+    Under elastic membership the world changes under the optimizer: the
+    hooks are registered whatever the size at construction (at size 1
+    each reduce is the local identity, so a job that grows starts
+    reducing at once), the average divides by the size at execution (the
+    controller's), and a ``RanksChangedError`` from the join drops every
+    handle of the failed step instead of joining the rest, whose reduces
+    the reshape drained."""
 
     def __init__(self, params, named_parameters, compression,
                  backward_passes_per_step=1, group=None):
@@ -85,8 +95,8 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         self._compression = compression
         self.backward_passes_per_step = backward_passes_per_step
         self._group = group
-        self._reduces = (size() if group is None
-                         else torch.distributed.get_world_size(group)) > 1
+        self._reduces = _size(group) > 1 or (
+            group is None and config.elastic_enabled())
 
         if named_parameters is not None:
             named_parameters = list(named_parameters)
@@ -135,12 +145,17 @@ class _DistributedOptimizer(torch.optim.Optimizer):
 
     def synchronize(self):
         """Join every in-flight gradient reduction."""
-        for p, (handle, ctx, compressed) in list(self._handles.items()):
-            synchronize(handle)
-            if compressed is not p.grad:
-                with torch.no_grad():
-                    p.grad.copy_(self._compression.decompress(compressed, ctx))
-        self._handles.clear()
+        try:
+            for p, (handle, ctx, compressed) in list(self._handles.items()):
+                synchronize(handle)
+                if compressed is not p.grad:
+                    with torch.no_grad():
+                        p.grad.copy_(
+                            self._compression.decompress(compressed, ctx))
+        finally:
+            # A RanksChangedError drained the step's other reduces too:
+            # they are dropped, not joined (hvd.elastic.run restores).
+            self._handles.clear()
 
     def step(self, closure=None):
         if self._reduces:

@@ -87,11 +87,17 @@ def _controller(group=None):
 
 
 def _size(group=None) -> int:
-    return basics.size() if group is None else dist.get_world_size(group)
+    if group is None:
+        return basics.size()
+    basics.require_process_group("a group= collective")
+    return dist.get_world_size(group)
 
 
 def _rank(group=None) -> int:
-    return basics.rank() if group is None else dist.get_rank(group)
+    if group is None:
+        return basics.rank()
+    basics.require_process_group("a group= collective")
+    return dist.get_rank(group)
 
 
 def _check_root(root_rank: int) -> None:
@@ -489,7 +495,7 @@ def alltoall(tensor: torch.Tensor, name: Optional[str] = None,
     Differentiable: the backward is the inverse exchange. ``group``: a
     ``torch.distributed`` process group (None: the job's)."""
     _require_dim(tensor, "alltoall")
-    size = _size() if group is None else dist.get_world_size(group)
+    size = _size(group)
     if size == 1:
         return _Identity.apply(tensor)
     if _controller(group) is not None:

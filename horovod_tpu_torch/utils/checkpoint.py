@@ -43,6 +43,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import fault
 from .. import metrics
 from ..common import basics
 from ..common import hvd_logging as logging
@@ -389,14 +390,44 @@ def _host_arrays(arrays: Sequence[Any]) -> List[np.ndarray]:
             for i, a in enumerate(arrays)]
 
 
+def _digest_parts(leaf: Any) -> Tuple[str, Tuple[int, ...], Any]:
+    """(numpy's dtype name, ``np.ascontiguousarray``'s shape, a flat byte
+    view) of one leaf, as the JAX package hashes it. A tensor costs one
+    host copy (one D2H for a CUDA tensor) and no numpy dtype, so
+    bfloat16 hashes as ml_dtypes' ``bfloat16`` does."""
+    if torch.is_tensor(leaf):
+        t = leaf.detach()
+        if t.device.type != "cpu":
+            t = t.cpu()
+        t = t.contiguous()
+        return (str(t.dtype).rpartition(".")[2], tuple(t.shape) or (1,),
+                t.reshape(-1).view(torch.uint8).numpy())
+    a = np.ascontiguousarray(leaf)
+    return str(a.dtype), a.shape, a.reshape(-1).view(np.uint8)
+
+
+def shard_hasher():
+    """A running :func:`shard_digest`: feed it leaves in shard order with
+    :func:`digest_update`, read ``hexdigest()``."""
+    return hashlib.blake2b(digest_size=16)
+
+
+def digest_update(h, leaf: Any) -> None:
+    dtype, shape, data = _digest_parts(leaf)
+    h.update(dtype.encode())
+    h.update(str(shape).encode())
+    h.update(data)
+
+
 def shard_digest(arrays: Sequence[Any]) -> str:
     """Content digest of one shard's leaves: dtype + shape + bytes per
-    leaf, in shard order (tensors through their numpy form)."""
-    h = hashlib.blake2b(digest_size=16)
-    for a in _host_arrays(arrays):
-        h.update(str(a.dtype).encode())
-        h.update(str(a.shape).encode())
-        h.update(a.tobytes())
+    leaf, in shard order, equal to the JAX package's for the same values
+    (bfloat16 included). The identity key of the p2p restore plane: a
+    peer serves a shard only if its copy hashes to the digest asked
+    for."""
+    h = shard_hasher()
+    for leaf in arrays:
+        digest_update(h, leaf)
     return h.hexdigest()
 
 
@@ -681,6 +712,7 @@ class AsyncShardWriter:
                               snap["step"], exc)
 
     def _persist(self, snap: dict) -> None:
+        fault.hook("ckpt_save")  # chaos seam: kill/delay/raise mid-write
         t0 = time.monotonic()
         path = save_shard(self.directory, snap["step"], snap["shard"],
                           snap["world"], snap["arrays"], prefix=self.prefix)

@@ -328,14 +328,32 @@ def test_wire_rejects_a_tampered_frame_and_reserved_kinds():
     finally:
         a.close()
         b.close()
+    # The kinds elastic membership uses (reserved until it landed): in
+    # the data stream a JOIN is a protocol violation, a RESHAPE tears the
+    # recv out with the assignment, and the shard frames go to the shard
+    # callback while the recv reads on.
     for kind in (twire.FRAME_JOIN, twire.FRAME_RESHAPE,
                  twire.FRAME_SHARD_FETCH, twire.FRAME_SHARD_DATA):
         a, b = socket.socketpair()
         try:
-            twire.Wire(a, secret=SECRET)._send_frame(
-                kind, pickle.dumps({"join": True}))
-            with pytest.raises(twire.AuthError, match="not ported"):
-                twire.Wire(b, secret=SECRET).recv_bytes()
+            tx, rx = twire.Wire(a, secret=SECRET), twire.Wire(b, secret=SECRET)
+            tx._send_frame(kind, pickle.dumps(
+                {"join": True, "rank": 1, "size": 2, "epoch": 3}))
+            if kind == twire.FRAME_JOIN:
+                with pytest.raises(twire.AuthError, match="join frame"):
+                    rx.recv_bytes()
+            elif kind == twire.FRAME_RESHAPE:
+                with pytest.raises(twire.RanksChangedError) as exc:
+                    rx.recv_bytes()
+                assert (exc.value.rank, exc.value.size,
+                        exc.value.epoch) == (1, 2, 3)
+            else:
+                seen = []
+                rx.set_shard_callback(lambda event, info: seen.append(event))
+                tx.send_bytes(b"after")
+                assert bytes(rx.recv_bytes()) == b"after"
+                assert seen == ["fetch" if kind == twire.FRAME_SHARD_FETCH
+                                else "data"]
         finally:
             a.close()
             b.close()

@@ -5,8 +5,9 @@ rank-prefixed output, exports the ring data plane's addresses as the
 JAX launcher does (the flat ring, and the hierarchical pair for equal
 host groups), propagates a rank's failure (tearing the others down),
 relaunches under ``--max-restarts``, prints its version, refuses
-``--elastic`` and ``--trace`` (later slices) by name, and under
-``--spmd`` starts no controller while the eager default starts one.
+``--trace`` (a later slice) by name while the elastic flags parse into
+the launch, and under ``--spmd`` starts no controller while the eager
+default starts one.
 
 The launcher runs in this process (its children are plain ``python -c``
 commands where no package is needed), except for the two tier checks,
@@ -189,7 +190,20 @@ def test_version_flag(capsys):
                                   ["--max-ranks", "4"],
                                   ["--elastic-respawns", "1"],
                                   ["--trace", "/tmp/tr"]])
-def test_later_slices_are_refused_by_name(capsys, flag):
+def test_later_slices_are_refused_by_name(capsys, monkeypatch, flag):
+    if flag[0] != "--trace":
+        # Elastic membership has landed: its flags reach the launch with
+        # the JAX launcher's meaning (their refusals and the job itself:
+        # tests/test_torch_elastic_mp.py).
+        seen = []
+        monkeypatch.setattr(tlaunch, "run", lambda args: seen.append(args)
+                            or 0)
+        assert tlaunch.main(["-np", "2", *flag, sys.executable, "-c",
+                             "pass"]) == 0
+        value = getattr(seen[0], flag[0].lstrip("-").replace("-", "_"))
+        assert value == (True if len(flag) == 1 else int(flag[1]))
+        assert seen[0].command == [sys.executable, "-c", "pass"]
+        return
     with pytest.raises(SystemExit) as exit_:
         tlaunch.main(["-np", "2", *flag, sys.executable, "-c", "pass"])
     assert exit_.value.code == 2
