@@ -123,7 +123,7 @@ on ``cuda``; any failure exits non-zero:
    into flash, matmuls, routing and gathers, and the rest;
 21. ``generate()`` at ``MOE_SMALL`` in float32 through the decode kernel
    equals the einsum path, then the generation example at
-   ``--model moe-small``, bf16, prompt 128, 128 new, batch 8 and 32, and
+   ``--model moe-small``, bf16, prompt 128, 64 new, batch 8 and 32, and
    its model's greedy tokens at b=8 against the einsum path's (reported);
 22. ``ServingEngine`` at ``MOE_SMALL`` in float32 over 12 requests: each
    equals ``generate()`` alone, through the paged kernel;
@@ -227,22 +227,56 @@ on ``cuda``; any failure exits non-zero:
    kill to the first step at epochs 2 and 3, the joiner's restore
    seconds and bytes, the digest pass per commit, rank 0's peak memory,
    tok/s before and after; then ``examples.elastic_restore_probe`` (3
-   ranks on the card, 16 and 64 MiB, p2p and broadcast restores).
+   ranks on the card, 16 and 64 MiB, p2p and broadcast restores);
+33. the eager tier's tuning and tracing loop, two ranks sharing the card
+   under the port's launcher (``chip_smoke.py --tune-worker OUT MODE``,
+   a gloo group built first): (a) ``horovodrun -np 2 --trace DIR`` with
+   ``HOROVOD_AUTOTUNE=1`` and ``HOROVOD_AUTOTUNE_LOG`` over
+   ``examples.llama_training`` (Llama-300M bf16, f32 weights, seq 1024,
+   b8 a rank, AdamW, one warm and ``TUNE_ITERS`` timed steps) on the
+   default native engine: the autotune log holds at least two scored
+   configurations, both ranks adopted the same tuned bucket size (not
+   the default), ``merged_trace.json``, ``clock_offsets.json`` and
+   ``straggler_report.json`` are written, every gradient carries the
+   same sequence ids on both ranks, rank 1's clock offset is within its
+   uncertainty plus 1 ms (one host, one clock), and flash forward, dq
+   and dk/dv launch in both processes; tok/s logged beside 31's untuned
+   engine row; (b) ``HOROVOD_ENGINE=python`` in float32 at
+   ``PARITY_LAYERS``, two AdamW steps, b2 a rank: with the autotuner and
+   tracing on, the weights equal those of the same job with both off
+   (difference 0: a two-rank sum is exact in either order, so fusion
+   grouping cannot change it); (c) ``examples.overlap_probe`` on CUDA
+   tensors: the bucketed results equal the unbucketed ones bit for bit
+   on both ranks; measured and predicted overlap and the stall split
+   logged.
 
 The float32 parity runs of phases 24, 25, 27, 28, 30 and 31 build
 Llama-300M at 2 of its 16 layers (``PARITY_LAYERS``), to keep the script
 inside its time limit; their timed runs keep the full depth.
 
-Phases 3-5, 9, 13, 15-18, 20-25, 27, 28 and 30-32 are the main paths:
+Phases 3-5, 9, 13, 15-18, 20-25, 27, 28 and 30-33 are the main paths:
 the launch counts in the kernels' JSON line come from them (the flash
 kernels' are the sum of 9, 13, 20, 23's flash run, 24's seq-parallel
-training, 27's and 28's timed training, 30's and 31's (c) and 32's
-three processes, plus
+training, 27's and 28's timed training, 30's and 31's (c), 32's
+three processes and 33 (a)'s two, plus
 the forward-only long-context runs of 24; the contiguous decode
 kernel's of 3, 15, 21 and 25's ``generate()`` and profile, the paged
 one's of 4, 16-18, 22 and 25's engine; a two-process path's counts are
 its two ranks' sum; each path's on a line of its own). Each phase logs
-its wall time. The line before the last is that JSON object; the last line is
+its wall time.
+
+Two lanes share the card and the host. After the kernels' timings
+(2, 6, 14 and 24's ring kernels, alone), a second lane, a thread of this
+process that only starts jobs and reads their files, runs 32's job and
+restore probe, 30, 31 (e) and 33 (b)-(c) while this lane runs 3-5,
+7-13 and 15-23; it is joined before 32's replay, which runs here, then
+24-29, 31 (a)-(d) and 33 (a) run alone. The numbers of 3-5, 7-13,
+15-23 and of the second lane's phases are taken with the other lane's
+work on the same card and cores; those of 31 (c) and 33 (a), compared
+with each other, are not. A failure on either lane stops every job the
+script started and exits non-zero.
+
+The line before the last is that JSON object; the last line is
 ``{"ok": true, "device": {...}}``. The whole run logs its wall time.
 """
 
@@ -253,10 +287,12 @@ import json
 import os
 import re
 import shutil
+import signal
 import socket
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -296,7 +332,9 @@ DECODE_KERNELS = r"decode_(?:combine_)?kernel"
 
 
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    # One write a line: the second lane logs too.
+    sys.stdout.write(f"{msg}\n")
+    sys.stdout.flush()
 
 
 def card_line() -> str:
@@ -1442,6 +1480,96 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
+# Jobs started by run_child / start_tune_job, each the leader of its own
+# process group (the launcher and its ranks), for stop_children(); once
+# that has run, no job starts.
+_CHILDREN = set()
+_CHILDREN_LOCK = threading.Lock()
+_STOPPING = threading.Event()
+
+
+def start_child(cmd, **kwargs) -> subprocess.Popen:
+    with _CHILDREN_LOCK:
+        if _STOPPING.is_set():
+            raise RuntimeError(f"the script is stopping: {cmd[:4]} not "
+                               "started")
+        proc = subprocess.Popen(cmd, start_new_session=True, **kwargs)
+        _CHILDREN.add(proc)
+    return proc
+
+
+def run_child(cmd, timeout: float, **kwargs) -> subprocess.CompletedProcess:
+    """``subprocess.run`` for a job of the script: the child leads a
+    process group of its own, which :func:`stop_children` ends if the
+    script fails while it runs (on the second lane, see :class:`Lane`)."""
+    proc = start_child(cmd, **kwargs)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        _stop_group(proc)
+        raise
+    finally:
+        _CHILDREN.discard(proc)
+    return subprocess.CompletedProcess(cmd, proc.returncode, out, err)
+
+
+def _stop_group(proc) -> None:
+    """SIGTERM to the job's group (the launcher stops its ranks), then
+    SIGKILL to whatever is left of it after 15 s."""
+    try:
+        os.killpg(proc.pid, signal.SIGTERM)
+        proc.wait(timeout=15.0)
+    except subprocess.TimeoutExpired:
+        pass
+    except ProcessLookupError:
+        return
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    proc.wait()
+
+
+def stop_children() -> None:
+    with _CHILDREN_LOCK:
+        _STOPPING.set()
+        procs = list(_CHILDREN)
+    for proc in procs:
+        _stop_group(proc)
+        _CHILDREN.discard(proc)
+
+
+class Lane:
+    """A second lane of phases beside the main one: a thread that runs
+    ``(label, fn, *args)`` steps in order and logs each one's wall time.
+    Its steps only start jobs (:func:`run_child`) and read their files:
+    nothing on the card in this process, so the main lane's launch
+    counts and phases stay its own. :meth:`join` returns the results by
+    label and raises the first step's failure."""
+
+    def __init__(self, steps):
+        self.results, self.error = {}, None
+        self.thread = threading.Thread(target=self._run, args=(steps,),
+                                       name="chip-smoke-lane", daemon=True)
+        self.thread.start()
+
+    def _run(self, steps) -> None:
+        try:
+            for label, fn, *args in steps:
+                t = time.perf_counter()
+                self.results[label] = fn(*args)
+                log(f"phase {label} (second lane): "
+                    f"{time.perf_counter() - t:.1f} s")
+        except BaseException as exc:  # re-raised by join()
+            self.error = exc
+
+    def join(self):
+        self.thread.join()
+        if self.error is not None:
+            raise self.error
+        return self.results
+
+
 def run_collectives():
     """``init()`` under a launcher environment of size 1 builds an NCCL
     group on ``cuda:0``; the collectives are the identity there."""
@@ -2254,9 +2382,9 @@ def run_moe_training_timed(card: str):
     return numbers
 
 
-# New tokens of phase 21's generation example runs (cut to 128 for the
+# New tokens of phase 21's generation example runs (cut to 64 for the
 # script's time limit; phase 15's Llama-300M rows keep the bench's 256).
-MOE_GEN_NEW = 128
+MOE_GEN_NEW = 64
 
 
 def run_moe_generation(card: str):
@@ -3792,9 +3920,6 @@ def launch_eager_job(mode: str, env_extra: dict, np_: int = 2,
     results and the timeline's begin events by name (or None)."""
     import tempfile
 
-    import torch
-
-    torch.cuda.empty_cache()
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_eager_")
     out_path = os.path.join(out_dir, "results.json")
     path = os.path.join(out_dir, "timeline.json")
@@ -3805,11 +3930,10 @@ def launch_eager_job(mode: str, env_extra: dict, np_: int = 2,
     if timeline:
         env["HOROVOD_TIMELINE"] = path
     try:
-        proc = subprocess.run(
+        proc = run_child(
             [sys.executable, "-m", "horovod_tpu_torch.run", "-np", str(np_),
              *launcher_args, sys.executable, os.path.abspath(__file__),
-             "--controller-worker", out_path, mode], cwd=here, env=env,
-            timeout=600)
+             "--controller-worker", out_path, mode], 600, cwd=here, env=env)
         if proc.returncode != 0:
             raise AssertionError(f"eager job {mode} {env_extra} exited "
                                  f"{proc.returncode}")
@@ -3884,16 +4008,17 @@ RING_COUNTS = {
 
 def run_ring_phase(card: str):
     """Phase 31: (a)-(c) on the Python controller over the native ring and
-    on the native engine, (d) the int8 wire on the engine, (e) the
-    engine's two-level plane at four ranks; returns rank 0's results."""
+    on the native engine, (d) the int8 wire on the engine ((e) is
+    :func:`run_two_level_phase`); returns rank 0's results."""
+    import torch
+
     from horovod_tpu_torch.core import bindings
 
-    t = time.perf_counter()
-    lib = bindings.build()
+    torch.cuda.empty_cache()
+    lib = bindings.build()  # main() built it beside the kernels
     gxx = subprocess.run(["g++", "--version"], capture_output=True,
                          text=True).stdout.splitlines()[0]
-    log(f"native core: {lib.name} built by {gxx} in "
-        f"{time.perf_counter() - t:.1f} s")
+    log(f"native core: {lib.name} built by {gxx}")
     out = {"gxx": gxx}
     for plane, env in (("python", {"HOROVOD_ENGINE": "python"}),
                        ("native", {})):
@@ -3942,6 +4067,13 @@ def run_ring_phase(card: str):
         f"{dd['gradients']} residuals non-zero (max {dd['residual_max']:.3g});"
         f" int8 wire bytes {dd['tx_bytes_int8']} for "
         f"{dd['logical_bytes_int8']} f32 bytes [{card}]")
+    out["int8"] = d
+    return out
+
+
+def run_two_level_phase():
+    """Phase 31 (e): four ranks as two groups of two on the engine's
+    two-level plane; returns rank 0's results (second lane)."""
     e, _ = launch_eager_job(
         "collectives", {"HOROVOD_HIERARCHICAL_ALLREDUCE": "1",
                         "HOROVOD_HIERARCHICAL_ALLGATHER": "1"}, np_=4,
@@ -3952,28 +4084,28 @@ def run_ring_phase(card: str):
     log(f"ring native (e) four ranks as 2x2, two-level plane: "
         f"{e['a']['checked']} collectives of CUDA tensors bitwise equal to "
         f"CPU copies and the two-level sum order")
-    out["int8"], out["hierarchical"] = d, e
-    return out
+    return e
 
 
+# The deadline bounds the whole job (the example's default is 200 s): the
+# job runs on the second lane, beside the main lane's phases.
 ELASTIC_ARGS = ("--model", "300m", "--seq-len", "1024", "--batch-size",
-                "2", "--device", "cuda:0")
+                "2", "--device", "cuda:0", "--deadline", "300")
 
 
 def _median(values):
     return statistics.median(values) if values else None
 
 
-def run_elastic_phase(card: str):
-    """Phase 32: the elastic job under the port's launcher, its checks,
-    the replay of rank 0's schedule, and the restore probe."""
+def run_elastic_job():
+    """Phase 32's job under the port's launcher and its checks, then the
+    restore probe (second lane: nothing on the card in this process).
+    Returns the records, rank 0's final weights on the host and the
+    probe's record, for :func:`run_elastic_phase`."""
     import tempfile
 
     import torch
 
-    from horovod_tpu_torch.examples import elastic_llama_training as ex
-
-    torch.cuda.empty_cache()
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
     env = {k: v for k, v in os.environ.items()
            if not k.startswith(("HOROVOD_", "OMPI_", "PMI_"))}
@@ -3981,13 +4113,12 @@ def run_elastic_phase(card: str):
     env["PYTHONPATH"] = here
     try:
         t0 = time.perf_counter()
-        proc = subprocess.run(
+        proc = run_child(
             [sys.executable, "-m", "horovod_tpu_torch.run", "--elastic",
              "-np", "2", "--min-ranks", "1", "--max-ranks", "2",
              "--elastic-respawns", "1", sys.executable, "-m",
              "horovod_tpu_torch.examples.elastic_llama_training",
-             *ELASTIC_ARGS, "--out", out_dir], cwd=here, env=env,
-            timeout=300)
+             *ELASTIC_ARGS, "--out", out_dir], 420, cwd=here, env=env)
         job_s = time.perf_counter() - t0
         if proc.returncode != 0:
             raise AssertionError(f"elastic job exited {proc.returncode}")
@@ -4033,19 +4164,50 @@ def run_elastic_phase(card: str):
         if any(n <= 0 for counts in processes.values()
                for n in counts.values()):
             raise AssertionError(f"elastic: flash launches {processes}")
-        t1 = time.perf_counter()
-        want = ex.replay("300m", r0["schedule"], 2, 1024, 0, "cuda")
-        got = torch.load(os.path.join(out_dir, "final.pt"))
-        worst = 0.0
-        for name in sorted(want):
-            compare(got[name], want[name], "float32",
-                    f"elastic replay weight {name}")
-            worst = max(worst, float((got[name] - want[name]).abs().max()))
-        replay_s = time.perf_counter() - t1
-        del want, got
-        torch.cuda.empty_cache()
+        final = torch.load(os.path.join(out_dir, "final.pt"),
+                           map_location="cpu")
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
+    t2 = time.perf_counter()
+    probe = run_child(
+        [sys.executable, "-m", "horovod_tpu_torch.examples."
+         "elastic_restore_probe", "--device", "cuda:0", "--small-mib", "16",
+         "--factor", "4", "--reps", "3", "--timeout", "200"], 240, cwd=here,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    if probe.returncode != 0:
+        raise AssertionError(f"restore probe exited {probe.returncode}: "
+                             f"{probe.stdout[-2000:]}{probe.stderr[-2000:]}")
+    return {"r0": r0, "joiner": joiner, "kill": kill, "job_s": job_s,
+            "rolled_back": rolled_back, "grow_r0": grow_r0,
+            "grow_j": grow_j, "processes": processes, "final": final,
+            "probe": json.loads(probe.stdout.strip().splitlines()[-1]),
+            "probe_s": time.perf_counter() - t2}
+
+
+def run_elastic_phase(job, card: str):
+    """Phase 32 on the main lane: the job's final weights (from
+    :func:`run_elastic_job`) against a one-process replay of rank 0's
+    schedule on the card, and the phase's numbers."""
+    import torch
+
+    from horovod_tpu_torch.examples import elastic_llama_training as ex
+
+    r0, joiner, kill = job["r0"], job["joiner"], job["kill"]
+    grow_r0, grow_j = job["grow_r0"], job["grow_j"]
+    rolled_back, processes = job["rolled_back"], job["processes"]
+    job_s, probe_s, probe_rec = job["job_s"], job["probe_s"], job["probe"]
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    want = ex.replay("300m", r0["schedule"], 2, 1024, 0, "cuda")
+    got = job.pop("final")
+    worst = 0.0
+    for name in sorted(want):
+        compare(got[name], want[name], "float32",
+                f"elastic replay weight {name}")
+        worst = max(worst, float((got[name] - want[name]).abs().max()))
+    replay_s = time.perf_counter() - t1
+    del want, got
+    torch.cuda.empty_cache()
 
     def first(epoch):
         return min(s["t_done"] for s in r0["steps"]
@@ -4061,17 +4223,6 @@ def run_elastic_phase(card: str):
 
     before, before_steps = tok_s(1)
     after, after_steps = tok_s(3)
-    t2 = time.perf_counter()
-    probe = subprocess.run(
-        [sys.executable, "-m", "horovod_tpu_torch.examples."
-         "elastic_restore_probe", "--device", "cuda:0", "--small-mib", "16",
-         "--factor", "4", "--reps", "3", "--timeout", "200"], cwd=here,
-        env=env, capture_output=True, text=True, timeout=240)
-    if probe.returncode != 0:
-        raise AssertionError(f"restore probe exited {probe.returncode}: "
-                             f"{probe.stdout[-2000:]}{probe.stderr[-2000:]}")
-    probe_rec = json.loads(probe.stdout.strip().splitlines()[-1])
-    probe_s = time.perf_counter() - t2
     out = {
         "job_s": job_s, "replay_s": replay_s, "probe_s": probe_s,
         "schedule": r0["schedule"], "rolled_back": rolled_back,
@@ -4114,6 +4265,309 @@ def run_elastic_phase(card: str):
     log(f"elastic restore probe (32): {json.dumps(probe_rec)} "
         f"({probe_s:.1f} s) [{card}]")
     return out
+
+
+# Phase 33 (a): the training example's arguments (one warm step, then
+# TUNE_ITERS timed ones). The native tuner scores a configuration every
+# 13 samples of its 10 ms poll that see rank 0's engine busy move; a step
+# gives it ~5, fewer once it has lengthened the cycle (on the card 5
+# steps scored 1-2 configurations, 11 steps 2-3).
+TUNE_ITERS = 16
+TUNE_ARGS = ["--model", "300m", "--seq-len", "1024", "--batch-size", "8",
+             "--num-iters", str(TUNE_ITERS)]
+
+
+def tune_worker(out_path: str, mode: str) -> int:
+    """One rank of phase 33 (``horovodrun -np 2 ... chip_smoke.py
+    --tune-worker OUT MODE``), sharing ``cuda:0`` over a gloo group
+    built here. ``train``: the training example's ``main`` (33 a);
+    ``parity``: float32 at ``PARITY_LAYERS``, two AdamW steps through the
+    controller, rank 0 saving the weights to ``OUT.pt`` (33 b). Every
+    rank writes ``OUT.rank<r>.json``: its flash launches, the bucket size
+    it adopted, and on rank 0 the tuner's state."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common import basics, config
+    from horovod_tpu_torch.controller import bucket_scheduler as bs
+    from horovod_tpu_torch.examples import llama_fsdp_training as fx
+    from horovod_tpu_torch.examples import llama_training as lx
+    from horovod_tpu_torch.models.llama import LLAMA_300M
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    torch.cuda.set_device(0)
+    rank = int(os.environ["HOROVOD_RANK"])
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://{config.spmd_coordinator()}", rank=rank,
+        world_size=int(os.environ["HOROVOD_SIZE"]),
+        timeout=datetime.timedelta(seconds=600))
+    hvd.init(device="cuda:0")
+    ctl = basics.controller()
+    out = {"engine": type(ctl).__name__}
+    if mode == "train":
+        _reset_counts()
+        res = lx.main(TUNE_ARGS)
+        torch.cuda.synchronize()
+        out.update(tokens_per_s=res["tokens_per_s"], step_ms=res["step_ms"],
+                   losses=res["losses"], launches=_counts(),
+                   gradients=[n for n, p in res["model"].named_parameters()
+                              if p.requires_grad])
+        del res
+    else:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        cfg = dataclasses.replace(LLAMA_300M, dtype=torch.float32,
+                                  num_layers=PARITY_LAYERS)
+        ids = fx.batch_ids(cfg, CONTROLLER_BATCH_PARITY, CONTROLLER_SEQ, 2,
+                           rank, "cuda")
+        model = lx.make_model(cfg, device="cuda")
+        hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+        opt = lx.make_optimizer("adamw", model)
+        loss_fn = lx.make_loss_fn(0)
+        out["losses"] = [float(lx.train_step(model, opt, ids, loss_fn))
+                         for _ in range(2)]
+        if rank == 0:
+            torch.save({n: p.detach().cpu()
+                        for n, p in model.named_parameters()},
+                       out_path + ".pt")
+        _drop(model, opt)
+    pm = getattr(ctl, "_param_manager", None)
+    if pm is not None:
+        out["tuner"] = pm.state()
+    hvd.shutdown()
+    dist.destroy_process_group()
+    # Read after the shutdown: the native engine's last reply is drained.
+    out["bucket_bytes"] = bs.current_bucket_bytes()
+    with open(f"{out_path}.rank{rank}.json", "w") as f:
+        json.dump(out, f)
+    log(f"rank {rank}: tune worker ({mode}) ok")
+    return 0
+
+
+def start_tune_job(mode: str, env_extra: dict, out_dir: str,
+                   trace: bool):
+    """Start ``python -m horovod_tpu_torch.run -np 2 [--trace DIR/trace]
+    ... chip_smoke.py --tune-worker DIR/MODE MODE``."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("HOROVOD_", "OMPI_", "PMI_"))}
+    here = os.path.dirname(os.path.abspath(__file__))
+    env.update(PYTHONPATH=here, **env_extra)
+    out_path = os.path.join(out_dir, mode)
+    args = ("--trace", os.path.join(out_dir, "trace")) if trace else ()
+    proc = start_child(
+        [sys.executable, "-m", "horovod_tpu_torch.run", "-np", "2", *args,
+         sys.executable, os.path.abspath(__file__), "--tune-worker",
+         out_path, mode], cwd=here, env=env)
+    return proc, out_path, f"{mode} {env_extra}", time.perf_counter()
+
+
+def finish_tune_job(job):
+    """Wait for a job of :func:`start_tune_job`; returns both ranks'
+    records and the job's seconds."""
+    proc, out_path, what, t = job
+    try:
+        code = proc.wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        _stop_group(proc)
+        raise AssertionError(f"tune job {what} timed out")
+    finally:
+        _CHILDREN.discard(proc)
+    seconds = time.perf_counter() - t
+    if code != 0:
+        raise AssertionError(f"tune job {what} exited {code}")
+    recs = []
+    for r in range(2):
+        with open(f"{out_path}.rank{r}.json") as f:
+            recs.append(json.load(f))
+    return recs, seconds
+
+
+def check_trace(trace_dir: str, gradients):
+    """Phase 33 (a)'s trace: the three artifacts, every gradient's
+    sequence ids the same on both ranks, rank 1's offset within its
+    uncertainty plus 1 ms."""
+    from horovod_tpu_torch import trace as tr
+
+    with open(os.path.join(trace_dir, tr.MERGED_TRACE_FILE)) as f:
+        events = json.load(f)
+    with open(os.path.join(trace_dir, tr.OFFSETS_FILE)) as f:
+        clock = json.load(f)
+    with open(os.path.join(trace_dir, tr.REPORT_FILE)) as f:
+        report = json.load(f)
+    seqs = [{}, {}]
+    phases = {}
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        phases[e["name"]] = phases.get(e["name"], 0) + 1
+        seq = e["args"].get("seq")
+        if e["name"] == "enqueue" and seq is not None:
+            seqs[e["pid"]].setdefault(e["args"]["op"], set()).add(seq)
+    missing = [n for n in gradients if not seqs[0].get(n)
+               or seqs[0].get(n) != seqs[1].get(n)]
+    if missing or set(phases) != set(tr.PHASES):
+        raise AssertionError(f"trace: gradients without the same seq ids on "
+                             f"both ranks {missing[:8]}; phases {phases}")
+    entry = clock["1"]
+    if not entry["synced"] or abs(entry["offset_seconds"]) > \
+            entry["uncertainty_seconds"] + 1e-3:
+        raise AssertionError(f"clock offsets {clock}")
+    return {"phases": phases, "clock": entry, "report": {
+        k: report[k] for k in ("collectives", "slack_p50_seconds",
+                               "slack_p99_seconds", "slack_max_seconds",
+                               "worst_rank", "per_rank")},
+        "gradients": len(gradients),
+        "seq_ids_per_gradient": len(seqs[0][gradients[0]])}
+
+
+def scored_rows(path: str):
+    with open(path) as f:
+        lines = [ln for ln in f.read().splitlines()
+                 if ln and not ln.startswith("#")]
+    header = lines[0].split(",")
+    return [dict(zip(header, ln.split(","))) for ln in lines[1:]]
+
+
+def run_tune_phase(card: str, untuned_tok_s: float):
+    """Phase 33 (a): tuned and traced Llama-300M training on the native
+    engine ((b) and (c) are :func:`run_tune_checks`)."""
+    import tempfile
+
+    import torch
+
+    from horovod_tpu_torch.ops import attention as A
+
+    torch.cuda.empty_cache()
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    try:
+        log_path = os.path.join(out_dir, "autotune.csv")
+        (r0, r1), a_s = finish_tune_job(start_tune_job(
+            "train", {"HOROVOD_AUTOTUNE": "1",
+                      "HOROVOD_AUTOTUNE_LOG": log_path}, out_dir, True))
+        rows = scored_rows(log_path)
+        if len(rows) < 2:
+            raise AssertionError(f"autotune log: {len(rows)} scored rows")
+        if {r0["engine"], r1["engine"]} != {"NativeController"} or \
+                r0["bucket_bytes"] != r1["bucket_bytes"] or \
+                r0["bucket_bytes"] == 8 << 20:
+            raise AssertionError(f"(a): engines {r0['engine']}, "
+                                 f"{r1['engine']}; buckets "
+                                 f"{r0['bucket_bytes']}, {r1['bucket_bytes']}")
+        for r, rec in enumerate((r0, r1)):
+            if min(rec["launches"][n] for n in A.LAUNCHES) <= 0:
+                raise AssertionError(f"(a) rank {r}: flash launches "
+                                     f"{rec['launches']}")
+        trace = check_trace(os.path.join(out_dir, "trace"), r0["gradients"])
+        tuner = r0["tuner"]
+        a = {"tokens_per_s": r0["tokens_per_s"], "step_ms": r0["step_ms"],
+             "losses": r0["losses"], "scored": len(rows),
+             "bucket_bytes": r0["bucket_bytes"], "tuner": tuner,
+             "trace": trace, "job_s": a_s,
+             "launches": [r0["launches"], r1["launches"]]}
+        log(f"tune (33a): llama300m bf16 seq 1024 b8 a rank, AdamW, dp 2 on "
+            f"the native engine, tuned and traced: {r0['tokens_per_s']:.1f} "
+            f"tokens/s (step {r0['step_ms']:.1f} ms) against 31's untuned "
+            f"engine row {untuned_tok_s:.1f} tokens/s; {len(rows)} "
+            f"configurations scored; tuner now fusion "
+            f"{tuner['fusion_threshold']} B, cycle "
+            f"{tuner['cycle_time_ms']:.3f} ms, ring chunk "
+            f"{tuner['ring_chunk_bytes']} B, bucket {tuner['bucket_bytes']} "
+            f"B; best fusion {tuner['best_fusion_threshold']} B, cycle "
+            f"{tuner['best_cycle_time_ms']:.3f} ms, chunk "
+            f"{tuner['best_ring_chunk_bytes']} B, bucket "
+            f"{tuner['best_bucket_bytes']} B; both ranks adopted bucket "
+            f"{r0['bucket_bytes']} B; trace phases "
+            f"{json.dumps(trace['phases'])}, {trace['gradients']} gradients "
+            f"x {trace['seq_ids_per_gradient']} seq ids on both ranks; "
+            f"rank 1 clock offset {trace['clock']['offset_seconds']:.6f} s "
+            f"± {trace['clock']['uncertainty_seconds']:.6f} s; straggler "
+            f"report {json.dumps(trace['report'])}; flash launches rank 0 "
+            f"{json.dumps(r0['launches'])} rank 1 "
+            f"{json.dumps(r1['launches'])}; job {a_s:.1f} s [{card}]")
+        log(f"tune (33a) autotune log rows: {json.dumps(rows)}")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return a
+
+
+def run_tune_checks(card: str):
+    """Phase 33 (b) the Python controller's tuned weights against its
+    untuned ones, (c) the overlap probe on CUDA tensors (second lane:
+    jobs only, the weights compared on the host)."""
+    import tempfile
+
+    import torch
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    here = os.path.dirname(os.path.abspath(__file__))
+    try:
+        # The two float32 jobs run at once (four processes on the card):
+        # their results do not depend on timing, and it halves (b)'s wall
+        # time.
+        jobs = {}
+        for label, env, trace_on in (
+                ("tuned", {"HOROVOD_ENGINE": "python",
+                           "HOROVOD_AUTOTUNE": "1"}, True),
+                ("plain", {"HOROVOD_ENGINE": "python"}, False)):
+            sub = os.path.join(out_dir, label)
+            os.makedirs(sub)
+            jobs[label] = (sub, start_tune_job("parity", env, sub, trace_on))
+        weights, b = {}, {}
+        try:
+            for label, (sub, job) in jobs.items():
+                recs, secs = finish_tune_job(job)
+                weights[label] = torch.load(os.path.join(sub, "parity.pt"),
+                                            map_location="cpu")
+                b[label] = {"losses": recs[0]["losses"], "job_s": secs}
+        finally:
+            for _, (proc, *_) in jobs.values():
+                if proc.poll() is None:
+                    _stop_group(proc)
+                _CHILDREN.discard(proc)
+        worst = max(float((weights["tuned"][n] - weights["plain"][n])
+                          .abs().max()) for n in weights["plain"])
+        if worst != 0 or sorted(weights["tuned"]) != sorted(weights["plain"]):
+            raise AssertionError(f"(b): tuned weights differ from untuned "
+                                 f"by {worst}")
+        b["max_abs_weight_diff"] = worst
+        log(f"tune (33b): llama300m f32 ({PARITY_LAYERS} layers) seq "
+            f"{CONTROLLER_SEQ} b{CONTROLLER_BATCH_PARITY} a rank, 2 AdamW "
+            f"steps on the Python controller; losses tuned+traced "
+            f"{b['tuned']['losses']} vs plain {b['plain']['losses']}; max "
+            f"abs weight diff {worst}")
+
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith(("HOROVOD_", "OMPI_", "PMI_"))}
+        env["PYTHONPATH"] = here
+        probe = run_child(
+            [sys.executable, "-m", "horovod_tpu_torch.examples.overlap_probe",
+             "--device", "cuda:0", "--steps", "3", "--timeout", "200"], 240,
+            cwd=here, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+        if probe.returncode != 0:
+            raise AssertionError(f"overlap probe exited {probe.returncode}: "
+                                 f"{probe.stdout[-2000:]}"
+                                 f"{probe.stderr[-2000:]}")
+        c = json.loads(probe.stdout.strip().splitlines()[-1])
+        if not c["bit_identical"] or c["device"] != "cuda:0":
+            raise AssertionError(f"(c): {c}")
+        log(f"tune (33c) overlap probe, CUDA tensors, {c['engine']}: "
+            f"{c['tensors']} x {c['tensor_mib']} MiB, {c['buckets']} "
+            f"buckets of {c['bucket_mib']} MiB, pipelined {c['pipeline']}; "
+            f"bucketed == unbucketed bit for bit; step "
+            f"{c['unbucketed_step_ms']:.1f} ms unbucketed, "
+            f"{c['bucketed_step_ms']:.1f} ms bucketed; overlap measured "
+            f"{c['overlap_efficiency']} vs predicted "
+            f"{c['model_predicted_overlap_efficiency']}; stall split "
+            f"{json.dumps(c.get('stall_split'))} [{card}]")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return {"b": b, "c": c}
 
 
 def compare_planes(rounds: int) -> int:
@@ -4172,9 +4626,18 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    _build.build_all()
-    log(f"kernel build ({len(_build.SOURCES)} sources in parallel): "
-        f"{time.perf_counter() - t0:.1f} s")
+    # The native core (g++) builds beside the kernels (nvcc); phases 31
+    # and 33 load it.
+    from concurrent.futures import ThreadPoolExecutor
+
+    from horovod_tpu_torch.core import bindings
+
+    with ThreadPoolExecutor(1) as pool:
+        core = pool.submit(bindings.build)
+        _build.build_all()
+        core.result()
+    log(f"kernel build ({len(_build.SOURCES)} sources in parallel, the "
+        f"native core beside them): {time.perf_counter() - t0:.1f} s")
     for name in _build.SOURCES:
         for kernel, regs, spill in ptxas_report(name):
             log(f"  ptxas {name}.cu {kernel}: {regs}; {spill}")
@@ -4202,6 +4665,18 @@ def main() -> int:
     ring_flash = phase("24 ring kernels (dlse)", check_flash, device,
                        flush_buf.zero_, ring_flash_cases(), True)
     del flush_buf
+
+    # The second lane: jobs of their own (two to four processes on the
+    # card, most of their time on the host), beside phases 3-23 of this
+    # one, after the kernels' timings above. Joined before phase 24.
+    lane = Lane([("32 elastic membership job (horovodrun --elastic)",
+                  run_elastic_job),
+                 ("30 controller (two ranks, horovodrun)",
+                  run_controller_phase, card),
+                 ("31 (e) two-level plane (four ranks, horovodrun)",
+                  run_two_level_phase),
+                 ("33 (b)-(c) tuned parity and overlap probe",
+                  run_tune_checks, card)])
 
     phase("7 collectives", run_collectives)
 
@@ -4260,15 +4735,24 @@ def main() -> int:
            "bert_parity": phase("12 bert parity", run_bert_parity)}
     bert = phase("13 bert example", run_bert_timed, card)
     torch.cuda.empty_cache()
+    t = time.perf_counter()
+    second = lane.join()
+    log(f"second lane joined after {time.perf_counter() - t:.1f} s")
+    controller = second["30 controller (two ranks, horovodrun)"]
+    elastic = phase("32 elastic replay", run_elastic_phase,
+                    second["32 elastic membership job (horovodrun --elastic)"],
+                    card)
     parallel = phase("24-28 parallel modes and sharded state (two ranks)",
                      run_parallel_phases, card)
     resume = phase("29 checkpoint resume", run_checkpoint_resume, card)
     hvd.shutdown()
-    controller = phase("30 controller (two ranks, horovodrun)",
-                       run_controller_phase, card)
     ring = phase("31 native data plane (horovodrun)", run_ring_phase, card)
-    elastic = phase("32 elastic membership (horovodrun --elastic)",
-                    run_elastic_phase, card)
+    ring["hierarchical"] = second[
+        "31 (e) two-level plane (four ranks, horovodrun)"]
+    tune = {"a": phase("33 (a) tuning and tracing (horovodrun --trace, "
+                       "autotune)", run_tune_phase, card,
+                       ring["native"]["c"]["tokens_per_s"]),
+            **second["33 (b)-(c) tuned parity and overlap probe"]}
 
     # The two ranks' counts of each parallel path, summed.
     by_rank = parallel["counts_by_rank"]
@@ -4299,7 +4783,10 @@ def main() -> int:
                       for plane in ("python", "native")},
                    "llama300m elastic training, both ranks and the joiner "
                    "(32)": {n: sum(p[n] for p in elastic["launches"].values())
-                            for n in flash_names}}
+                            for n in flash_names},
+                   "llama300m tuned and traced training, both ranks (33)": {
+                       n: sum(r[n] for r in tune["a"]["launches"])
+                       for n in flash_names}}
     forward_only = {f"long context ring {layout} (24)": both(
         "24 sp timed", f"long_context_{layout}", "flash_forward")
         for layout in ("contiguous", "zigzag")}
@@ -4377,6 +4864,7 @@ def main() -> int:
     log(f"controller: {json.dumps(controller)}")
     log(f"native data plane: {json.dumps(ring)}")
     log(f"elastic: {json.dumps(elastic)}")
+    log(f"tuning and tracing: {json.dumps(tune)}")
     log(f"ring kernels: {json.dumps({f'{k[0]} {k[1]}': v for k, v in ring_flash.items()})}")
     log(f"wall time: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
@@ -4384,6 +4872,15 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def run_main() -> int:
+    """:func:`main`; whatever way it ends, no job it started outlives
+    it."""
+    try:
+        return main()
+    finally:
+        stop_children()
 
 
 if __name__ == "__main__":
@@ -4394,4 +4891,6 @@ if __name__ == "__main__":
         sys.exit(compare_planes(int(sys.argv[2])))
     if len(sys.argv) == 4 and sys.argv[1] == "--controller-worker":
         sys.exit(controller_worker(sys.argv[2], sys.argv[3]))
-    sys.exit(main())
+    if len(sys.argv) == 4 and sys.argv[1] == "--tune-worker":
+        sys.exit(tune_worker(sys.argv[2], sys.argv[3]))
+    sys.exit(run_main())

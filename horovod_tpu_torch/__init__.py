@@ -13,7 +13,10 @@ Slice 2 is training: ``init``/``rank``/``size``, the collectives and
 ``import horovod_tpu_torch as hvd`` reads like ``import horovod_tpu as
 hvd``), ``models.llama``'s losses and remat, and flash attention over
 the kernels in ``csrc/flash_attention.cu``
-(``examples/llama_training.py``).
+(``examples/llama_training.py``). The eager tier's tuning and tracing
+loop adds ``BucketScheduler``, ``partition_buckets`` and
+``plan_from_compiled`` here, and ``trace`` carries the JAX package's
+whole tracing surface.
 
 Entry points take ``device=None``, which means ``cuda``: without a card
 they raise unless the caller asks for ``device="cpu"`` explicitly.
@@ -49,3 +52,8 @@ from .torch import *  # noqa: E402,F401,F403
 from . import elastic  # noqa: E402,F401
 from . import serving  # noqa: E402,F401
 from . import trace  # noqa: E402,F401
+from .controller.bucket_scheduler import (  # noqa: E402,F401
+    BucketScheduler,
+    partition_buckets,
+    plan_from_compiled,
+)

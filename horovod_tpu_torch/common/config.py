@@ -454,12 +454,79 @@ def pipeline_enabled() -> bool:
     return _env_bool("HOROVOD_PIPELINE", True)
 
 
+def ring_chunk_bytes() -> int:
+    """``HOROVOD_RING_CHUNK_BYTES`` (per rank; ranks need not agree). 0
+    (the default, and for garbage) means auto: the link-class default,
+    and the knob joins the autotuner's search. A positive value pins
+    it."""
+    return max(0, _env_int("HOROVOD_RING_CHUNK_BYTES", 0))
+
+
 def resolved_ring_chunk_bytes() -> int:
-    """The chunk size the rings start at: ``HOROVOD_RING_CHUNK_BYTES``
-    (per rank; ranks need not agree), else, when it is unset, 0 or
-    garbage, the flat ring's link-class default."""
-    return (max(0, _env_int("HOROVOD_RING_CHUNK_BYTES", 0))
-            or RING_CHUNK_BYTES_BY_LINK[ring_link_class()])
+    """The chunk size the rings start at: :func:`ring_chunk_bytes`, else,
+    when it is auto, the flat ring's link-class default."""
+    return ring_chunk_bytes() or RING_CHUNK_BYTES_BY_LINK[ring_link_class()]
+
+
+# The backward-order bucket scheduler's default bucket: big enough that
+# per-bucket negotiation amortizes, small enough that the first reduction
+# launches while most of the backward pass still runs.
+DEFAULT_BUCKET_BYTES = 8 * 1024 * 1024
+
+
+def bucket_bytes() -> int:
+    """``HOROVOD_BUCKET_BYTES``: size bound of the backward-order gradient
+    buckets. 0 (the default, and for garbage) means auto: the 8 MiB
+    default, and the knob joins the autotuner's search. A positive value
+    pins it."""
+    return max(0, _env_int("HOROVOD_BUCKET_BYTES", 0))
+
+
+def resolved_bucket_bytes() -> int:
+    """The bucket size the scheduler starts at: the explicit value, else
+    the default."""
+    return bucket_bytes() or DEFAULT_BUCKET_BYTES
+
+
+def autotune_straggler_weight() -> float:
+    """``HOROVOD_AUTOTUNE_STRAGGLER_WEIGHT``: how strongly the autotuner's
+    score discounts throughput for negotiation slack and excess recv-wait.
+    0 gives the pure bytes/sec objective; negative or garbage values clamp
+    to the default 1.0."""
+    val = _env_float("HOROVOD_AUTOTUNE_STRAGGLER_WEIGHT", 1.0)
+    return val if val >= 0 else 1.0
+
+
+def autotune_overlap_weight() -> float:
+    """``HOROVOD_AUTOTUNE_OVERLAP_WEIGHT``: how strongly the score rewards
+    the bucket scheduler's measured backward/comm overlap (a factor
+    ``1 + w * overlap``). 0 removes the term; negative or garbage values
+    clamp to the default 1.0."""
+    val = _env_float("HOROVOD_AUTOTUNE_OVERLAP_WEIGHT", 1.0)
+    return val if val >= 0 else 1.0
+
+
+def autotune_priors() -> str:
+    """``HOROVOD_AUTOTUNE_PRIORS``: ``capacity`` seeds the autotuner's
+    first bucket/chunk configuration from the capacity calibration named
+    by :func:`capacity_calibration_path`; anything else (default ``off``)
+    keeps the resolver defaults. Explicit pins always win."""
+    val = (env_str("HOROVOD_AUTOTUNE_PRIORS") or "").strip().lower()
+    return "capacity" if val == "capacity" else "off"
+
+
+def capacity_calibration_path() -> Optional[str]:
+    """``HOROVOD_CAPACITY_CALIBRATION``: path of a control-plane
+    calibration artifact (``control_plane`` + ``model_vs_measured`` JSON);
+    None when unset or blank."""
+    val = env_str("HOROVOD_CAPACITY_CALIBRATION")
+    return val.strip() if val and val.strip() else None
+
+
+def clock_sync_cycles() -> int:
+    """``HOROVOD_CLOCK_SYNC_CYCLES``: coordinator cycles between two
+    clock-ping bursts of a traced job. Default 100, at least 1."""
+    return max(1, _env_int("HOROVOD_CLOCK_SYNC_CYCLES", 100))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -491,6 +558,13 @@ class Config:
     # hosts' first ranks), when the launcher exported the group rings.
     hierarchical_allreduce: bool = False
     hierarchical_allgather: bool = False
+    # Cluster tracing: every rank writes clock-anchored phase spans under
+    # this directory; rank 0 merges them (and the straggler report) at
+    # clean shutdown.
+    trace_dir: Optional[str] = None
+    # The GP autotuner on rank 0, and its per-configuration CSV.
+    autotune: bool = False
+    autotune_log: Optional[str] = None
     log_level: str = "warning"
     log_hide_timestamp: bool = False
 
@@ -517,6 +591,9 @@ class Config:
                 "HOROVOD_HIERARCHICAL_ALLGATHER"),
             comm_timeout_seconds=comm_timeout_seconds(),
             heartbeat_interval_seconds=heartbeat_interval_seconds(),
+            trace_dir=trace_dir(),
+            autotune=_env_bool("HOROVOD_AUTOTUNE"),
+            autotune_log=os.environ.get("HOROVOD_AUTOTUNE_LOG") or None,
             log_level=log_level_name(),
             log_hide_timestamp=_env_bool("HOROVOD_LOG_HIDE_TIME"),
         )

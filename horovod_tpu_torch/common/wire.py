@@ -11,8 +11,12 @@ an abort). Kinds handled here:
   raw buffer bytes (no pickling on the data path).
 * ``HEARTBEAT`` — liveness frame; receivers skip it transparently, so
   heartbeats may interleave anywhere in the lockstep protocol (a per-wire
-  send lock keeps frames whole). A non-empty payload is the JAX package's
-  clock-sync ping-pong, which the port does not run: it is skipped too.
+  send lock keeps frames whole). An empty payload is plain liveness; a
+  non-empty one carries the clock-sync ping-pong of the trace plane
+  (``trace/clock.py``): ``{"ping": t0}`` is answered in place with
+  ``{"pong": t0, "wall": time.time()}``, and a pong is reported to
+  :meth:`Wire.set_clock_callback`, all invisible to the lockstep protocol
+  and best-effort (a dropped pong only delays the next offset sample).
 * ``ABORT`` — coordinated failure notice (pickled ``{"message",
   "dead_rank", "op"}``); any recv raises :class:`RemoteAbortError`.
 * ``JOIN`` — elastic membership, two payloads: a join hello ``{"join":
@@ -223,6 +227,10 @@ class Wire:
         # from whatever recv loop drains the frame. None drops them (the
         # requester's own timeout diagnoses an unserviced fetch).
         self._shard_cb = None
+        # The clock-sync pong consumer (the coordinator's side of a traced
+        # job): cb(t0, peer_wall, t1). Setting it also makes this wire's
+        # heartbeats carry pings.
+        self._clock_cb = None
 
     def set_deadline(self, seconds: Optional[float],
                      first: Optional[float] = None) -> None:
@@ -275,8 +283,40 @@ class Wire:
             self._send_lock.release()
 
     def try_send_heartbeat(self) -> bool:
-        """Idle-cycle liveness frame."""
+        """Idle-cycle liveness frame. On a wire with a clock callback the
+        heartbeat doubles as a clock-sync ping, so the offset table
+        refreshes at the heartbeat cadence."""
+        if self._clock_cb is not None:
+            return self.send_clock_ping()
         return self._try_send_frame(FRAME_HEARTBEAT, b"")
+
+    # -- clock-sync ping-pong (piggybacked on heartbeat frames) -------------
+
+    def set_clock_callback(self, cb) -> None:
+        """Install the pong consumer: ``cb(t0, peer_wall, t1)`` with t0/t1
+        on this process's ``time.time()`` and ``peer_wall`` the peer's."""
+        self._clock_cb = cb
+
+    def send_clock_ping(self) -> bool:
+        """Best-effort RTT probe; the reply reaches the clock callback
+        whenever this wire next drains frames."""
+        return self._try_send_frame(FRAME_HEARTBEAT,
+                                    _pickled({"ping": time.time()}))
+
+    def _handle_clock_payload(self, payload) -> None:
+        """Ping: answer with our wall clock; pong: report the sample.
+        Never raises: clock sync rides the liveness plane and must not
+        break the recv path it piggybacks on."""
+        try:
+            info = pickle.loads(payload)
+            if "ping" in info:
+                self._try_send_frame(FRAME_HEARTBEAT, _pickled(
+                    {"pong": float(info["ping"]), "wall": time.time()}))
+            elif "pong" in info and self._clock_cb is not None:
+                self._clock_cb(float(info["pong"]), float(info["wall"]),
+                               time.time())
+        except Exception:
+            pass
 
     def _sendall(self, data) -> None:
         """sendall that tolerates the recv deadline: ``settimeout`` applies
@@ -339,6 +379,8 @@ class Wire:
         while True:
             kind, payload = self._recv_frame()
             if kind == FRAME_HEARTBEAT:
+                if payload:
+                    self._handle_clock_payload(payload)
                 continue
             if kind in (FRAME_DATA, FRAME_JOIN):
                 return kind, pickle.loads(payload)
@@ -354,6 +396,9 @@ class Wire:
         way."""
         while True:
             kind, payload = self._recv_frame()
+            if kind == FRAME_HEARTBEAT and payload:
+                self._handle_clock_payload(payload)
+                continue
             if kind in (FRAME_HEARTBEAT, FRAME_DATA, FRAME_SHARD_FETCH,
                         FRAME_SHARD_DATA):
                 continue  # liveness, or dead-epoch traffic: discard
@@ -416,6 +461,8 @@ class Wire:
         while True:
             kind, payload = self._recv_frame()
             if kind == FRAME_HEARTBEAT:
+                if payload:  # the clock-sync ping/pong rides these
+                    self._handle_clock_payload(payload)
                 continue  # liveness only; invisible to the protocol
             if kind == FRAME_ABORT:
                 raise _abort_error(payload)

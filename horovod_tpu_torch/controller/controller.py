@@ -57,8 +57,21 @@ same way until ``hvd.elastic.run`` acknowledges the reshape (the fence).
 The rings are fixed-membership, so an elastic job stays on the star. A
 process keeps the card ``init`` bound whatever rank it becomes.
 
-Not ported (ROADMAP Queue 1 item 8): the autotuner, the doctor and the
-tracer spans.
+The tuning and tracing loop, as in the JAX package: with
+``HOROVOD_AUTOTUNE`` rank 0 scores every cycle's bytes/second, blended
+with the coordinator's measured tick lateness (the negotiation slack) and
+the bucket scheduler's overlap, and its next configuration rides the
+following cycle reply as ``reply["tune"]``, applied on every rank at that
+cycle boundary (``_apply_tune``): fusion threshold and cycle time, the
+hierarchical and cache switches, and the gradient-bucket size. With
+``HOROVOD_TRACE_DIR`` the reply also carries ``trace_seq``, the base of
+the coordinator's collective sequence ids; every rank writes
+``enqueue → negotiate → fuse → execute → done`` spans tagged with them,
+rank 0 pings the workers' clocks on the heartbeat frames, and at shutdown
+the workers ship their span files to rank 0, which merges them and
+writes the straggler report.
+
+Not ported: the cluster doctor.
 """
 
 from __future__ import annotations
@@ -66,6 +79,7 @@ from __future__ import annotations
 import math
 import threading
 import time
+import os
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -149,7 +163,8 @@ def _ctl_metrics():
                 "hvd_controller_tick_lateness_seconds",
                 "Per-rank tick lateness observed by the coordinator: time "
                 "it sat blocked on a rank's tick beyond the cycle-time "
-                "pacing allowance.", ("rank",)),
+                "pacing allowance. The live straggler signal the doctor "
+                "and the autotune objective consume.", ("rank",)),
         )
     return _m
 
@@ -229,7 +244,7 @@ class _Pending:
     """Tensor-table entry (reference ``TensorTableEntry``)."""
 
     __slots__ = ("name", "tensor", "request", "handle", "average",
-                 "target", "ready", "stream", "enqueued_at")
+                 "target", "ready", "stream", "enqueued_at", "sent_at")
 
     def __init__(self, name: str, tensor: torch.Tensor, request: Request,
                  handle: Handle, average: bool,
@@ -250,6 +265,9 @@ class _Pending:
             self.ready = torch.cuda.Event()
             self.ready.record(self.stream)
         self.enqueued_at = time.monotonic()
+        # When this rank's request left for the coordinator (a traced
+        # job's negotiate-span start); None for a cache bypass.
+        self.sent_at: Optional[float] = None
 
     @property
     def nbytes(self) -> int:
@@ -311,6 +329,10 @@ class Controller:
         self._stall_warned: Dict[str, float] = {}
         self._fusion_threshold = config.fusion_threshold_bytes
         self._cycle_time_ms = config.cycle_time_ms
+        # The data-plane switches the autotuner may flip, on every rank at
+        # one cycle boundary (_apply_tune).
+        self._hier_allreduce = config.hierarchical_allreduce
+        self._hier_allgather = config.hierarchical_allgather
         self._counters = dict.fromkeys(COUNTERS, 0)
         # The card side of the data plane, made on first use by the
         # controller thread: a side stream per device, the persistent
@@ -346,6 +368,24 @@ class Controller:
                 "membership; using the TCP star data plane")
         elif topology.size > 1:
             self._start_rings(config, topology)
+        # The coordinator's straggler observations for the cycle just
+        # coordinated: the worst rank's tick lateness and the summed
+        # excess wait (seconds), read by the autotuner.
+        self._cycle_slack = 0.0
+        self._cycle_excess_wait = 0.0
+        self._param_manager = None
+        self._pending_tune = None
+        self._autotune_steps_pub: Optional[int] = None
+        if config.autotune and topology.rank == 0:
+            from .autotune_glue import make_parameter_manager
+
+            # The gradient-bucket size joins the search: its value rides
+            # the synced reply, so every rank's BucketScheduler moves
+            # together.
+            self._param_manager = make_parameter_manager(
+                config, tune_hierarchical=self._local_ring is not None,
+                tune_cache=True, tune_bucket=True,
+                world_size=topology.size)
 
         addr = config_mod.controller_addr()
         if addr is None:
@@ -387,6 +427,26 @@ class Controller:
             em = _elastic_metrics()
             em.epoch.set(self._epoch)
             em.size.set(self.topo.size)
+
+        # Cluster tracing: a clock-anchored span writer per rank, the
+        # coordinator's sequence id per fused op on the reply, and (rank
+        # 0) the clock-offset table fed by the heartbeat ping-pongs.
+        self._trace_enabled = bool(config.trace_dir)
+        self._tracer = None
+        self._clock = None
+        self._cycle_index = 0
+        self._trace_seq = 0
+        if self._trace_enabled:
+            from ..trace import ClockSync, TraceWriter, rank_trace_path
+
+            self._clock_sync_cycles = config_mod.clock_sync_cycles()
+            os.makedirs(config.trace_dir, exist_ok=True)
+            self._tracer = TraceWriter(
+                rank_trace_path(config.trace_dir, self.topo.rank),
+                self.topo.rank)
+            if self.topo.rank == 0:
+                self._clock = ClockSync(self.topo.size)
+                self._service.set_clock_sync(self._clock)
 
         self._thread = threading.Thread(
             target=self._run_loop, name="hvd-controller", daemon=True)
@@ -625,6 +685,19 @@ class Controller:
             self._fail_all(self._diagnose_failure(exc))
         finally:
             self._closed.set()
+            if self._trace_enabled:
+                # After a failure, a valid local trace and offset table
+                # for an offline merge (both calls are idempotent after a
+                # clean shutdown's _finalize_trace).
+                try:
+                    self._tracer.close()
+                    if self._clock is not None:
+                        from ..trace import OFFSETS_FILE
+
+                        self._clock.write(os.path.join(
+                            self.cfg.trace_dir, OFFSETS_FILE))
+                except OSError as exc:
+                    logging.error("trace: salvage failed: %s", exc)
             self._close_rings()
             if self._service:
                 self._service.close()
@@ -708,25 +781,79 @@ class Controller:
             "requests": RequestList(requests=uncached, shutdown=shutdown),
         }
 
+    def _stamp_sent(self, tick: dict) -> None:
+        """Mark the tick's requests as departed (the negotiate-span start,
+        the straggler attribution's arrival). Called after the send, so a
+        stalled send is charged to this rank."""
+        if self._tracer is None:
+            return
+        now = time.monotonic()
+        with self._lock:
+            for req in tick["requests"].requests:
+                entry = self._table.get(req.tensor_name)
+                if entry is not None:
+                    entry.sent_at = now
+
     def _cycle(self) -> None:
         fault.hook("cycle")  # chaos seam: kill/delay/raise at cycle N
         mon = metrics.on()
         t_start = time.monotonic()
         tick = self._build_tick()
         if self.topo.rank == 0:
+            self._cycle_index += 1
+            if self._clock is not None and (
+                    self._cycle_index <= 8
+                    or self._cycle_index % self._clock_sync_cycles == 0):
+                # Offset refresh: a dense burst while the job warms up,
+                # then periodic; pongs are consumed whenever the
+                # coordinator next drains frames.
+                self._service.send_clock_pings()
+            self._stamp_sent(tick)  # rank 0's "send" is the local build
+            t_coord = time.monotonic()
             reply = self._coordinate(tick)
         else:
             self._client.send(tick)
+            self._stamp_sent(tick)
             reply = self._client.recv()
+        t_reply = time.monotonic()
         if (tick["requests"].requests or tick["cache_mask"]
                 or reply["bypass_bits"] or reply["responses"].responses):
-            self._count("negotiate_s", time.monotonic() - t_start)
+            self._count("negotiate_s", t_reply - t_start)
         # Both sides of the rank conditional run _process_reply on the
         # same negotiated response list, so every rank executes identical
         # collectives.
-        self._process_reply(reply)
+        nbytes = self._process_reply(reply)
+        if self._param_manager is not None:
+            self._tune(nbytes, time.monotonic() - t_coord, mon)
         if mon:
             _ctl_metrics().cycle.observe(time.monotonic() - t_start)
+
+    def _tune(self, nbytes: int, seconds: float, mon: bool) -> None:
+        """Rank 0: score the cycle just executed; a new configuration
+        rides the next reply. The continuous knobs apply here at once
+        (they only shape the coordinator's fusion and pacing); the
+        hierarchical and cache switches and the bucket size wait for the
+        synced reply, which every rank applies at the same boundary."""
+        from .bucket_scheduler import last_overlap_efficiency
+
+        pm = self._param_manager
+        tuned = pm.record(nbytes, seconds,
+                          slack_seconds=self._cycle_slack,
+                          recv_wait_seconds=self._cycle_excess_wait,
+                          overlap=last_overlap_efficiency())
+        if tuned is not None:
+            self._fusion_threshold, self._cycle_time_ms = tuned[:2]
+            extras = {}
+            if pm.bucket_bytes:
+                extras["bucket_bytes"] = int(pm.bucket_bytes)
+            self._pending_tune = tuned + (extras,)
+        if mon and pm.steps_scored != self._autotune_steps_pub:
+            # The first pass publishes the initial state; afterwards only
+            # a newly scored configuration re-publishes.
+            from .autotune_glue import publish_tuner_gauges
+
+            self._autotune_steps_pub = pm.steps_scored
+            publish_tuner_gauges(pm)
 
     # ------------------------------------------------------- coordinator side
 
@@ -735,8 +862,9 @@ class Controller:
         ticks = {0: my_tick}
         # Per-rank tick waits: a cumulative allowance of one cycle time is
         # free; anything beyond it is lateness charged to the rank being
-        # waited on.
-        measure = metrics.on()
+        # waited on, the live analogue of the trace plane's negotiation
+        # slack.
+        measure = metrics.on() or self._param_manager is not None
         waits: Dict[int, float] = {}
         for rank in range(1, size):
             t_r = time.monotonic() if measure else 0.0
@@ -745,11 +873,18 @@ class Controller:
                 waits[rank] = time.monotonic() - t_r
         if measure:
             allowance = self._cycle_time_ms / 1e3
+            slack = excess = 0.0
+            mon = metrics.on()
             for rank in sorted(waits):
                 lateness = max(0.0, waits[rank] - allowance)
                 allowance = max(0.0, allowance - waits[rank])
-                _ctl_metrics().tick_lateness.labels(
-                    str(rank)).observe(lateness)
+                slack = max(slack, lateness)
+                excess += lateness
+                if mon:
+                    _ctl_metrics().tick_lateness.labels(
+                        str(rank)).observe(lateness)
+            self._cycle_slack = slack
+            self._cycle_excess_wait = excess
 
         rank_order_ticks = [t for _, t in sorted(ticks.items())]
         shutdown = any(t["requests"].shutdown for t in rank_order_ticks)
@@ -797,6 +932,14 @@ class Controller:
             "invalid_mask": invalid_mask,
             "responses": ResponseList(responses=responses, shutdown=shutdown),
         }
+        if self._trace_enabled:
+            # One base id a cycle: every rank derives the per-op ids by
+            # walking the identical bypass-bits + responses order.
+            reply["trace_seq"] = self._trace_seq
+            self._trace_seq += len(bypass_bits) + len(responses)
+        if self._pending_tune is not None:
+            reply["tune"] = self._pending_tune
+            self._pending_tune = None
         self._service.send_all(reply)
         return reply
 
@@ -850,6 +993,12 @@ class Controller:
         if not any(p > 0 for p in prios):
             return responses
         order = sorted(range(len(responses)), key=lambda i: -prios[i])
+        if order == list(range(len(responses))):
+            return responses
+        if metrics.on():
+            from .bucket_scheduler import _overlap_metrics
+
+            _overlap_metrics().priority_jumps.inc()
         return [responses[i] for i in order]
 
     def _response_dtype(self, response: Response) -> str:
@@ -891,7 +1040,38 @@ class Controller:
 
     # ----------------------------------------------------------- both sides
 
-    def _process_reply(self, reply: dict) -> None:
+    def _apply_tune(self, tune: tuple) -> bool:
+        """Apply a configuration the coordinator pushed on the reply:
+        ``(fusion_threshold, cycle_ms, categoricals, extras)``, the
+        extras carrying the tuned gradient-bucket size. Returns whether
+        the response cache was turned off (the caller renegotiates the
+        tensors parked on cache bits)."""
+        self._fusion_threshold, self._cycle_time_ms = tune[:2]
+        cache_turned_off = False
+        if len(tune) > 2:
+            cats = tune[2]
+            self._hier_allreduce = bool(cats.get(
+                "hierarchical_allreduce", self._hier_allreduce))
+            self._hier_allgather = bool(cats.get(
+                "hierarchical_allgather", self._hier_allgather))
+            new_cache = bool(cats.get("cache_enabled", self._cache_enabled))
+            cache_turned_off = self._cache_enabled and not new_cache
+            self._cache_enabled = new_cache
+        if len(tune) > 3 and tune[3].get("bucket_bytes"):
+            from .bucket_scheduler import set_autotuned_bucket_bytes
+
+            set_autotuned_bucket_bytes(int(tune[3]["bucket_bytes"]))
+        return cache_turned_off
+
+    def _process_reply(self, reply: dict) -> int:
+        """Execute the reply's collectives; returns the bytes executed
+        (the autotuner's throughput numerator)."""
+        # One stamp for the whole reply: negotiate spans end when it
+        # arrived, not when each response's turn came.
+        reply_at = time.monotonic()
+        tune = reply.get("tune")
+        cache_turned_off = tune is not None and self._apply_tune(tune)
+        executed = 0
         for bit in ResponseCache.mask_to_bits(reply["invalid_mask"]):
             with self._lock:
                 self._cache.evict_bit(bit)
@@ -900,26 +1080,90 @@ class Controller:
                     # Cache entry died under a pending hit: renegotiate.
                     self._queue.append(name)
 
+        # Collective sequence ids: the reply's base plus the identical
+        # bypass + responses walk on every rank.
+        seq_cursor = reply.get("trace_seq")
+
+        def _next_seq():
+            nonlocal seq_cursor
+            if seq_cursor is None:
+                return None
+            seq, seq_cursor = seq_cursor, seq_cursor + 1
+            return seq
+
         for bit in reply["bypass_bits"]:
             # Cached fast path (reference RunBypass).
             _, response = self._cache.get(bit)
             with self._lock:
                 self._cache.touch(bit)
                 name = self._bit_pending.pop(bit)
-            self._execute(Response(
+            executed += self._execute(Response(
                 response_type=response.response_type,
                 tensor_names=[name],
-                tensor_sizes=list(response.tensor_sizes)), cache_put=False)
+                tensor_sizes=list(response.tensor_sizes)), cache_put=False,
+                seq=_next_seq(), reply_at=reply_at)
+
+        if cache_turned_off:
+            # Hits parked on a bit would strand now that ticks stop
+            # advertising bits: renegotiate them, in bit order.
+            with self._lock:
+                self._queue.extend(
+                    name for _, name in sorted(self._bit_pending.items()))
+                self._bit_pending.clear()
 
         rlist: ResponseList = reply["responses"]
         for response in rlist.responses:
-            self._execute(response, cache_put=self._cache_enabled)
+            executed += self._execute(
+                response, cache_put=self._cache_enabled, seq=_next_seq(),
+                reply_at=reply_at)
 
-        if rlist.shutdown or self._shutdown_requested:
+        # A traced job keeps cycling until the shutdown flag came back
+        # echoed: the trace exchange needs every rank in lockstep on the
+        # same cycle, wires still up.
+        if rlist.shutdown or (self._shutdown_requested
+                              and not self._trace_enabled):
+            if rlist.shutdown and self._trace_enabled:
+                self._finalize_trace()
             # Close before failing: once _fail_all empties the table, a
             # concurrently-enqueued op must take the closed branch.
             self._closed.set()
             self._fail_all(ShutdownError("Horovod has been shut down"))
+        return executed
+
+    def _finalize_trace(self) -> None:
+        """Shutdown trace collection, in lockstep off the shutdown reply:
+        workers close their span file and push its bytes to rank 0; rank
+        0 writes them out, dumps the clock-offset table, merges
+        everything into ``merged_trace.json`` and writes
+        ``straggler_report.json``. A worker lost here fails like any
+        transport failure; a failed write or merge is logged and leaves
+        the per-rank files for the launcher's merge."""
+        from .. import trace as trace_mod
+
+        trace_dir = self.cfg.trace_dir
+        if self.topo.rank != 0:
+            self._tracer.close()
+            # Always push: rank 0 waits for one blob a worker.
+            self._client.send_bytes(self._tracer.read_bytes())
+            return
+        blobs: Dict[int, bytes] = {}
+        for worker_rank in range(1, self.topo.size):
+            blobs[worker_rank] = self._service.recv_bytes_from(worker_rank)
+        self._tracer.close()
+        try:
+            for worker_rank, blob in sorted(blobs.items()):
+                if blob:
+                    with open(trace_mod.rank_trace_path(
+                            trace_dir, worker_rank), "wb") as f:
+                        f.write(blob)
+            self._clock.write(os.path.join(trace_dir, trace_mod.OFFSETS_FILE))
+            merged = trace_mod.merge_trace_dir(trace_dir)
+            report = trace_mod.write_report(trace_dir)
+            logging.info("trace: merged trace at %s; straggler report at %s",
+                         merged, report)
+        except (OSError, ValueError) as exc:
+            logging.error("trace: finalize failed: %s (the per-rank trace "
+                          "files stay for trace.merge_trace_dir)", exc)
 
     def _fail_all(self, exc: BaseException) -> None:
         with self._lock:
@@ -1063,18 +1307,37 @@ class Controller:
 
     # ------------------------------------------------------------ data plane
 
-    def _execute(self, response: Response, cache_put: bool) -> None:
+    def _execute(self, response: Response, cache_put: bool,
+                 seq: Optional[int] = None,
+                 reply_at: Optional[float] = None) -> int:
+        """Run one negotiated response; returns its payload bytes."""
         names = response.tensor_names
         if response.response_type == ResponseType.ERROR:
             with self._lock:
                 entries = [self._table.pop(n) for n in names]
             for entry in entries:
                 entry.handle.set_error(RuntimeError(response.error_message))
-            return
+            return 0
 
         with self._lock:
             entries = [self._table[n] for n in names]
         tname = names[0] if len(names) == 1 else f"fused[{len(names)}]"
+        if self._tracer is not None:
+            # Per-tensor spans, now that the op's seq is known: enqueue =
+            # the user call to the request's departure; negotiate = the
+            # departure to this reply (a cache bypass never departed, so
+            # it has no negotiate span).
+            if reply_at is None:
+                reply_at = time.monotonic()
+            for entry in entries:
+                self._tracer.span(
+                    "enqueue", entry.enqueued_at,
+                    entry.sent_at if entry.sent_at is not None else reply_at,
+                    seq=seq, op=entry.name)
+                if entry.sent_at is not None:
+                    self._tracer.span("negotiate", entry.sent_at, reply_at,
+                                      seq=seq, op=entry.name)
+        self._seq = seq
         # (entry, result, CUDA event) of this response, resolved only once
         # the entries left the table: a caller woken by its handle may
         # enqueue the same name again at once.
@@ -1105,10 +1368,25 @@ class Controller:
         self._resolved = []
         if self.timeline:
             self.timeline.end(tname)
+        nbytes = sum(e.nbytes for e in entries)
         if metrics.on():
             m = _ctl_metrics()
             m.tensors.inc(len(entries))
-            m.fused_bytes.inc(sum(e.nbytes for e in entries))
+            m.fused_bytes.inc(nbytes)
+        return nbytes
+
+    def _spans(self, op: str, t_fuse: Optional[float], t_exec: float,
+               t_done: float, tensors: int = 1) -> None:
+        """The data phases of the op executing now: fuse (packing, for an
+        allreduce), execute (the exchange), done (delivering results)."""
+        if self._tracer is None:
+            return
+        t_end = time.monotonic()
+        if t_fuse is not None:
+            self._tracer.span("fuse", t_fuse, t_exec, seq=self._seq, op=op,
+                              tensors=tensors)
+        self._tracer.span("execute", t_exec, t_done, seq=self._seq, op=op)
+        self._tracer.span("done", t_done, t_end, seq=self._seq, op=op)
 
     # -- the card side ------------------------------------------------------
 
@@ -1278,7 +1556,7 @@ class Controller:
         t1 = time.monotonic()
         dtype = entries[0].tensor.dtype
         self._activity(tname, tl.TCP_COLLECTIVE)
-        hier = self._use_hierarchical(dtype, self.cfg.hierarchical_allreduce)
+        hier = self._use_hierarchical(dtype, self._hier_allreduce)
         if hier or self._use_ring(dtype):
             if len(entries) == 1 and entries[0].ready is None:
                 # A view of the caller's CPU tensor: reduce a copy.
@@ -1312,6 +1590,7 @@ class Controller:
         self._activity(tname, tl.MEMCPY_OUT_FUSION_BUFFER)
         self._unpack(entries, result, tname)
         self._activity_end(tname)
+        self._spans(tname, t0, t1, t2, len(entries))
         t3 = time.monotonic()
         with self._lock:
             self._counters["pack_s"] += t1 - t0
@@ -1329,7 +1608,7 @@ class Controller:
         t1 = time.monotonic()
         sizes = [int(s) for s in response.tensor_sizes]
         rest_elems = math.prod(rest)
-        if self._use_hierarchical(dtype, self.cfg.hierarchical_allgather):
+        if self._use_hierarchical(dtype, self._hier_allgather):
             # Gather inside the host, the local roots exchange the host
             # blobs, then fan the whole back out (contiguous rank groups:
             # host order is rank order).
@@ -1366,6 +1645,7 @@ class Controller:
         else:
             self._resolved.append(
                 (entry, self._finalize(entry, value.clone()), None))
+        self._spans(entry.name, None, t1, t2)
         with self._lock:
             self._counters["pack_s"] += t1 - t0
             self._counters["exchange_s"] += t2 - t1
@@ -1412,6 +1692,7 @@ class Controller:
         else:
             self._resolved.append(
                 (entry, self._finalize(entry, value.clone()), None))
+        self._spans(entry.name, None, t1, t2)
         with self._lock:
             self._counters["pack_s"] += t1 - t0
             self._counters["exchange_s"] += t2 - t1

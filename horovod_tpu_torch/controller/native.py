@@ -22,6 +22,25 @@ card on a second side stream, averages it there (a division by a
 tensor, integers truncated, as the Python controller does) and makes the
 caller's stream wait on an event recorded after the last of it.
 
+The tuning and tracing loop, as in the JAX package: with
+``HOROVOD_AUTOTUNE`` a rank-0 thread samples the engine's cumulative
+bytes and busy seconds (``hvd_eng_get_stats``), scores them with the GP
+tuner, and pushes the next fusion threshold and cycle time into the
+engine (``hvd_eng_set_params``), the ring chunk into this process, and
+the gradient-bucket size into the engine's cycle-reply slot
+(``hvd_eng_set_tuned_bucket``), from which every rank's telemetry thread
+adopts it at the same cycle. With ``HOROVOD_TRACE_DIR`` the engine stamps
+its ``enqueue → negotiate → fuse → execute → done`` spans, tagged with
+the coordinator's sequence ids, into a C ring that the telemetry thread
+drains into the rank's ``TraceWriter``.
+
+One difference from the JAX package's engine, which writes no clock table
+and merges only the files of a shared directory: a traced job also opens
+the launcher's TCP star (``HOROVOD_CONTROLLER_ADDR``) beside the ring.
+Its heartbeats carry rank 0's clock pings, as on the Python controller,
+so ``clock_offsets.json`` is measured on this engine too, and at shutdown
+the workers ship their span files over it to rank 0, which merges them.
+
 Selected by ``init()`` whenever the launcher exported ring addresses,
 unless ``HOROVOD_ENGINE=python`` or ``HOROVOD_CPU_OPS=star``.
 """
@@ -29,6 +48,7 @@ unless ``HOROVOD_ENGINE=python`` or ``HOROVOD_CPU_OPS=star``.
 from __future__ import annotations
 
 import ctypes
+import os
 import queue
 import threading
 import time
@@ -43,6 +63,7 @@ from ..common.reduction import average_
 from ..common.topology import Topology
 from ..common.wire import job_secret
 from ..core import bindings
+from .. import metrics
 from .controller import ShutdownError
 
 _OP_CODES = {"allreduce": 0, "allgather": 1, "broadcast": 2}
@@ -216,10 +237,244 @@ class NativeController:
         else:
             self._ef_enabled = wire == "int8"
         bindings.set_chunk_bytes(config_mod.resolved_ring_chunk_bytes())
+        # The double-buffered data plane: the BucketScheduler launches
+        # each gradient eagerly when it is on.
+        self.pipeline_enabled = config_mod.pipeline_enabled()
         self._stage_q: "queue.Queue[Optional[_Op]]" = queue.Queue()
         self._stager = threading.Thread(
             target=self._stage_loop, name="hvd-native-stage", daemon=True)
         self._stager.start()
+
+        self._tracer = None
+        self._clock = None
+        self._service = self._client = None
+        self._blobs: Dict[int, bytes] = {}
+        self._star_threads = []
+        if config.trace_dir:
+            self._start_trace(config, topology)
+
+        # Telemetry thread (every rank): adopts the synced tuned-bucket
+        # value from the cycle reply, drains the span ring, and (rank 0,
+        # traced) pings the workers' clocks.
+        self._applied_bucket = 0
+        self._jumps_seen = 0
+        self._telemetry_stop = threading.Event()
+        self._telemetry = threading.Thread(
+            target=self._telemetry_loop, name="hvd-native-telemetry",
+            daemon=True)
+        self._telemetry.start()
+
+        # Rank 0's autotuner: the ring chunk and the bucket size join the
+        # search (the hierarchical and cache knobs have no runtime switch
+        # in the engine and stay pinned).
+        self._param_manager = None
+        self._tuner_stop = threading.Event()
+        self._tuner = None
+        if config.autotune and topology.rank == 0:
+            from .autotune_glue import make_parameter_manager
+
+            self._param_manager = make_parameter_manager(
+                config, tune_ring_chunk=topology.size > 1,
+                tune_bucket=True, world_size=topology.size)
+            self._tuner = threading.Thread(
+                target=self._tune_loop, name="hvd-native-autotune",
+                daemon=True)
+            self._tuner.start()
+
+    # ------------------------------------------------------ tune and trace
+
+    def _start_trace(self, config: Config, topology: Topology) -> None:
+        """Arm the engine's span ring, open this rank's span file and,
+        in a multi-rank job, the clock star (see the module docstring).
+        Raises when the star cannot start: a traced job never runs
+        untraced."""
+        from ..common.config import _env_int
+        from ..trace import ClockSync, TraceWriter, rank_trace_path
+        from .service import CoordinatorService, WorkerClient
+
+        os.makedirs(config.trace_dir, exist_ok=True)
+        self._tracer = TraceWriter(
+            rank_trace_path(config.trace_dir, topology.rank), topology.rank)
+        # Ring capacity: the span cap knob, clamped by the C side to
+        # [256, 2^20]; 0 keeps the engine's default.
+        self._lib.hvd_eng_trace_set(
+            1, _env_int("HOROVOD_TRACE_MAX_EVENTS", 0))
+        self._clock_sync_cycles = config_mod.clock_sync_cycles()
+        if topology.size == 1:
+            return
+        addr = config_mod.controller_addr()
+        if addr is None:
+            raise RuntimeError(
+                "HOROVOD_TRACE_DIR on the native engine needs "
+                "HOROVOD_CONTROLLER_ADDR (exported by horovodrun) for its "
+                "clock sync and the shutdown trace exchange")
+        if topology.rank == 0:
+            self._service = CoordinatorService(
+                addr, topology.size, comm_timeout=config.comm_timeout_seconds)
+            self._clock = ClockSync(topology.size)
+            self._service.set_clock_sync(self._clock)
+            self._service.start_heartbeats(config.heartbeat_interval_seconds)
+            # One reader a worker: drains the pongs until the worker's
+            # span file arrives at shutdown.
+            for worker_rank in range(1, topology.size):
+                self._star_threads.append(threading.Thread(
+                    target=self._collect_blob, args=(worker_rank,),
+                    name=f"hvd-native-trace-{worker_rank}", daemon=True))
+        else:
+            self._client = WorkerClient(
+                addr, topology.rank, comm_timeout=config.comm_timeout_seconds)
+            self._client.start_heartbeats(config.heartbeat_interval_seconds)
+            # Answers the pings until rank 0's end-of-trace frame.
+            self._star_threads.append(threading.Thread(
+                target=self._await_trace_end,
+                name="hvd-native-trace-pongs", daemon=True))
+        for t in self._star_threads:
+            t.start()
+
+    def _await_trace_end(self) -> None:
+        try:
+            self._client.recv_bytes()
+        except Exception as exc:
+            logging.error("trace: lost the clock star to rank 0: %s", exc)
+
+    def _collect_blob(self, worker_rank: int) -> None:
+        try:
+            self._blobs[worker_rank] = bytes(
+                self._service.recv_bytes_from(worker_rank))
+        except Exception as exc:
+            logging.error("trace: rank %d sent no span file: %s",
+                          worker_rank, exc)
+
+    def _tune_loop(self) -> None:
+        """Rank 0: score the engine's bytes per busy second since the
+        last sample and push a new configuration when the tuner moves."""
+        from .autotune_glue import publish_tuner_gauges
+        from .bucket_scheduler import last_overlap_efficiency
+
+        pm = self._param_manager
+        last_bytes, last_busy = 0, 0.0
+        published = None
+        # Sample fast enough that a short burst of traffic still yields
+        # the warm-up and scoring samples.
+        while not self._tuner_stop.wait(0.01):
+            _, nbytes, busy = bindings.engine_stats()
+            delta_bytes, delta_busy = nbytes - last_bytes, busy - last_busy
+            last_bytes, last_busy = nbytes, busy
+            if delta_bytes <= 0 or delta_busy <= 0:
+                continue
+            tuned = pm.record(delta_bytes, delta_busy,
+                              overlap=last_overlap_efficiency())
+            if tuned is not None:
+                threshold, cycle_ms = tuned[:2]
+                self._lib.hvd_eng_set_params(int(threshold), float(cycle_ms))
+                if pm.ring_chunk_bytes:
+                    # Per-rank pipelining granularity: no cross-rank
+                    # agreement needed.
+                    bindings.set_chunk_bytes(int(pm.ring_chunk_bytes))
+                if pm.bucket_bytes:
+                    # Rides the next cycle reply's slot, so every rank
+                    # (this one through its telemetry thread) adopts it
+                    # together.
+                    self._lib.hvd_eng_set_tuned_bucket(int(pm.bucket_bytes))
+                logging.debug("native autotune: threshold=%d cycle=%.2fms "
+                              "chunk=%s bucket=%s", int(threshold),
+                              float(cycle_ms), pm.ring_chunk_bytes,
+                              pm.bucket_bytes)
+            if metrics.on() and pm.steps_scored != published:
+                published = pm.steps_scored
+                publish_tuner_gauges(pm)
+
+    def _telemetry_loop(self) -> None:
+        # Traced jobs drain the span ring every 20 ms; untraced ones only
+        # adopt the synced bucket, which moves at the tuner's pace.
+        interval = 0.02 if self._tracer is not None else 0.5
+        passes, last_sync = 0, 0
+        while not self._telemetry_stop.wait(interval):
+            self._drain_telemetry()
+            if self._service is not None:
+                # Clock pings: a dense burst while the job warms up, then
+                # every HOROVOD_CLOCK_SYNC_CYCLES engine cycles.
+                passes += 1
+                cycles = bindings.engine_stats()[0]
+                if passes <= 8 or \
+                        cycles - last_sync >= self._clock_sync_cycles:
+                    last_sync = cycles
+                    self._service.send_clock_pings()
+        self._drain_telemetry()
+
+    def _drain_telemetry(self) -> None:
+        """Adopt the synced tuned-bucket value, mirror the engine's
+        priority jumps, and move the stamped spans into the TraceWriter."""
+        counters = bindings.native_counters()
+        if counters is not None:
+            bucket = counters["bucket_bytes"]
+            if bucket and bucket != self._applied_bucket:
+                from .bucket_scheduler import set_autotuned_bucket_bytes
+
+                # Arrived on the cycle reply: every rank lands here with
+                # the same value.
+                set_autotuned_bucket_bytes(int(bucket))
+                self._applied_bucket = bucket
+            jumps = counters["priority_jumps"]
+            if metrics.on() and jumps > self._jumps_seen:
+                from .bucket_scheduler import _overlap_metrics
+
+                _overlap_metrics().priority_jumps.inc(
+                    jumps - self._jumps_seen)
+            self._jumps_seen = jumps
+        if self._tracer is None:
+            return
+        from ..trace.tracer import PHASES
+
+        for phase, seq, t0, t1, tensors, op in bindings.drain_engine_spans():
+            if not 0 <= phase < len(PHASES):
+                continue  # an unknown code: drop it
+            kwargs = {"tensors": tensors} if tensors else {}
+            self._tracer.span(PHASES[phase], t0, t1,
+                              seq=seq if seq >= 0 else None,
+                              op=op or None, **kwargs)
+
+    def _finish_trace(self) -> None:
+        """After the engine stopped: workers ship their span file to rank
+        0 over the star; rank 0 writes them, the clock table, the merged
+        trace and the straggler report, then releases the workers."""
+        from .. import trace as trace_mod
+
+        self._tracer.close()
+        trace_dir = self.cfg.trace_dir
+        if self._client is not None:
+            self._client.send_bytes(self._tracer.read_bytes())
+            for t in self._star_threads:
+                t.join(timeout=self.cfg.comm_timeout_seconds or None)
+            self._client.close()
+            return
+        if self._service is not None:
+            for t in self._star_threads:
+                t.join(timeout=self.cfg.comm_timeout_seconds or None)
+            for worker_rank, blob in sorted(self._blobs.items()):
+                if blob:
+                    with open(trace_mod.rank_trace_path(
+                            trace_dir, worker_rank), "wb") as f:
+                        f.write(blob)
+            self._clock.write(os.path.join(trace_dir, trace_mod.OFFSETS_FILE))
+        try:
+            merged = trace_mod.merge_trace_dir(trace_dir)
+            report = trace_mod.write_report(trace_dir)
+            logging.info("trace: merged trace at %s; straggler report at %s",
+                         merged, report)
+        except (OSError, ValueError) as exc:
+            logging.error("trace: merge failed: %s (the per-rank trace "
+                          "files stay for trace.merge_trace_dir)", exc)
+        finally:
+            if self._service is not None:
+                from .service import PeerFailureError
+
+                for worker_rank in sorted(self._service.wires):
+                    try:
+                        self._service.send_bytes_to(worker_rank, b"")
+                    except PeerFailureError:
+                        pass  # that worker already left
+                self._service.close()
 
     # ------------------------------------------------------------- counters
 
@@ -231,11 +486,7 @@ class NativeController:
         around the work they measure."""
         out = bindings.native_counters() or dict.fromkeys(
             bindings.NATIVE_COUNTER_SCALARS + ("responses",), 0)
-        cycles, nbytes = ctypes.c_longlong(), ctypes.c_longlong()
-        busy = ctypes.c_double()
-        self._lib.hvd_eng_get_stats(ctypes.byref(cycles),
-                                    ctypes.byref(nbytes), ctypes.byref(busy))
-        out["busy_s"] = float(busy.value)
+        out["busy_s"] = bindings.engine_stats()[2]
         with self._lock:
             out.update(self._extra)
         return out
@@ -510,4 +761,13 @@ class NativeController:
             self._shut = True
         self._stage_q.put(None)
         self._stager.join(timeout=30.0)
+        self._tuner_stop.set()
+        if self._tuner is not None:
+            self._tuner.join(timeout=2.0)
         self._lib.hvd_eng_shutdown()
+        # The engine loop has exited: the final drain sees the ring's
+        # tail spans.
+        self._telemetry_stop.set()
+        self._telemetry.join(timeout=10.0)
+        if self._tracer is not None:
+            self._finish_trace()

@@ -238,6 +238,20 @@ class CoordinatorService(_HeartbeatMixin):
             except Exception:
                 pass  # that worker is dying too; nothing more to do
 
+    def set_clock_sync(self, clock) -> None:
+        """Feed ``clock`` (a ``trace.ClockSync``) from every worker wire's
+        pongs; from then on the heartbeats double as clock pings."""
+        for worker_rank, wire in sorted(self.wires.items()):
+            wire.set_clock_callback(
+                lambda t0, wall, t1, _r=worker_rank:
+                clock.observe(_r, t0, wall, t1))
+
+    def send_clock_pings(self) -> None:
+        """One best-effort clock ping on every worker wire; the pongs
+        reach the clock whenever the wire is next drained."""
+        for _, wire in sorted(self.wires.items()):
+            wire.send_clock_ping()
+
     def _hb_wires(self):
         with self._wires_lock:
             wires = [self.wires[r] for r in sorted(self.wires)]

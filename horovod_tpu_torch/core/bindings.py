@@ -203,6 +203,14 @@ def load() -> ctypes.CDLL:
         _c(lib, "hvd_eng_last_error", cp)
         _c(lib, "hvd_eng_active", i)
         _c(lib, "hvd_eng_get_counters", i, llp, i)
+        # The tuning and tracing loop: rank 0's pushes, the cumulative
+        # cycle stats it scores, the span ring and its overhead probe.
+        ip, dp = ctypes.POINTER(i), ctypes.POINTER(d)
+        _c(lib, "hvd_eng_set_params", None, ll, d)
+        _c(lib, "hvd_eng_set_tuned_bucket", None, ll)
+        _c(lib, "hvd_eng_trace_set", None, i, ll)
+        _c(lib, "hvd_eng_get_spans", i, ll, ip, llp, dp, dp, ip, cp, i)
+        _c(lib, "hvd_eng_span_probe", d, ll)
         _lib = lib
         return _lib
 
@@ -250,6 +258,51 @@ def native_counters() -> Optional[dict]:
     out = {name: int(arr[k]) for k, name in enumerate(NATIVE_COUNTER_SCALARS)}
     out["responses"] = int(arr[_NATIVE_EXEC_HIST_BASE])
     return out
+
+
+def engine_stats() -> "tuple[int, int, float]":
+    """The engine's cumulative ``(cycles, bytes, busy_seconds)``
+    (``hvd_eng_get_stats``): what rank 0's autotuner scores."""
+    cycles, nbytes = ctypes.c_longlong(), ctypes.c_longlong()
+    busy = ctypes.c_double()
+    load().hvd_eng_get_stats(ctypes.byref(cycles), ctypes.byref(nbytes),
+                             ctypes.byref(busy))
+    return int(cycles.value), int(nbytes.value), float(busy.value)
+
+
+# Bytes of one span's op-name slot: ``kSpanOpBytes`` of engine.cc.
+NATIVE_SPAN_OP_BYTES = 64
+
+
+def drain_engine_spans(batch: int = 512):
+    """Yield ``(phase_code, seq, t0, t1, tensors, op)`` for every span in
+    the engine's ring, oldest first, consuming them. ``phase_code``
+    indexes ``trace.PHASES`` (engine.cc's ``SpanPhase``); ``t0``/``t1``
+    are CLOCK_MONOTONIC seconds (``time.monotonic()``'s clock); ``seq``
+    is -1 when no collective id applies."""
+    lib = loaded()
+    if lib is None:
+        return
+    stride = NATIVE_SPAN_OP_BYTES
+    phases = (ctypes.c_int * batch)()
+    seqs = (ctypes.c_longlong * batch)()
+    t0s = (ctypes.c_double * batch)()
+    t1s = (ctypes.c_double * batch)()
+    tensors = (ctypes.c_int * batch)()
+    ops = ctypes.create_string_buffer(batch * stride)
+    while True:
+        n = lib.hvd_eng_get_spans(batch, phases, seqs, t0s, t1s, tensors,
+                                  ops, stride)
+        if n <= 0:
+            return
+        raw = ops.raw
+        for k in range(n):
+            op = raw[k * stride:(k + 1) * stride].split(b"\0", 1)[0]
+            yield (int(phases[k]), int(seqs[k]), float(t0s[k]),
+                   float(t1s[k]), int(tensors[k]),
+                   op.decode(errors="replace"))
+        if n < batch:
+            return
 
 
 def _host_tensor(t: torch.Tensor, what: str) -> int:

@@ -12,10 +12,20 @@ plain dict and ``render_all()`` as Prometheus text.
 ``HOROVOD_METRICS`` / ``HOROVOD_METRICS_PORT`` (re-read after a fork);
 ``enable()`` turns it on programmatically (tests, the load generator).
 
+The eager tier's tuning and tracing series keep the JAX package's
+names and help strings, each registered by the module that owns it:
+``hvd_overlap_buckets_total``, ``hvd_overlap_efficiency`` and
+``hvd_overlap_priority_jumps_total`` (``controller/bucket_scheduler.py``;
+the native engine's priority jumps mirrored into the last by its
+telemetry thread), the ``hvd_autotune_*`` gauges
+(``controller/autotune_glue.py``), the coordinator's
+``hvd_controller_tick_lateness_seconds{rank}``, and
+``hvd_negotiation_slack_seconds`` and
+``hvd_straggler_cycles_total{rank}`` (``trace/straggler.py``).
+
 Not ported yet (later slices): the per-rank HTTP exporter, the flight
 recorder (so ``HOROVOD_FLIGHT_RECORDER`` does not turn metrics on here),
-the windowed roller, and the native-engine and ring-wire mirrors, which
-have no counterpart in the port until its controller and wire exist.
+the windowed roller, and the native-engine counter mirror.
 """
 
 from __future__ import annotations

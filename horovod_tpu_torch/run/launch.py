@@ -44,14 +44,28 @@ job builds no ``torch.distributed`` group). A dead worker's slot is
 respawned as a joiner (``HOROVOD_ELASTIC_JOIN=1``) up to
 ``--elastic-respawns`` times, with the slot's assignment and the
 launcher's environment; a worker that exits with 0 left on purpose and
-is not respawned; the coordinator's exit ends the job. Cluster tracing
-is a later slice: ``--trace`` is refused.
+is not respawned; the coordinator's exit ends the job.
+
+``--trace DIR`` exports ``HOROVOD_TRACE_DIR=DIR`` to every rank: each
+writes its collective spans there and rank 0 merges them at a clean
+shutdown. A traced job keeps its engine (the native one by default), as
+the JAX launcher's does. After the job :func:`_finish_trace` merges
+whatever per-rank files exist when rank 0 did not (a crash, a kill) and
+writes the straggler report; it never changes the exit code.
+
+The launcher's own local ports (the rendezvous, the store, the rings)
+are drawn at random below the kernel's ephemeral range
+(``/proc/sys/net/ipv4/ip_local_port_range``) and checked free by a bind.
+A port taken by binding to 0 comes from that range, where any process's
+outgoing connection may take it before the rank binds it; a gloo group
+opens many such connections.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import random
 import shlex
 import signal
 import socket
@@ -98,11 +112,47 @@ def parse_hosts(hosts: Optional[str], np_: int) -> List[Tuple[str, int]]:
     return out
 
 
+# The lowest port the launcher hands out, and the ports it handed out
+# (one process never gives one twice).
+_PORT_FLOOR = 10000
+_ports_given: set = set()
+
+
+def _ephemeral_floor() -> int:
+    """The first port of the kernel's ephemeral range (32768 when it
+    cannot be read)."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            return int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        return 32768
+
+
+def _bindable(port: int) -> bool:
+    with socket.socket() as s:
+        try:
+            s.bind(("", port))
+        except OSError:
+            return False
+    return True
+
+
 def _free_port() -> int:
-    s = socket.socket()
-    s.bind(("", 0))
-    port = s.getsockname()[1]
-    s.close()
+    """A local port that is free now, drawn at random below the
+    ephemeral range (see the module docstring); a bind to port 0 only if
+    that range has no room."""
+    top = _ephemeral_floor()
+    rng = random.SystemRandom()
+    if top - _PORT_FLOOR >= 1024:
+        for _ in range(200):
+            port = rng.randrange(_PORT_FLOOR, top)
+            if port not in _ports_given and _bindable(port):
+                _ports_given.add(port)
+                return port
+    with socket.socket() as s:
+        s.bind(("", 0))
+        port = s.getsockname()[1]
+    _ports_given.add(port)
     return port
 
 
@@ -394,13 +444,13 @@ def run(args: argparse.Namespace) -> int:
         if interrupted.is_set():
             # Operator-initiated teardown (SIGINT/SIGTERM) is not a fault;
             # never auto-restart over the operator's intent.
-            return code
+            return _finish_trace(args, code)
         if code == 0 or epoch >= max_restarts:
             if code != 0 and max_restarts > 0:
                 sys.stderr.write(
                     f"horovodrun: giving up after {epoch} restart(s); "
                     f"final exit code {code}\n")
-            return code
+            return _finish_trace(args, code)
         epoch += 1
         delay = min(30.0, backoff * (2.0 ** (epoch - 1)))
         sys.stderr.write(
@@ -410,14 +460,54 @@ def run(args: argparse.Namespace) -> int:
         # Event.wait, not time.sleep: a SIGINT during the backoff must
         # cancel the relaunch.
         if interrupted.wait(delay):
-            return code
+            return _finish_trace(args, code)
         if metrics.on():
             _launcher_metrics().restarts.inc()
+
+
+def _finish_trace(args: argparse.Namespace, code: int) -> int:
+    """After a ``--trace`` job: rank 0 merged at a clean shutdown; after a
+    crash or a kill the per-rank files are still there, so merge what
+    exists, write the straggler report if it is missing, and name the
+    artifacts. Never changes the exit code."""
+    trace_dir = getattr(args, "trace", None)
+    if not trace_dir:
+        return code
+    from .. import trace as trace_mod
+
+    merged = os.path.join(trace_dir, trace_mod.MERGED_TRACE_FILE)
+    report = os.path.join(trace_dir, trace_mod.REPORT_FILE)
+    try:
+        if not os.path.exists(merged):
+            if not trace_mod.rank_trace_files(trace_dir):
+                sys.stderr.write(f"horovodrun: no per-rank traces under "
+                                 f"{trace_dir} to merge\n")
+                return code
+            trace_mod.merge_trace_dir(trace_dir)
+        if not os.path.exists(report):
+            trace_mod.write_report(trace_dir, feed=False)
+    except (OSError, ValueError) as exc:
+        sys.stderr.write(f"horovodrun: trace merge failed: {exc}\n")
+        return code
+    sys.stderr.write(f"horovodrun: merged trace at {merged}; straggler "
+                     f"report at {report}\n")
+    return code
 
 
 def _run_attempt(args: argparse.Namespace, restart_epoch: int = 0,
                  interrupted: Optional[threading.Event] = None) -> int:
     hosts = parse_hosts(args.hosts, args.np)
+    if getattr(args, "trace", None):
+        # Every rank writes its spans under the shared directory and rank
+        # 0 merges them at shutdown; both engines emit them, so the job
+        # keeps its engine.
+        os.makedirs(args.trace, exist_ok=True)
+        os.environ["HOROVOD_TRACE_DIR"] = args.trace
+        if args.spmd:
+            sys.stderr.write(
+                "horovodrun: WARNING --trace has no span source under "
+                "--spmd: collective spans come from the eager controllers; "
+                "expect no trace.rank*.json files\n")
     size = args.np
     secret = config_mod.secret_key_hex() or make_secret()
     coord_host = hosts[0][0]
@@ -635,12 +725,6 @@ def _run_attempt(args: argparse.Namespace, restart_epoch: int = 0,
     return exit_code
 
 
-# Options of the JAX launcher whose slices are still to come.
-_LATER_SLICES = {
-    "--trace": "cluster tracing (ROADMAP Queue 1 item 8)",
-}
-
-
 def main(argv: Optional[List[str]] = None) -> int:
     parser = argparse.ArgumentParser(
         prog="horovodrun",
@@ -710,18 +794,16 @@ def main(argv: Optional[List[str]] = None) -> int:
                         help="skip the interface ring-probe on multi-host "
                              "launches and dial the -H names directly")
     parser.add_argument("--verbose", action="store_true")
-    for flag in _LATER_SLICES:
-        # Parsed as the JAX launcher parses them, so the command that
-        # follows stays the command.
-        parser.add_argument(flag, dest=flag.lstrip("-").replace("-", "_"),
-                            default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--trace", metavar="DIR", default=None,
+                        help="cluster tracing: every rank writes "
+                             "clock-anchored phase spans under DIR "
+                             "(HOROVOD_TRACE_DIR), under either engine; "
+                             "rank 0 merges them into "
+                             "DIR/merged_trace.json with a straggler "
+                             "report at shutdown")
     parser.add_argument("command", nargs=argparse.REMAINDER,
                         help="training command")
     args = parser.parse_args(argv)
-    for flag, what in _LATER_SLICES.items():
-        if getattr(args, flag.lstrip("-").replace("-", "_")) is not None:
-            parser.error(f"{flag} is not supported by the port yet: "
-                         f"{what} is a later slice")
     if not args.command:
         parser.error("no command given")
     if args.spmd and args.elastic:

@@ -6,8 +6,9 @@ format, same fixed phase vocabulary, same file layout), with a plain
 Every file carries a ``clock_sync`` metadata event recording the
 wall-clock anchor of its (monotonic) timebase, so files of several
 processes can be rebased onto one clock. The phase vocabulary is FIXED:
-``PHASES`` is the collective pipeline (the JAX package's controller
-emits it; the port's has no controller yet), ``SERVING_PHASES`` the
+``PHASES`` is the collective pipeline (both eager-tier controllers emit
+it into ``trace.rank<N>.json``, tagged with the coordinator's collective
+sequence id), ``SERVING_PHASES`` the
 serving engine's iteration loop (schedule / prefill / decode, written to
 ``trace.serving.rank<N>.json``). Spans are buffered in memory and
 written as one JSON array at ``close()``; beyond
@@ -32,6 +33,9 @@ ALL_PHASES = PHASES + SERVING_PHASES
 
 TRACE_FILE_FMT = "trace.rank{rank}.json"
 SERVING_TRACE_FILE_FMT = "trace.serving.rank{rank}.json"
+MERGED_TRACE_FILE = "merged_trace.json"
+OFFSETS_FILE = "clock_offsets.json"
+REPORT_FILE = "straggler_report.json"
 
 
 def rank_trace_path(trace_dir: str, rank: int) -> str:
@@ -137,3 +141,12 @@ class TraceWriter:
     @property
     def path(self) -> str:
         return self._path
+
+    def read_bytes(self) -> bytes:
+        """The written file's bytes (for the shutdown push over the
+        wire). Empty when close() hasn't produced a file."""
+        try:
+            with open(self._path, "rb") as f:
+                return f.read()
+        except OSError:
+            return b""

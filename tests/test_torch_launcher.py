@@ -191,25 +191,21 @@ def test_version_flag(capsys):
                                   ["--elastic-respawns", "1"],
                                   ["--trace", "/tmp/tr"]])
 def test_later_slices_are_refused_by_name(capsys, monkeypatch, flag):
-    if flag[0] != "--trace":
-        # Elastic membership has landed: its flags reach the launch with
-        # the JAX launcher's meaning (their refusals and the job itself:
-        # tests/test_torch_elastic_mp.py).
-        seen = []
-        monkeypatch.setattr(tlaunch, "run", lambda args: seen.append(args)
-                            or 0)
-        assert tlaunch.main(["-np", "2", *flag, sys.executable, "-c",
-                             "pass"]) == 0
-        value = getattr(seen[0], flag[0].lstrip("-").replace("-", "_"))
+    # Elastic membership and cluster tracing have landed: their flags
+    # reach the launch with the JAX launcher's meaning (their jobs:
+    # tests/test_torch_elastic_mp.py, tests/test_torch_autotune_mp.py).
+    seen = []
+    monkeypatch.setattr(tlaunch, "run", lambda args: seen.append(args)
+                        or 0)
+    assert tlaunch.main(["-np", "2", *flag, sys.executable, "-c",
+                         "pass"]) == 0
+    value = getattr(seen[0], flag[0].lstrip("-").replace("-", "_"))
+    if flag[0] == "--trace":
+        assert value == flag[1]
+    else:
         assert value == (True if len(flag) == 1 else int(flag[1]))
-        assert seen[0].command == [sys.executable, "-c", "pass"]
-        return
-    with pytest.raises(SystemExit) as exit_:
-        tlaunch.main(["-np", "2", *flag, sys.executable, "-c", "pass"])
-    assert exit_.value.code == 2
-    err = capsys.readouterr().err
-    assert f"{flag[0]} is not supported by the port yet" in err
-    assert "later slice" in err
+    assert seen[0].command == [sys.executable, "-c", "pass"]
+    assert "not supported" not in capsys.readouterr().err
 
 
 TIER = ("import torch, torch.distributed as dist\n"
@@ -241,3 +237,15 @@ def test_the_tier_follows_the_mode(spmd):
         want = ("group True [1.5, 1.5, 1.5] 0" if spmd
                 else "controller True [1.5, 1.5, 1.5] 1")
         assert f"[{rank}]: tier {want}" in proc.stdout, proc.stdout
+
+
+def test_local_ports_are_drawn_below_the_ephemeral_range():
+    """The launcher's ports (rendezvous, store, rings) come from below the
+    kernel's ephemeral range, where no outgoing connection can take one
+    before its rank binds it, and one launcher never gives a port twice."""
+    floor = tlaunch._ephemeral_floor()
+    ports = [tlaunch._free_port() for _ in range(64)]
+    assert len(set(ports)) == len(ports)
+    assert all(tlaunch._PORT_FLOOR <= p < floor for p in ports), ports
+    with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+        assert floor == int(f.read().split()[0])

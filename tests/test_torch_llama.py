@@ -294,6 +294,14 @@ def test_port_imports_no_jax_or_reference_package():
         "import horovod_tpu_torch.run.watchdog\n"
         "import horovod_tpu_torch.run.task_fn\n"
         "import horovod_tpu_torch.run.nic_discovery\n"
+        "import horovod_tpu_torch.common.autotune\n"
+        "import horovod_tpu_torch.controller.autotune_glue\n"
+        "import horovod_tpu_torch.controller.bucket_scheduler\n"
+        "import horovod_tpu_torch.utils.scaling_model\n"
+        "import horovod_tpu_torch.trace.clock\n"
+        "import horovod_tpu_torch.trace.merge\n"
+        "import horovod_tpu_torch.trace.straggler\n"
+        "import horovod_tpu_torch.examples.overlap_probe\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'horovod_tpu'))\n"
@@ -337,7 +345,12 @@ def test_port_sources_never_name_jax_or_the_reference_package():
                  # The native data plane's.
                  "core/__init__.py", "core/bindings.py",
                  "controller/native.py", "core/src/ring.cc",
-                 "core/src/engine.cc", "core/src/shm.cc"):
+                 "core/src/engine.cc", "core/src/shm.cc",
+                 # The tuning and tracing loop's.
+                 "common/autotune.py", "controller/autotune_glue.py",
+                 "controller/bucket_scheduler.py", "utils/scaling_model.py",
+                 "trace/clock.py", "trace/merge.py", "trace/straggler.py",
+                 "examples/overlap_probe.py"):
         assert name in scanned, name
     for path in paths:
         with open(path, encoding="utf-8") as fh:
