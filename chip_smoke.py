@@ -223,7 +223,14 @@ on ``cuda``; any failure exits non-zero:
    hashed on the card after the grow must equal rank 0's digests, the
    final float32 weights must equal a one-process replay of rank 0's
    logged schedule (TOL), and flash forward, dq and dk/dv must launch in
-   every process, the joiner included. Logged: each reshape's seconds,
+   every process, the joiner included. The job runs under both runtime
+   monitors (``HOROVOD_PROTOCHECK=1``, ``HOROVOD_LOCKCHECK=1``, with
+   ``HOROVOD_METRICS=1`` so telemetry's locks nest under the wire's):
+   rank 0's and the joiner's protocol reports must be ``ok`` with
+   transitions, their lock graphs acyclic (rank 0's with an edge), and
+   ``python -m horovod_tpu_torch.tools.protocheck --runtime ...
+   --lockgraph ...`` must exit 0 on the artifacts (the killed rank
+   leaves none). Logged: the transitions and lock graphs, each reshape's seconds,
    kill to the first step at epochs 2 and 3, the joiner's restore
    seconds and bytes, the digest pass per commit, rank 0's peak memory,
    tok/s before and after; then ``examples.elastic_restore_probe`` (3
@@ -245,10 +252,17 @@ on ``cuda``; any failure exits non-zero:
    ``PARITY_LAYERS``, two AdamW steps, b2 a rank: with the autotuner and
    tracing on, the weights equal those of the same job with both off
    (difference 0: a two-rank sum is exact in either order, so fusion
-   grouping cannot change it); (c) ``examples.overlap_probe`` on CUDA
+   grouping cannot change it), both jobs under the runtime monitors as
+   in 32 (the traced one's clock pings ride HEARTBEAT frames), both
+   ranks' artifacts required; (c) ``examples.overlap_probe`` on CUDA
    tensors: the bucketed results equal the unbucketed ones bit for bit
    on both ranks; measured and predicted overlap and the stall split
-   logged.
+   logged;
+34. the static gates on the card host: ``python -m
+   horovod_tpu_torch.tools.check --format json`` (hvdlint over the port,
+   the aux lint over its examples and tests, protocheck with the native
+   engine's frame coverage, the static lock graph with the C++ mutexes,
+   hvdabi) exits 0; its summary and seconds logged.
 
 The float32 parity runs of phases 24, 25, 27, 28, 30 and 31 build
 Llama-300M at 2 of its 16 layers (``PARITY_LAYERS``), to keep the script
@@ -270,7 +284,7 @@ Two lanes share the card and the host. After the kernels' timings
 process that only starts jobs and reads their files, runs 32's job and
 restore probe, 30, 31 (e) and 33 (b)-(c) while this lane runs 3-5,
 7-13 and 15-23; it is joined before 32's replay, which runs here, then
-24-29, 31 (a)-(d) and 33 (a) run alone. The numbers of 3-5, 7-13,
+24-29, 31 (a)-(d), 33 (a) and 34 run alone. The numbers of 3-5, 7-13,
 15-23 and of the second lane's phases are taken with the other lane's
 work on the same card and cores; those of 31 (c) and 33 (a), compared
 with each other, are not. A failure on either lane stops every job the
@@ -4097,6 +4111,74 @@ def _median(values):
     return statistics.median(values) if values else None
 
 
+def monitor_env(out_dir: str, job: str = "") -> dict:
+    """The protocol monitor and the lock-order detector on, each rank's
+    artifact in ``out_dir`` (``protocheck[.JOB].json.rank<r>``,
+    ``lockgraph[.JOB].json.rank<r>``: jobs that share a directory are
+    told apart by ``job``)."""
+    os.makedirs(out_dir, exist_ok=True)
+    stem = f".{job}.json" if job else ".json"
+    return {"HOROVOD_PROTOCHECK": "1",
+            "HOROVOD_PROTOCHECK_OUTPUT":
+                os.path.join(out_dir, "protocheck" + stem),
+            "HOROVOD_LOCKCHECK": "1",
+            "HOROVOD_LOCKCHECK_OUTPUT":
+                os.path.join(out_dir, "lockgraph" + stem)}
+
+
+def check_monitors(out_dir: str, required, what: str) -> dict:
+    """Monitored jobs' artifacts in ``out_dir``: every protocol report
+    ``ok``, every lock graph acyclic, those of ``required`` (role -> the
+    name after ``protocheck.``/``lockgraph.``, e.g. ``json.rank0``) there
+    with transitions, then one ``python -m
+    horovod_tpu_torch.tools.protocheck --runtime ... --lockgraph ...``
+    over all of them exits 0 (the static x runtime join included).
+    Returns, per artifact, the transitions and the lock graph's nodes and
+    edges, and the CLI's seconds."""
+    names = sorted(os.listdir(out_dir))
+    reports = {}
+    for name in names:
+        if ".tmp" not in name:
+            with open(os.path.join(out_dir, name)) as f:
+                reports[name] = json.load(f)
+    out = {"protocol": {}, "locks": {}}
+    for name, rep in reports.items():
+        if name.startswith("protocheck."):
+            if not rep["ok"]:
+                raise AssertionError(f"{what}: protocol violations in "
+                                     f"{name}: {rep['violations']}")
+            out["protocol"][name] = rep["transitions"]
+        else:
+            if not rep["acyclic"]:
+                raise AssertionError(f"{what}: lock-order cycles in {name}: "
+                                     f"{rep['cycles']}")
+            out["locks"][name] = {"nodes": len(rep["locks"]),
+                                  "edges": [[e["from"], e["to"]]
+                                            for e in rep["edges"]]}
+    for role, stem in sorted(required.items()):
+        if not out["protocol"].get(f"protocheck.{stem}") or \
+                f"lockgraph.{stem}" not in out["locks"]:
+            raise AssertionError(f"{what}: {role}'s artifacts missing or "
+                                 f"without transitions: {names}")
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("HOROVOD_", "OMPI_", "PMI_"))}
+    env["PYTHONPATH"] = here
+    t = time.perf_counter()
+    cli = run_child(
+        [sys.executable, "-m", "horovod_tpu_torch.tools.protocheck",
+         "--runtime", *[os.path.join(out_dir, n) for n in out["protocol"]],
+         "--lockgraph", *[os.path.join(out_dir, n) for n in out["locks"]]],
+        120, cwd=here, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    out["protocheck_s"] = time.perf_counter() - t
+    if cli.returncode != 0:
+        raise AssertionError(f"{what}: protocheck exited {cli.returncode}:"
+                             f"\n{cli.stdout[-3000:]}")
+    out["protocheck_tail"] = cli.stdout.strip().splitlines()[-2:]
+    return out
+
+
 def run_elastic_job():
     """Phase 32's job under the port's launcher and its checks, then the
     restore probe (second lane: nothing on the card in this process).
@@ -4111,6 +4193,10 @@ def run_elastic_job():
            if not k.startswith(("HOROVOD_", "OMPI_", "PMI_"))}
     here = os.path.dirname(os.path.abspath(__file__))
     env["PYTHONPATH"] = here
+    # Under both runtime monitors, with telemetry on (its locks nest
+    # under the wire's, so the lock graph has edges to hold).
+    monitor_dir = os.path.join(out_dir, "monitor")
+    job_env = {**env, **monitor_env(monitor_dir), "HOROVOD_METRICS": "1"}
     try:
         t0 = time.perf_counter()
         proc = run_child(
@@ -4118,10 +4204,23 @@ def run_elastic_job():
              "-np", "2", "--min-ranks", "1", "--max-ranks", "2",
              "--elastic-respawns", "1", sys.executable, "-m",
              "horovod_tpu_torch.examples.elastic_llama_training",
-             *ELASTIC_ARGS, "--out", out_dir], 420, cwd=here, env=env)
+             *ELASTIC_ARGS, "--out", out_dir], 420, cwd=here, env=job_env)
         job_s = time.perf_counter() - t0
         if proc.returncode != 0:
             raise AssertionError(f"elastic job exited {proc.returncode}")
+        # Rank 1 dies by SIGKILL and writes nothing; its respawned slot,
+        # the joiner, runs as rank 1.
+        monitors = check_monitors(monitor_dir, {"rank 0": "json.rank0",
+                                                "joiner": "json.rank1"},
+                                  "elastic (32)")
+        if not any(lg["edges"] for lg in monitors["locks"].values()):
+            raise AssertionError(f"elastic (32): no lock-order edge "
+                                 f"observed: {monitors['locks']}")
+        log(f"elastic (32) monitors: transitions "
+            f"{json.dumps(monitors['protocol'])}; lock graphs "
+            f"{json.dumps(monitors['locks'])}; protocheck "
+            f"{monitors['protocheck_s']:.1f} s: "
+            f"{' / '.join(monitors['protocheck_tail'])}")
         recs = {}
         for role in ("rank0", "joiner", "kill"):
             with open(os.path.join(out_dir, f"{role}.json")) as f:
@@ -4178,7 +4277,8 @@ def run_elastic_job():
         raise AssertionError(f"restore probe exited {probe.returncode}: "
                              f"{probe.stdout[-2000:]}{probe.stderr[-2000:]}")
     return {"r0": r0, "joiner": joiner, "kill": kill, "job_s": job_s,
-            "rolled_back": rolled_back, "grow_r0": grow_r0,
+            "monitors": monitors, "rolled_back": rolled_back,
+            "grow_r0": grow_r0,
             "grow_j": grow_j, "processes": processes, "final": final,
             "probe": json.loads(probe.stdout.strip().splitlines()[-1]),
             "probe_s": time.perf_counter() - t2}
@@ -4196,6 +4296,7 @@ def run_elastic_phase(job, card: str):
     grow_r0, grow_j = job["grow_r0"], job["grow_j"]
     rolled_back, processes = job["rolled_back"], job["processes"]
     job_s, probe_s, probe_rec = job["job_s"], job["probe_s"], job["probe"]
+    monitors = job["monitors"]
     torch.cuda.empty_cache()
     t1 = time.perf_counter()
     want = ex.replay("300m", r0["schedule"], 2, 1024, 0, "cuda")
@@ -4242,7 +4343,7 @@ def run_elastic_phase(job, card: str):
                    "epoch2": [s["seconds"] for s in r0["steps"]
                               if s["epoch"] == 2]},
         "max_abs_weight_diff": worst, "launches": processes,
-        "probe": probe_rec}
+        "monitors": monitors, "probe": probe_rec}
     log(f"elastic (32): llama300m f32 seq 1024 b2 a rank, AdamW, dp 2 on "
         f"the star; schedule {r0['schedule']} (world size per committed "
         f"step), {rolled_back} step(s) rolled back; reshapes "
@@ -4260,7 +4361,9 @@ def run_elastic_phase(job, card: str):
         f"(one step; epoch 1 step seconds {before_steps}), {after:.1f} after "
         f"(one step; epoch 3 step seconds {after_steps}); replay max abs "
         f"weight diff {worst:.3g}; flash "
-        f"launches {json.dumps(processes)}; job {job_s:.1f} s, replay "
+        f"launches {json.dumps(processes)}; job {job_s:.1f} s under both "
+        f"runtime monitors (protocol transitions "
+        f"{sum(monitors['protocol'].values())}), replay "
         f"{replay_s:.1f} s [{card}]")
     log(f"elastic restore probe (32): {json.dumps(probe_rec)} "
         f"({probe_s:.1f} s) [{card}]")
@@ -4509,6 +4612,10 @@ def run_tune_checks(card: str):
         # The two float32 jobs run at once (four processes on the card):
         # their results do not depend on timing, and it halves (b)'s wall
         # time.
+        # Both under the runtime monitors, their artifacts in one
+        # directory (one protocheck run for both): the traced job's clock
+        # pings ride HEARTBEAT frames on the star.
+        monitor_dir = os.path.join(out_dir, "monitor")
         jobs = {}
         for label, env, trace_on in (
                 ("tuned", {"HOROVOD_ENGINE": "python",
@@ -4516,6 +4623,7 @@ def run_tune_checks(card: str):
                 ("plain", {"HOROVOD_ENGINE": "python"}, False)):
             sub = os.path.join(out_dir, label)
             os.makedirs(sub)
+            env.update(monitor_env(monitor_dir, label))
             jobs[label] = (sub, start_tune_job("parity", env, sub, trace_on))
         weights, b = {}, {}
         try:
@@ -4529,6 +4637,15 @@ def run_tune_checks(card: str):
                 if proc.poll() is None:
                     _stop_group(proc)
                 _CHILDREN.discard(proc)
+        b["monitors"] = mon = check_monitors(
+            monitor_dir, {f"{label} rank {r}": f"{label}.json.rank{r}"
+                          for label in jobs for r in range(2)},
+            "tune (33b)")
+        log(f"tune (33b) monitors: transitions "
+            f"{json.dumps(mon['protocol'])}; lock graphs "
+            f"{json.dumps(mon['locks'])}; protocheck "
+            f"{mon['protocheck_s']:.1f} s: "
+            f"{' / '.join(mon['protocheck_tail'])}")
         worst = max(float((weights["tuned"][n] - weights["plain"][n])
                           .abs().max()) for n in weights["plain"])
         if worst != 0 or sorted(weights["tuned"]) != sorted(weights["plain"]):
@@ -4568,6 +4685,30 @@ def run_tune_checks(card: str):
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     return {"b": b, "c": c}
+
+
+def run_static_gates(card: str):
+    """Phase 34: ``python -m horovod_tpu_torch.tools.check --format json``
+    (hvdlint, the aux lint, protocheck with the native engine's frame
+    coverage, the static lock graph and hvdabi over the port) must exit 0
+    on the card host; its summary and seconds are logged."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("HOROVOD_", "OMPI_", "PMI_"))}
+    env["PYTHONPATH"] = here
+    t = time.perf_counter()
+    proc = run_child(
+        [sys.executable, "-m", "horovod_tpu_torch.tools.check", "--format",
+         "json"], 300, cwd=here, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    seconds = time.perf_counter() - t
+    if proc.returncode != 0:
+        raise AssertionError(f"static gates exited {proc.returncode}: "
+                             f"{proc.stdout[-3000:]}{proc.stderr[-2000:]}")
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"static gates (34): {json.dumps(summary)} in {seconds:.1f} s "
+        f"[{card}]")
+    return {"summary": summary, "seconds": seconds}
 
 
 def compare_planes(rounds: int) -> int:
@@ -4753,6 +4894,7 @@ def main() -> int:
                        "autotune)", run_tune_phase, card,
                        ring["native"]["c"]["tokens_per_s"]),
             **second["33 (b)-(c) tuned parity and overlap probe"]}
+    gates = phase("34 static gates (tools.check)", run_static_gates, card)
 
     # The two ranks' counts of each parallel path, summed.
     by_rank = parallel["counts_by_rank"]
@@ -4865,6 +5007,7 @@ def main() -> int:
     log(f"native data plane: {json.dumps(ring)}")
     log(f"elastic: {json.dumps(elastic)}")
     log(f"tuning and tracing: {json.dumps(tune)}")
+    log(f"static gates: {json.dumps(gates)}")
     log(f"ring kernels: {json.dumps({f'{k[0]} {k[1]}': v for k, v in ring_flash.items()})}")
     log(f"wall time: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

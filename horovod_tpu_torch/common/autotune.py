@@ -435,7 +435,7 @@ class ParameterManager:
                     self._log_header_due = False
                 cats = ",".join(str(int(v)) for _, v in cat_items)
                 # Log-row wall stamp, read next to other logs — not
-                # duration math.
+                # duration math. hvdlint: disable=HVD004
                 f.write(f"{time.time():.3f},{self.fusion_threshold},"
                         f"{self.cycle_time_ms:.3f}{chunk_col}{bucket_col},"
                         f"{cats}{overlap_col},"

@@ -24,6 +24,7 @@ import threading
 import time
 from typing import Dict, Optional
 
+from ..analysis.lockorder import make_lock
 from . import hvd_logging as logging
 from .. import metrics
 
@@ -76,7 +77,7 @@ class Timeline:
         self.mark_cycles = mark_cycles
         self._queue: "queue.Queue" = queue.Queue(maxsize=1 << 20)
         self._pids: Dict[str, int] = {}
-        self._lock = threading.Lock()
+        self._lock = make_lock("timeline.pids")
         self._start = time.monotonic()
         self._file = open(filename, "w")
         self._file.write("[\n")
@@ -88,6 +89,7 @@ class Timeline:
 
         self._file.write(json.dumps({
             "name": "clock_sync", "ph": "M", "pid": 0,
+            # hvdlint: disable=HVD004 (the wall anchor IS the point)
             "args": {"wall_anchor": time.time(),
                      "monotonic_origin": self._start,
                      "rank": env_rank()},
@@ -96,7 +98,7 @@ class Timeline:
         # Own lock, NOT self._lock: _tensor_pid emits while holding
         # self._lock, so an overflow inside that call must not re-acquire
         # it (non-reentrant -> self-deadlock).
-        self._drop_lock = threading.Lock()
+        self._drop_lock = make_lock("timeline.drops")
         self._writer = threading.Thread(
             target=self._writer_loop, name="hvd-timeline-writer", daemon=True
         )

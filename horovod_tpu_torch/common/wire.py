@@ -40,6 +40,14 @@ an abort). Kinds handled here:
 ``send_bytes`` and ``recv_bytes`` carry the fault plan's ``wire_send``
 and ``wire_recv`` hooks (``fault/``): no-ops without a plan.
 
+Each wire plays one role of the protocol spec (``analysis/protocol.py``:
+coordinator, worker or joiner, set by :meth:`Wire.set_protocol_role`).
+Under ``HOROVOD_PROTOCHECK`` every frame sent or received is checked
+against that role's state machine; off, a frame pays one ``is None``
+check. The three recv loops branch on every frame kind explicitly, as
+the spec's handler table (``protocol.HANDLERS``) requires, and end in an
+"unhandled frame kind" error.
+
 Receives honour a per-wire deadline (:meth:`Wire.set_deadline`, wired to
 ``HOROVOD_COMM_TIMEOUT_SECONDS``): a recv that sees no bytes for that long
 raises :class:`CommTimeoutError`.
@@ -64,12 +72,13 @@ import pickle
 import select
 import socket
 import struct
-import threading
 import time
 from typing import Any, Optional
 
 from .. import fault
 from .. import metrics
+from ..analysis.lockorder import make_lock
+from ..analysis.protocol import epoch_is_stale, make_monitor
 from .config import secret_key_hex
 
 DIGEST_LEN = 32
@@ -219,8 +228,10 @@ class Wire:
         self._sock = sock
         self._secret = secret if secret is not None else job_secret()
         # Heartbeats ride a background thread; frames must never
-        # interleave mid-send.
-        self._send_lock = threading.Lock()
+        # interleave mid-send. Tracked under HOROVOD_LOCKCHECK: held
+        # across the socket send, so its order against the controller
+        # and metrics locks is what the deadlock detector must see.
+        self._send_lock = make_lock("wire.send")
         self._deadline: Optional[float] = None
         self._first_deadline: Optional[float] = None
         # The shard plane's consumer: cb("fetch"|"data", info), called
@@ -231,6 +242,21 @@ class Wire:
         # job): cb(t0, peer_wall, t1). Setting it also makes this wire's
         # heartbeats carry pings.
         self._clock_cb = None
+        # The protocol monitor: None until a role is assigned under
+        # HOROVOD_PROTOCHECK.
+        self._monitor = None
+
+    def set_protocol_role(self, role: str) -> None:
+        """Declare which side of the protocol this wire plays
+        (``coordinator``/``worker``/``joiner``); under
+        ``HOROVOD_PROTOCHECK`` every later frame is checked against the
+        spec's state machine for that role."""
+        self._monitor = make_monitor(role)
+
+    def _observe(self, direction: str, kind: int,
+                 info: Optional[dict] = None) -> None:
+        if self._monitor is not None:
+            self._monitor.observe(direction, _KIND_NAMES[kind], info)
 
     def set_deadline(self, seconds: Optional[float],
                      first: Optional[float] = None) -> None:
@@ -255,7 +281,12 @@ class Wire:
             frames.inc()
             counted.inc(_HDR.size + DIGEST_LEN + nbytes)
 
-    def _send_frame(self, kind: int, payload) -> None:
+    def _send_frame(self, kind: int, payload,
+                    info: Optional[dict] = None) -> None:
+        # Conformance first: under HOROVOD_PROTOCHECK=raise an off-spec
+        # frame is stopped before it desyncs the peer. ``info`` is the
+        # payload dict of the epoch-bearing kinds, before pickling.
+        self._observe("send", kind, info)
         view = _as_bytes_view(payload)
         header = self._header(kind, view)
         with self._send_lock:
@@ -275,6 +306,7 @@ class Wire:
             poller.register(self._sock, select.POLLOUT)
             if not poller.poll(0):
                 return False  # send buffer full: don't block the loop
+            self._observe("send", kind)
             view = _as_bytes_view(payload)
             self._sendall(self._header(kind, view) + bytes(view))
             self._count_sent(kind, view.nbytes)
@@ -300,7 +332,10 @@ class Wire:
     def send_clock_ping(self) -> bool:
         """Best-effort RTT probe; the reply reaches the clock callback
         whenever this wire next drains frames."""
+        # Wall clock by design: the ping-pong estimates cross-host
+        # wall-clock offsets (trace/clock.py).
         return self._try_send_frame(FRAME_HEARTBEAT,
+                                    # hvdlint: disable=HVD004
                                     _pickled({"ping": time.time()}))
 
     def _handle_clock_payload(self, payload) -> None:
@@ -311,10 +346,11 @@ class Wire:
             info = pickle.loads(payload)
             if "ping" in info:
                 self._try_send_frame(FRAME_HEARTBEAT, _pickled(
+                    # hvdlint: disable=HVD004 (clock-sync wall anchor)
                     {"pong": float(info["ping"]), "wall": time.time()}))
             elif "pong" in info and self._clock_cb is not None:
                 self._clock_cb(float(info["pong"]), float(info["wall"]),
-                               time.time())
+                               time.time())  # hvdlint: disable=HVD004
         except Exception:
             pass
 
@@ -353,8 +389,8 @@ class Wire:
 
     def send_abort(self, message: str, dead_rank: Optional[int] = None,
                    op: Optional[str] = None) -> None:
-        self._send_frame(FRAME_ABORT, _pickled(
-            {"message": message, "dead_rank": dead_rank, "op": op}))
+        info = {"message": message, "dead_rank": dead_rank, "op": op}
+        self._send_frame(FRAME_ABORT, _pickled(info), info=info)
 
     # -- elastic membership frames -------------------------------------------
 
@@ -362,20 +398,21 @@ class Wire:
         """Join hello (``{"join": True, ...}``) or reshape acknowledgement
         (``{"ack": epoch}``): the worker-side halves of the elastic
         handshake."""
-        self._send_frame(FRAME_JOIN, _pickled(info))
+        self._send_frame(FRAME_JOIN, _pickled(info), info=info)
 
     def send_reshape(self, rank: int, size: int, epoch: int) -> None:
         """New-membership assignment: the receiver's next recv, wherever
         it is blocked in the lockstep protocol, raises RanksChangedError
         with this (rank, size, epoch)."""
-        self._send_frame(FRAME_RESHAPE, _pickled(
-            {"rank": rank, "size": size, "epoch": epoch}))
+        info = {"rank": rank, "size": size, "epoch": epoch}
+        self._send_frame(FRAME_RESHAPE, _pickled(info), info=info)
 
     def recv_hello(self) -> "tuple[int, Any]":
         """Rendezvous/admission read: the next DATA (initial hello) or
         JOIN (elastic late hello) frame as ``(kind, obj)``, skipping
         heartbeats. Any other kind during a hello is a protocol
-        violation."""
+        violation. The branch set is the spec's ``coordinator.handshake``
+        state (``protocol.HANDLERS``, hvdlint HVD008)."""
         while True:
             kind, payload = self._recv_frame()
             if kind == FRAME_HEARTBEAT:
@@ -384,8 +421,11 @@ class Wire:
                 continue
             if kind in (FRAME_DATA, FRAME_JOIN):
                 return kind, pickle.loads(payload)
-            raise AuthError(
-                f"unexpected {_KIND_NAMES[kind]} frame during hello")
+            if kind in (FRAME_ABORT, FRAME_RESHAPE, FRAME_SHARD_FETCH,
+                        FRAME_SHARD_DATA):
+                raise AuthError(
+                    f"unexpected {_KIND_NAMES[kind]} frame during hello")
+            raise AuthError(f"unhandled frame kind {kind} during hello")
 
     def recv_reshape_ack(self, epoch: int) -> None:
         """Drain this wire until the peer acknowledges membership epoch
@@ -393,31 +433,41 @@ class Wire:
         traffic of the dead epoch and are discarded; this drain lets the
         re-formed lockstep start from a clean stream. A stale ack (of a
         reshape attempt superseded mid-handshake) is skipped the same
-        way."""
+        way. The branch set is the spec's ``coordinator.draining`` state
+        (``protocol.HANDLERS``, hvdlint HVD008)."""
         while True:
             kind, payload = self._recv_frame()
-            if kind == FRAME_HEARTBEAT and payload:
-                self._handle_clock_payload(payload)
+            if kind == FRAME_HEARTBEAT:
+                if payload:
+                    self._handle_clock_payload(payload)
                 continue
-            if kind in (FRAME_HEARTBEAT, FRAME_DATA, FRAME_SHARD_FETCH,
-                        FRAME_SHARD_DATA):
-                continue  # liveness, or dead-epoch traffic: discard
+            if kind == FRAME_DATA:
+                continue  # dead-epoch traffic: discard
+            if kind in (FRAME_SHARD_FETCH, FRAME_SHARD_DATA):
+                # Shard traffic of the epoch being torn down: the restore
+                # that issued it fails with the reshape and retries at the
+                # new epoch. Discard it like DATA.
+                continue
             if kind == FRAME_JOIN:
                 info = pickle.loads(payload)
                 ack = info.get("ack")
                 if ack == epoch:
                     return
-                if ack is not None and ack < epoch:
+                if ack is not None and epoch_is_stale(ack, epoch):
                     continue  # a superseded reshape attempt's ack
                 raise AuthError(
                     f"unexpected join payload {info!r} while draining for "
                     f"epoch {epoch} ack")
             if kind == FRAME_ABORT:
                 raise _abort_error(payload)
-            # Members never originate reshapes: both sides think they are
-            # the coordinator. Fail loudly, don't desync.
-            raise AuthError(f"unexpected {_KIND_NAMES[kind]} frame while "
-                            f"draining for epoch {epoch} ack")
+            if kind == FRAME_RESHAPE:
+                # Members never originate reshapes: both sides think they
+                # are the coordinator. Fail loudly, don't desync.
+                raise AuthError(
+                    f"unexpected reshape frame while draining for epoch "
+                    f"{epoch} ack")
+            raise AuthError(f"unhandled frame kind {kind} while draining "
+                            f"for epoch {epoch} ack")
 
     # -- the p2p checkpoint-shard frames -------------------------------------
 
@@ -431,12 +481,12 @@ class Wire:
     def send_shard_fetch(self, info: dict) -> None:
         """Request one committed shard by content digest (``{"shard",
         "digest", "leaves", "req", "owner", "nonce"}``)."""
-        self._send_frame(FRAME_SHARD_FETCH, _pickled(info))
+        self._send_frame(FRAME_SHARD_FETCH, _pickled(info), info=info)
 
     def send_shard_data(self, info: dict) -> None:
         """Answer (or relay) one shard fetch: the request's keys plus
         ``found`` and ``data`` (the packed leaf bytes)."""
-        self._send_frame(FRAME_SHARD_DATA, _pickled(info))
+        self._send_frame(FRAME_SHARD_DATA, _pickled(info), info=info)
 
     def _handle_shard_frame(self, kind: int, payload) -> None:
         """Hand a shard frame to the callback. Never raises into the recv
@@ -454,7 +504,9 @@ class Wire:
     def recv_bytes(self) -> bytearray:
         """Lockstep data-stream read: the next DATA frame's payload, in a
         writable buffer of its own. Every other kind is dispatched
-        explicitly."""
+        explicitly: the branch set is the spec's ``worker.steady`` /
+        ``coordinator.steady`` / ``joiner.parked`` states
+        (``protocol.HANDLERS``, hvdlint HVD008)."""
         fault.hook("wire_recv")
         mon = metrics.on()
         t0 = time.monotonic() if mon else 0.0
@@ -477,15 +529,19 @@ class Wire:
             if kind in (FRAME_SHARD_FETCH, FRAME_SHARD_DATA):
                 self._handle_shard_frame(kind, payload)
                 continue
+            if kind == FRAME_JOIN:
+                # Hellos and acks belong to the rendezvous and reshape
+                # seams only; here the two sides disagree about elastic
+                # mode.
+                raise AuthError(
+                    "unexpected join frame in the data stream (is the "
+                    "coordinator running without HOROVOD_ELASTIC?)")
             if kind == FRAME_DATA:
                 if mon:
                     _wire_metrics().recv_wait.observe(time.monotonic() - t0)
                 return payload
-            # JOIN: hellos and acks belong to the rendezvous and reshape
-            # seams only; here the two sides disagree about elastic mode.
-            raise AuthError(
-                f"unexpected {_KIND_NAMES[kind]} frame in the data stream "
-                "(is the coordinator running without HOROVOD_ELASTIC?)")
+            raise AuthError(f"unhandled frame kind {kind} in the data "
+                            "stream")
 
     def _recv_frame(self) -> tuple:
         header = self._recv_exact(_HDR.size + DIGEST_LEN)
@@ -503,6 +559,17 @@ class Wire:
             frames, nbytes = _wire_metrics().recv[kind]
             frames.inc()
             nbytes.inc(len(header) + length)
+        if self._monitor is not None:
+            # The epoch-bearing kinds are unpickled for the guard checks
+            # (rare frames, tiny payloads, monitor on only); the caller
+            # unpickles again on its own path.
+            info = None
+            if kind in (FRAME_JOIN, FRAME_RESHAPE):
+                try:
+                    info = pickle.loads(payload)
+                except Exception:
+                    info = None
+            self._observe("recv", kind, info)
         if self._first_deadline is not None:
             # First frame arrived: the rendezvous grace is spent.
             self._first_deadline = None

@@ -84,6 +84,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from ..analysis.lockorder import make_lock
 from ..common import config as config_mod
 from ..common import hvd_logging as logging
 from ..common import timeline as tl
@@ -314,7 +315,7 @@ class Controller:
         self.handles = HandleManager()
         # Guards the queue/table/cache state; reached from user threads
         # (enqueue), the controller thread, and teardown.
-        self._lock = threading.Lock()
+        self._lock = make_lock("controller.state")
         self._queue: List[str] = []           # names awaiting negotiation
         self._table: Dict[str, _Pending] = {}  # name -> entry
         self._bit_pending: Dict[int, str] = {}  # cache bit -> name (hits)
@@ -1568,6 +1569,9 @@ class Controller:
                 self._local_ring.allreduce_(
                     result, wire_dtype=self._wire_local_code)
                 if self.topo.local_rank == 0:
+                    # The cross ring's membership IS the local roots — the
+                    # rank-conditional matches the subgroup exactly, so
+                    # this cannot diverge. hvdlint: disable=HVD001
                     self._cross_ring.allreduce_(
                         result, wire_dtype=self._wire_cross_code)
                 self._local_ring.broadcast_(result, 0)
@@ -1617,6 +1621,8 @@ class Controller:
                 mine.view(dtype),
                 [s * rest_elems for s in sizes[cr * ls:(cr + 1) * ls]])
             if self.topo.local_rank == 0:
+                # Cross-ring members are exactly the local roots (see
+                # allreduce above). hvdlint: disable=HVD001
                 flat = self._cross_ring.allgather(local, [
                     sum(sizes[g * ls:(g + 1) * ls]) * rest_elems
                     for g in range(self.topo.cross_size)])

@@ -56,6 +56,7 @@ from typing import Dict, Optional
 
 import torch
 
+from ..analysis.lockorder import make_lock
 from ..common import config as config_mod
 from ..common import hvd_logging as logging
 from ..common.config import Config
@@ -194,7 +195,9 @@ class NativeController:
         self._lib = lib = bindings.load()
         self.cfg = config
         self.topo = topology
-        self._lock = threading.Lock()
+        # Port-only tracked lock: the static lock graph finds it held
+        # across metrics.registry (autonaming registers a series).
+        self._lock = make_lock("nativectl.state")
         self._autoname_counter: Dict[str, int] = {}
         # Ops whose host memory the engine holds a pointer into, by engine
         # id, until their handle resolves (a dropped handle keeps its op
@@ -257,7 +260,6 @@ class NativeController:
         # value from the cycle reply, drains the span ring, and (rank 0,
         # traced) pings the workers' clocks.
         self._applied_bucket = 0
-        self._jumps_seen = 0
         self._telemetry_stop = threading.Event()
         self._telemetry = threading.Thread(
             target=self._telemetry_loop, name="hvd-native-telemetry",
@@ -308,6 +310,9 @@ class NativeController:
                 "HOROVOD_TRACE_DIR on the native engine needs "
                 "HOROVOD_CONTROLLER_ADDR (exported by horovodrun) for its "
                 "clock sync and the shutdown trace exchange")
+        # The star's wires take their protocol roles in CoordinatorService
+        # and WorkerClient, so HOROVOD_PROTOCHECK watches them as it does
+        # the Python controller's.
         if topology.rank == 0:
             self._service = CoordinatorService(
                 addr, topology.size, comm_timeout=config.comm_timeout_seconds)
@@ -415,13 +420,11 @@ class NativeController:
                 # the same value.
                 set_autotuned_bucket_bytes(int(bucket))
                 self._applied_bucket = bucket
-            jumps = counters["priority_jumps"]
-            if metrics.on() and jumps > self._jumps_seen:
-                from .bucket_scheduler import _overlap_metrics
-
-                _overlap_metrics().priority_jumps.inc(
-                    jumps - self._jumps_seen)
-            self._jumps_seen = jumps
+            if metrics.on():
+                # The hvd_native_* mirror, and the priority jumps into
+                # the bucket scheduler's series, on one seen-bookkeeping
+                # with the scrape's own refresh.
+                metrics.refresh_native_engine_metrics()
         if self._tracer is None:
             return
         from ..trace.tracer import PHASES
@@ -484,8 +487,10 @@ class NativeController:
         executed, a fused group counting once), its busy seconds
         (``busy_s``) and ``STAGING_COUNTERS``; callers diff two reads
         around the work they measure."""
-        out = bindings.native_counters() or dict.fromkeys(
-            bindings.NATIVE_COUNTER_SCALARS + ("responses",), 0)
+        keys = bindings.NATIVE_COUNTER_SCALARS + ("responses",)
+        counters = bindings.native_counters()
+        out = ({k: counters[k] for k in keys} if counters is not None
+               else dict.fromkeys(keys, 0))
         out["busy_s"] = bindings.engine_stats()[2]
         with self._lock:
             out.update(self._extra)

@@ -33,6 +33,7 @@ import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
+from ..analysis.lockorder import make_lock
 from ..common import hvd_logging as logging
 from ..common.config import (
     comm_timeout_seconds,
@@ -141,7 +142,7 @@ class CoordinatorService(_HeartbeatMixin):
         # reform() against the heartbeat thread's snapshot; every other
         # access to ``wires`` stays on the controller thread.
         self.epoch = 1
-        self._wires_lock = threading.Lock()
+        self._wires_lock = make_lock("service.wires")
         self._shard_cb = None
         self._pending_joins: List[Tuple[Wire, dict]] = []
         self._join_stop: Optional[threading.Event] = None
@@ -171,6 +172,10 @@ class CoordinatorService(_HeartbeatMixin):
             conn.settimeout(
                 min(5.0, max(0.1, deadline - time.monotonic())))
             wire = Wire(conn)
+            # Conformance role (HOROVOD_PROTOCHECK, analysis/protocol.py),
+            # assigned before the first frame so the hello itself is
+            # checked against the coordinator's handshake state.
+            wire.set_protocol_role("coordinator")
             try:
                 hello = wire.recv_obj()
                 rank = int(hello["rank"])
@@ -296,6 +301,7 @@ class CoordinatorService(_HeartbeatMixin):
                 conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
                 conn.settimeout(5.0)  # real joiners send the hello at once
                 wire = Wire(conn)
+                wire.set_protocol_role("coordinator")
                 try:
                     kind, hello = wire.recv_hello()
                     if kind != FRAME_JOIN or not hello.get("join"):
@@ -466,6 +472,10 @@ class WorkerClient(_HeartbeatMixin):
         sock.settimeout(None)
         sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
         self.wire = Wire(sock)
+        # Conformance role (HOROVOD_PROTOCHECK): a joiner plays the
+        # parked-joiner machine until its admission commits, after which
+        # the spec aliases it onto the worker machine.
+        self.wire.set_protocol_role("joiner" if join else "worker")
         if join:
             # Elastic late joiner: a JOIN hello instead of the rendezvous
             # hello; the coordinator parks this wire and answers with a

@@ -172,11 +172,16 @@ def load() -> ctypes.CDLL:
         cp, u8p = ctypes.c_char_p, ctypes.POINTER(ctypes.c_uint8)
         llp, lp = ctypes.POINTER(ll), ctypes.POINTER(l)
         _c(lib, "hvd_ring_set_chunk_bytes", None, l)
+        _c(lib, "hvd_ring_get_chunk_bytes", l)
         _c(lib, "hvd_ring_get_wire_stats", None, llp, llp,
            ctypes.POINTER(d))
+        _c(lib, "hvd_ring_get_wire_stats_link", None, i, llp, llp)
         _c(lib, "hvd_ring_last_error", cp)
         _c(lib, "hvd_ringh_create", vp, i, i, cp, u8p, i)
         _c(lib, "hvd_ringh_set_link", None, vp, i)
+        # The bandwidth cap the JAX package's probes use; declared so the
+        # whole C ABI carries its ctypes signature.
+        _c(lib, "hvd_ringh_set_rate", None, vp, d)
         _c(lib, "hvd_ringh_allreduce_wire", i, vp, vp, l, i, i, i, vp)
         _c(lib, "hvd_ringh_allgather", i, vp, vp, lp, vp, i)
         _c(lib, "hvd_ringh_broadcast", i, vp, vp, l, i, i)
@@ -194,6 +199,7 @@ def load() -> ctypes.CDLL:
         _c(lib, "hvd_eng_result_in_place", i, ll)
         _c(lib, "hvd_eng_result_shape", None, ll, llp)
         _c(lib, "hvd_eng_result_copy", i, ll, vp)
+        _c(lib, "hvd_eng_result_nbytes", ll, ll)
         _c(lib, "hvd_eng_result_sizes_count", i, ll)
         _c(lib, "hvd_eng_result_sizes", None, ll, llp)
         _c(lib, "hvd_eng_handle_error", cp, ll)
@@ -218,18 +224,40 @@ def load() -> ctypes.CDLL:
 def wire_stats() -> dict:
     """The ring's wire counters of this process
     (``hvd_ring_get_wire_stats``): bytes sent (``tx_bytes``) and their
-    float32 equivalent (``logical_bytes``) per wire dtype; zeros when the
-    core was never loaded."""
+    float32 equivalent (``logical_bytes``) per wire dtype, the same per
+    link class under ``by_link`` (flat/local/cross:
+    ``hvd_ring_get_wire_stats_link``), the cumulative compress seconds
+    and the live transfer-chunk size; zeros when the core was never
+    loaded."""
+    out = {
+        "tx_bytes": dict.fromkeys(WIRE_DTYPE_CODES, 0),
+        "logical_bytes": dict.fromkeys(WIRE_DTYPE_CODES, 0),
+        "by_link": {
+            link: {"tx_bytes": dict.fromkeys(WIRE_DTYPE_CODES, 0),
+                   "logical_bytes": dict.fromkeys(WIRE_DTYPE_CODES, 0)}
+            for link in WIRE_LINK_CODES},
+        "compress_seconds": 0.0,
+        "chunk_bytes": 0,
+    }
+    lib = loaded()
+    if lib is None:
+        return out
     tx = (ctypes.c_longlong * 4)()
     logical = (ctypes.c_longlong * 4)()
-    lib = loaded()
-    if lib is not None:
-        lib.hvd_ring_get_wire_stats(tx, logical,
-                                    ctypes.byref(ctypes.c_double()))
-    return {"tx_bytes": {name: int(tx[code])
-                         for name, code in WIRE_DTYPE_CODES.items()},
-            "logical_bytes": {name: int(logical[code])
-                              for name, code in WIRE_DTYPE_CODES.items()}}
+    comp = ctypes.c_double()
+    lib.hvd_ring_get_wire_stats(tx, logical, ctypes.byref(comp))
+    for name, code in WIRE_DTYPE_CODES.items():
+        out["tx_bytes"][name] = int(tx[code])
+        out["logical_bytes"][name] = int(logical[code])
+    for link, lcode in WIRE_LINK_CODES.items():
+        lib.hvd_ring_get_wire_stats_link(lcode, tx, logical)
+        row = out["by_link"][link]
+        for name, code in WIRE_DTYPE_CODES.items():
+            row["tx_bytes"][name] = int(tx[code])
+            row["logical_bytes"][name] = int(logical[code])
+    out["compress_seconds"] = float(comp.value)
+    out["chunk_bytes"] = int(lib.hvd_ring_get_chunk_bytes())
+    return out
 
 
 def set_chunk_bytes(nbytes: int) -> None:
@@ -242,9 +270,12 @@ def set_chunk_bytes(nbytes: int) -> None:
 
 def native_counters() -> Optional[dict]:
     """The engine's cumulative counters (``hvd_eng_get_counters``): the
-    scalar slots by name plus ``responses``, the count of the execute
-    histogram (one a response executed). None when no engine runs in
-    this process or the library's slot layout differs."""
+    scalar slots by name, the ``cycle_seconds``/``execute_seconds``
+    histograms ({count, sum_seconds, counts[23]} over the registry's
+    ``DEFAULT_TIME_BUCKETS`` edges), ``engine_gen`` (bumped by each engine
+    init) and ``responses``, the count of the execute histogram (one a
+    response executed). None when no engine runs in this process or the
+    library's slot layout differs."""
     lib = loaded()
     if lib is None or not lib.hvd_eng_active():
         return None
@@ -256,7 +287,17 @@ def native_counters() -> Optional[dict]:
             "slots, bindings expect %d)", n, N_NATIVE_COUNTER_SLOTS)
         return None
     out = {name: int(arr[k]) for k, name in enumerate(NATIVE_COUNTER_SCALARS)}
-    out["responses"] = int(arr[_NATIVE_EXEC_HIST_BASE])
+
+    def _hist(base):
+        return {"count": int(arr[base]),
+                "sum_seconds": arr[base + 1] / 1e6,
+                "counts": [int(arr[base + 2 + k])
+                           for k in range(NATIVE_HIST_SLOTS)]}
+
+    out["cycle_seconds"] = _hist(_NATIVE_CYCLE_HIST_BASE)
+    out["execute_seconds"] = _hist(_NATIVE_EXEC_HIST_BASE)
+    out["engine_gen"] = int(arr[_NATIVE_ENGINE_GEN])
+    out["responses"] = out["execute_seconds"]["count"]
     return out
 
 

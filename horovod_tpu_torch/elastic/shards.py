@@ -42,6 +42,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..analysis.lockorder import make_lock
 from ..common import hvd_logging as logging
 from ..utils.checkpoint import (
     SHARDED_PREFIX,
@@ -121,7 +122,7 @@ class ShardExchange:
 
     def __init__(self):
         # Covers the pending-futures table only; never held across a send.
-        self._lock = threading.Lock()
+        self._lock = make_lock("shards.pending")
         self._pending: Dict[tuple, _Fetch] = {}
         self._provider = None
         self._provider_owner = None

@@ -79,7 +79,7 @@ def _child(args) -> None:
     os.environ["HOROVOD_ELASTIC_RESTORE"] = "p2p"
     if hvd.rank() == 0:
         small, big = (str(s) for s in sizes_mib)
-        for m in record["modes"].values():
+        for _, m in sorted(record["modes"].items()):
             m["ratio"] = m[big]["median_s"] / m[small]["median_s"]
         print("PROBE_RESULT " + json.dumps(record), flush=True)
     hvd.shutdown()
@@ -106,7 +106,7 @@ def main(argv=None) -> int:
     addr = f"127.0.0.1:{_free_port()}"
     procs = []
     for rank in range(args.ranks):
-        env = {k: v for k, v in os.environ.items()
+        env = {k: v for k, v in sorted(os.environ.items())
                if not k.startswith(("HOROVOD_", "OMPI_", "PMI_"))}
         env.update({
             "PYTHONPATH": REPO + os.pathsep + env.get("PYTHONPATH", ""),

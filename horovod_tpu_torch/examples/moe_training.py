@@ -101,7 +101,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     mine = slice(rank % ep, rank % ep + 1) if ep > 1 else slice(None)
     params = {"wi": tensor(wi[mine]), "wo": tensor(wo[mine]),
               "gate": tensor(gate), "head": tensor(head)}
-    for p in params.values():
+    for p in params.values():  # hvdlint: disable=HVD002 (order-free)
         p.requires_grad_(True)
     row = rank // ep
     rows = slice(row * args.tokens_per_device,
@@ -128,6 +128,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         pred = (x + moe_out) @ params["head"]
         return torch.mean((pred - y) ** 2) + args.aux_weight * aux
 
+    # hvdlint: disable=HVD002 (one insertion order on every rank)
     opt = torch.optim.Adam(list(params.values()), lr=args.lr)
 
     def step() -> float:

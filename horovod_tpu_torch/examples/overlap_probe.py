@@ -236,7 +236,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
     if args.child:
         child_main(args)
         return {}
-    env = {k: v for k, v in os.environ.items()
+    env = {k: v for k, v in sorted(os.environ.items())
            if not k.startswith(("HOROVOD_", "OMPI_", "PMI_"))}
     env.update(PYTHONPATH=REPO, HOROVOD_CYCLE_TIME="1")
     if args.no_pipeline:

@@ -67,9 +67,10 @@ import json
 import os
 import random
 import signal
-import threading
 import time
 from typing import Dict, List, Optional
+
+from ..analysis.lockorder import make_lock
 
 VALID_SITES = ("wire_send", "wire_recv", "cycle", "init",
                "init_distributed", "ckpt_save")
@@ -197,7 +198,9 @@ class FaultPlan:
                           else r.rank is None or r.rank == rank)]
         self._counts: Dict[str, int] = {}
         self._rng = random.Random(seed)
-        self._lock = threading.Lock()
+        # Port-only tracked lock: the static lock graph finds it held
+        # across metrics.registry (the injected-fault counter).
+        self._lock = make_lock("fault.plan")
 
     @classmethod
     def from_json(cls, text: str,

@@ -1,8 +1,8 @@
 """Thread-safe metrics primitives and Prometheus rendering: the port's
 own copy of ``horovod_tpu/metrics/registry.py`` (same classes, same
-snapshot dicts, byte-identical exposition text), with plain
-``threading.Lock``s in place of the JAX package's lock-order-tracked
-locks.
+snapshot dicts, byte-identical exposition text), whose locks come from
+``make_lock`` (``metrics.metric``, ``metrics.registry``) and are tracked
+under ``HOROVOD_LOCKCHECK``.
 
 ``Counter``/``Gauge``/``Histogram`` with label support; a registry with
 get-or-create semantics (each metric registered lazily at its one call
@@ -24,9 +24,10 @@ Design constraints, in order:
 
 from __future__ import annotations
 
-import threading
 from bisect import bisect_left
 from typing import Dict, List, Optional, Sequence, Tuple
+
+from ..analysis.lockorder import make_lock
 
 
 
@@ -91,7 +92,7 @@ class _Metric:
         self.name = name
         self.help = help
         self.labelnames = tuple(labelnames)
-        self._lock = threading.Lock()
+        self._lock = make_lock("metrics.metric")
         self._children: Dict[Tuple[str, ...], object] = {}
         if not self.labelnames:
             # Unlabeled metric: one implicit child so inc()/observe() on
@@ -258,7 +259,7 @@ class MetricsRegistry:
     package asserting this statically too)."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = make_lock("metrics.registry")
         self._metrics: Dict[str, _Metric] = {}
 
     def _get_or_create(self, cls, name: str, help: str,

@@ -67,6 +67,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..analysis.lockorder import make_lock
 from .. import metrics
 from ..common import config as hvd_config
 from ..common import hvd_logging as logging
@@ -437,7 +438,7 @@ class ServingEngine:
             for i in range(mcfg.num_layers)
         }
 
-        self._lock = threading.Lock()
+        self._lock = make_lock("serving.engine")
         self._cond = threading.Condition(self._lock)
         self._generator = torch.Generator(device=self._device)
         self._generator.manual_seed(seed)

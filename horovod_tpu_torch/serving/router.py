@@ -34,13 +34,13 @@ one model, so its weights sit on the card once.
 from __future__ import annotations
 
 import dataclasses
-import threading
 import time
 from collections import OrderedDict
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from ..analysis.lockorder import make_lock
 from .. import metrics
 from ..common import config as hvd_config
 from ..common import hvd_logging as logging
@@ -235,7 +235,7 @@ class Router:
             raise ValueError("a fleet needs at least one replica")
         self.config = config if config is not None else (
             RouterConfig.from_env())
-        self._lock = threading.Lock()
+        self._lock = make_lock("serving.router")
         self._replicas: List[_Replica] = [
             _Replica(rid=i, engine=e) for i, e in enumerate(engines)]
         self._next_rid = len(engines)

@@ -23,18 +23,19 @@ filter).
 The table is serialized to ``clock_offsets.json`` in the trace
 directory so the offline merge (``trace/merge.py``,
 the launcher's ``--trace`` finish) can rebase per-rank timestamps after
-the job is gone. The port's copy of ``horovod_tpu/trace/clock.py``, with
-a plain ``threading.Lock``.
+the job is gone. The port's copy of ``horovod_tpu/trace/clock.py``; its
+lock is ``make_lock("trace.clock")``, tracked under ``HOROVOD_LOCKCHECK``.
 """
 
 from __future__ import annotations
 
 import json
 import os
-import threading
 import time
 from collections import deque
 from typing import Dict, Optional
+
+from ..analysis.lockorder import make_lock
 
 # Samples kept per rank: enough to ride out a noisy patch, small enough
 # that a real clock step (NTP slew on the host) ages out quickly.
@@ -48,7 +49,7 @@ class ClockSync:
         self.size = size
         self._window = max(1, window)
         self._samples: Dict[int, deque] = {}
-        self._lock = threading.Lock()
+        self._lock = make_lock("trace.clock")
 
     def observe(self, rank: int, t0: float, peer_wall: float,
                 t1: Optional[float] = None) -> None:
@@ -56,7 +57,7 @@ class ClockSync:
         answered with ``peer_wall`` (worker clock), received at ``t1``
         (our clock, default now)."""
         if t1 is None:
-            t1 = time.time()
+            t1 = time.time()  # hvdlint: disable=HVD004 (wall protocol)
         rtt = t1 - t0
         if rtt < 0:  # our own clock stepped mid-exchange: unusable
             return

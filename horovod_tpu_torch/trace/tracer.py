@@ -1,7 +1,7 @@
 """Buffered span writer: the port's own copy of ``TraceWriter`` and
 ``rank_trace_path`` from ``horovod_tpu/trace/tracer.py`` (same event
-format, same fixed phase vocabulary, same file layout), with a plain
-``threading.Lock``.
+format, same fixed phase vocabulary, same file layout); its lock comes
+from ``make_lock("trace.writer")``, tracked under ``HOROVOD_LOCKCHECK``.
 
 Every file carries a ``clock_sync`` metadata event recording the
 wall-clock anchor of its (monotonic) timebase, so files of several
@@ -19,10 +19,10 @@ from __future__ import annotations
 
 import json
 import os
-import threading
 import time
 from typing import Optional
 
+from ..analysis.lockorder import make_lock
 from ..common.config import trace_max_events
 
 # The fixed phase vocabulary: one chrome "thread" per phase per rank. New
@@ -51,10 +51,10 @@ class TraceWriter:
         self._path = path
         self.rank = int(rank)
         self._mono0 = time.monotonic()
-        self._wall0 = time.time()
+        self._wall0 = time.time()  # hvdlint: disable=HVD004 (anchor)
         self._max = (max_events if max_events is not None
                      else trace_max_events())
-        self._lock = threading.Lock()
+        self._lock = make_lock("trace.writer")
         self._events: list = []
         self._dropped = 0
         self._closed = False

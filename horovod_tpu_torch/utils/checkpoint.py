@@ -43,6 +43,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..analysis.lockorder import make_lock
 from .. import fault
 from .. import metrics
 from ..common import basics
@@ -646,7 +647,7 @@ class AsyncShardWriter:
         self.dropped = 0
         self._pending: Optional[dict] = None
         # Held only around plain attribute swaps, never across a call.
-        self._lock = threading.Lock()
+        self._lock = make_lock("ckpt.writer")
         self._wake = threading.Event()
         self._idle = threading.Event()
         self._idle.set()

@@ -27,6 +27,12 @@ on CPU tensors on both engines: the bucketed results equal the
 unbucketed ones on every rank, and the measured and predicted overlap
 are fractions.
 
+Every job of either package runs under both runtime monitors
+(``HOROVOD_PROTOCHECK``, ``HOROVOD_LOCKCHECK``); its artifacts must be
+clean, one of each a rank, with every runtime lock edge inside the
+package's static graph, and the jobs that open a TCP star (the Python
+controller, the traced native engine) must record transitions.
+
 No wall-clock speed bound is checked. The jobs start three at a time.
 """
 
@@ -142,7 +148,8 @@ main()
 def _start(tmp_path_factory, key):
     kind, size = key[0], key[-1]
     base = tmp_path_factory.mktemp("-".join(map(str, key)))
-    env = {"HOROVOD_CYCLE_TIME": "1"}
+    env = {"HOROVOD_CYCLE_TIME": "1",
+           **torch_gloo.monitor_env(base / "monitor")}
     if kind == "jax":
         script, inp, out = torch_gloo._prepare(base, REFERENCE_WORKER, {}, {})
         proc = subprocess.Popen(
@@ -212,6 +219,15 @@ def _ranks(jobs, key):
 
 def _notes(ranks):
     return [json.loads(r["notes"].tobytes()) for r in ranks]
+
+
+@pytest.mark.parametrize("key", KEYS, ids=lambda k: "-".join(map(str, k)))
+def test_jobs_run_clean_under_both_monitors(jobs, key):
+    _, base = _ranks(jobs, key)
+    summary = torch_gloo.assert_monitored(
+        base / "monitor", key[0], require=key[-1], context=str(key))
+    if key[0] == "port" and (key[1] == "python" or key[2] == "tuned"):
+        assert summary["transitions"] > 0, summary
 
 
 @pytest.mark.parametrize("size", SIZES)

@@ -545,20 +545,39 @@ PRIORITY = _inputs["PRIORITY"]
 
 @pytest.fixture(scope="module")
 def jobs(tmp_path_factory):
-    """Both packages' jobs at 2 and 3 ranks, started together."""
-    started = {}
+    """Both packages' jobs at 2 and 3 ranks, started together, each under
+    both runtime monitors (artifacts under ``("monitor", pkg, size)``)."""
+    started, monitors = {}, {}
     for size in SIZES:
+        for pkg in ("port", "jax"):
+            monitors[("monitor", pkg, size)] = \
+                tmp_path_factory.mktemp(f"monitor_{pkg}{size}")
         started[("port", size)] = torch_gloo.start_launched(
             tmp_path_factory.mktemp(f"port{size}"), size, PORT_WORKER, {},
-            {"scenarios": SCENARIOS}, env=STAR)
+            {"scenarios": SCENARIOS}, env={
+                **STAR, **torch_gloo.monitor_env(
+                    monitors[("monitor", "port", size)])})
         started[("jax", size)] = torch_gloo.start_reference(
             tmp_path_factory.mktemp(f"jax{size}"), size, REFERENCE_WORKER,
-            {}, {"scenarios": PARITY})
+            {}, {"scenarios": PARITY}, env=torch_gloo.monitor_env(
+                monitors[("monitor", "jax", size)]))
     try:
-        return {key: job.wait()[0] for key, job in sorted(started.items())}
+        return {**{key: job.wait()[0]
+                   for key, job in sorted(started.items())}, **monitors}
     finally:
         for _, job in sorted(started.items()):
             job.kill()
+
+
+@pytest.mark.parametrize("size", SIZES)
+@pytest.mark.parametrize("pkg", ["port", "jax"])
+def test_jobs_run_clean_under_both_monitors(jobs, pkg, size):
+    """Every rank's protocol report is clean with transitions, every lock
+    graph acyclic, and each runtime lock edge in the static graph."""
+    summary = torch_gloo.assert_monitored(
+        jobs[("monitor", pkg, size)], pkg, require=size,
+        context=f"{pkg} controller job at {size} ranks")
+    assert summary["transitions"] > 0, summary
 
 
 def _notes(ranks):
@@ -724,13 +743,16 @@ print("worker ok", flush=True)
 def test_stall_warns_and_completes(tmp_path):
     job = torch_gloo.start_launched(
         tmp_path, 2, STALL_WORKER, {}, {},
-        env={"HOROVOD_STALL_CHECK_TIME_SECONDS": "1", **STAR}, timeout=120)
+        env={"HOROVOD_STALL_CHECK_TIME_SECONDS": "1", **STAR,
+             **torch_gloo.monitor_env(tmp_path / "monitor")}, timeout=120)
     codes, outputs = job.finish()
     text = "\n".join(outputs)
     assert codes == [0], text
     assert text.count("worker ok") == 2, text
     assert "waiting for remainder of ranks" in text, text
     assert "Stalled op: stall.t [missing ranks: 1]" in text, text
+    torch_gloo.assert_monitored(tmp_path / "monitor", "port", require=2,
+                                context="stall job")
 
 
 PEER_DEATH_WORKER = torch_gloo.WORKER_HEAD + r'''
@@ -765,7 +787,8 @@ def test_peer_death_fails_the_survivor_with_a_diagnosis(tmp_path):
             "HOROVOD_RANK": str(rank), "HOROVOD_SIZE": "2",
             "HOROVOD_LOCAL_RANK": str(rank), "HOROVOD_LOCAL_SIZE": "2",
             "HOROVOD_CONTROLLER_ADDR": addr, "HOROVOD_CYCLE_TIME": "1",
-            "HOROVOD_RENDEZVOUS_FILE": str(tmp_path / "store")})
+            "HOROVOD_RENDEZVOUS_FILE": str(tmp_path / "store"),
+            **torch_gloo.monitor_env(tmp_path / "monitor")})
         procs.append(subprocess.Popen(
             [sys.executable, str(script)], cwd=torch_gloo.REPO, env=env,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
@@ -775,3 +798,6 @@ def test_peer_death_fails_the_survivor_with_a_diagnosis(tmp_path):
     assert "peer-death error surfaced" in outputs[0], outputs[0]
     assert re.search(r"rank 1 died or became unreachable", outputs[0]), \
         outputs[0]
+    # The killed rank leaves no artifact; the survivor's must be clean.
+    torch_gloo.assert_monitored(tmp_path / "monitor", "port", require=1,
+                                context="peer-death job")

@@ -21,7 +21,13 @@ against the JAX launcher's, the flag errors; and one tiny-Llama job
 (``examples/elastic_llama_training.py``, 2 layers, dim 64, f32) through
 a kill and a respawn, whose final weights must equal a one-process
 replay of the schedule rank 0 logs, with the joiner fetching every shard
-and rank 0 moving none. Each job has its own time limit."""
+and rank 0 moving none. Each job has its own time limit.
+
+Every job of either package runs under both runtime monitors
+(``HOROVOD_PROTOCHECK``, ``HOROVOD_LOCKCHECK``): each scenario also
+holds every artifact clean, at least as many as the ranks that exit
+normally, and each runtime lock edge inside the package's static
+graph."""
 
 import json
 import os
@@ -36,7 +42,13 @@ import torch
 from horovod_tpu.run import launch as jlaunch
 from horovod_tpu_torch.run import launch as tlaunch
 
-from torch_gloo import REPO, _clean_env, free_port
+from torch_gloo import (
+    REPO,
+    _clean_env,
+    assert_monitored,
+    free_port,
+    monitor_env,
+)
 
 STEPS = 8
 AT = 3          # the step at which membership changes
@@ -162,13 +174,19 @@ def _env(pkg, extra=None):
     return env
 
 
+def _monitor(tmp_path, pkg):
+    """Where ``pkg``'s job of this test leaves its monitor artifacts."""
+    return tmp_path / f"monitor_{pkg}"
+
+
 def _start(tmp_path, pkg, scen, np_, flags, secret=None, addr=None,
            restore="p2p"):
     script = tmp_path / "worker.py"
     script.write_text(WORKER)
     out = str(tmp_path / f"{pkg}.{scen}")
     launcher = "horovod_tpu.run" if pkg == "jax" else "horovod_tpu_torch.run"
-    extra = {"HOROVOD_ELASTIC_RESTORE": restore}
+    extra = {"HOROVOD_ELASTIC_RESTORE": restore,
+             **monitor_env(_monitor(tmp_path, pkg))}
     if secret:
         extra["HOROVOD_SECRET_KEY"] = secret
     cmd = [sys.executable, "-m", launcher, "--elastic", "-np", str(np_),
@@ -183,6 +201,7 @@ def _start(tmp_path, pkg, scen, np_, flags, secret=None, addr=None,
 def _joiner(script, pkg, scen, out, secret, addr, restore="p2p"):
     env = _env(pkg, {"HOROVOD_SECRET_KEY": secret, "HOROVOD_ELASTIC": "1",
                      "HOROVOD_ELASTIC_RESTORE": restore,
+                     **monitor_env(_monitor(script.parent, pkg)),
                      "HOROVOD_ELASTIC_JOIN": "1", "HOROVOD_ENGINE": "python",
                      "HOROVOD_CONTROLLER_ADDR": addr, "HOROVOD_RANK": "2",
                      "HOROVOD_SIZE": "3", "HOROVOD_LOCAL_RANK": "0",
@@ -256,6 +275,12 @@ def run_scenario(tmp_path, scen, restore="p2p"):
                  "join": ["rank0", "rank1", "joiner"],
                  "parked": ["rank0", "rank1"]}[scen]
         results[pkg] = _records(out, roles)
+        # The killed rank and the parked joiner (killed above) write no
+        # artifacts; every member that exits does.
+        summary = assert_monitored(
+            _monitor(tmp_path, pkg), pkg, require=len(roles),
+            context=f"{pkg} {scen} job ({restore})")
+        assert summary["transitions"] > 0, summary
     return results
 
 
@@ -390,9 +415,12 @@ def test_tiny_llama_kill_and_respawn_matches_replay(tmp_path):
          "tiny", "--seq-len", "64", "--batch-size", "2", "--device", "cpu",
          "--pace-seconds", "1", "--deadline", "90",
          "--out", str(out)],
-        cwd=REPO, env=_env("port"), capture_output=True, text=True,
-        timeout=JOB_LIMIT)
+        cwd=REPO, env=_env("port", monitor_env(tmp_path / "monitor")),
+        capture_output=True, text=True, timeout=JOB_LIMIT)
     assert res.returncode == 0, res.stdout[-6000:] + res.stderr[-3000:]
+    # Rank 1 is SIGKILLed; rank 0 and the respawned joiner write theirs.
+    assert_monitored(tmp_path / "monitor", "port", require=2,
+                     context="tiny llama elastic job")
     recs = {}
     for role in ("rank0", "joiner", "kill"):
         recs[role] = json.loads((out / f"{role}.json").read_text())

@@ -302,6 +302,13 @@ def test_port_imports_no_jax_or_reference_package():
         "import horovod_tpu_torch.trace.merge\n"
         "import horovod_tpu_torch.trace.straggler\n"
         "import horovod_tpu_torch.examples.overlap_probe\n"
+        "import horovod_tpu_torch.analysis\n"
+        "import horovod_tpu_torch.analysis.autofix\n"
+        "import horovod_tpu_torch.analysis.cpp\n"
+        "import horovod_tpu_torch.tools.lint\n"
+        "import horovod_tpu_torch.tools.protocheck\n"
+        "import horovod_tpu_torch.tools.abicheck\n"
+        "import horovod_tpu_torch.tools.check\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'horovod_tpu'))\n"
@@ -350,7 +357,14 @@ def test_port_sources_never_name_jax_or_the_reference_package():
                  "common/autotune.py", "controller/autotune_glue.py",
                  "controller/bucket_scheduler.py", "utils/scaling_model.py",
                  "trace/clock.py", "trace/merge.py", "trace/straggler.py",
-                 "examples/overlap_probe.py"):
+                 "examples/overlap_probe.py",
+                 # The protocol monitor, lock-order checks, static gates.
+                 "analysis/__init__.py", "analysis/framework.py",
+                 "analysis/dataflow.py", "analysis/rules.py",
+                 "analysis/autofix.py", "analysis/lockorder.py",
+                 "analysis/protocol.py", "analysis/cpp.py",
+                 "tools/lint.py", "tools/protocheck.py",
+                 "tools/abicheck.py", "tools/check.py"):
         assert name in scanned, name
     for path in paths:
         with open(path, encoding="utf-8") as fh:

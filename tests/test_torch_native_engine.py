@@ -19,6 +19,13 @@ floats on a grid of quarters, where every order gives the same sum; the
 2-rank and 2x2 jobs make one addition an element and keep the normal
 draws (``tests/test_torch_ring.py`` holds the 3-rank order itself).
 
+Each job runs with ``HOROVOD_METRICS=1`` and ends, before shutdown,
+with a ``metrics`` scenario returning the rank's ``hvd_native_*`` and
+``hvd_ring_*`` series from ``metrics.snapshot()``, the native counters'
+mirror: the port's native engine must report the JAX native engine's
+tensors, fused bytes and wire bytes by dtype and link class, and
+positive cycles, spans and busy seconds.
+
 Also here: the counter-slot layout of ``core/bindings.py`` against the
 ``enum CounterSlot`` of the port's ``engine.cc``, the port's C ABI
 against the JAX package's, the engine choice, and the refusals
@@ -58,7 +65,32 @@ def make_inputs(rank, size):
     return out
 '''
 
-PLANE_SRC = '''
+# The mirrored series as JSON: name -> sorted [labels, value] rows, a
+# histogram's value being its count and sum.
+METRICS_SRC = '''
+def _mirror(snap):
+    rows = {}
+    for name, entry in sorted(snap.items()):
+        if not name.startswith(("hvd_native_", "hvd_ring_")):
+            continue
+        values = []
+        for labels, value in entry["values"]:
+            if isinstance(value, dict):
+                value = [value["count"], value["sum"]]
+            values.append([list(labels), value])
+        rows[name] = sorted(values)
+    return torch.frombuffer(bytearray(json.dumps(rows).encode()),
+                            dtype=torch.uint8)
+
+'''
+
+PLANE_SRC = METRICS_SRC + '''
+def scenario_metrics(rank, size, x, out, notes):
+    from horovod_tpu_torch import metrics as hvd_metrics
+
+    out["mirror"] = _mirror(hvd_metrics.snapshot())
+
+
 def scenario_plane(rank, size, x, out, notes):
     ctl = basics.controller()
     notes["engine"] = type(ctl).__name__
@@ -68,7 +100,11 @@ def scenario_plane(rank, size, x, out, notes):
 
 '''
 
-REFERENCE_SRC = '''
+REFERENCE_SRC = METRICS_SRC + '''
+def scenario_metrics(rank, size, x, out):
+    out["mirror"] = _mirror(hvd.metrics.snapshot())
+
+
 def scenario_grouped(rank, size, x, out):
     res = thvd.grouped_allreduce([t(x["fuse"][i]) for i in range(6)],
                                  average=False, name="grp")
@@ -131,6 +167,9 @@ REFERENCE_WORKER = _insert(mp.REFERENCE_WORKER.replace(
 PARITY = ["allreduce", "fusion", "grouped", "allgather", "broadcast",
           "cache", "error_mismatch", "duplicate_name", "torch"]
 PARITY_2X2 = ["allreduce", "fusion", "allgather", "broadcast"]
+# Run after the mirror is read: the workers' error scenarios and their
+# torch-API scenario issue different collectives.
+LATE_SCENARIOS = ["torch", "error_mismatch", "duplicate_name"]
 LAYOUTS = {
     2: ((), {}),
     3: ((), {"HVD_TEST_GRID": "1"}),
@@ -161,22 +200,30 @@ def _start_jax(tmp_path, layout, scenarios):
            str(_ranks(layout)), *args, sys.executable, script, inp, out]
     proc = subprocess.Popen(
         cmd, cwd=torch_gloo.REPO,
-        env=torch_gloo._clean_env(dict(env, JAX_PLATFORMS="cpu")),
+        env=torch_gloo._clean_env(dict(
+            env, JAX_PLATFORMS="cpu", HOROVOD_METRICS="1",
+            HOROVOD_TRACE_DIR=str(tmp_path / "trace"))),
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return torch_gloo.Job([proc], out, _ranks(layout), JOB_SECONDS)
 
 
 def _start(tmp_path_factory, key):
     engine, layout = key
+    # The mirror is read after the scenarios both workers run alike.
+    parity = PARITY_2X2 if layout == "2x2" else PARITY
+    scenarios = [s for s in parity if s not in LATE_SCENARIOS]
+    scenarios += ["metrics"] + [s for s in LATE_SCENARIOS if s in parity]
     if engine == "jax":
         return _start_jax(tmp_path_factory.mktemp(f"jax{layout}"), layout,
-                          PARITY_2X2 if layout == "2x2" else PARITY)
+                          scenarios)
     args, env = LAYOUTS[layout]
-    scenarios = PARITY_2X2 if layout == "2x2" else PARITY
+    base = tmp_path_factory.mktemp(f"{engine}{layout}")
+    # Traced, so the native engines stamp spans.
     return torch_gloo.start_launched(
-        tmp_path_factory.mktemp(f"{engine}{layout}"), _ranks(layout),
-        PORT_WORKER, {}, {"scenarios": ["plane"] + scenarios},
-        launcher_args=args, env=dict(env, **ENGINES[engine]),
+        base, _ranks(layout), PORT_WORKER, {},
+        {"scenarios": ["plane"] + scenarios}, launcher_args=args,
+        env=dict(env, HOROVOD_METRICS="1",
+                 HOROVOD_TRACE_DIR=str(base / "trace"), **ENGINES[engine]),
         timeout=JOB_SECONDS)
 
 
@@ -265,6 +312,60 @@ def test_results_equal_the_jax_native_engine(jobs, engine, layout):
                 assert got.dtype == want.dtype and \
                     got.shape == want.shape, key
                 np.testing.assert_array_equal(got, want, err_msg=key)
+
+
+def _mirror(ranks):
+    return [json.loads(r["metrics/mirror"].tobytes()) for r in ranks]
+
+
+def _series(mirror, name):
+    return {tuple(labels): value for labels, value in mirror.get(name, [])}
+
+
+# The mirror's series that follow from the collectives alone. A 2-rank
+# ring (and each 2-rank ring of the 2x2 plane) sends every fused buffer
+# once in all, however the tensors were grouped; a 3-rank ring sends two
+# of three segments twice, and the segments' rounding follows the
+# grouping, which follows cycle timing: there the wire bytes are held
+# within 1%.
+DETERMINISTIC = ("hvd_native_tensors_total", "hvd_native_fused_bytes_total")
+WIRE = "hvd_ring_wire_bytes_total"
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS), ids=str)
+def test_native_counter_mirror_equals_the_jax_one(jobs, layout):
+    port = _mirror(_job(jobs, ("native", layout)))
+    ref = _mirror(_job(jobs, ("jax", layout)))
+    links = set()
+    for rank, (got, want) in enumerate(zip(port, ref)):
+        assert sorted(got) == sorted(want), rank
+        for name in DETERMINISTIC:
+            assert _series(got, name) == _series(want, name), (rank, name)
+        wire, ref_wire = _series(got, WIRE), _series(want, WIRE)
+        if layout == 3:
+            assert sorted(wire) == sorted(ref_wire)
+            for labels, value in sorted(wire.items()):
+                assert abs(value - ref_wire[labels]) <= \
+                    0.01 * ref_wire[labels], (rank, labels)
+        else:
+            assert wire == ref_wire, rank
+        links |= {link for (_, link), value in sorted(wire.items())
+                  if value}
+        for name in ("hvd_native_cycles_total", "hvd_native_spans_total"):
+            assert _series(got, name)[()] > 0, (rank, name)
+        count, busy = _series(got, "hvd_native_execute_seconds")[()]
+        assert count > 0 and busy > 0, rank
+        count, busy = _series(got, "hvd_native_cycle_seconds")[()]
+        assert count > 0 and busy > 0, rank
+    # The two-level plane's hops read separately (only local roots ride
+    # the cross ring).
+    assert links == ({"local", "cross"} if layout == "2x2" else {"flat"})
+
+
+def test_python_controller_mirrors_the_ring_only(jobs):
+    for rank_mirror in _mirror(_job(jobs, ("python", 2))):
+        assert not any(n.startswith("hvd_native_") for n in rank_mirror)
+        assert _series(rank_mirror, "hvd_ring_wire_bytes_total")
 
 
 @pytest.mark.parametrize("engine", list(ENGINES))

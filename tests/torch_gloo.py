@@ -11,8 +11,16 @@ and prints ``worker ok``.
 the gloo group, or ``--spmd``), and ``start_reference`` under the JAX
 package's Python controller (ranks spawned with its environment, the
 TCP star data plane); both return a :class:`Job` whose ``wait()`` gives
-the ranks' arrays."""
+the ranks' arrays.
 
+``monitor_env`` puts a job of either package under both runtime
+monitors (``HOROVOD_PROTOCHECK``, ``HOROVOD_LOCKCHECK``) with per-rank
+artifacts in one directory, and ``assert_monitored`` holds what the job
+left there: every protocol report clean, every lock graph acyclic, at
+least the required number of each (a rank killed by SIGKILL writes
+none), and every runtime lock edge inside its package's static graph."""
+
+import importlib
 import json
 import os
 import socket
@@ -114,6 +122,72 @@ class Job:
         assert text.count("worker ok") == self.size, text[-8000:]
         return [dict(np.load(f"{self.out}.rank{r}.npz"))
                 for r in range(self.size)], text
+
+
+def monitor_env(out_dir):
+    """Environment that puts a job (either package's: they read the same
+    knobs) under the protocol monitor and the lock-order detector, with
+    per-rank artifacts in ``out_dir``."""
+    os.makedirs(out_dir, exist_ok=True)
+    return {"HOROVOD_PROTOCHECK": "1",
+            "HOROVOD_PROTOCHECK_OUTPUT":
+                os.path.join(str(out_dir), "protocheck.json"),
+            "HOROVOD_LOCKCHECK": "1",
+            "HOROVOD_LOCKCHECK_OUTPUT":
+                os.path.join(str(out_dir), "lockgraph.json")}
+
+
+_STATIC_EDGES = {}
+
+
+def static_lock_edges(pkg):
+    """The edges of ``pkg``'s static lock graph ("port" or "jax"),
+    computed once per process."""
+    if pkg not in _STATIC_EDGES:
+        name = "horovod_tpu_torch" if pkg == "port" else "horovod_tpu"
+        lockorder = importlib.import_module(name + ".analysis.lockorder")
+        _STATIC_EDGES[pkg] = {(e["from"], e["to"])
+                              for e in lockorder.static_graph()["edges"]}
+    return _STATIC_EDGES[pkg]
+
+
+def _artifacts(out_dir, prefix):
+    reports = {}
+    for name in sorted(os.listdir(out_dir)):
+        if name.startswith(prefix) and ".tmp" not in name:
+            with open(os.path.join(out_dir, name)) as f:
+                reports[name] = json.load(f)
+    return reports
+
+
+def assert_monitored(out_dir, pkg, require, context=""):
+    """Hold a monitored job's artifacts in ``out_dir``: every protocol
+    report ``ok``, every lock graph acyclic, at least ``require`` of each
+    (the ranks known to exit normally), and every runtime lock edge in
+    ``pkg``'s static graph. Returns the transitions, artifact counts and
+    runtime lock edges."""
+    protocol = _artifacts(str(out_dir), "protocheck.json")
+    locks = _artifacts(str(out_dir), "lockgraph.json")
+    for name, report in sorted(protocol.items()):
+        assert report["ok"], (
+            f"{context}: protocol violations in {name}: "
+            f"{report['violations']}")
+    for name, report in sorted(locks.items()):
+        assert report["acyclic"], (
+            f"{context}: lock-order cycles in {name}: {report['cycles']}")
+    assert len(protocol) >= require and len(locks) >= require, (
+        f"{context}: {len(protocol)} protocol and {len(locks)} lock "
+        f"artifacts in {out_dir}, expected at least {require} of each")
+    runtime = {(e["from"], e["to"]) for _, report in sorted(locks.items())
+               for e in report["edges"]}
+    missing = sorted(runtime - static_lock_edges(pkg))
+    assert not missing, (
+        f"{context}: runtime lock edges missing from the {pkg} static "
+        f"graph: {missing}")
+    return {"transitions": sum(r["transitions"]
+                               for _, r in sorted(protocol.items())),
+            "protocol_artifacts": len(protocol),
+            "lock_artifacts": len(locks), "lock_edges": sorted(runtime)}
 
 
 def start_launched(tmp_path, size, worker_src, inputs, specs,
