@@ -91,8 +91,9 @@ on ``cuda``; any failure exits non-zero:
    batch 8 and 32: decode tokens/s and peak memory;
 16. the load generator (``examples.serving_loadgen``), one engine, with
    the arguments of the JAX row ``llama_300m_serving_b8_loadgen``: its
-   record (tok/s, TTFT and TPOT p50/p99, preemptions, block peak); every
-   request finishes;
+   record (tok/s, TTFT and TPOT p50/p99, preemptions, block peak, and
+   ``health``, the cluster doctor's summary over the serving series);
+   every request finishes;
 17. fleet parity: Llama-300M float32, three replicas over one model
    behind the Router, 12 requests on a shared 64-token prefix, the
    replica serving them hard-killed once half are submitted: every
@@ -105,7 +106,7 @@ on ``cuda``; any failure exits non-zero:
    prefix sharing), then the same trace with ``--chaos-kill`` (and
    ``--no-warmup``: the process is warm by then): no request fails;
    warm and cold TTFT and the live block peak against the no-sharing
-   baseline are logged;
+   baseline are logged, and each record's ``health``;
 19. MoE parity: ``MOE_SMALL`` (249.7M parameters, top-2 of 8 experts on
    every other layer) in float32 at seq 1024, batch 8: two SGD steps
    through the flash kernels equal two through ``use_flash=False`` (loss
@@ -262,33 +263,68 @@ on ``cuda``; any failure exits non-zero:
    horovod_tpu_torch.tools.check --format json`` (hvdlint over the port,
    the aux lint over its examples and tests, protocheck with the native
    engine's frame coverage, the static lock graph with the C++ mutexes,
-   hvdabi) exits 0; its summary and seconds logged.
+   hvdabi) exits 0; its summary and seconds logged;
+35. the cluster doctor: (a) Llama-300M bf16 (full width and depth, seq
+   1024, b8 a rank, AdamW) on three ranks sharing the card under the
+   port's launcher (``chip_smoke.py --doctor-worker OUT live``), the
+   Python controller on the ring, the response cache off, with the
+   exporter (``HOROVOD_METRICS_PORT``), the piggyback every 5 cycles, a
+   sweep every 20, 2 s windows, the trace directory and the flight
+   recorder, under the JAX acceptance plan (rank 1's every
+   ``wire_send`` from the 5th on 50 ms late): rank 0's own ``GET
+   /doctor`` must name rank 1 ``persistent_straggler`` from the tick
+   lateness (p99 at least 30 ms) while the job runs, with
+   ``hvd_doctor_findings{rule="persistent_straggler"}`` at least 1 on
+   ``/metrics``; its log must hold a periodic ``doctor:`` line naming
+   rank 1, ``/metrics?window=recent`` a windowed view, the live
+   calibration a window, and the cluster view both workers' snapshots;
+   flash launches on every rank; after the shutdown ``python -m
+   horovod_tpu_torch.tools.doctor`` over the trace exits 0, every
+   ``persistent_straggler`` finding names rank 1 and rank 1 is the
+   straggler report's worst rank (every rank builds its model before
+   the parameter broadcast, so a rank that built last is not charged
+   with the 147 broadcasts). Logged: the cycles and seconds to the first live finding, a
+   sweep's seconds, the step time with and without the delay's share
+   (rank 0's wait past its allowance for rank 1's ticks, from
+   ``hvd_controller_tick_lateness_seconds{rank="1"}``), every offline
+   finding, each rank's last arrivals by kind of collective. The live
+   rule compares a worker's lateness
+   with the other workers', so it needs two of them: three ranks. (b)
+   33 (b)'s tuned and traced job runs with the doctor's stack on: its
+   weights still equal the plain job's and its last ``/doctor`` report
+   has no ``persistent_straggler`` and no critical finding. (c), beside
+   (a): Llama-300M float32 at ``PARITY_LAYERS``, two ranks on the star
+   under the flight recorder: rank 1 installs a fault plan after its second
+   step that kills it at its next send; the job exits non-zero, rank 0's
+   ``fail_all`` dump holds the ``abort`` naming rank 1, and
+   ``tools.doctor`` over the directory exits 0 with rank 0 observed.
 
 The float32 parity runs of phases 24, 25, 27, 28, 30 and 31 build
 Llama-300M at 2 of its 16 layers (``PARITY_LAYERS``), to keep the script
 inside its time limit; their timed runs keep the full depth.
 
-Phases 3-5, 9, 13, 15-18, 20-25, 27, 28 and 30-33 are the main paths:
-the launch counts in the kernels' JSON line come from them (the flash
+Phases 3-5, 9, 13, 15-18, 20-25, 27, 28, 30-33 and 35 are the main
+paths: the launch counts in the kernels' JSON line come from them (the flash
 kernels' are the sum of 9, 13, 20, 23's flash run, 24's seq-parallel
 training, 27's and 28's timed training, 30's and 31's (c), 32's
-three processes and 33 (a)'s two, plus
+three processes, 33 (a)'s two and 35 (a)'s three, plus
 the forward-only long-context runs of 24; the contiguous decode
 kernel's of 3, 15, 21 and 25's ``generate()`` and profile, the paged
 one's of 4, 16-18, 22 and 25's engine; a two-process path's counts are
 its two ranks' sum; each path's on a line of its own). Each phase logs
 its wall time.
 
-Two lanes share the card and the host. After the kernels' timings
+Three lanes share the card and the host. After the kernels' timings
 (2, 6, 14 and 24's ring kernels, alone), a second lane, a thread of this
 process that only starts jobs and reads their files, runs 32's job and
-restore probe, 30, 31 (e) and 33 (b)-(c) while this lane runs 3-5,
-7-13 and 15-23; it is joined before 32's replay, which runs here, then
-24-29, 31 (a)-(d), 33 (a) and 34 run alone. The numbers of 3-5, 7-13,
-15-23 and of the second lane's phases are taken with the other lane's
-work on the same card and cores; those of 31 (c) and 33 (a), compared
-with each other, are not. A failure on either lane stops every job the
-script started and exits non-zero.
+restore probe, 30, 31 (e) and 33 (b)-(c), and a third one 31 (d)'s job,
+while this lane runs 3-5, 7-13, 15-23 and 34; both are joined before
+32's replay, which runs here, then 24-29, 31 (a)-(c), 33 (a) and 35 (a),
+(c) run alone. The numbers of 3-5, 7-13, 15-23 and of the other lanes'
+phases are taken with the other lanes' work on the same card and cores;
+those of 31 (c) and 33 (a), compared with each other, are not. A
+failure on any lane stops every job the script started and exits
+non-zero.
 
 The line before the last is that JSON object; the last line is
 ``{"ok": true, "device": {...}}``. The whole run logs its wall time.
@@ -1378,6 +1414,12 @@ def run_loadgen(argv, what: str, card: str):
     if record["substrate"] != "cuda" or record["path"] != "kernel":
         raise AssertionError(f"{what}: ran on {record['substrate']} "
                              f"through the {record['path']} path")
+    health = record["health"]
+    if not isinstance(health, dict) or set(health) != {
+            "findings", "rules_hit", "worst_rank", "worst_hint"}:
+        raise AssertionError(f"{what}: health {health!r}")
+    log(f"loadgen {what} health (35d, the doctor's summary over the "
+        f"serving series): {json.dumps(health)}")
     log(f"loadgen {what}: {record['value']} tok/s, TTFT p50/p99 "
         f"{record['ttft_p50_s']}/{record['ttft_p99_s']} s, TPOT p50/p99 "
         f"{record['tpot_p50_s']}/{record['tpot_p99_s']} s, preemptions "
@@ -1494,7 +1536,7 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-# Jobs started by run_child / start_tune_job, each the leader of its own
+# Jobs started by run_child / start_job, each the leader of its own
 # process group (the launcher and its ranks), for stop_children(); once
 # that has run, no job starts.
 _CHILDREN = set()
@@ -1561,8 +1603,8 @@ class Lane:
     counts and phases stay its own. :meth:`join` returns the results by
     label and raises the first step's failure."""
 
-    def __init__(self, steps):
-        self.results, self.error = {}, None
+    def __init__(self, steps, name: str = "second lane"):
+        self.results, self.error, self.name = {}, None, name
         self.thread = threading.Thread(target=self._run, args=(steps,),
                                        name="chip-smoke-lane", daemon=True)
         self.thread.start()
@@ -1572,7 +1614,7 @@ class Lane:
             for label, fn, *args in steps:
                 t = time.perf_counter()
                 self.results[label] = fn(*args)
-                log(f"phase {label} (second lane): "
+                log(f"phase {label} ({self.name}): "
                     f"{time.perf_counter() - t:.1f} s")
         except BaseException as exc:  # re-raised by join()
             self.error = exc
@@ -2945,6 +2987,7 @@ def worker_pipeline(rank: int, features: int = 1024, layers: int = 2,
 
 SHARDED_BATCH = 8                    # per rank, bf16 timed runs
 SHARDED_SEQ = 1024
+SHARDED_ITERS = 2                    # timed steps after one warm-up step
 
 
 def _drop(model, *optimizers) -> None:
@@ -3139,7 +3182,8 @@ def worker_fsdp(rank: int, ckpt_dir: str, batch: int = 2, steps: int = 2):
     # bf16, timed: the example's main path, then replicated data
     # parallelism at the same batch (the training example's pieces, Adam).
     timed_args = ["--model", "300m", "--seq-len", str(SHARDED_SEQ),
-                  "--batch-per-shard", str(SHARDED_BATCH), "--num-iters", "3"]
+                  "--batch-per-shard", str(SHARDED_BATCH), "--num-iters",
+                  str(SHARDED_ITERS)]
     before = _fresh_peak()
     out, timed_counts = _path(lambda: fx.main(timed_args))
     if not all(np.isfinite(out["losses"])):
@@ -3161,7 +3205,8 @@ def worker_fsdp(rank: int, ckpt_dir: str, batch: int = 2, steps: int = 2):
     return row
 
 
-def replicated_timed(rank: int, optimizer: str = "adam", steps: int = 3,
+def replicated_timed(rank: int, optimizer: str = "adam",
+                     steps: int = SHARDED_ITERS,
                      remat: bool = False):
     """Llama-300M bf16, seq 1024, the same per-rank batch, replicated
     parameters: Adam(3e-4) under ``DistributedOptimizer`` (``adam``) or
@@ -4022,7 +4067,7 @@ RING_COUNTS = {
 
 def run_ring_phase(card: str):
     """Phase 31: (a)-(c) on the Python controller over the native ring and
-    on the native engine, (d) the int8 wire on the engine ((e) is
+    on the native engine ((d) is :func:`run_int8_phase`, (e)
     :func:`run_two_level_phase`); returns rank 0's results."""
     import torch
 
@@ -4073,6 +4118,12 @@ def run_ring_phase(card: str):
             f"{json.dumps(counts)} [{card}]")
         results["timeline"] = counts
         out[plane] = results
+    return out
+
+
+def run_int8_phase(card: str):
+    """Phase 31 (d): the int8 wire on the engine (third lane: its checks
+    do not depend on timing); returns rank 0's results."""
     d, _ = launch_eager_job("int8", {"HOROVOD_RING_WIRE_DTYPE": "int8"},
                             timeline=False)
     dd = d["d"]
@@ -4081,8 +4132,7 @@ def run_ring_phase(card: str):
         f"{dd['gradients']} residuals non-zero (max {dd['residual_max']:.3g});"
         f" int8 wire bytes {dd['tx_bytes_int8']} for "
         f"{dd['logical_bytes_int8']} f32 bytes [{card}]")
-    out["int8"] = d
-    return out
+    return d
 
 
 def run_two_level_phase():
@@ -4380,29 +4430,22 @@ TUNE_ARGS = ["--model", "300m", "--seq-len", "1024", "--batch-size", "8",
              "--num-iters", str(TUNE_ITERS)]
 
 
-def tune_worker(out_path: str, mode: str) -> int:
-    """One rank of phase 33 (``horovodrun -np 2 ... chip_smoke.py
-    --tune-worker OUT MODE``), sharing ``cuda:0`` over a gloo group
-    built here. ``train``: the training example's ``main`` (33 a);
-    ``parity``: float32 at ``PARITY_LAYERS``, two AdamW steps through the
-    controller, rank 0 saving the weights to ``OUT.pt`` (33 b). Every
-    rank writes ``OUT.rank<r>.json``: its flash launches, the bucket size
-    it adopted, and on rank 0 the tuner's state."""
+def _card_rank():
+    """A launched rank's set-up for the jobs that share ``cuda:0``: a
+    gloo group over the launcher's store, built before
+    ``hvd.init(device="cuda:0")`` (which adopts it). Returns the rank, or
+    None without a card."""
     import datetime
 
     import torch
     import torch.distributed as dist
 
     import horovod_tpu_torch as hvd
-    from horovod_tpu_torch.common import basics, config
-    from horovod_tpu_torch.controller import bucket_scheduler as bs
-    from horovod_tpu_torch.examples import llama_fsdp_training as fx
-    from horovod_tpu_torch.examples import llama_training as lx
-    from horovod_tpu_torch.models.llama import LLAMA_300M
+    from horovod_tpu_torch.common import config
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
-        return 2
+        return None
     torch.cuda.set_device(0)
     rank = int(os.environ["HOROVOD_RANK"])
     dist.init_process_group(
@@ -4410,6 +4453,40 @@ def tune_worker(out_path: str, mode: str) -> int:
         world_size=int(os.environ["HOROVOD_SIZE"]),
         timeout=datetime.timedelta(seconds=600))
     hvd.init(device="cuda:0")
+    return rank
+
+
+def _http(port: int, path: str) -> str:
+    """``GET http://127.0.0.1:PORT/PATH``: a rank's own metrics
+    endpoint."""
+    import urllib.request
+
+    return urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                  timeout=30).read().decode()
+
+
+def tune_worker(out_path: str, mode: str) -> int:
+    """One rank of phase 33 (``horovodrun -np 2 ... chip_smoke.py
+    --tune-worker OUT MODE``), sharing ``cuda:0`` over a gloo group
+    built here. ``train``: the training example's ``main`` (33 a);
+    ``parity``: float32 at ``PARITY_LAYERS``, two AdamW steps through the
+    controller, rank 0 saving the weights to ``OUT.pt`` (33 b) and, when
+    the job serves metrics (35 b), its last ``GET /doctor`` report. Every
+    rank writes ``OUT.rank<r>.json``: its flash launches, the bucket size
+    it adopted, and on rank 0 the tuner's state."""
+    import torch
+    import torch.distributed as dist
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.controller import bucket_scheduler as bs
+    from horovod_tpu_torch.examples import llama_fsdp_training as fx
+    from horovod_tpu_torch.examples import llama_training as lx
+    from horovod_tpu_torch.models.llama import LLAMA_300M
+
+    rank = _card_rank()
+    if rank is None:
+        return 2
     ctl = basics.controller()
     out = {"engine": type(ctl).__name__}
     if mode == "train":
@@ -4439,6 +4516,9 @@ def tune_worker(out_path: str, mode: str) -> int:
                         for n, p in model.named_parameters()},
                        out_path + ".pt")
         _drop(model, opt)
+        exporter = basics._state.metrics_exporter
+        if rank == 0 and exporter is not None:
+            out["doctor"] = json.loads(_http(exporter.port, "/doctor"))
     pm = getattr(ctl, "_param_manager", None)
     if pm is not None:
         out["tuner"] = pm.state()
@@ -4452,10 +4532,10 @@ def tune_worker(out_path: str, mode: str) -> int:
     return 0
 
 
-def start_tune_job(mode: str, env_extra: dict, out_dir: str,
-                   trace: bool):
-    """Start ``python -m horovod_tpu_torch.run -np 2 [--trace DIR/trace]
-    ... chip_smoke.py --tune-worker DIR/MODE MODE``."""
+def start_job(mode: str, env_extra: dict, out_dir: str, trace: bool,
+              ranks: int = 2, worker: str = "--tune-worker"):
+    """Start ``python -m horovod_tpu_torch.run -np RANKS [--trace
+    DIR/trace] ... chip_smoke.py WORKER DIR/MODE MODE``."""
     env = {k: v for k, v in os.environ.items()
            if not k.startswith(("HOROVOD_", "OMPI_", "PMI_"))}
     here = os.path.dirname(os.path.abspath(__file__))
@@ -4463,31 +4543,37 @@ def start_tune_job(mode: str, env_extra: dict, out_dir: str,
     out_path = os.path.join(out_dir, mode)
     args = ("--trace", os.path.join(out_dir, "trace")) if trace else ()
     proc = start_child(
-        [sys.executable, "-m", "horovod_tpu_torch.run", "-np", "2", *args,
-         sys.executable, os.path.abspath(__file__), "--tune-worker",
+        [sys.executable, "-m", "horovod_tpu_torch.run", "-np", str(ranks),
+         *args, sys.executable, os.path.abspath(__file__), worker,
          out_path, mode], cwd=here, env=env)
-    return proc, out_path, f"{mode} {env_extra}", time.perf_counter()
+    return proc, out_path, f"{mode} {env_extra}", time.perf_counter(), ranks
 
 
-def finish_tune_job(job):
-    """Wait for a job of :func:`start_tune_job`; returns both ranks'
-    records and the job's seconds."""
-    proc, out_path, what, t = job
+def finish_job(job):
+    """Wait for a job of :func:`start_job`; returns its exit code and
+    seconds."""
+    proc, _, what, t, _ = job
     try:
         code = proc.wait(timeout=600)
     except subprocess.TimeoutExpired:
         _stop_group(proc)
-        raise AssertionError(f"tune job {what} timed out")
+        raise AssertionError(f"job {what} timed out")
     finally:
         _CHILDREN.discard(proc)
-    seconds = time.perf_counter() - t
+    return code, time.perf_counter() - t
+
+
+def job_records(job, code: int):
+    """Every rank's records of a finished job of :func:`start_job`,
+    which must have exited 0."""
+    _, out_path, what, _, ranks = job
     if code != 0:
-        raise AssertionError(f"tune job {what} exited {code}")
+        raise AssertionError(f"job {what} exited {code}")
     recs = []
-    for r in range(2):
+    for r in range(ranks):
         with open(f"{out_path}.rank{r}.json") as f:
             recs.append(json.load(f))
-    return recs, seconds
+    return recs
 
 
 def check_trace(trace_dir: str, gradients):
@@ -4549,9 +4635,11 @@ def run_tune_phase(card: str, untuned_tok_s: float):
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_tune_")
     try:
         log_path = os.path.join(out_dir, "autotune.csv")
-        (r0, r1), a_s = finish_tune_job(start_tune_job(
-            "train", {"HOROVOD_AUTOTUNE": "1",
-                      "HOROVOD_AUTOTUNE_LOG": log_path}, out_dir, True))
+        job = start_job("train", {"HOROVOD_AUTOTUNE": "1",
+                                  "HOROVOD_AUTOTUNE_LOG": log_path},
+                        out_dir, True)
+        code, a_s = finish_job(job)
+        r0, r1 = job_records(job, code)
         rows = scored_rows(log_path)
         if len(rows) < 2:
             raise AssertionError(f"autotune log: {len(rows)} scored rows")
@@ -4624,14 +4712,20 @@ def run_tune_checks(card: str):
             sub = os.path.join(out_dir, label)
             os.makedirs(sub)
             env.update(monitor_env(monitor_dir, label))
-            jobs[label] = (sub, start_tune_job("parity", env, sub, trace_on))
+            if label == "tuned":
+                # 35 (b): the doctor's sweep, the window roller, the
+                # exporter and the flight recorder on the tuned job.
+                env.update(doctor_env(os.path.join(sub, "fr.{rank}.jsonl")))
+            jobs[label] = (sub, start_job("parity", env, sub, trace_on))
         weights, b = {}, {}
         try:
             for label, (sub, job) in jobs.items():
-                recs, secs = finish_tune_job(job)
+                code, secs = finish_job(job)
+                recs = job_records(job, code)
                 weights[label] = torch.load(os.path.join(sub, "parity.pt"),
                                             map_location="cpu")
-                b[label] = {"losses": recs[0]["losses"], "job_s": secs}
+                b[label] = {"losses": recs[0]["losses"], "job_s": secs,
+                            "doctor": recs[0].get("doctor")}
         finally:
             for _, (proc, *_) in jobs.values():
                 if proc.poll() is None:
@@ -4657,6 +4751,18 @@ def run_tune_checks(card: str):
             f"steps on the Python controller; losses tuned+traced "
             f"{b['tuned']['losses']} vs plain {b['plain']['losses']}; max "
             f"abs weight diff {worst}")
+        rep = b["tuned"]["doctor"]
+        if rep is None or rep["counts"]["critical"] or any(
+                f["rule"] == "persistent_straggler"
+                for f in rep["findings"]):
+            raise AssertionError(f"(35b): the tuned job's last /doctor "
+                                 f"report: {json.dumps(rep)}")
+        log(f"doctor (35b): the tuned+traced job above ran with the doctor "
+            f"sweep, the window roller, the exporter and the recorder on, "
+            f"weights still equal (diff {worst}); its last /doctor report: "
+            f"ranks observed {rep['ranks_observed']}, counts "
+            f"{json.dumps(rep['counts'])}, findings "
+            f"{json.dumps(rep['findings'])}")
 
         env = {k: v for k, v in os.environ.items()
                if not k.startswith(("HOROVOD_", "OMPI_", "PMI_"))}
@@ -4709,6 +4815,431 @@ def run_static_gates(card: str):
     log(f"static gates (34): {json.dumps(summary)} in {seconds:.1f} s "
         f"[{card}]")
     return {"summary": summary, "seconds": seconds}
+
+
+# Phase 35: the cluster doctor. (a) is the JAX acceptance scenario
+# (tests/test_doctor.py) at Llama-300M: rank 1's every wire_send from the
+# 5th on is 50 ms late. The live rule compares each worker's tick
+# lateness with the other workers', so it needs two of them: three ranks.
+DOCTOR_RANKS = 3
+DOCTOR_ITERS = 2                     # timed steps after one warm-up step
+DOCTOR_BATCH = 8                     # per rank, bf16
+DOCTOR_SEQ = 1024
+DOCTOR_DELAY_S = 0.05
+DOCTOR_PLAN = {"seed": 7, "faults": [
+    {"site": "wire_send", "action": "delay", "at": 5, "times": 1000000,
+     "seconds": DOCTOR_DELAY_S, "rank": 1}]}
+# (c): rank 1 installs it after its second step; its next send kills it.
+POSTMORTEM_PLAN = {"seed": 7, "faults": [
+    {"site": "wire_send", "action": "kill", "at": 1, "rank": 1}]}
+
+
+def doctor_env(recorder: str) -> dict:
+    """The doctor's stack on a job: the exporter, the piggyback every 5
+    cycles, a sweep every 20, 2 s telemetry windows, the recorder."""
+    return {"HOROVOD_METRICS_PORT": str(free_port()),
+            "HOROVOD_METRICS_PUSH_CYCLES": "5",
+            "HOROVOD_DOCTOR_CYCLES": "20",
+            "HOROVOD_METRICS_WINDOW_SECONDS": "2",
+            "HOROVOD_FLIGHT_RECORDER": recorder}
+
+
+def _straggler_hits(report: dict):
+    return [f for f in report["findings"]
+            if f["rule"] == "persistent_straggler" and f["rank"] == 1]
+
+
+def doctor_live(rank: int, ctl) -> dict:
+    """35 (a) on one rank: Llama-300M bf16 training through the training
+    example's pieces under the delay plan, one warm-up and
+    ``DOCTOR_ITERS`` timed steps, whose controller cycles and rank 0's
+    wait for rank 1's late ticks (the delay's share of the step) are
+    counted. Rank 0 polls its own ``GET /doctor`` from the start until
+    ``persistent_straggler`` names rank 1 (the controller's cycle index,
+    the seconds and the ``hvd_doctor_findings`` series of ``/metrics``
+    then), keeps the periodic sweep's ``doctor:`` log lines, times one
+    live ``doctor.report()`` (a sweep's work) and reads
+    ``/metrics?window=recent``."""
+    import logging
+
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import doctor, metrics
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.examples import llama_training as lx
+    from horovod_tpu_torch.models.llama import LLAMA_300M
+    from horovod_tpu_torch.utils import live_calibration
+
+    def windows_ingested() -> int:
+        live = live_calibration.get()
+        return live.windows_ingested if live is not None else 0
+
+    out, found, lines = {}, {}, []
+    stop = threading.Event()
+    t0 = time.perf_counter()
+    if rank == 0:
+        port = basics._state.metrics_exporter.port
+
+        class Lines(logging.Handler):
+            def emit(self, record):
+                msg = record.getMessage()  # "[0]: doctor: ..."
+                if "doctor: " in msg:
+                    lines.append(msg[msg.index("doctor: "):])
+
+        logging.getLogger("horovod_tpu_torch").addHandler(Lines())
+
+        def poll():
+            while not stop.is_set():
+                try:
+                    hits = _straggler_hits(json.loads(_http(port,
+                                                            "/doctor")))
+                except OSError:
+                    hits = []
+                if hits:
+                    found.update(finding=hits[0], cycles=ctl._cycle_index,
+                                 seconds=time.perf_counter() - t0)
+                    # The /doctor call just set the hvd_doctor_* series.
+                    found["series"] = [
+                        ln for ln in _http(port, "/metrics").splitlines()
+                        if ln.startswith("hvd_doctor_findings{")]
+                    return
+                stop.wait(0.5)
+
+        poller = threading.Thread(target=poll, name="doctor-poll",
+                                  daemon=True)
+        poller.start()
+
+    def waited_on_rank1() -> float:
+        """Rank 0's summed wait past the allowance for rank 1's ticks
+        (``hvd_controller_tick_lateness_seconds{rank="1"}``)."""
+        entry = metrics.snapshot().get(
+            "hvd_controller_tick_lateness_seconds", {})
+        return sum(v["sum"] for labels, v in entry.get("values", [])
+                   if labels == ["1"])
+
+    _reset_counts()
+    model = lx.make_model(LLAMA_300M, device="cuda")
+    # Every rank has built its model before the broadcast: its 147
+    # parameters negotiate in one tick, so the rank that finished
+    # building last would arrive last at all 147, outweighing the steps'
+    # collectives in the offline attribution with a set-up skew.
+    hvd.allreduce(torch.ones(1, device="cuda"), name="doctor.built")
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    opt = lx.make_optimizer("adamw", model)
+    loss_fn = lx.make_loss_fn(0)
+    ids = lx.batch_ids(LLAMA_300M, DOCTOR_BATCH, DOCTOR_SEQ, "cuda")
+    float(lx.train_step(model, opt, ids, loss_fn))
+    c0, w0, t = ctl._cycle_index, waited_on_rank1(), time.perf_counter()
+    for _ in range(DOCTOR_ITERS):
+        loss = lx.train_step(model, opt, ids, loss_fn)
+    float(hvd.allreduce(loss, name="doctor.loss"))
+    dt = time.perf_counter() - t
+    torch.cuda.synchronize()
+    out.update(step_ms=dt / DOCTOR_ITERS * 1e3,
+               tokens_per_s=(DOCTOR_BATCH * DOCTOR_RANKS * DOCTOR_SEQ
+                             * DOCTOR_ITERS / dt),
+               cycles_per_step=(ctl._cycle_index - c0) / DOCTOR_ITERS,
+               delay_share_ms=(waited_on_rank1() - w0) / DOCTOR_ITERS * 1e3,
+               launches=_counts())
+    _drop(model, opt)
+    del model, opt
+    if rank == 0:
+        poller.join(timeout=60)
+        stop.set()
+        if not found:
+            raise AssertionError("(35a): the live /doctor never named rank "
+                                 "1 as a persistent straggler")
+        # The periodic sweep and the roller run on their own clocks: wait
+        # (the workers' controllers still ticking) for a sweep's line
+        # naming rank 1 and a window ingested by the live calibration.
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline and not (
+                any("rank 1 persistent_straggler" in ln for ln in lines)
+                and windows_ingested() >= 1):
+            time.sleep(0.25)
+        t = time.perf_counter()
+        report = doctor.report()
+        out["sweep_s"] = time.perf_counter() - t
+        windowed = _http(port, "/metrics?window=recent")
+        out.update(
+            found=found, report=report, doctor_lines=lines[-3:],
+            doctor_line_count=len(lines),
+            named_lines=sum("rank 1 persistent_straggler" in ln
+                            for ln in lines),
+            windowed="no completed telemetry window" not in windowed
+            and "hvd_controller_tick_lateness_seconds" in windowed,
+            windowed_bytes=len(windowed),
+            windows_ingested=windows_ingested(),
+            remote_ranks=sorted(metrics.remote_snapshots()))
+    # Every rank waits here, its controller ticking, until rank 0 is done.
+    hvd.allreduce(torch.ones(1, device="cuda"), name="doctor.done")
+    return out
+
+
+def doctor_postmortem(rank: int) -> None:
+    """35 (c) on one rank: float32 Llama-300M at ``PARITY_LAYERS``, AdamW
+    steps through the Python controller; after its second step rank 1
+    installs ``POSTMORTEM_PLAN`` and dies at its next send, and rank 0's
+    next step fails (its ``fail_all`` dumps the flight recorder)."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import fault
+    from horovod_tpu_torch.examples import llama_fsdp_training as fx
+    from horovod_tpu_torch.examples import llama_training as lx
+    from horovod_tpu_torch.models.llama import LLAMA_300M
+
+    cfg = dataclasses.replace(LLAMA_300M, dtype=torch.float32,
+                              num_layers=PARITY_LAYERS)
+    ids = fx.batch_ids(cfg, CONTROLLER_BATCH_PARITY, CONTROLLER_SEQ, 2,
+                       rank, "cuda")
+    model = lx.make_model(cfg, device="cuda")
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    opt = lx.make_optimizer("adamw", model)
+    loss_fn = lx.make_loss_fn(0)
+    for step in range(8):
+        float(lx.train_step(model, opt, ids, loss_fn))
+        if step == 1 and rank == 1:
+            fault.install_plan(fault.FaultPlan.from_json(
+                json.dumps(POSTMORTEM_PLAN), rank=1))
+    raise AssertionError("(35c): eight steps ran with rank 1 dead")
+
+
+def doctor_worker(out_path: str, mode: str) -> int:
+    """One rank of phase 35 (``horovodrun -np N ... chip_smoke.py
+    --doctor-worker OUT MODE``), sharing ``cuda:0``: ``live`` is
+    :func:`doctor_live`, ``postmortem`` :func:`doctor_postmortem`. Each
+    rank of a live job writes ``OUT.rank<r>.json``."""
+    import torch.distributed as dist
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common import basics
+
+    rank = _card_rank()
+    if rank is None:
+        return 2
+    ctl = basics.controller()
+    out = {"engine": type(ctl).__name__}
+    if mode == "live":
+        out.update(doctor_live(rank, ctl))
+    else:
+        doctor_postmortem(rank)
+    hvd.shutdown()
+    dist.destroy_process_group()
+    with open(f"{out_path}.rank{rank}.json", "w") as f:
+        json.dump(out, f)
+    log(f"rank {rank}: doctor worker ({mode}) ok")
+    return 0
+
+
+def run_tools_doctor(path: str):
+    """``python -m horovod_tpu_torch.tools.doctor PATH --format json``,
+    which must exit 0; returns its report and seconds."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("HOROVOD_", "OMPI_", "PMI_"))}
+    env["PYTHONPATH"] = here
+    t = time.perf_counter()
+    proc = run_child(
+        [sys.executable, "-m", "horovod_tpu_torch.tools.doctor", path,
+         "--format", "json"], 120, cwd=here, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    seconds = time.perf_counter() - t
+    report = json.loads(proc.stdout) if proc.returncode != 2 else None
+    if proc.returncode != 0:
+        raise AssertionError(f"tools.doctor {path} exited "
+                             f"{proc.returncode}: {proc.stdout[-2000:]}"
+                             f"{proc.stderr[-2000:]}")
+    return report, seconds
+
+
+def last_arrivals_by_kind(trace_dir: str) -> dict:
+    """The offline attribution's straggler cycles of each rank, split by
+    the kind of collective (``broadcast``: the parameter broadcast,
+    ``doctor``: the script's own, ``gradients``: the rest), from the
+    job's merged trace."""
+    from horovod_tpu_torch.trace import straggler, tracer
+
+    with open(os.path.join(trace_dir, tracer.MERGED_TRACE_FILE)) as f:
+        events = json.load(f)
+    kinds = {}
+    for ev in events:
+        op = ev.get("args", {}).get("op")
+        if ev.get("name") == "negotiate" and op:
+            kind = op.split(".", 1)[0]
+            if kind not in ("broadcast", "doctor"):
+                kind = "gradients"
+            kinds.setdefault(kind, []).append(ev)
+    return {kind: {r: v["straggler_cycles"] for r, v in straggler.attribute(
+        evs, feed=False)["per_rank"].items()}
+        for kind, evs in sorted(kinds.items())}
+
+
+def run_doctor_phase(card: str):
+    """Phase 35 (a) and (c), whose jobs run at once (five processes on
+    the card: (c)'s result does not depend on timing, and it keeps the
+    phase short; (c)'s dump is read while (a) runs); (b) rides 33 (b)
+    and (d) 16 and 18."""
+    import tempfile
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_doctor_")
+    try:
+        pm_dir = os.path.join(out_dir, "postmortem")
+        live_dir = os.path.join(out_dir, "live")
+        os.makedirs(pm_dir)
+        os.makedirs(live_dir)
+        postmortem = start_job(
+            "postmortem", {"HOROVOD_ENGINE": "python",
+                           "HOROVOD_CPU_OPS": "star",
+                           "HOROVOD_FLIGHT_RECORDER":
+                               os.path.join(pm_dir, "fr.{rank}.jsonl")},
+            pm_dir, False, worker="--doctor-worker")
+        # The response cache off: a cached step bypasses negotiation and
+        # leaves no negotiate span, so with it on the offline attribution
+        # would see the first step's gradients only.
+        live = start_job(
+            "live", {"HOROVOD_ENGINE": "python",
+                     "HOROVOD_CACHE_CAPACITY": "0",
+                     "HOROVOD_TRACE_DIR": os.path.join(live_dir, "trace"),
+                     "HOROVOD_FAULT_PLAN": json.dumps(DOCTOR_PLAN),
+                     **doctor_env(os.path.join(live_dir, "fr.{rank}.jsonl"))},
+            live_dir, False, ranks=DOCTOR_RANKS, worker="--doctor-worker")
+        c = doctor_postmortem_job(postmortem, pm_dir, card)
+        return {"a": doctor_live_job(live, live_dir, card), "c": c}
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def doctor_live_job(job, live_dir: str, card: str) -> dict:
+    """35 (a): waits for ``job``, three ranks of :func:`doctor_live`
+    under the delay plan, then runs ``tools.doctor`` over their trace
+    directory, whose every ``persistent_straggler`` finding must name
+    rank 1, the straggler report's worst rank."""
+    from horovod_tpu_torch.ops import attention as A
+
+    trace_dir = os.path.join(live_dir, "trace")
+    code, a_s = finish_job(job)
+    recs = job_records(job, code)
+    r0 = recs[0]
+    found = r0["found"]["finding"]
+    if found["evidence"]["source"] != "tick_lateness" or \
+            found["evidence"]["tick_lateness_p99_seconds"] < 0.03:
+        raise AssertionError(f"(35a): live finding {json.dumps(found)}")
+    if not r0["named_lines"]:
+        raise AssertionError(f"(35a): no periodic doctor line names "
+                             f"rank 1: {r0['doctor_lines']}")
+    series = [ln for ln in r0["found"]["series"]
+              if 'rule="persistent_straggler"' in ln]
+    if not series or float(series[0].rsplit(" ", 1)[1]) < 1:
+        raise AssertionError(f"(35a): /metrics doctor series "
+                             f"{r0['found']['series']}")
+    if not r0["windowed"] or r0["windows_ingested"] < 1 or \
+            r0["remote_ranks"] != list(range(1, DOCTOR_RANKS)):
+        raise AssertionError(
+            f"(35a): windowed view {r0['windowed']}, windows ingested "
+            f"{r0['windows_ingested']}, piggybacked ranks "
+            f"{r0['remote_ranks']}")
+    for r, rec in enumerate(recs):
+        if rec["engine"] != "Controller" or \
+                min(rec["launches"][n] for n in A.LAUNCHES) <= 0:
+            raise AssertionError(f"(35a) rank {r}: engine "
+                                 f"{rec['engine']}, flash launches "
+                                 f"{rec['launches']}")
+    offline, cli_s = run_tools_doctor(trace_dir)
+    with open(os.path.join(trace_dir, "straggler_report.json")) as f:
+        report = json.load(f)
+    cycles = {r: v["straggler_cycles"]
+              for r, v in report["per_rank"].items()}
+    by_kind = last_arrivals_by_kind(trace_dir)
+    hits = [f for f in offline["findings"]
+            if f["rule"] == "persistent_straggler"]
+    # As tests/test_torch_doctor_mp.py holds the CPU job: rank 1 and no
+    # other rank.
+    if not hits or any(f["rank"] != 1 for f in hits) or \
+            report["worst_rank"] != 1:
+        raise AssertionError(
+            f"(35a): tools.doctor over the trace: {json.dumps(hits)}; "
+            f"straggler cycles {cycles} of {report['collectives']}, by "
+            f"kind {json.dumps(by_kind)}")
+    share_ms = r0["delay_share_ms"]
+    a = {"step_ms": r0["step_ms"], "tokens_per_s": r0["tokens_per_s"],
+         "cycles_per_step": r0["cycles_per_step"],
+         "delay_share_ms": share_ms,
+         "first_finding": r0["found"], "sweep_s": r0["sweep_s"],
+         "doctor_line_count": r0["doctor_line_count"],
+         "doctor_lines_naming_rank1": r0["named_lines"],
+         "windows_ingested": r0["windows_ingested"],
+         "windowed_bytes": r0["windowed_bytes"],
+         "offline": {"findings": offline["findings"],
+                     "ranks_observed": offline["ranks_observed"],
+                     "collectives": report["collectives"],
+                     "straggler_cycles": cycles, "by_kind": by_kind,
+                     "seconds": cli_s},
+         "live_report_counts": r0["report"]["counts"],
+         "job_s": a_s, "launches": [rec["launches"] for rec in recs]}
+    log(f"doctor (35a): llama300m bf16 ({LAYERS} layers) seq {DOCTOR_SEQ} "
+        f"b{DOCTOR_BATCH} a rank, AdamW, dp {DOCTOR_RANKS} on the Python "
+        f"controller over the ring, rank 1 {DOCTOR_DELAY_S * 1e3:.0f} ms "
+        f"late at every send: first live persistent_straggler (rank 1, "
+        f"{found['severity']}, tick lateness p99 "
+        f"{found['evidence']['tick_lateness_p99_seconds']:.4f} s over "
+        f"{found['evidence']['cycles']} cycles) at controller cycle "
+        f"{r0['found']['cycles']}, {r0['found']['seconds']:.1f} s after "
+        f"rank 0's init; {DOCTOR_ITERS} timed steps after a warm-up: step "
+        f"{r0['step_ms']:.1f} ms ({r0['tokens_per_s']:.1f} tokens/s) over "
+        f"{r0['cycles_per_step']:.1f} cycles, the delay's share (rank 0's "
+        f"wait for rank 1's late ticks) {share_ms:.1f} ms a step, "
+        f"{r0['step_ms'] - share_ms:.1f} ms without it; one live sweep "
+        f"(doctor.report) {r0['sweep_s'] * 1e3:.1f} ms, its counts "
+        f"{json.dumps(r0['report']['counts'])}; "
+        f"{r0['doctor_line_count']} periodic lines "
+        f"({r0['named_lines']} naming rank 1), the last: "
+        f"{r0['doctor_lines'][-1][:240]!r}; "
+        f"{r0['windows_ingested']} windows ingested, windowed /metrics "
+        f"{r0['windowed_bytes']} B; tools.doctor over the trace "
+        f"{cli_s:.1f} s: {json.dumps(hits)}; last arrivals by rank "
+        f"{json.dumps(cycles)} of {report['collectives']} collectives, by "
+        f"kind {json.dumps(by_kind)}; flash launches "
+        f"{json.dumps(a['launches'])}; job {a_s:.1f} s [{card}]")
+    return a
+
+
+def doctor_postmortem_job(job, pm_dir: str, card: str) -> dict:
+    """35 (c): waits for ``job``, two ranks of :func:`doctor_postmortem`
+    under the flight recorder, which must exit non-zero; rank 0's dump
+    read back and by ``tools.doctor``."""
+    code, _ = finish_job(job)
+    if code == 0:
+        raise AssertionError("(35c): the job exited 0; rank 1's death "
+                             "must fail it")
+    dump = os.path.join(pm_dir, "fr.0.jsonl")
+    if not os.path.exists(dump):
+        raise AssertionError(f"(35c): no rank-0 postmortem in "
+                             f"{sorted(os.listdir(pm_dir))}")
+    with open(dump) as f:
+        events = [json.loads(line) for line in f]
+    aborts = [e for e in events if e["kind"] == "abort"]
+    if not aborts or aborts[0]["dead_rank"] != 1 or not any(
+            e["kind"] == "fail_all" for e in events):
+        raise AssertionError(f"(35c): postmortem {events}")
+    pm_report, pm_cli_s = run_tools_doctor(pm_dir)
+    if 0 not in pm_report["ranks_observed"]:
+        raise AssertionError(f"(35c): tools.doctor {pm_report}")
+    c = {"exit_code": code, "dump_bytes":
+         os.path.getsize(dump), "events": len(events) - 1,
+         "kinds": sorted({e["kind"] for e in events}),
+         "abort": aborts[0], "tools_doctor": pm_report,
+         "tools_doctor_s": pm_cli_s}
+    log(f"doctor (35c): llama300m f32 ({PARITY_LAYERS} layers) dp 2, "
+        f"rank 1 killed at its first send after step 2, run beside (a): "
+        f"job exit {code} (expected non-zero); rank 0's "
+        f"postmortem {c['dump_bytes']} B, {c['events']} events of "
+        f"kinds {c['kinds']}, abort {json.dumps(aborts[0])}; "
+        f"tools.doctor exit 0 in {pm_cli_s:.1f} s, ranks observed "
+        f"{pm_report['ranks_observed']}, findings "
+        f"{json.dumps(pm_report['findings'])} [{card}]")
+    return c
 
 
 def compare_planes(rounds: int) -> int:
@@ -4809,7 +5340,8 @@ def main() -> int:
 
     # The second lane: jobs of their own (two to four processes on the
     # card, most of their time on the host), beside phases 3-23 of this
-    # one, after the kernels' timings above. Joined before phase 24.
+    # one, after the kernels' timings above. Joined before phase 32's
+    # replay, as is the third.
     lane = Lane([("32 elastic membership job (horovodrun --elastic)",
                   run_elastic_job),
                  ("30 controller (two ranks, horovodrun)",
@@ -4818,6 +5350,9 @@ def main() -> int:
                   run_two_level_phase),
                  ("33 (b)-(c) tuned parity and overlap probe",
                   run_tune_checks, card)])
+    # A third lane, one job: 31 (d)'s checks do not depend on timing.
+    int8_lane = Lane([("31 (d) int8 wire (horovodrun)", run_int8_phase,
+                       card)], "third lane")
 
     phase("7 collectives", run_collectives)
 
@@ -4876,9 +5411,12 @@ def main() -> int:
            "bert_parity": phase("12 bert parity", run_bert_parity)}
     bert = phase("13 bert example", run_bert_timed, card)
     torch.cuda.empty_cache()
+    # Host-only (static analysis): it fills this lane's wait for the other.
+    gates = phase("34 static gates (tools.check)", run_static_gates, card)
     t = time.perf_counter()
-    second = lane.join()
-    log(f"second lane joined after {time.perf_counter() - t:.1f} s")
+    second = {**lane.join(), **int8_lane.join()}
+    log(f"second and third lanes joined after "
+        f"{time.perf_counter() - t:.1f} s")
     controller = second["30 controller (two ranks, horovodrun)"]
     elastic = phase("32 elastic replay", run_elastic_phase,
                     second["32 elastic membership job (horovodrun --elastic)"],
@@ -4888,13 +5426,15 @@ def main() -> int:
     resume = phase("29 checkpoint resume", run_checkpoint_resume, card)
     hvd.shutdown()
     ring = phase("31 native data plane (horovodrun)", run_ring_phase, card)
+    ring["int8"] = second["31 (d) int8 wire (horovodrun)"]
     ring["hierarchical"] = second[
         "31 (e) two-level plane (four ranks, horovodrun)"]
     tune = {"a": phase("33 (a) tuning and tracing (horovodrun --trace, "
                        "autotune)", run_tune_phase, card,
                        ring["native"]["c"]["tokens_per_s"]),
             **second["33 (b)-(c) tuned parity and overlap probe"]}
-    gates = phase("34 static gates (tools.check)", run_static_gates, card)
+    doctor = phase("35 cluster doctor (horovodrun -np 3 under a delay, "
+                   "a postmortem)", run_doctor_phase, card)
 
     # The two ranks' counts of each parallel path, summed.
     by_rank = parallel["counts_by_rank"]
@@ -4928,6 +5468,9 @@ def main() -> int:
                             for n in flash_names},
                    "llama300m tuned and traced training, both ranks (33)": {
                        n: sum(r[n] for r in tune["a"]["launches"])
+                       for n in flash_names},
+                   "llama300m training under the doctor, three ranks (35)": {
+                       n: sum(r[n] for r in doctor["a"]["launches"])
                        for n in flash_names}}
     forward_only = {f"long context ring {layout} (24)": both(
         "24 sp timed", f"long_context_{layout}", "flash_forward")
@@ -5008,6 +5551,7 @@ def main() -> int:
     log(f"elastic: {json.dumps(elastic)}")
     log(f"tuning and tracing: {json.dumps(tune)}")
     log(f"static gates: {json.dumps(gates)}")
+    log(f"cluster doctor: {json.dumps(doctor)}")
     log(f"ring kernels: {json.dumps({f'{k[0]} {k[1]}': v for k, v in ring_flash.items()})}")
     log(f"wall time: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
@@ -5036,4 +5580,6 @@ if __name__ == "__main__":
         sys.exit(controller_worker(sys.argv[2], sys.argv[3]))
     if len(sys.argv) == 4 and sys.argv[1] == "--tune-worker":
         sys.exit(tune_worker(sys.argv[2], sys.argv[3]))
+    if len(sys.argv) == 4 and sys.argv[1] == "--doctor-worker":
+        sys.exit(doctor_worker(sys.argv[2], sys.argv[3]))
     sys.exit(run_main())

@@ -16,7 +16,8 @@ the kernels in ``csrc/flash_attention.cu``
 (``examples/llama_training.py``). The eager tier's tuning and tracing
 loop adds ``BucketScheduler``, ``partition_buckets`` and
 ``plan_from_compiled`` here, and ``trace`` carries the JAX package's
-whole tracing surface.
+whole tracing surface. ``doctor`` is the cluster doctor (``report``,
+``summary``, the rule catalog) over the metrics plane and the traces.
 
 Entry points take ``device=None``, which means ``cuda``: without a card
 they raise unless the caller asks for ``device="cpu"`` explicitly.
@@ -51,6 +52,7 @@ def default_device(device: DeviceLike = None) -> _torch.device:
 from .torch import *  # noqa: E402,F401,F403
 from . import elastic  # noqa: E402,F401
 from . import serving  # noqa: E402,F401
+from . import doctor  # noqa: E402,F401  (hvd.doctor.report() / rule catalog)
 from . import trace  # noqa: E402,F401
 from .controller.bucket_scheduler import (  # noqa: E402,F401
     BucketScheduler,

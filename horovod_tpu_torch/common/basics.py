@@ -60,6 +60,7 @@ import torch.distributed as dist
 
 from .. import DeviceLike
 from .. import fault
+from .. import metrics
 from . import config
 from . import hvd_logging as logging
 from . import retry
@@ -78,14 +79,23 @@ class _State:
         self.owns_group = owns_group
         self.controller = None
         self.timeline = None
+        self.metrics_exporter = None  # the per-rank Prometheus endpoint
 
     def close(self) -> None:
         if self.controller is not None:
+            if getattr(self.controller, "_failure", None) is not None:
+                # Unclean shutdown: the job died but nothing dumped yet
+                # (or the dump is stale): rewrite the postmortem with the
+                # full ring as of teardown.
+                metrics.dump_flight_recorder("unclean_shutdown")
             self.controller.shutdown()
             self.controller = None
         if self.timeline is not None:
             self.timeline.close()
             self.timeline = None
+        if self.metrics_exporter is not None:
+            self.metrics_exporter.close()
+            self.metrics_exporter = None
         if self.owns_group and dist.is_initialized():
             dist.destroy_process_group()
 
@@ -183,6 +193,13 @@ def init(ranks: Optional[Sequence[int]] = None,
                 seed)
             owns_group = True
         state = _State(topology, dev, owns_group)
+        if metrics.on():
+            metrics.record_event("init", size=topology.size,
+                                 restart_epoch=config.restart_epoch())
+            # Scrape endpoint at HOROVOD_METRICS_PORT + rank (None when
+            # the port knob is unset; snapshot() works without it).
+            state.metrics_exporter = metrics.maybe_start_exporter(
+                topology.rank)
         engine = config.selected_engine()
         if elastic and engine == "native":
             logging.warning(

@@ -64,6 +64,18 @@ def env_rank() -> Optional[int]:
         return None
 
 
+def env_size() -> Optional[int]:
+    """``HOROVOD_SIZE`` as Optional[int]; unset/empty/garbage -> None
+    (the :func:`env_rank` convention)."""
+    val = os.environ.get("HOROVOD_SIZE")
+    if val is None or not val.strip():
+        return None
+    try:
+        return int(val)
+    except ValueError:
+        return None
+
+
 def env_str(name: str, default: Optional[str] = None) -> Optional[str]:
     """Raw environment string, unset -> ``default``."""
     val = os.environ.get(name)
@@ -145,10 +157,58 @@ def router_retries() -> int:
 
 def metrics_enabled() -> bool:
     """The switch ``metrics.on()`` reads: ``HOROVOD_METRICS`` by the
-    repo's boolean convention ("0"/"false"/"no"/"off"/"" are off), or a
-    positive ``HOROVOD_METRICS_PORT``."""
+    repo's boolean convention ("0"/"false"/"no"/"off"/"" are off), a
+    positive ``HOROVOD_METRICS_PORT`` (a non-positive port means no
+    endpoint, hence no implicit enable either), or a flight-recorder
+    path."""
     return (_env_bool("HOROVOD_METRICS")
-            or _env_int("HOROVOD_METRICS_PORT", 0) > 0)
+            or _env_int("HOROVOD_METRICS_PORT", 0) > 0
+            or flight_recorder_path() is not None)
+
+
+def flight_recorder_path() -> Optional[str]:
+    """``HOROVOD_FLIGHT_RECORDER``: crash-postmortem JSONL path (with
+    ``{rank}``/``.rankN`` expansion applied by the recorder). None/blank
+    disables; setting it turns telemetry on."""
+    val = (os.environ.get("HOROVOD_FLIGHT_RECORDER") or "").strip()
+    return val or None
+
+
+def doctor_cycles() -> int:
+    """``HOROVOD_DOCTOR_CYCLES``: coordinator cycles between periodic
+    cluster-doctor sweeps (the rank-0 log line + ``hvd_doctor_*``
+    series). 0/negative disables the periodic sweep (the ``/doctor``
+    endpoint and the offline CLI still work). Default 1000, ~5 s at the
+    default 5 ms cycle time."""
+    return max(0, _env_int("HOROVOD_DOCTOR_CYCLES", 1000))
+
+
+def metrics_window_seconds() -> float:
+    """``HOROVOD_METRICS_WINDOW_SECONDS``: how long one rolling telemetry
+    window lasts. The rank-0 window roller delta-snapshots the cluster
+    view at this cadence into a bounded ring (the last 32 windows),
+    feeding the windowed doctor rules and the live calibration re-fit.
+    Garbage/non-positive falls back to the default 30 s."""
+    val = _env_float("HOROVOD_METRICS_WINDOW_SECONDS", 30.0)
+    return val if val > 0 else 30.0
+
+
+def capacity_refit_windows() -> int:
+    """``HOROVOD_CAPACITY_REFIT_WINDOWS``: telemetry windows between
+    live-calibration re-fits; every N completed windows rank 0 re-fits
+    the control-plane curves from the windowed histograms and, with
+    ``HOROVOD_CAPACITY_LIVE_DIR`` set, rewrites ``capacity_live.json``.
+    Minimum/garbage clamps to 1; default 8."""
+    return max(1, _env_int("HOROVOD_CAPACITY_REFIT_WINDOWS", 8))
+
+
+def capacity_live_dir() -> Optional[str]:
+    """``HOROVOD_CAPACITY_LIVE_DIR``: where rank 0 persists
+    ``capacity_live.json`` (the committed calibration's schema, stamped
+    ``"source": "live"``) every ``HOROVOD_CAPACITY_REFIT_WINDOWS``-th
+    window and at shutdown. Unset: the live re-fit stays in memory."""
+    val = env_str("HOROVOD_CAPACITY_LIVE_DIR")
+    return val.strip() if val and val.strip() else None
 
 
 def trace_dir() -> Optional[str]:

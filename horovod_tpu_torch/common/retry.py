@@ -71,6 +71,9 @@ def retry_call(fn: Callable[[], Any], *, attempts: int = 3,
             last = exc
             if metrics.on():
                 _retry_metrics().failures.inc()
+                metrics.record_event("retry", what=describe, attempt=attempt,
+                                     attempts=attempts,
+                                     error=str(exc)[:200])
             if attempt == attempts:
                 break
             delay = min(backoff_max, backoff * (2.0 ** (attempt - 1)))
@@ -85,4 +88,6 @@ def retry_call(fn: Callable[[], Any], *, attempts: int = 3,
                 sleep(delay)
     if metrics.on():
         _retry_metrics().giveups.inc()
+        metrics.record_event("retry_giveup", what=describe,
+                             attempts=attempts, error=str(last)[:200])
     raise RetryError(describe, attempts, last) from last

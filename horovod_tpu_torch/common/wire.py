@@ -372,6 +372,9 @@ class Wire:
                 if deadline and stalled >= self.SEND_STALL_FACTOR * deadline:
                     if metrics.on():
                         _wire_metrics().trip_send.inc()
+                        metrics.record_event(
+                            "deadline_trip", side="send",
+                            stalled_seconds=round(stalled, 3))
                     raise CommTimeoutError(
                         f"peer stopped draining its socket for {stalled:.0f}s "
                         f"({self.SEND_STALL_FACTOR}x the "
@@ -594,6 +597,8 @@ class Wire:
                          or self._sock.gettimeout())
                 if metrics.on():
                     _wire_metrics().trip_recv.inc()
+                    metrics.record_event("deadline_trip", side="recv",
+                                         bound_seconds=bound)
                 raise CommTimeoutError(
                     f"no frame within {bound}s "
                     "(HOROVOD_COMM_TIMEOUT_SECONDS or the rendezvous "

@@ -136,12 +136,56 @@ def make_parameter_manager(config: Config,
     )
 
 
+def reseed_from_live(pm: ParameterManager, world_size) -> "dict | None":
+    """One-time GP re-seed from the LIVE capacity curves: when the
+    doctor's ``calibration_drift`` rule confirms the committed
+    calibration no longer describes this job, the in-job re-fit's curves
+    replace it as the warm-start — the next scored
+    configuration samples the re-seeded bucket/ring-chunk point, feeding
+    the Gaussian process a fresh anchor where the LIVE cost model says
+    the optimum moved.
+
+    Returns the knobs actually moved (``{knob: bytes}``) or None when
+    nothing applied: search already pinned/complete, no live re-fit yet,
+    or every candidate knob env-fixed. Same precedence as the committed
+    priors: an explicit env pin always wins."""
+    if pm is None or not pm.tunable:
+        return None
+    from ..utils import live_calibration
+    from ..utils.scaling_model import (control_plane_from_artifact,
+                                       recommend_autotune_seeds)
+
+    live = live_calibration.get()
+    if live is None:
+        return None
+    artifact = live.refit()
+    if not artifact or not artifact.get("control_plane"):
+        return None
+    try:
+        cal = control_plane_from_artifact(artifact)
+    except (KeyError, TypeError, ValueError):
+        return None
+    seeds = recommend_autotune_seeds(cal, max(1, int(world_size or 1)))
+    state = pm.state()
+    applied = {}
+    if (state.get("bucket_bytes") is not None
+            and "bucket_bytes" not in pm.fixed):
+        pm.bucket_bytes = int(seeds["bucket_bytes"])
+        applied["bucket_bytes"] = pm.bucket_bytes
+    if (state.get("ring_chunk_bytes") is not None
+            and "ring_chunk" not in pm.fixed):
+        pm.ring_chunk_bytes = int(seeds["ring_chunk_bytes"])
+        applied["ring_chunk_bytes"] = pm.ring_chunk_bytes
+    return applied or None
+
+
 _m = None
 
 
 def _autotune_metrics():
-    """Lazy registration (never at import time). One gauge per scalar of tuner state plus a component-labeled objective
-    gauge; all live on the coordinator only (the tuner runs on rank 0)."""
+    """Lazy registration (never at import time). One gauge per scalar of
+    tuner state plus a component-labeled objective gauge; all live on
+    the coordinator only (the tuner runs on rank 0)."""
     global _m
     if _m is None:
         from types import SimpleNamespace

@@ -71,7 +71,15 @@ rank 0 pings the workers' clocks on the heartbeat frames, and at shutdown
 the workers ship their span files to rank 0, which merges them and
 writes the straggler report.
 
-Not ported: the cluster doctor.
+The cluster doctor, as in the JAX package: with telemetry on, workers
+piggyback their registry snapshot on every ``HOROVOD_METRICS_PUSH_CYCLES``-th
+tick and rank 0 ingests them (the cluster view behind ``/metrics`` and
+``/doctor``); rank 0 rolls the view into delta windows
+(``HOROVOD_METRICS_WINDOW_SECONDS``) that feed the live calibration, and
+every ``HOROVOD_DOCTOR_CYCLES`` cycles runs a doctor sweep on a daemon
+thread (one log line, the ``hvd_doctor_*`` series). The flight recorder
+keeps sampled enqueues and executions, aborts, stalls and reshapes, and
+``_fail_all`` dumps it.
 """
 
 from __future__ import annotations
@@ -377,6 +385,21 @@ class Controller:
         self._param_manager = None
         self._pending_tune = None
         self._autotune_steps_pub: Optional[int] = None
+        # Telemetry piggyback: workers attach a registry snapshot to every
+        # Nth tick so rank 0's endpoint shows the whole job (the period is
+        # read once: re-reading the env a cycle would be a hot-path cost).
+        self._metrics_push_cycles = metrics.push_cycles()
+        self._cycles_since_push = 0
+        # The periodic rank-0 doctor sweep: one log line + hvd_doctor_*
+        # series every N cycles; 0 disables.
+        self._doctor_cycles = (config_mod.doctor_cycles()
+                               if topology.rank == 0 else 0)
+        self._doctor_thread: Optional[threading.Thread] = None
+        # One-shot latch for the calibration_drift -> autotune re-seed
+        # (HOROVOD_AUTOTUNE_PRIORS=capacity): the GP is re-seeded from the
+        # live curves at most once a job. Written and read only on the
+        # doctor-sweep thread (sweeps never stack).
+        self._live_reseed_done = False
         if config.autotune and topology.rank == 0:
             from .autotune_glue import make_parameter_manager
 
@@ -428,6 +451,16 @@ class Controller:
             em = _elastic_metrics()
             em.epoch.set(self._epoch)
             em.size.set(self.topo.size)
+            if self.topo.rank == 0:
+                # Rank 0's live-calibration plane: the window roller
+                # delta-snapshots the cluster view every
+                # HOROVOD_METRICS_WINDOW_SECONDS, and each completed
+                # window feeds the in-job capacity re-fit, so the doctor's
+                # calibration_drift rule judges live slopes.
+                from ..utils import live_calibration
+
+                roller = metrics.start_window_roller()
+                roller.add_observer(live_calibration.on_window)
 
         # Cluster tracing: a clock-anchored span writer per rank, the
         # coordinator's sequence id per fused op on the reply, and (rank
@@ -437,6 +470,7 @@ class Controller:
         self._clock = None
         self._cycle_index = 0
         self._trace_seq = 0
+        self._trace_last_seq: Optional[int] = None  # last executed here
         if self._trace_enabled:
             from ..trace import ClockSync, TraceWriter, rank_trace_path
 
@@ -547,6 +581,8 @@ class Controller:
             m = _ctl_metrics()
             m.ops.labels(kind, dtype).inc()
             m.op_bytes.labels(kind, dtype).inc(_nbytes(tensor))
+            metrics.record_sampled_event("enqueue", op=kind, name=name,
+                                         nbytes=int(_nbytes(tensor)))
         handle = self.handles.allocate()
         entry = _Pending(name, tensor, req, handle, average, target)
         with self._lock:
@@ -699,6 +735,23 @@ class Controller:
                             self.cfg.trace_dir, OFFSETS_FILE))
                 except OSError as exc:
                     logging.error("trace: salvage failed: %s", exc)
+            if self.topo.rank == 0 and metrics.on():
+                # Flush the live-calibration plane before the telemetry
+                # stack goes away: close the tail window (a job shorter
+                # than one interval still yields a re-fit), persist
+                # capacity_live.json when HOROVOD_CAPACITY_LIVE_DIR is
+                # set, and stop the roller thread. Best effort: the
+                # teardown below must run regardless.
+                try:
+                    from ..utils import live_calibration
+
+                    roller = metrics.window_roller()
+                    if roller is not None:
+                        roller.roll_now()
+                    live_calibration.persist_on_shutdown()
+                except Exception:
+                    pass
+                metrics.stop_window_roller()
             self._close_rings()
             if self._service:
                 self._service.close()
@@ -726,16 +779,26 @@ class Controller:
             msg = (f"Horovod controller failed: rank {exc.rank} died or "
                    f"became unreachable ({exc.cause}); in-flight ops: "
                    f"{inflight}")
+            metrics.record_event("abort", dead_rank=exc.rank,
+                                 cause=str(exc.cause)[:300],
+                                 inflight=inflight,
+                                 last_seq=self._trace_last_seq)
             if self._service is not None:
                 self._service.send_abort_all(
                     msg, dead_rank=exc.rank,
                     op=None if inflight == "none" else inflight)
             return RuntimeError(msg)
         if isinstance(exc, RemoteAbortError):
+            metrics.record_event("remote_abort", dead_rank=exc.dead_rank,
+                                 op=exc.op, message=str(exc)[:300],
+                                 last_seq=self._trace_last_seq)
             return RuntimeError(f"Horovod controller failed: job aborted by "
                                 f"coordinator: {exc}")
         if self._client is not None and isinstance(exc, (ConnectionError,
                                                          OSError)):
+            metrics.record_event("coordinator_lost", error=str(exc)[:300],
+                                 inflight=inflight,
+                                 last_seq=self._trace_last_seq)
             return RuntimeError(
                 f"Horovod controller failed: lost contact with the "
                 f"coordinator (rank 0): {exc}; in-flight ops: {inflight}")
@@ -813,6 +876,13 @@ class Controller:
             t_coord = time.monotonic()
             reply = self._coordinate(tick)
         else:
+            if mon:
+                self._cycles_since_push += 1
+                if self._cycles_since_push >= self._metrics_push_cycles:
+                    # A cumulative snapshot, not a delta: idempotent, so a
+                    # push lost to a dropped frame heals on the next one.
+                    self._cycles_since_push = 0
+                    tick["metrics"] = metrics.snapshot()
             self._client.send(tick)
             self._stamp_sent(tick)
             reply = self._client.recv()
@@ -826,6 +896,9 @@ class Controller:
         nbytes = self._process_reply(reply)
         if self._param_manager is not None:
             self._tune(nbytes, time.monotonic() - t_coord, mon)
+        if (self._doctor_cycles and mon
+                and self._cycle_index % self._doctor_cycles == 0):
+            self._doctor_sweep()
         if mon:
             _ctl_metrics().cycle.observe(time.monotonic() - t_start)
 
@@ -886,6 +959,12 @@ class Controller:
                         str(rank)).observe(lateness)
             self._cycle_slack = slack
             self._cycle_excess_wait = excess
+
+        if metrics.on():
+            for rank in range(1, size):
+                snap = ticks[rank].get("metrics")
+                if snap:
+                    metrics.ingest_remote(rank, snap)
 
         rank_order_ticks = [t for _, t in sorted(ticks.items())]
         shutdown = any(t["requests"].shutdown for t in rank_order_ticks)
@@ -1030,14 +1109,74 @@ class Controller:
                     self._stall_warned[name] = now
                     if metrics.on():
                         _ctl_metrics().stalls.inc()
+                        metrics.record_event(
+                            "stall", op=name, age_seconds=round(age, 3),
+                            missing_ranks=missing)
                 if (self.cfg.stall_shutdown_seconds > 0
                         and age > self.cfg.stall_shutdown_seconds):
                     logging.error(
                         "Stall duration exceeded "
                         "HOROVOD_STALL_SHUTDOWN_TIME_SECONDS: aborting job "
                         "(stalled op: %s)", name)
+                    metrics.record_event("stall_shutdown", op=name,
+                                         age_seconds=round(age, 3))
                     with self._lock:
                         self._shutdown_requested = True
+
+    def _doctor_sweep(self) -> None:
+        """Periodic rank-0 doctor pass: diagnose the live evidence (local
+        + piggybacked remote snapshots), refresh the hvd_doctor_* series
+        and emit one log line. Runs on a daemon thread: every worker
+        sits at the cycle barrier while the coordinator is in _cycle, and
+        an inline sweep would distort the very cycle-time and recv-wait
+        series it diagnoses. A sweep still running when the next one is
+        due is skipped, not stacked. Telemetry must never fail the job it
+        observes: any doctor error is swallowed to a debug line."""
+        if self._doctor_thread is not None and self._doctor_thread.is_alive():
+            return
+
+        def sweep() -> None:
+            try:
+                from .. import doctor
+
+                rep = doctor.report()
+                # Warning+ findings go to WARNING (the default log level
+                # filters info, and an actionable diagnosis must not be
+                # dropped); info-only findings stay at info.
+                actionable = (rep["counts"]["critical"]
+                              + rep["counts"]["warning"]) > 0
+                log = logging.warning if actionable else logging.info
+                log("doctor: %s", doctor.periodic_line(rep=rep))
+                self._maybe_reseed_from_drift(rep)
+            except Exception as exc:
+                logging.debug("doctor sweep failed: %s", exc)
+
+        self._doctor_thread = threading.Thread(
+            target=sweep, name="hvd-doctor", daemon=True)
+        self._doctor_thread.start()
+
+    def _maybe_reseed_from_drift(self, rep: dict) -> None:
+        """Close the loop on a confirmed ``calibration_drift`` finding:
+        with HOROVOD_AUTOTUNE_PRIORS=capacity and the search still
+        exploring, re-seed the GP once a job from the live re-fit's
+        curves (autotune_glue.reseed_from_live). Runs on the doctor-sweep
+        thread (never stacked), so the latch needs no lock."""
+        if self._live_reseed_done or self._param_manager is None:
+            return
+        if config_mod.autotune_priors() != "capacity":
+            return
+        if not any(f.get("rule") == "calibration_drift"
+                   for f in rep.get("findings", [])):
+            return
+        from .autotune_glue import reseed_from_live
+
+        self._live_reseed_done = True
+        applied = reseed_from_live(self._param_manager, self.topo.size)
+        if applied:
+            logging.warning(
+                "calibration drift confirmed: autotune search re-seeded "
+                "from the live capacity curves (%s)",
+                ", ".join(f"{k}={v}" for k, v in sorted(applied.items())))
 
     # ----------------------------------------------------------- both sides
 
@@ -1180,7 +1319,16 @@ class Controller:
             if not entry.handle.done():
                 entry.handle.set_error(exc)
         if not isinstance(exc, ShutdownError) and metrics.on():
+            # The postmortem: the recorder's tail now holds the abort
+            # diagnosis (dead rank, in-flight ops) this exc carries.
+            # last_seq is the newest collective sequence id this rank
+            # executed, the merged trace's args.seq where it picks up.
             _ctl_metrics().aborts.inc()
+            metrics.record_event("fail_all", error=str(exc)[:500],
+                                 pending=len(entries),
+                                 inflight=[e.name for e in entries[:16]],
+                                 last_seq=self._trace_last_seq)
+            metrics.dump_flight_recorder("fail_all")
 
     # ------------------------------------------------------ elastic reshape
 
@@ -1289,6 +1437,10 @@ class Controller:
             if res.joined:
                 em.transitions.labels("grow").inc()
             em.reshape_seconds.observe(took)
+            metrics.record_event(
+                "reshape", epoch=res.epoch, size=res.size,
+                lost=list(res.lost), joined=res.joined,
+                seconds=round(took, 4))
 
     def _apply_reshape(self, exc: RanksChangedError) -> None:
         """Worker: adopt the RESHAPE assignment, drain the dead epoch, and
@@ -1305,6 +1457,8 @@ class Controller:
             em = _elastic_metrics()
             em.epoch.set(exc.epoch)
             em.size.set(exc.size)
+            metrics.record_event("reshape", epoch=exc.epoch,
+                                 rank=exc.rank, size=exc.size)
 
     # ------------------------------------------------------------ data plane
 
@@ -1323,6 +1477,8 @@ class Controller:
         with self._lock:
             entries = [self._table[n] for n in names]
         tname = names[0] if len(names) == 1 else f"fused[{len(names)}]"
+        if seq is not None:
+            self._trace_last_seq = seq
         if self._tracer is not None:
             # Per-tensor spans, now that the op's seq is known: enqueue =
             # the user call to the request's departure; negotiate = the
@@ -1374,6 +1530,11 @@ class Controller:
             m = _ctl_metrics()
             m.tensors.inc(len(entries))
             m.fused_bytes.inc(nbytes)
+            # seq-stamped, so a postmortem line is addressable in the
+            # merged trace (args.seq).
+            metrics.record_sampled_event(
+                "execute", seq=seq, op=response.response_type.name.lower(),
+                tensors=len(entries), nbytes=nbytes)
         return nbytes
 
     def _spans(self, op: str, t_fuse: Optional[float], t_exec: float,

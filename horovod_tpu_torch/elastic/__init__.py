@@ -641,6 +641,9 @@ class State:
                                            "digests": meta["digests"]}}
         if mon:
             _elastic_metrics().restore_bytes.labels("local").inc(local_bytes)
+            metrics.record_sampled_event(
+                "elastic_restore", missing=len(missing),
+                shards=len(meta["layout"]), local_bytes=local_bytes)
 
 
 def _acknowledge_reshape() -> None:

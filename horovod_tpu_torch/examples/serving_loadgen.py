@@ -21,9 +21,9 @@ replica once half the trace is submitted, and the bar is ``failed ==
 kernels build and the allocator warms there) unless ``--no-warmup``.
 
 The record's ``substrate`` is the device the model ran on (``cuda`` or
-``cpu``), and ``path``/``path_reason`` the engine's ``DecodePath``. The
-one difference from the JAX record: ``health`` is null, because it comes
-from the cluster doctor, which the port does not have yet.
+``cpu``), and ``path``/``path_reason`` the engine's ``DecodePath``.
+``health`` is the cluster doctor's summary over the measured run
+(``hvd.doctor.summary()``), as in the JAX record.
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from horovod_tpu_torch import metrics
+from horovod_tpu_torch import doctor, metrics
 from horovod_tpu_torch.serving import (RejectedError, Router, RouterConfig,
                                        ServingConfig, ServingEngine)
 from horovod_tpu_torch.serving.engine import _pctl as exact_percentile
@@ -230,7 +230,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         }
         del off, off_handles
 
-    metrics.enable()
+    metrics.enable()  # the gauges feed the doctor's serving verdict
     backend = make_backend(scfg)
     if args.replicas > 1:
         path = backend.engines()[0].decode_path
@@ -256,6 +256,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         backend, trace, kill_after=max(1, len(trace) // 2),
         kill_fn=kill_fn)
     stats = backend.stats()
+    health = doctor.summary()
     warm_ttfts, cold_ttfts = _ttft_split(handles)
     backend.shutdown()
 
@@ -313,9 +314,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
             "reroutes": stats["router_reroutes"],
             "departures": stats["router_replica_departures"],
         } if args.replicas > 1 else None),
-        # The JAX record's cluster-doctor verdict: the doctor is not
-        # ported yet.
-        "health": None,
+        "health": health,
     }
     if args.out:
         with open(args.out, "w") as f:

@@ -261,6 +261,11 @@ class MetricsRegistry:
     def __init__(self):
         self._lock = make_lock("metrics.registry")
         self._metrics: Dict[str, _Metric] = {}
+        # Named watermarks for windowed delta snapshots: mark name ->
+        # the full snapshot taken when the mark was (re)set. Marks are
+        # independent — two callers rolling their own marks never see
+        # each other's baselines.
+        self._marks: Dict[str, Dict[str, dict]] = {}
 
     def _get_or_create(self, cls, name: str, help: str,
                        labelnames: Sequence[str], **kw) -> _Metric:
@@ -316,15 +321,44 @@ class MetricsRegistry:
             return self._metrics.get(name)
 
     def clear(self) -> None:
-        """Drop every registered metric (tests only)."""
+        """Drop every registered metric and every watermark (tests
+        only): a stale mark over a fresh registry would subtract a dead
+        process's totals."""
         with self._lock:
             self._metrics.clear()
+            self._marks.clear()
 
     def snapshot(self) -> Dict[str, dict]:
         """Plain-dict view of every series; JSON/pickle-clean."""
         with self._lock:
             metrics = list(self._metrics.values())
         return {m.name: m.snapshot() for m in metrics}
+
+    def set_mark(self, mark: str) -> Dict[str, dict]:
+        """(Re)set a named watermark at the current totals and return
+        the snapshot it captured. The next :meth:`snapshot_delta` with
+        this mark reports only what happened after this moment."""
+        snap = self.snapshot()
+        with self._lock:
+            self._marks[mark] = snap
+        return snap
+
+    def drop_mark(self, mark: str) -> None:
+        with self._lock:
+            self._marks.pop(mark, None)
+
+    def snapshot_delta(self, mark: str) -> Dict[str, dict]:
+        """Per-metric deltas since the named watermark
+        (:func:`subtract_snapshots`: counters/histograms subtract,
+        gauges pass through). A mark never set behaves as a mark set at
+        process start — the delta since an all-zero baseline is the
+        full snapshot."""
+        current = self.snapshot()
+        with self._lock:
+            baseline = self._marks.get(mark)
+        if baseline is None:
+            return subtract_snapshots(current, {})
+        return subtract_snapshots(current, baseline)
 
 
 # ---------------------------------------------------------------------------

@@ -438,19 +438,32 @@ def run(args: argparse.Namespace) -> int:
     backoff = max(0.0, getattr(args, "restart_backoff", 1.0))
     epoch = 0
     interrupted = threading.Event()
+
+    def _exit(code: int) -> int:
+        # The supervisor's registry and ring live in this process. A
+        # supervised run that restarted dumps its own flight recorder so
+        # the restart history survives the terminal; the launcher has no
+        # HOROVOD_RANK, so the dump lands on the bare path (or "{rank}"
+        # expands to "launcher"), never on a rank's postmortem.
+        if epoch > 0:
+            metrics.record_event("launcher_exit", exit_code=code,
+                                 restarts=epoch)
+            metrics.dump_flight_recorder("launcher_exit")
+        return code
+
     while True:
         code = _run_attempt(args, restart_epoch=epoch,
                             interrupted=interrupted)
         if interrupted.is_set():
             # Operator-initiated teardown (SIGINT/SIGTERM) is not a fault;
             # never auto-restart over the operator's intent.
-            return _finish_trace(args, code)
+            return _exit(_finish_trace(args, code))
         if code == 0 or epoch >= max_restarts:
             if code != 0 and max_restarts > 0:
                 sys.stderr.write(
                     f"horovodrun: giving up after {epoch} restart(s); "
                     f"final exit code {code}\n")
-            return _finish_trace(args, code)
+            return _exit(_finish_trace(args, code))
         epoch += 1
         delay = min(30.0, backoff * (2.0 ** (epoch - 1)))
         sys.stderr.write(
@@ -460,9 +473,14 @@ def run(args: argparse.Namespace) -> int:
         # Event.wait, not time.sleep: a SIGINT during the backoff must
         # cancel the relaunch.
         if interrupted.wait(delay):
-            return _finish_trace(args, code)
+            epoch -= 1  # cancelled during backoff: this restart never ran
+            return _exit(_finish_trace(args, code))
+        # Counted only once the backoff survives: a restart cancelled
+        # mid-backoff must not appear in the restart history.
         if metrics.on():
             _launcher_metrics().restarts.inc()
+            metrics.record_event("launcher_restart", epoch=epoch,
+                                 exit_code=code)
 
 
 def _finish_trace(args: argparse.Namespace, code: int) -> int:

@@ -309,6 +309,11 @@ def test_port_imports_no_jax_or_reference_package():
         "import horovod_tpu_torch.tools.protocheck\n"
         "import horovod_tpu_torch.tools.abicheck\n"
         "import horovod_tpu_torch.tools.check\n"
+        "import horovod_tpu_torch.doctor\n"
+        "import horovod_tpu_torch.metrics.exporter\n"
+        "import horovod_tpu_torch.metrics.recorder\n"
+        "import horovod_tpu_torch.utils.live_calibration\n"
+        "import horovod_tpu_torch.tools.doctor\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'horovod_tpu'))\n"
@@ -364,7 +369,12 @@ def test_port_sources_never_name_jax_or_the_reference_package():
                  "analysis/autofix.py", "analysis/lockorder.py",
                  "analysis/protocol.py", "analysis/cpp.py",
                  "tools/lint.py", "tools/protocheck.py",
-                 "tools/abicheck.py", "tools/check.py"):
+                 "tools/abicheck.py", "tools/check.py",
+                 # The cluster doctor's.
+                 "doctor/__init__.py", "doctor/evidence.py",
+                 "doctor/rules.py", "metrics/exporter.py",
+                 "metrics/recorder.py", "utils/live_calibration.py",
+                 "tools/doctor.py"):
         assert name in scanned, name
     for path in paths:
         with open(path, encoding="utf-8") as fh:

@@ -162,7 +162,14 @@ def test_on_reads_the_env_as_the_jax_package_does(monkeypatch, env, want):
         tmetrics.reset_for_tests()
 
 
-def test_nothing_registers_until_the_engine_runs(pair, both_on):
+def test_nothing_registers_until_the_engine_runs(pair, both_on,
+                                                  monkeypatch):
+    # A snapshot mirrors the native core's counters in any process that
+    # has loaded the core, as an earlier test in this process may have:
+    # this test holds the serving engine, so the core reads as unloaded.
+    from horovod_tpu_torch.core import bindings
+
+    monkeypatch.setattr(bindings, "loaded", lambda: None)
     _, model = pair
     assert tmetrics.snapshot() == {}
     ServingEngine(model, config=ServingConfig(max_batch=2, block_size=8,

@@ -139,8 +139,51 @@ def test_known_series_present():
         "hvd_native_pipeline_stall_seconds",
         "hvd_native_cycle_seconds",
         "hvd_native_execute_seconds",
+        "hvd_metrics_windows_total",
+        "hvd_doctor_runs_total",
+        "hvd_doctor_findings",
+        "hvd_capacity_refits_total",
+        "hvd_capacity_drift_ratio",
     ):
         assert expected in names, f"missing from the port: {expected}"
+
+
+def test_doctor_and_window_series_register_lazily_as_in_jax():
+    """The doctor's, the window roller's and the live calibration's series
+    are registered by their owners on first use, never at import, with
+    the JAX package's names, kinds, help texts and labels."""
+    from horovod_tpu import metrics as jmetrics
+    from horovod_tpu.doctor import _doctor_metrics as jdoctor_metrics
+    from horovod_tpu.utils.live_calibration import _live_metrics as jlive
+    from horovod_tpu_torch import metrics as tmetrics
+    from horovod_tpu_torch.doctor import _doctor_metrics as tdoctor_metrics
+    from horovod_tpu_torch.utils.live_calibration import (
+        _live_metrics as tlive,
+    )
+
+    names = ("hvd_doctor_runs_total", "hvd_doctor_findings",
+             "hvd_capacity_refits_total", "hvd_capacity_drift_ratio",
+             "hvd_metrics_windows_total")
+    views = {}
+    try:
+        for pkg, mod, doc, live in (
+                ("jax", jmetrics, jdoctor_metrics, jlive),
+                ("port", tmetrics, tdoctor_metrics, tlive)):
+            mod.reset_for_tests()
+            mod.enable()
+            assert not set(names) & set(mod.snapshot()), pkg
+            doc()
+            live()
+            mod.start_window_roller(interval_s=3600).roll_now()
+            mod.stop_window_roller()
+            reg = mod.default_registry()
+            views[pkg] = {n: (type(reg.get(n)).__name__, reg.get(n).help,
+                              tuple(reg.get(n).labelnames))
+                          for n in names}
+    finally:
+        jmetrics.reset_for_tests()
+        tmetrics.reset_for_tests()
+    assert views["port"] == views["jax"]
 
 
 def test_counter_mirror_parity_is_clean():

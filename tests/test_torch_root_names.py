@@ -2,7 +2,7 @@
 ``horovod_tpu/__init__.py`` binds is on ``horovod_tpu_torch`` after
 ``init``, except an explicit list of JAX-only names and of names whose
 modules are later slices (ROADMAP Queue 1, "No counterpart needed" and
-items 8.6 and 8.7). ``mpi_threads_supported``, ``wait``, ``serving`` and
+item 8.7). ``mpi_threads_supported``, ``wait``, ``serving`` and
 ``trace`` behave as the JAX root's; ``trace`` carries the JAX package's
 whole ``__all__``; ``HOROVOD_AUTOTUNE`` reaches the port's ``Config``
 and ``horovodrun --trace`` is accepted."""
@@ -19,8 +19,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # No counterpart needed: the traced tier and its helpers, covered by
 # process groups, ``--spmd`` and DistributedOptimizer.
 JAX_ONLY = {"compat", "set_default_spmd_axis", "distributed_value_and_grad"}
-# Later slices: the doctor (8.6), the profiler (8.7).
-LATER = {"doctor", "profiler"}
+# Later slices: the profiler (8.7).
+LATER = {"profiler"}
 
 
 def _jax_root_names():

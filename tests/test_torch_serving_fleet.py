@@ -9,8 +9,8 @@ Port engines run over weights crossed from the JAX model with
 on the same weights, replayed requests included. On the CPU the paged
 decode wrapper runs its plain version. The two chaos cases at load
 generator scale are ``@slow`` here as there. The JAX file's two doctor
-cases (the flapping and prefix-collapse rules) wait for the port of the
-cluster doctor.
+cases (the flapping and prefix-collapse rules) run on the port's doctor
+and hold its findings equal to the JAX doctor's on the same snapshots.
 """
 
 import dataclasses
@@ -324,6 +324,58 @@ def test_fleet_module_api_and_aggregate_stats(pair):
     finally:
         serving._default_router = prev_router
         serving._default_engine = prev_engine
+
+
+def _both_diagnoses(snap, **kwargs):
+    """The port's and the JAX package's diagnoses of one snapshot."""
+    from horovod_tpu.doctor import Evidence as JEvidence
+    from horovod_tpu.doctor import diagnose as jdiagnose
+    from horovod_tpu_torch.doctor import Evidence, diagnose
+
+    got = diagnose(Evidence(snapshots={0: snap}, **kwargs))
+    want = jdiagnose(JEvidence(snapshots={0: snap}, **kwargs))
+    assert [d.to_dict() for d in got] == [d.to_dict() for d in want]
+    return {d.rule: d for d in got}
+
+
+def test_doctor_router_flapping_rule_synthetic():
+    def gauge(v):
+        return {"type": "gauge", "values": [[[], v]]}
+
+    snap = {
+        "hvd_router_replica_departures_total": {
+            "type": "counter", "values": [[["1"], 4.0], [["2"], 1.0]]},
+        "hvd_router_replicas": gauge(2),
+        "hvd_router_epoch": gauge(7),
+    }
+    flap = _both_diagnoses(snap)["router_replica_flapping"]
+    assert flap.severity == "critical"           # 5 departures total
+    assert "replica 1" in flap.hint              # names the flapper
+    assert flap.evidence["departures_total"] == 5
+    # One departure is elastic working as designed: silent.
+    quiet = {"hvd_router_replica_departures_total": {
+        "type": "counter", "values": [[["0"], 1.0]]}}
+    assert "router_replica_flapping" not in _both_diagnoses(quiet)
+
+
+def test_doctor_prefix_collapse_hint_branches_synthetic():
+    snap = {
+        "hvd_serving_prefix_hits_total": {
+            "type": "counter", "values": [[[], 20.0]]},
+        "hvd_serving_prefix_misses_total": {
+            "type": "counter", "values": [[[], 300.0]]},
+    }
+    cold = _both_diagnoses(snap)
+    assert "cold start" in cold["cache_hit_collapse"].hint
+    assert "byte-identical" in cold["cache_hit_collapse"].hint
+    rewarm = _both_diagnoses(snap, restart_epoch=3)
+    assert "post-restart re-warm" in rewarm["cache_hit_collapse"].hint
+    # Healthy rate: silent.
+    ok = {"hvd_serving_prefix_hits_total": {
+        "type": "counter", "values": [[[], 300.0]]},
+        "hvd_serving_prefix_misses_total": {
+            "type": "counter", "values": [[[], 20.0]]}}
+    assert "cache_hit_collapse" not in _both_diagnoses(ok)
 
 
 def test_router_sampled_midstream_kill_fails_loudly(pair):
