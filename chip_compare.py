@@ -14,7 +14,10 @@ AdamW, 10 timed steps and one profiled step); ``decode`` is
 versions at the serving slice's and Llama-8B's shapes, each kernel's
 median time with the L2 flushed); ``flash`` is ``chip_smoke.check_flash``
 (the three flash kernels on its eight cases, in both dtypes, each
-kernel's median time). Each process builds its own tree's
+kernel's median time); ``serving`` is the serving engine's decode step
+at Llama-300M bf16, 8 slots at ~130-170 positions, 40 steps timed
+without the profiler: the eager step, and where the tree has one the
+step the engine captured as a CUDA graph. Each process builds its own tree's
 kernels. Prints one JSON line per run, then the medians per tree and the
 card's name and power limit.
 """
@@ -56,7 +59,40 @@ print("RESULT " + json.dumps({" ".join(key) + " " + name: ms
                               for key, row in rows.items()
                               for name, ms in row["ms"].items()}))
 """
-RUNS = {"training": _RUN, "decode": _RUN_DECODE, "flash": _RUN_FLASH}
+_RUN_SERVING = """
+import contextlib, json, time
+import numpy as np, torch
+from horovod_tpu_torch import serving
+from horovod_tpu_torch.models.llama import LLAMA_300M, LlamaLM
+from horovod_tpu_torch.serving import engine as engine_mod
+
+model = LlamaLM(LLAMA_300M, seed=0)
+scfg = serving.ServingConfig(max_batch=8, block_size=16, num_blocks=0,
+                             queue_depth=8, max_seq_len=256)
+modes = {"eager": getattr(engine_mod, "_eager_decode",
+                          contextlib.nullcontext)}
+if hasattr(engine_mod, "_eager_decode"):
+    modes["graph"] = contextlib.nullcontext
+out = {}
+for mode, ctx in modes.items():
+    with ctx():
+        engine = serving.ServingEngine(model, scfg)
+    rng = np.random.RandomState(3)
+    for _ in range(8):
+        engine.submit(rng.randint(0, LLAMA_300M.vocab_size, 128), 60)
+    for _ in range(3):
+        engine.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(40):
+        engine.step()
+    torch.cuda.synchronize()
+    out[mode + "_step_ms"] = (time.perf_counter() - t0) * 1e3 / 40
+    engine.shutdown()
+print("RESULT " + json.dumps(out))
+"""
+RUNS = {"training": _RUN, "decode": _RUN_DECODE, "flash": _RUN_FLASH,
+        "serving": _RUN_SERVING}
 
 
 def run(tree: Path, path: str = "training") -> dict:

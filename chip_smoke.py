@@ -30,7 +30,9 @@ on ``cuda``; any failure exits non-zero:
 4. ``ServingEngine`` at Llama-300M in float32 over 12 mixed requests:
    each request's tokens equal ``generate()`` alone, and the paged
    kernel launched 16 x steps times;
-5. the same engine in bfloat16, timed: tokens/s, TTFT p50, TPOT p50;
+5. the same engine in bfloat16, timed: tokens/s, TTFT and TPOT p50/p99,
+   with the decode step as the engine's CUDA graph and as the eager step
+   in turns; then 36 (b);
 6. the three flash-attention kernels (forward, dq, dk/dv) against their
    plain versions in float32 and bfloat16 on ten cases: the training
    slice's shape (b=8, S=1024, H=16, Hkv=8, D=64, causal), a key-masked
@@ -93,7 +95,7 @@ on ``cuda``; any failure exits non-zero:
    the arguments of the JAX row ``llama_300m_serving_b8_loadgen``: its
    record (tok/s, TTFT and TPOT p50/p99, preemptions, block peak, and
    ``health``, the cluster doctor's summary over the serving series);
-   every request finishes;
+   every request finishes; then once more with the eager decode step;
 17. fleet parity: Llama-300M float32, three replicas over one model
    behind the Router, 12 requests on a shared 64-token prefix, the
    replica serving them hard-killed once half are submitted: every
@@ -106,7 +108,8 @@ on ``cuda``; any failure exits non-zero:
    prefix sharing), then the same trace with ``--chaos-kill`` (and
    ``--no-warmup``: the process is warm by then): no request fails;
    warm and cold TTFT and the live block peak against the no-sharing
-   baseline are logged, and each record's ``health``;
+   baseline are logged, and each record's ``health``; then the first
+   pass once more with the eager decode step;
 19. MoE parity: ``MOE_SMALL`` (249.7M parameters, top-2 of 8 experts on
    every other layer) in float32 at seq 1024, batch 8: two SGD steps
    through the flash kernels equal two through ``use_flash=False`` (loss
@@ -298,19 +301,37 @@ on ``cuda``; any failure exits non-zero:
    step that kills it at its next send; the job exits non-zero, rank 0's
    ``fail_all`` dump holds the ``abort`` naming rank 1, and
    ``tools.doctor`` over the directory exits 0 with rank 0 observed.
+36. the profiler and the decode step's CUDA graph: (a) in phase 27's
+   replicated run, one more step under ``hvd.profiler.trace``, its
+   collectives read back from the trace (``utils/comm_accounting``): one
+   allreduce a gradient under ``hvd.allreduce.DistributedOptimizer.<i>``
+   at the group's 2 ranks, the payload the gradients' bytes exactly; (b)
+   ``examples/decode_phase_profile.py --engine`` at Llama-300M bf16 b8
+   in phase 5: the eager step's buckets and its ``hvd.decode.*`` markers
+   (``paged`` > 0, ``einsum`` 0), the graphed step's kernels as CUPTI
+   sees them in a replay (as many a step as the eager step's), each
+   step's host ms against its device busy ms; (c) after phase 5, 12
+   seeded requests through an engine whose decode step is its CUDA graph
+   and through one with the eager step: equal tokens and equal paged
+   launches at float32 (``PARITY_LAYERS``; greedy, and sampled from one
+   engine seed) and at bfloat16 on all 16 layers (greedy). Every engine
+   of the other phases runs its CUDA graph. The training profiles of 9,
+   11, 13 and 20 are read by the port's readers
+   (``utils/hlo_phases.step_split``).
 
 The float32 parity runs of phases 24, 25, 27, 28, 30 and 31 build
 Llama-300M at 2 of its 16 layers (``PARITY_LAYERS``), to keep the script
 inside its time limit; their timed runs keep the full depth.
 
-Phases 3-5, 9, 13, 15-18, 20-25, 27, 28, 30-33 and 35 are the main
+Phases 3-5, 9, 13, 15-18, 20-25, 27, 28, 30-33, 35 and 36 are the main
 paths: the launch counts in the kernels' JSON line come from them (the flash
 kernels' are the sum of 9, 13, 20, 23's flash run, 24's seq-parallel
 training, 27's and 28's timed training, 30's and 31's (c), 32's
 three processes, 33 (a)'s two and 35 (a)'s three, plus
 the forward-only long-context runs of 24; the contiguous decode
 kernel's of 3, 15, 21 and 25's ``generate()`` and profile, the paged
-one's of 4, 16-18, 22 and 25's engine; a two-process path's counts are
+one's of 4, 16-18 (each also eager), 22, 25's engine and 36 (c); a
+two-process path's counts are
 its two ranks' sum; each path's on a line of its own). Each phase logs
 its wall time.
 
@@ -826,10 +847,15 @@ def run_engine_parity(model, cfg, what: str = "llama300m"):
 
 
 def run_engine_timing(card: str):
+    """Phase 5, with the decode step as the engine's CUDA graph and as
+    the eager step (``_eager_decode``), in turns in this one run: tok/s,
+    TTFT and TPOT of the 32 timed requests, then 36 (b), the decode
+    phase profile of each."""
     import torch
 
     from horovod_tpu_torch import serving
     from horovod_tpu_torch.models.llama import LLAMA_300M, LlamaLM
+    from horovod_tpu_torch.serving import engine as engine_mod
 
     model = LlamaLM(LLAMA_300M, seed=0)          # bfloat16
     scfg = serving.ServingConfig(max_batch=8, block_size=16, num_blocks=0,
@@ -838,91 +864,159 @@ def run_engine_timing(card: str):
     warm.submit(np.arange(40, dtype=np.int32), 8)
     warm.run_until_idle()
     warm.shutdown()
-    rng = np.random.RandomState(9)
-    prompts = random_prompts(rng, 32, LLAMA_300M.vocab_size, 32, 128)
-    news = [int(rng.randint(32, 129)) for _ in prompts]
-    engine = serving.serve(model, scfg, start=True)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    handles = [engine.submit(p, n) for p, n in zip(prompts, news)]
-    for handle in handles:
-        handle.result(timeout=600)
-    wall = time.perf_counter() - t0
-    stats = engine.stats()
-    engine.shutdown()
-    tok_s = stats["tokens_generated"] / wall
-    log(f"serving bf16 llama300m 32 requests (prompts 32-128, new 32-128, "
-        f"max_batch 8): {stats['tokens_generated']} tokens in {wall:.3f} s "
-        f"= {tok_s:.1f} tok/s; TTFT p50 {stats['ttft_p50_seconds']} s; "
-        f"TPOT p50 {stats['tpot_p50_seconds']} s; steps {stats['steps']} "
-        f"[{card}]")
-    numbers = dict(tokens_per_s=tok_s, ttft_p50_s=stats["ttft_p50_seconds"],
-                   tpot_p50_s=stats["tpot_p50_seconds"],
-                   steps=stats["steps"], tokens=stats["tokens_generated"],
-                   wall_s=wall)
-    numbers["decode_step_profile"] = profile_decode_steps(model, scfg)
+    numbers = {}
+    for mode in ("graph", "eager"):
+        rng = np.random.RandomState(9)
+        prompts = random_prompts(rng, 32, LLAMA_300M.vocab_size, 32, 128)
+        news = [int(rng.randint(32, 129)) for _ in prompts]
+        if mode == "graph":
+            engine = serving.serve(model, scfg, start=True)
+        else:
+            with engine_mod._eager_decode():
+                engine = serving.serve(model, scfg, start=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        handles = [engine.submit(p, n) for p, n in zip(prompts, news)]
+        for handle in handles:
+            handle.result(timeout=600)
+        wall = time.perf_counter() - t0
+        stats = engine.stats()
+        graphed = engine._graphs is not None
+        engine.shutdown()
+        if graphed != (mode == "graph"):
+            raise AssertionError(f"engine timing: {mode} engine graphed "
+                                 f"{graphed}")
+        tok_s = stats["tokens_generated"] / wall
+        log(f"serving bf16 llama300m 32 requests (prompts 32-128, new "
+            f"32-128, max_batch 8), decode step {mode}: "
+            f"{stats['tokens_generated']} tokens in {wall:.3f} s = "
+            f"{tok_s:.1f} tok/s; TTFT p50/p99 {stats['ttft_p50_seconds']}"
+            f"/{stats['ttft_p99_seconds']} s; TPOT p50/p99 "
+            f"{stats['tpot_p50_seconds']}/{stats['tpot_p99_seconds']} s; "
+            f"steps {stats['steps']} [{card}]")
+        numbers[mode] = dict(
+            tokens_per_s=tok_s, ttft_p50_s=stats["ttft_p50_seconds"],
+            ttft_p99_s=stats["ttft_p99_seconds"],
+            tpot_p50_s=stats["tpot_p50_seconds"],
+            tpot_p99_s=stats["tpot_p99_seconds"], steps=stats["steps"],
+            tokens=stats["tokens_generated"], wall_s=wall)
+    numbers["decode_step_profile"] = profile_decode_steps(model, card)
     return numbers
 
 
-def profile_decode_steps(model, scfg, steps: int = 20):
-    """Where a full-batch bf16 decode step's time goes: host wall per
-    step (timed without the profiler) against the device time
-    ``torch.profiler`` attributes to kernels (the paged decode kernel,
-    matrix products, the rest) over as many further steps."""
+def profile_decode_steps(model, card: str, steps: int = 20):
+    """36 (b): ``examples/decode_phase_profile.py --engine`` at
+    Llama-300M bf16 b8 (prompts of 128): the eager decode step by
+    provenance, with its ``hvd.decode.*`` markers (``paged`` > 0,
+    ``einsum`` 0), and the step captured as a CUDA graph by kernel name
+    (CUPTI must see the kernels inside a replay); for each, the host wall
+    ms of a step without the profiler against the device busy ms. Both
+    must see time in the decode kernels, with as many kernels a step."""
+    from horovod_tpu_torch.examples import decode_phase_profile as dpp
+
+    out = dpp.engine_profile("300m", 8, 128, steps, trace_dir("decode"),
+                             model=model)
+    markers = out["eager"]["markers"]
+    if not (markers["hvd.decode.paged"] > 0 and markers[
+            "hvd.decode.einsum"] == 0 and markers["hvd.decode.kernel"] == 0):
+        raise AssertionError(f"decode phase profile markers: {markers}")
+    for mode in ("eager", "graph"):
+        if not out[mode]["decode_kernel_ms_per_step"] > 0:
+            raise AssertionError(
+                f"decode phase profile ({mode}): no device time in the "
+                f"decode kernels: {json.dumps(out[mode])}")
+    if out["graph"]["launches_per_step"] != out["eager"][
+            "launches_per_step"]:
+        raise AssertionError(
+            "decode phase profile: a graph replay shows "
+            f"{out['graph']['launches_per_step']} kernels a step, the eager "
+            f"step {out['eager']['launches_per_step']}")
+    for mode in ("graph", "eager"):
+        row = out[mode]
+        log(f"decode step profile ({mode}, bf16 llama300m, 8 sequences at "
+            f"~130-170 positions): step {row['step_ms']:.3f} ms, device "
+            f"busy {row['device_busy_ms_per_step']:.3f} ms (idle share of "
+            f"the unprofiled step "
+            f"{1 - row['device_busy_over_unprofiled_step']:.3f}), "
+            f"{row['kernels_per_step']} kernels a step, decode kernel "
+            f"{row['decode_kernel_ms_per_step']:.4f} ms [{card}]")
+    eager = out["eager"]
+    log(f"36 (b) decode phase profile buckets (eager step, ms a step): "
+        f"{json.dumps({p: b['ms'] for p, b in eager['decode_phases'].items()})}"
+        f"; markers {json.dumps(markers)}")
+    for mode in ("eager", "graph"):
+        out[mode].pop("decode_phases", None)
+    return out
+
+
+def run_graph_checks(card: str):
+    """36 (c): the engine's decode step as its CUDA graph against the
+    eager step (``_eager_decode``), 12 seeded requests each way: equal
+    tokens and equal paged-kernel launches (the capture's launches are
+    counted at each replay) at float32 on ``PARITY_LAYERS`` layers,
+    greedy and sampled from the same engine seed, and at bfloat16 on all
+    16 layers, greedy. Returns the graphed runs' launches."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from horovod_tpu_torch import serving
+    from horovod_tpu_torch.models.llama import LLAMA_300M, LlamaLM
+    from horovod_tpu_torch.ops import decode_attention as ops
+    from horovod_tpu_torch.serving import engine as engine_mod
 
-    engine = serving.ServingEngine(model, scfg)
-    rng = np.random.RandomState(3)
-    for p in random_prompts(rng, 8, model.config.vocab_size, 128, 128):
-        engine.submit(p, 2 * steps + 8)
-    for _ in range(3):                       # prefill all 8, then decode
-        engine.step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        engine.step()
-    torch.cuda.synchronize()
-    step_us = (time.perf_counter() - t0) * 1e6 / steps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            engine.step()
-        torch.cuda.synchronize()
-        profiled_us = (time.perf_counter() - t0) * 1e6 / steps
-    engine.shutdown()
-    split = {"decode_kernel": 0.0, "matmul": 0.0, "other": 0.0}
-    kernels = 0
-    for ev in prof.key_averages():
-        if not str(ev.device_type).endswith("CUDA"):
-            continue                      # host-side op: its kernels count
-        kernels += ev.count
-        name = ev.key.lower()
-        if re.search(DECODE_KERNELS, name):
-            key = "decode_kernel"
-        elif any(t in name for t in ("nvjet", "gemm", "gemv", "cutlass")):
-            key = "matmul"
-        else:
-            key = "other"
-        split[key] += ev.self_device_time_total
-    busy_us = sum(split.values()) / steps
-    out = {"step_ms": step_us / 1e3, "step_ms_profiled": profiled_us / 1e3,
-           "kernels_per_step": kernels / steps,
-           "device_busy_ms_per_step": busy_us / 1e3,
-           "device_idle_share": (1 - busy_us / step_us) if busy_us
-           else None}
-    out.update({f"{k}_ms_per_step": v / steps / 1e3
-                for k, v in split.items()})
-    if not out["decode_kernel_ms_per_step"] > 0:
-        raise AssertionError(
-            "serving profile: no device time matched the decode kernels' "
-            f"names: {json.dumps(out)}")
-    log(f"decode step profile (bf16, 8 sequences at ~130-170 positions): "
-        f"{json.dumps(out)}")
-    return out
+    f32 = dataclasses.replace(LLAMA_300M, dtype=torch.float32,
+                              num_layers=PARITY_LAYERS)
+    cases = (("float32 2 layers greedy", f32, 0.0),
+             ("float32 2 layers sampled", f32, 0.8),
+             ("bfloat16 16 layers greedy", LLAMA_300M, 0.0))
+    scfg = serving.ServingConfig(max_batch=8, block_size=16, num_blocks=0,
+                                 queue_depth=64, max_seq_len=256)
+    model, built, total = None, None, 0
+    for label, cfg, temperature in cases:
+        if built is not cfg:
+            del model
+            torch.cuda.empty_cache()
+            model, built = LlamaLM(cfg, seed=0), cfg
+        runs = {}
+        for graphed in (True, False):
+            rng = np.random.RandomState(4)
+            prompts = random_prompts(rng, 12, cfg.vocab_size, 32, 128)
+            news = [int(rng.randint(16, 65)) for _ in prompts]
+            if graphed:
+                engine = serving.ServingEngine(model, scfg, seed=7)
+            else:
+                with engine_mod._eager_decode():
+                    engine = serving.ServingEngine(model, scfg, seed=7)
+            if (engine._graphs is not None) != graphed:
+                raise AssertionError(f"36 (c) {label}: graphed "
+                                     f"{engine._graphs is not None}")
+            handles = [engine.submit(p, n, temperature)
+                       for p, n in zip(prompts, news)]
+            ops.reset_launch_counts()
+            engine.run_until_idle()
+            torch.cuda.synchronize()
+            runs[graphed] = ([h.result(timeout=0) for h in handles],
+                             ops.LAUNCHES["paged_decode_attention"],
+                             engine.stats()["steps"])
+            engine.shutdown()
+        (tokens, launches, steps), eager = runs[True], runs[False]
+        if tokens != eager[0]:
+            bad = [i for i, (a, b) in enumerate(zip(tokens, eager[0]))
+                   if a != b]
+            raise AssertionError(f"36 (c) {label}: graphed tokens differ "
+                                 f"from the eager step's in requests {bad}")
+        if (launches, steps) != eager[1:] or launches != \
+                cfg.num_layers * steps:
+            raise AssertionError(
+                f"36 (c) {label}: paged launches / steps graphed "
+                f"{launches} / {steps}, eager {eager[1]} / {eager[2]}")
+        total += launches
+        log(f"36 (c) {label}: 12 requests, graphed tokens equal the eager "
+            f"step's; paged_decode_attention launches {launches} both "
+            f"ways over {steps} steps [{card}]")
+    del model
+    release_serving()
+    torch.cuda.empty_cache()
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -1393,17 +1487,23 @@ def run_generation_example(card: str):
     return rows, launches
 
 
-def run_loadgen(argv, what: str, card: str):
+def run_loadgen(argv, what: str, card: str, eager: bool = False):
     """One load-generator run; fails unless every request finished.
-    Returns its record and the paged decode kernel's launches."""
+    ``eager``: its engines run the eager decode step instead of their
+    CUDA graphs. Returns its record and the paged decode kernel's
+    launches."""
+    import contextlib
+
     import torch
 
     from horovod_tpu_torch import metrics
     from horovod_tpu_torch.examples import serving_loadgen
     from horovod_tpu_torch.ops import decode_attention as ops
+    from horovod_tpu_torch.serving import engine as engine_mod
 
     ops.reset_launch_counts()
-    record = serving_loadgen.main(argv)
+    with engine_mod._eager_decode() if eager else contextlib.nullcontext():
+        record = serving_loadgen.main(argv)
     torch.cuda.synchronize()
     launches = ops.LAUNCHES["paged_decode_attention"]
     metrics.reset_for_tests()
@@ -1764,58 +1864,42 @@ CONV_SPLIT = (
 def profile_step(step, step_ms: float, buckets, required: str, what: str,
                  steps: int = 2, listed=None):
     """Where a bf16 training step's device time goes, by ``buckets`` plus
-    "other" (which must see time in bucket ``required``); the kernel
-    count; every kernel of bucket ``listed`` (if given) with its time. Two shares: the idle share of the profiled
-    window (device busy time against that window's own wall time, which
-    the profiler's per-launch host cost stretches), and busy time over
-    the step's wall time without the profiler (``step_ms``)."""
+    "other" (which must see time in bucket ``required``): ``steps`` steps
+    under ``hvd.profiler.trace``, read by the port's own readers
+    (``utils/hlo_phases.kernel_rows`` and ``step_split``: the kernel
+    count, every kernel of bucket ``listed`` (if given) with its time,
+    the idle share of the profiled window, which the profiler's
+    per-launch host cost stretches, and busy time over the step's wall
+    time without the profiler, ``step_ms``)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+
+    from horovod_tpu_torch.common import profiler
+    from horovod_tpu_torch.utils.hlo_phases import kernel_rows, step_split
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiler.trace(trace_dir("step")) as path:
         t0 = time.perf_counter()
         for _ in range(steps):
             step()
         torch.cuda.synchronize()
         profiled_ms = (time.perf_counter() - t0) * 1e3 / steps
-    split = {key: 0.0 for key, _ in buckets}
-    split["other"] = 0.0
-    kernels = 0
-    by_name = []
-    for ev in prof.key_averages():
-        if not str(ev.device_type).endswith("CUDA"):
-            continue
-        kernels += ev.count
-        name = ev.key.lower()
-        key = next((k for k, test in buckets if test(name)), "other")
-        split[key] += ev.self_device_time_total
-        by_name.append((ev.self_device_time_total, key, ev.key))
-    busy_ms = sum(split.values()) / steps / 1e3
-    result = {"step_ms": step_ms, "step_ms_profiled": profiled_ms,
-              "kernels_per_step": kernels / steps,
-              "device_busy_ms_per_step": busy_ms,
-              "device_idle_share": (1 - busy_ms / profiled_ms) if busy_ms
-              else None,
-              "device_busy_over_unprofiled_step": busy_ms / step_ms}
-    result.update({f"{k}_ms_per_step": v / steps / 1e3
-                   for k, v in split.items()})
-    # The kernels that take the most device time, with their bucket.
-    result["top_kernels"] = [
-        [bucket, name[:90], us / steps / 1e3]
-        for us, bucket, name in sorted(by_name, reverse=True)[:12]]
-    if listed:
-        result[f"{listed}_kernels"] = [
-            [name[:90], us / steps / 1e3]
-            for us, bucket, name in sorted(by_name, reverse=True)
-            if bucket == listed]
+    result = step_split(kernel_rows(path), steps, buckets, step_ms,
+                        profiled_ms, listed)
+    os.remove(path)
     if not result[f"{required}_ms_per_step"] > 0:
         raise AssertionError(
             f"{what} profile: no device time matched the {required} "
             f"kernels' names: {json.dumps(result)}")
     log(f"{what} step profile (bf16, {steps} steps): {json.dumps(result)}")
     return result
+
+
+def trace_dir(what: str) -> str:
+    """A directory for the profiler traces of ``what`` (each removed
+    once read)."""
+    import tempfile
+
+    return os.path.join(tempfile.gettempdir(), f"chip_smoke_traces_{what}")
 
 
 # ---------------------------------------------------------------------------
@@ -3249,9 +3333,48 @@ def replicated_timed(rank: int, optimizer: str = "adam",
            "state_bytes": _state_bytes(opt)}
     if optimizer == "zero":
         out["split_ms"] = zero_step_split(opt, out["step_ms"])
+    elif not remat:
+        out["profiled_step"] = profiled_comm_step(step, model, rank)
     _drop(model, opt, inner)
     del model, opt, inner
     return out
+
+
+def profiled_comm_step(step, model, rank: int):
+    """36 (a): one more step under ``hvd.profiler.trace``, its
+    collectives read back out of the trace
+    (``utils/comm_accounting.collectives``): one allreduce a gradient
+    under ``hvd.allreduce.DistributedOptimizer.<i>``, billed at the
+    group's 2 ranks, their payload the gradients' bytes exactly."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.utils.comm_accounting import (
+        collective_records, count_by_op, payload_by_op,
+        wire_bytes_per_device)
+
+    with hvd.profiler.trace(trace_dir(f"comm{rank}")) as path:
+        step()
+        torch.cuda.synchronize()
+    records = collective_records(path)
+    os.remove(path)
+    colls = [c for _, c, _ in records]
+    params = [p for p in model.parameters() if p.requires_grad]
+    grad_bytes = sum(p.numel() * p.element_size() for p in params)
+    labels = {label for _, _, label in records}
+    row = {"payload_by_op": payload_by_op(colls),
+           "count_by_op": count_by_op(colls),
+           "group_sizes": sorted({c.group_size for c in colls}),
+           "labels": len(labels), "grad_bytes": grad_bytes,
+           "ring_wire_bytes_per_device": wire_bytes_per_device(colls, 2)}
+    want = {f"hvd.allreduce.DistributedOptimizer.{i}"
+            for i in range(len(params))}
+    if (row["payload_by_op"] != {"all-reduce": grad_bytes}
+            or row["count_by_op"] != {"all-reduce": len(params)}
+            or row["group_sizes"] != [2] or labels != want):
+        raise AssertionError(f"36 (a) rank {rank}: the profiled step's "
+                             f"collectives {json.dumps(row)}")
+    return row
 
 
 def zero_step_split(opt, step_ms: float):
@@ -3610,6 +3733,9 @@ def log_sharded(results, card: str):
             f"ms, rank 0 peak memory {row['peak_memory_gib']:.2f} GiB above "
             f"the {row['allocated_before_gib']:.2f} allocated before; "
             f"split (ms) {json.dumps(row.get('split_ms'))} [{card}]")
+    log(f"36 (a) a profiled replicated step's collectives, read from the "
+        f"trace (rank 0): "
+        f"{json.dumps(fsdp['replicated']['profiled_step'])}")
 
 
 # ---------------------------------------------------------------------------
@@ -5365,14 +5491,20 @@ def main() -> int:
     release_serving()
     del model
     torch.cuda.empty_cache()
-    serving_numbers = phase("5 engine timing", run_engine_timing, card)
+    serving_numbers = phase("5 engine timing, graph and eager; 36 (b)",
+                            run_engine_timing, card)
     release_serving()
     torch.cuda.empty_cache()
+    graph_launches = phase("36 (c) decode graph against the eager step",
+                           run_graph_checks, card)
     generation, example_launches = phase(
         "15 generation example", run_generation_example, card)
     loadgen_300m, loadgen_launches = phase(
         "16 loadgen llama-300m", run_loadgen, LOADGEN_300M,
         "llama_300m_serving_b8_loadgen", card)
+    loadgen_eager = {"16": phase(
+        "16 loadgen llama-300m, eager step", run_loadgen, LOADGEN_300M,
+        "llama_300m_serving_b8_loadgen eager", card, True)}
     fleet_rows = {}
     # The chaos pass reruns the same trace in the same (warm) process.
     for label, extra in (("fleet", []),
@@ -5381,6 +5513,17 @@ def main() -> int:
             f"18 loadgen tiny {label}", run_loadgen,
             LOADGEN_FLEET_TINY + extra,
             f"llama_serving_fleet_prefix_loadgen {label}", card)
+    loadgen_eager["18"] = phase(
+        "18 loadgen tiny fleet, eager step", run_loadgen,
+        LOADGEN_FLEET_TINY + ["--no-warmup"],
+        "llama_serving_fleet_prefix_loadgen fleet eager", card, True)
+    for row, graphed, eager in (
+            ("16", loadgen_300m, loadgen_eager["16"][0]),
+            ("18", fleet_rows["fleet"][0], loadgen_eager["18"][0])):
+        log(f"loadgen {row} graph / eager step: " + ", ".join(
+            f"{key} {graphed[key]} / {eager[key]}" for key in (
+                "value", "ttft_p50_s", "ttft_p99_s", "tpot_p50_s",
+                "tpot_p99_s")) + f" [{card}]")
     for label, (rec, _) in fleet_rows.items():
         base = rec["baseline_no_sharing"]
         log(f"fleet row {label}: TTFT p50 warm {rec['ttft_warm_p50_s']} s "
@@ -5491,6 +5634,10 @@ def main() -> int:
                    **{f"loadgen tiny {k} (18)": v[1]
                       for k, v in fleet_rows.items()},
                    "moe-small engine parity (22)": moe_paged_launches,
+                   "decode graph against the eager step (36 c)":
+                       graph_launches,
+                   **{f"loadgen {k}, eager step": v[1]
+                      for k, v in loadgen_eager.items()},
                    "tp engine, both ranks (25)": both(
                        "25 tp", "engine", "paged_decode_attention")}
     log(f"decode_attention launches by main path: "
@@ -5539,7 +5686,7 @@ def main() -> int:
                            else None)})
     log(f"serving: {json.dumps(serving_numbers)}")
     log(f"operand range: {json.dumps(operand)}")
-    log(f"fleet: {json.dumps({'parity': fleet_parity, 'generation': generation, 'loadgen_300m': loadgen_300m, 'fleet_tiny': {k: v[0] for k, v in fleet_rows.items()}})}")
+    log(f"fleet: {json.dumps({'parity': fleet_parity, 'generation': generation, 'loadgen_300m': loadgen_300m, 'fleet_tiny': {k: v[0] for k, v in fleet_rows.items()}, 'eager_step': {k: v[0] for k, v in loadgen_eager.items()}})}")
     log(f"training: {json.dumps({'parity': parity, **training})}")
     log(f"zoo: {json.dumps({**zoo, 'bert_training': bert})}")
     log(f"moe: {json.dumps({'parity': moe_parity, 'training': moe_training, 'generation': moe_generation})}")

@@ -18,6 +18,9 @@ loop adds ``BucketScheduler``, ``partition_buckets`` and
 ``plan_from_compiled`` here, and ``trace`` carries the JAX package's
 whole tracing surface. ``doctor`` is the cluster doctor (``report``,
 ``summary``, the rule catalog) over the metrics plane and the traces.
+``profiler`` records ``torch.profiler`` traces under the JAX package's
+``hvd.*`` labels, which ``utils/{comm_accounting,hlo_phases,overlap}.py``
+read.
 
 Entry points take ``device=None``, which means ``cuda``: without a card
 they raise unless the caller asks for ``device="cpu"`` explicitly.
@@ -53,6 +56,7 @@ from .torch import *  # noqa: E402,F401,F403
 from . import elastic  # noqa: E402,F401
 from . import serving  # noqa: E402,F401
 from . import doctor  # noqa: E402,F401  (hvd.doctor.report() / rule catalog)
+from .common import profiler  # noqa: E402,F401  (hvd.profiler.trace())
 from . import trace  # noqa: E402,F401
 from .controller.bucket_scheduler import (  # noqa: E402,F401
     BucketScheduler,

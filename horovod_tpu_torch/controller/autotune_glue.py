@@ -8,8 +8,9 @@ Also the tuner's telemetry surface: :func:`publish_tuner_gauges` mirrors
 the live :meth:`ParameterManager.state` into the ``hvd_autotune_*``
 gauges, so the search can be watched without parsing the autotune CSV.
 
-Not ported yet: ``reseed_from_live``, the one-time re-seed from the
-doctor's live capacity re-fit, which comes with the cluster doctor.
+And :func:`reseed_from_live`, the one-time re-seed from the doctor's
+live capacity re-fit, which the Python controller calls
+(``controller/controller.py``'s ``_maybe_reseed_from_drift``).
 """
 
 from __future__ import annotations

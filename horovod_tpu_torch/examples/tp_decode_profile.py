@@ -8,9 +8,11 @@ FFN slice and vocabulary slice, and ``generate()`` runs the decode
 kernels on those heads (the ``kernel_tp`` path). It reports
 
 * the classifier verdict (``models.llama.LAST_DECODE_PATH``),
-* the decode kernels' launch counters over the TP run — the ground
-  truth of which path ran (the JAX harness reads HLO scope markers;
-  ``utils/comm_accounting`` is not ported),
+* the decode kernels' launch counters over the TP run, and beside them
+  the ``hvd.decode.*`` markers of a short profiled TP ``generate()``
+  (``utils/comm_accounting.decode_path_markers``, the JAX harness's
+  reading of its HLO scope markers): ``kernel_tp`` > 0 and ``einsum``
+  == 0 when the shard-local kernel ran,
 * greedy-token parity against the unsharded model, run on every rank,
 * decode tok/s of both (the whole job's tokens over rank 0's time).
 
@@ -21,7 +23,8 @@ kernels on those heads (the ``kernel_tp`` path). It reports
 reduction order can flip argmax ties; parity is reported but not
 enforced without it). ``--device cpu`` runs on gloo ranks on the CPU.
 The last line is the JSON record; the exit code is 1 when ``--f32``
-parity fails or the ``auto`` path is not ``kernel_tp``.
+parity fails or the ``auto`` path is not ``kernel_tp`` (by the verdict
+and by the markers).
 """
 
 from __future__ import annotations
@@ -29,7 +32,9 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import sys
+import tempfile
 import time
 from typing import Dict, List, Optional
 
@@ -43,6 +48,7 @@ from horovod_tpu_torch.models.llama import (LLAMA_1B, LLAMA_300M, LLAMA_TINY,
                                             generate)
 from horovod_tpu_torch.ops import decode_attention as decode_ops
 from horovod_tpu_torch.parallel import make_mesh
+from horovod_tpu_torch.utils.comm_accounting import decode_path_markers
 
 CONFIGS = {"tiny": LLAMA_TINY, "300m": LLAMA_300M, "1b": LLAMA_1B}
 
@@ -114,6 +120,17 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         tp_out, dt = timed(model)
     launches = dict(decode_ops.LAUNCHES)
     tp_rate = b * new / dt
+    # The labels of a short profiled run (the timed one runs unprofiled).
+    with hvd.profiler.trace(os.path.join(
+            tempfile.gettempdir(),
+            f"tp_decode_trace_rank{hvd.rank()}")) as path:
+        if args.path == "einsum":
+            with decode_kernel_disabled():
+                generate(model, prompt, max_new_tokens=3)
+        else:
+            generate(model, prompt, max_new_tokens=3)
+    markers = decode_path_markers(path)
+    os.remove(path)
     info = llama_mod.LAST_DECODE_PATH
     parity = None
     if base is not None:
@@ -123,13 +140,15 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         "max_new_tokens": new, "mesh": {"data": dp, "model": args.tp},
         "dtype": "f32" if args.f32 else "bf16", "device": str(device),
         "path": info.path, "path_reason": info.reason,
-        "decode_launches": launches,
+        "decode_launches": launches, "decode_path_markers": markers,
         "tok_s_tp": tp_rate, "tok_s_single_device": base_rate,
         "token_parity_mismatches": parity,
     }
     record["ok"] = not ((args.f32 and parity not in (None, 0))
                         or (args.path == "auto"
-                            and info.path != "kernel_tp"))
+                            and (info.path != "kernel_tp"
+                                 or markers["hvd.decode.kernel_tp"] == 0
+                                 or markers["hvd.decode.einsum"] != 0)))
     if args.out and hvd.rank() == 0:
         with open(args.out, "w") as f:
             json.dump(record, f, indent=1)

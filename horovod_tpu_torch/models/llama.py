@@ -71,6 +71,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .. import DeviceLike, default_device
+from ..common.profiler import named_scope
 from ..ops.attention import reference_attention, repeat_kv
 from ..ops.decode_attention import (
     decode_attention,
@@ -318,11 +319,15 @@ def classify_decode_sharding(model, prompt_ids,
 LAST_DECODE_PATH: Optional[DecodePath] = None
 
 
-def _cached_attention(q, k, v, cache, cache_index):
+def _cached_attention(q, k, v, cache, cache_index, tp: bool = False):
     """Decode-mode attention: write the s new K/V rows at ``cache_index``
     (in place) and attend every query (global position
     ``cache_index + i``) over keys at positions <= it. Returns ctx
-    (B, S, H, D).
+    (B, S, H, D). Each path runs inside the JAX package's profiler
+    label: ``hvd.decode.paged`` (``paged_tp`` when ``tp``: this rank
+    holds only its heads), ``kernel`` (``kernel_tp``), ``prefill`` and
+    ``einsum`` (the paged gather path shares it); the cache writes run
+    inside ``cache_update``.
 
     Four paths, one semantics: the paged cache (``"tables"`` in the
     cache; ``cache_index`` a (B,) tensor) runs the paged kernel or the
@@ -344,39 +349,52 @@ def _cached_attention(q, k, v, cache, cache_index):
             raise ValueError(
                 f"paged cache is single-token decode only (s={s})")
         tables = cache["tables"]
-        paged_cache_write(cache["k"], cache["v"], kc, vc, tables,
-                          cache_index)
+        with named_scope("cache_update"):
+            paged_cache_write(cache["k"], cache["v"], kc, vc, tables,
+                              cache_index)
         if _decode_kernel_on():
-            return paged_decode_attention(q, cache["k"], cache["v"], tables,
+            with named_scope("hvd.decode.paged_tp" if tp
+                             else "hvd.decode.paged"):
+                return paged_decode_attention(q, cache["k"], cache["v"],
+                                              tables, cache_index, hkv,
+                                              sm_scale=scale)
+        with named_scope("hvd.decode.einsum"):
+            return paged_gather_attention(q, cache["k"], cache["v"], tables,
                                           cache_index, hkv, sm_scale=scale)
-        return paged_gather_attention(q, cache["k"], cache["v"], tables,
-                                      cache_index, hkv, sm_scale=scale)
     k_cache, v_cache = cache["k"], cache["v"]
-    k_cache[:, cache_index:cache_index + s] = kc.reshape(b, s, hkv * d)
-    v_cache[:, cache_index:cache_index + s] = vc.reshape(b, s, hkv * d)
+    with named_scope("cache_update"):
+        k_cache[:, cache_index:cache_index + s] = kc.reshape(b, s, hkv * d)
+        v_cache[:, cache_index:cache_index + s] = vc.reshape(b, s, hkv * d)
     if s == 1 and _decode_kernel_on():
-        return decode_attention(q, k_cache, v_cache, cache_index, hkv,
-                                sm_scale=scale)
+        with named_scope("hvd.decode.kernel_tp" if tp
+                         else "hvd.decode.kernel"):
+            return decode_attention(q, k_cache, v_cache, cache_index, hkv,
+                                    sm_scale=scale)
     qg = q.reshape(b, s, hkv, group, d)
     if s > 1 and isinstance(cache_index, int) and cache_index == 0:
         # Prefill at index 0: attend over the cache-dtype fresh rows.
-        logits = torch.einsum("bshgd,blhd->bshgl", qg, kc).float() * scale
-        pos = torch.arange(s, device=q.device)
-        causal = pos[None, :] <= pos[:, None]
-        logits = logits.masked_fill(~causal[None, :, None, None, :], f32_min)
+        with named_scope("hvd.decode.prefill"):
+            logits = torch.einsum("bshgd,blhd->bshgl", qg,
+                                  kc).float() * scale
+            pos = torch.arange(s, device=q.device)
+            causal = pos[None, :] <= pos[:, None]
+            logits = logits.masked_fill(~causal[None, :, None, None, :],
+                                        f32_min)
+            probs = torch.softmax(logits, dim=-1).to(q.dtype)
+            ctx = torch.einsum("bshgl,blhd->bshgd", probs, vc)
+            return ctx.reshape(b, s, h, d)
+    with named_scope("hvd.decode.einsum"):
+        window = k_cache.shape[1]
+        k4 = k_cache.view(b, window, hkv, d)
+        v4 = v_cache.view(b, window, hkv, d)
+        logits = torch.einsum("bshgd,blhd->bshgl", qg, k4).float() * scale
+        q_pos = cache_index + torch.arange(s, device=q.device)
+        key_pos = torch.arange(window, device=q.device)
+        mask = key_pos[None, :] <= q_pos[:, None]          # (s, window)
+        logits = logits.masked_fill(~mask[None, :, None, None, :], f32_min)
         probs = torch.softmax(logits, dim=-1).to(q.dtype)
-        ctx = torch.einsum("bshgl,blhd->bshgd", probs, vc)
-        return ctx.reshape(b, s, h, d)
-    window = k_cache.shape[1]
-    k4 = k_cache.view(b, window, hkv, d)
-    v4 = v_cache.view(b, window, hkv, d)
-    logits = torch.einsum("bshgd,blhd->bshgl", qg, k4).float() * scale
-    q_pos = cache_index + torch.arange(s, device=q.device)
-    key_pos = torch.arange(window, device=q.device)
-    mask = key_pos[None, :] <= q_pos[:, None]              # (s, window)
-    logits = logits.masked_fill(~mask[None, :, None, None, :], f32_min)
-    probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.einsum("bshgl,blhd->bshgd", probs, v4).reshape(b, s, h, d)
+        return torch.einsum("bshgl,blhd->bshgd", probs,
+                            v4).reshape(b, s, h, d)
 
 
 class LlamaAttention(nn.Module):
@@ -411,15 +429,15 @@ class LlamaAttention(nn.Module):
         heads, kv_heads = self.wq.shape[1] // hd, self.wk.shape[1] // hd
         dt = cfg.dtype
         x = _tp_enter(x, self.tp)
-        q = rotary_embedding(
-            (x @ self.wq.to(dt)).view(b, s, heads, hd),
-            cfg.rope_theta, positions)
-        k = rotary_embedding(
-            (x @ self.wk.to(dt)).view(b, s, kv_heads, hd),
-            cfg.rope_theta, positions)
-        v = (x @ self.wv.to(dt)).view(b, s, kv_heads, hd)
+        q = _dense(x, self.wq, dt, "wq").view(b, s, heads, hd)
+        k = _dense(x, self.wk, dt, "wk").view(b, s, kv_heads, hd)
+        v = _dense(x, self.wv, dt, "wv").view(b, s, kv_heads, hd)
+        with named_scope("rotary"):
+            q = rotary_embedding(q, cfg.rope_theta, positions)
+            k = rotary_embedding(k, cfg.rope_theta, positions)
         if cache is not None:
-            ctx = _cached_attention(q, k, v, cache, cache_index)
+            ctx = _cached_attention(q, k, v, cache, cache_index,
+                                    self.tp is not None)
         else:
             fn = self.attention_fn
             if fn is not None and not getattr(fn, "supports_gqa", False):
@@ -428,8 +446,15 @@ class LlamaAttention(nn.Module):
                 ctx = fn(q, k, v, None)
             else:
                 ctx = reference_attention(q, k, v, causal=True)
-        return _tp_sum(ctx.reshape(b, s, heads * hd) @ self.wo.to(dt),
-                       self.tp)
+        return _tp_sum(_dense(ctx.reshape(b, s, heads * hd), self.wo, dt,
+                              "wo"), self.tp)
+
+
+def _dense(x, w, dtype, name: str):
+    """``x @ w`` in ``dtype`` inside the profiler scope ``name`` (the
+    flax Dense's name in the JAX model)."""
+    with named_scope(name):
+        return x @ w.to(dtype)
 
 
 def init_attention_sublayer(block: nn.Module, cfg: LlamaConfig, generator,
@@ -448,9 +473,13 @@ def attention_sublayer(block: nn.Module, x, positions=None, cache=None,
     """Pre-norm attention + residual, shared by ``LlamaBlock`` and
     ``MoeBlock`` so that one place owns the cache protocol (the cache is
     updated in place), as ``horovod_tpu/models/llama.py``'s
-    ``attention_sublayer`` does."""
-    return x + block.attention(block.attention_norm(x), positions, cache,
-                               cache_index)
+    ``attention_sublayer`` does. The profiler scopes carry flax's
+    submodule names."""
+    with named_scope("attention_norm"):
+        h = block.attention_norm(x)
+    with named_scope("attention"):
+        h = block.attention(h, positions, cache, cache_index)
+    return x + h
 
 
 class LlamaBlock(nn.Module):
@@ -475,10 +504,12 @@ class LlamaBlock(nn.Module):
 
     def forward(self, x, positions=None, cache=None, cache_index=None):
         x = attention_sublayer(self, x, positions, cache, cache_index)
-        h = _tp_enter(self.ffn_norm(x), self.tp)
+        with named_scope("ffn_norm"):
+            h = _tp_enter(self.ffn_norm(x), self.tp)
         dt = self.dtype
-        gated = F.silu(h @ self.w_gate.to(dt)) * (h @ self.w_up.to(dt))
-        return x + _tp_sum(gated @ self.w_down.to(dt), self.tp)
+        gated = (F.silu(_dense(h, self.w_gate, dt, "w_gate"))
+                 * _dense(h, self.w_up, dt, "w_up"))
+        return x + _tp_sum(_dense(gated, self.w_down, dt, "w_down"), self.tp)
 
 
 class CausalLM(nn.Module):
@@ -569,7 +600,8 @@ class CausalLM(nn.Module):
                 positions = cache_index[:, None] + steps
             else:
                 positions = int(cache_index) + steps
-        x = self._embed(input_ids).to(cfg.dtype)
+        with named_scope("embed"):
+            x = self._embed(input_ids).to(cfg.dtype)
         remat = cfg.remat and cache is None and torch.is_grad_enabled()
         aux = []
         for i, layer in enumerate(self.layers):
@@ -584,11 +616,13 @@ class CausalLM(nn.Module):
                 aux.append(a)
             else:
                 x = out
-        x = self.final_norm(x)
+        with named_scope("final_norm"):
+            x = self.final_norm(x)
         if return_hidden:
             return x, aux
         head = cfg.head_dtype or cfg.dtype
-        logits = _tp_enter(x, self.tp).to(head) @ self.lm_head.to(head)
+        logits = _dense(_tp_enter(x, self.tp).to(head), self.lm_head, head,
+                        "lm_head")
         if self.tp is not None:
             logits = group_gather_last(logits, self.tp.group)
         return (logits if cache is None else (logits, cache)), aux
@@ -736,13 +770,16 @@ def generate(model: CausalLM, prompt_ids, max_new_tokens: int,
     with torch.inference_mode(), decode_path_context(info.path):
         cache = init_kv_cache(cfg, b, max_len, device=device,
                               kv_heads=model.kv_heads)
-        logits, cache = model(prompt, cache=cache, cache_index=0)
-        token = pick_tokens(logits[:, -1], temperature, generator)
+        with named_scope("prefill"):
+            logits, cache = model(prompt, cache=cache, cache_index=0)
+            token = pick_tokens(logits[:, -1], temperature, generator)
         new = [token]
         for i in range(max_new_tokens - 1):
-            logits, cache = model(token[:, None], cache=cache,
-                                  cache_index=s + i)
-            token = pick_tokens(logits[:, -1], temperature, generator)
+            # The profiler scope of one step of the JAX package's scan.
+            with named_scope("decode_step"):
+                logits, cache = model(token[:, None], cache=cache,
+                                      cache_index=s + i)
+                token = pick_tokens(logits[:, -1], temperature, generator)
             new.append(token)
         return torch.cat([prompt, torch.stack(new, dim=1)], dim=1)
 

@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import DeviceLike, default_device
+from ..common.profiler import named_scope
 from ..parallel.moe import moe_apply, moe_apply_dense
 from .llama import (CausalLM, LlamaBlock, LlamaConfig, RMSNorm, _param,
                     attention_sublayer, init_attention_sublayer)
@@ -123,7 +124,8 @@ class MoeFFN(nn.Module):
         b, s, d = x.shape
         tokens = x.reshape(b * s, d)
         # Router in float32 (Switch: routing is precision-sensitive).
-        logits = tokens.float() @ self.gate.float()
+        with named_scope("router"):
+            logits = tokens.float() @ self.gate.float()
         dt = cfg.dtype
 
         def expert_fn(p, t):
@@ -165,7 +167,10 @@ class MoeBlock(nn.Module):
         # Decoding runs the experts at no-drop capacity: a training-time
         # capacity drop depends on the per-call token pool, and a
         # single-token step's pool would bind differently.
-        y, aux = self.moe_ffn(self.ffn_norm(x), no_drop=cache is not None)
+        with named_scope("ffn_norm"):
+            h = self.ffn_norm(x)
+        with named_scope("moe_ffn"):
+            y, aux = self.moe_ffn(h, no_drop=cache is not None)
         return x + y, aux
 
 

@@ -24,14 +24,20 @@ one launch with no scratch.
 
 ``LAUNCHES`` counts wrapper calls that launched the kernels (one per
 call, whether the plan ran one CUDA launch or two, and nowhere else), so
-a run can show its main path went through the kernels.
+a run can show its main path went through the kernels. A CUDA graph's
+capture launches nothing: under :func:`recording_launches` a thread's
+wrapper calls are recorded instead of counted, and each replay of the
+graph adds the record (:func:`count_replay`), since a replay runs the
+kernels without the Python that counts them.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import threading
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, Iterator, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -42,6 +48,7 @@ from .attention import NEG_INF
 LAUNCHES: Dict[str, int] = {"decode_attention": 0,
                             "paged_decode_attention": 0}
 _launch_lock = threading.Lock()
+_recording = threading.local()
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -102,8 +109,32 @@ def reset_launch_counts() -> None:
 def _count_launch(name: str) -> None:
     """One launch of ``name``'s kernel. Under a lock: several serving
     loops (fleet replicas) launch from their own threads."""
+    record = getattr(_recording, "counts", None)
+    if record is not None:
+        record[name] += 1
+        return
     with _launch_lock:
         LAUNCHES[name] += 1
+
+
+@contextlib.contextmanager
+def recording_launches() -> Iterator[Dict[str, int]]:
+    """Within the context, this thread's wrapper calls are recorded into
+    the yielded counter and not counted: the CUDA graph capture they run
+    in launches nothing."""
+    record: Dict[str, int] = collections.Counter()
+    _recording.counts = record
+    try:
+        yield record
+    finally:
+        _recording.counts = None
+
+
+def count_replay(record: Dict[str, int]) -> None:
+    """One replay of a captured graph: its recorded launches ran."""
+    with _launch_lock:
+        for name, n in record.items():
+            LAUNCHES[name] += n
 
 
 def _attend_plain(q, k4, v4, lens, scale):

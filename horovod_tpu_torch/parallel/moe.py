@@ -74,8 +74,10 @@ def _route(probs: torch.Tensor, capacity: int, num_selected: int,
     # count past 256.
     fill = torch.zeros((num_experts,), dtype=torch.int32,
                        device=probs.device)
-    neg_inf = torch.tensor(float("-inf"), dtype=probs.dtype,
-                           device=probs.device)
+    # A fill on the device, not a host-to-device copy: the serving
+    # engine captures the decode step in a CUDA graph.
+    neg_inf = torch.full((), float("-inf"), dtype=probs.dtype,
+                         device=probs.device)
     for _ in range(num_selected):
         masked = torch.where(avail > 0, probs, neg_inf)
         choice = torch.argmax(masked, dim=-1)                  # [T]

@@ -18,6 +18,18 @@ the model's device — block 0 is the null block), (b) the
   running sequence advances one token through the paged decode kernel
   (``ops.decode_attention.paged_decode_attention``).
 
+On a card, and with no tensor-parallel lockstep, the engine captures
+``_paged_step`` at ``max_batch`` as one CUDA graph per ``all_greedy``
+value when it is built (:class:`_DecodeGraph`) — the counterpart of the
+JAX engine compiling ``_paged_step`` once per engine, static in
+``all_greedy`` — and each decode step copies its slot arrays into the
+graph's input buffers and replays it: one launch from the host instead
+of every kernel of the step. Prefill and copy-on-write stay eager (their
+shapes vary). The tensor-parallel engine stays eager by design: its
+steps hold gloo collectives and the ``_agree`` digests, which a graph
+cannot capture; so does the CPU. A capture or replay that fails raises;
+nothing falls back to the eager step.
+
 Between them sits iteration-level scheduling: sequences join and leave
 the decode batch at step boundaries.
 
@@ -53,6 +65,7 @@ instead of hanging.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import itertools
 import math
@@ -71,6 +84,8 @@ from ..analysis.lockorder import make_lock
 from .. import metrics
 from ..common import config as hvd_config
 from ..common import hvd_logging as logging
+from ..common.profiler import named_scope
+from ..ops import decode_attention as decode_ops
 from ..models.llama import (
     DecodePath,
     _decode_kernel_on,
@@ -285,6 +300,91 @@ def _paged_step(model, pools, tokens, lens, tables, temps,
     return next_tokens
 
 
+# The eager decode step, for comparisons only: engines built while this
+# is False run ``_paged_step`` from Python on the card too
+# (:func:`_eager_decode`; the CUDA tests and ``chip_smoke.py`` use it).
+_DECODE_GRAPHS = True
+
+
+@contextlib.contextmanager
+def _eager_decode():
+    """Engines built inside run the eager decode step (private: for
+    holding the captured step against it)."""
+    global _DECODE_GRAPHS
+    prev, _DECODE_GRAPHS = _DECODE_GRAPHS, False
+    try:
+        yield
+    finally:
+        _DECODE_GRAPHS = prev
+
+
+class _DecodeGraph:
+    """``_paged_step`` at the engine's ``max_batch`` captured as one CUDA
+    graph, for one ``all_greedy`` value. Its inputs are static buffers
+    each step copies into (tokens, lens, tables, temps); the pools stay
+    where they are, and the next tokens are read from the graph's static
+    output. The sampled graph registers the engine's generator, so a
+    replay draws from the same stream of random numbers an eager step
+    would. The kernel launches the capture recorded are counted at each
+    replay (``decode_ops.count_replay``)."""
+
+    def __init__(self, engine: "ServingEngine", all_greedy: bool,
+                 stream: "torch.cuda.Stream"):
+        dev = engine._device
+        size, slots = engine._config.max_batch, engine._table_slots
+        self.tokens = torch.zeros((size,), dtype=torch.int64, device=dev)
+        self.lens = torch.zeros((size,), dtype=torch.int32, device=dev)
+        self.tables = torch.zeros((size, slots), dtype=torch.int32,
+                                  device=dev)
+        self.temps = torch.zeros((size,), dtype=torch.float32, device=dev)
+        self.graph = torch.cuda.CUDAGraph()
+        if not all_greedy:
+            self.graph.register_generator_state(engine._generator)
+        with torch.inference_mode(), \
+                decode_path_context(engine._path.path), \
+                decode_ops.recording_launches() as self.launches, \
+                torch.cuda.graph(self.graph, stream=stream,
+                                 capture_error_mode="thread_local"):
+            self.out = _paged_step(engine._model, engine._pools, self.tokens,
+                                   self.lens, self.tables, self.temps,
+                                   all_greedy, engine._generator)
+
+    def replay(self, tokens, lens, tables, temps) -> torch.Tensor:
+        """One decode step: the slot arrays (numpy) in, the next tokens
+        (the graph's output buffer, valid until the next replay) out."""
+        for buf, arr in ((self.tokens, tokens), (self.lens, lens),
+                         (self.tables, tables), (self.temps, temps)):
+            buf.copy_(torch.from_numpy(arr))
+        self.graph.replay()
+        decode_ops.count_replay(self.launches)
+        return self.out
+
+
+def _capture_decode_graphs(
+        engine: "ServingEngine") -> Dict[bool, _DecodeGraph]:
+    """Both of an engine's decode graphs. One greedy step runs first on
+    the capture stream (on the null block: every slot's lens is 0), so
+    that lazy state (library handles, cached tables) is made outside the
+    graphs; it draws no random number."""
+    dev = engine._device
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    size, slots = engine._config.max_batch, engine._table_slots
+    with torch.cuda.stream(stream), torch.inference_mode(), \
+            decode_path_context(engine._path.path):
+        _paged_step(engine._model, engine._pools,
+                    torch.zeros((size,), dtype=torch.int64, device=dev),
+                    torch.zeros((size,), dtype=torch.int32, device=dev),
+                    torch.zeros((size, slots), dtype=torch.int32,
+                                device=dev),
+                    torch.zeros((size,), dtype=torch.float32, device=dev),
+                    True, engine._generator)
+    graphs = {flag: _DecodeGraph(engine, flag, stream)
+              for flag in (True, False)}
+    torch.cuda.current_stream(dev).wait_stream(stream)
+    return graphs
+
+
 class RequestHandle:
     """Caller's view of one submitted request: block on the result,
     stream tokens as they are produced, or cancel."""
@@ -463,6 +563,10 @@ class ServingEngine:
         _LIVE_ENGINES.add(self)
         self._tracer: Optional[TraceWriter] = None
         self._trace_checked = False
+        self._graphs: Optional[Dict[bool, _DecodeGraph]] = None
+        if (_DECODE_GRAPHS and self._device.type == "cuda"
+                and self._tp is None):
+            self._graphs = _capture_decode_graphs(self)
 
     # -- public API ---------------------------------------------------------
 
@@ -587,14 +691,20 @@ class ServingEngine:
         if arrays is not None:
             t_dec = time.monotonic()
             tokens, lens, tables, temps = arrays
-            with torch.inference_mode(), decode_path_context(self._path.path):
-                out_tokens = _paged_step(
-                    self._model, self._pools,
-                    self._to_device(tokens, torch.int64),
-                    self._to_device(lens), self._to_device(tables),
-                    self._to_device(temps, torch.float32),
-                    bool((temps <= 0.0).all()), self._generator)
-                out_host = out_tokens.cpu().numpy()
+            all_greedy = bool((temps <= 0.0).all())
+            if self._graphs is not None:
+                with named_scope("decode_step"):
+                    out_host = self._graphs[all_greedy].replay(
+                        tokens, lens, tables, temps).cpu().numpy()
+            else:
+                with torch.inference_mode(), named_scope("decode_step"), \
+                        decode_path_context(self._path.path):
+                    out_host = _paged_step(
+                        self._model, self._pools,
+                        self._to_device(tokens, torch.int64),
+                        self._to_device(lens), self._to_device(tables),
+                        self._to_device(temps, torch.float32),
+                        all_greedy, self._generator).cpu().numpy()
             with self._cond:
                 for req in batch:
                     if req.state == RUNNING and req.slot is not None:
@@ -770,7 +880,8 @@ class ServingEngine:
         # Pad to the page boundary (see _paged_prefill).
         padded = np.zeros((1, window), np.int64)
         padded[0, :plen] = prompt
-        with torch.inference_mode(), decode_path_context(self._path.path):
+        with torch.inference_mode(), named_scope("prefill"), \
+                decode_path_context(self._path.path):
             if warm:
                 # Prefix-cache hit: the warm pages' KV already sits in
                 # the pool — only the cold tail runs through the model.

@@ -32,7 +32,7 @@ from ..common.basics import (  # noqa: F401
 from ..common import config
 from .compression import Compression  # noqa: F401
 from .fsdp import fsdp_param_specs, fsdp_state_specs, fully_shard  # noqa: F401
-from .mpi_ops import _size
+from .mpi_ops import _allreduce_async_, _label, _size
 from .mpi_ops import (  # noqa: F401
     Average,
     Handle,
@@ -79,7 +79,10 @@ __all__ = [
 class _DistributedOptimizer(torch.optim.Optimizer):
     """Fires ``allreduce_async_`` per parameter as soon as its gradient
     is accumulated (``register_post_accumulate_grad_hook``), then joins
-    the handles in ``step()``.
+    the handles in ``step()``. The reduction of the optimizer's i-th
+    parameter runs inside the profiler label
+    ``hvd.allreduce.DistributedOptimizer.<i>``, the JAX package's name
+    for the i-th gradient leaf.
 
     Under elastic membership the world changes under the optimizer: the
     hooks are registered whatever the size at construction (at size 1
@@ -119,6 +122,9 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                 "to the optimizer")
 
         self._parameter_names = {id(p): name for name, p in named_parameters}
+        self._labels = {
+            id(p): f"DistributedOptimizer.{i}" for i, p in enumerate(
+                p for group in self.param_groups for p in group["params"])}
         self._handles = {}
         self._grad_accs = []
         self._backward_count = collections.defaultdict(int)
@@ -138,8 +144,13 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             if self._backward_count[id(p)] % self.backward_passes_per_step == 0:
                 name = self._parameter_names.get(id(p))
                 compressed, ctx = self._compression.compress(p.grad)
-                handle = allreduce_async_(compressed, average=True, name=name,
-                                          group=self._group)
+                if _size(self._group) == 1:
+                    handle = Handle(compressed)
+                else:
+                    with _label("allreduce", self._labels[id(p)],
+                                compressed, self._group):
+                        handle = _allreduce_async_(compressed, True, name,
+                                                   self._group)
                 self._handles[p] = (handle, ctx, compressed)
         return hook
 

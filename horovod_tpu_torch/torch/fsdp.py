@@ -53,6 +53,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..parallel.mesh import DATA_AXIS, group_rank, group_size
+from .mpi_ops import _label
 from .partition import (P, PartitionSpec, abstract_state, gather_rows,
                         reduce_scatter_rows, spec_axes)
 
@@ -406,6 +407,7 @@ def fully_shard(model: nn.Module, specs: Mapping[str, PartitionSpec],
 
 def _averager(group, n: int):
     def hook(p):
-        dist.all_reduce(p.grad, group=group)
+        with _label("allreduce", None, p.grad, group):
+            dist.all_reduce(p.grad, group=group)
         p.grad.div_(n)
     return hook

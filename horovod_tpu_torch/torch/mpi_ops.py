@@ -4,7 +4,8 @@ with the semantics of ``horovod_tpu/ops/collective_ops.py``.
 Sync, async and in-place variants of ``allreduce``, ``grouped_allreduce``,
 ``allgather`` and ``broadcast``; ``reducescatter`` and ``alltoall``
 (differentiable); ``broadcast_object`` and ``allgather_object``;
-``synchronize``/``poll`` on handles; ``barrier``. ``average=`` and
+``synchronize``/``poll`` on handles; ``barrier``. Each runs inside its ``hvd.<op>[.<name>]`` profiler
+label (``common/profiler.py``) on either tier. ``average=`` and
 ``op=`` (``Sum``/``Average``) are exclusive; neither means Average. At
 size 1 every op is the identity (the out-of-place ones return a copy;
 the object collectives a pickled round trip), as in the JAX package.
@@ -39,6 +40,7 @@ import torch
 import torch.distributed as dist
 
 from ..common import basics
+from ..common import profiler
 from ..common.reduction import average_
 
 Sum = "Sum"
@@ -100,6 +102,14 @@ def _rank(group=None) -> int:
     return dist.get_rank(group)
 
 
+def _label(op: str, name: Optional[str], tensor, group=None):
+    """The ``hvd.<op>[.<name>]`` range of one collective (one check when
+    no profiler records)."""
+    if not profiler.enabled():
+        return profiler._OFF
+    return profiler.collective_label(op, name, tensor, _size(group))
+
+
 def _check_root(root_rank: int) -> None:
     if not 0 <= root_rank < _size():
         raise ValueError(
@@ -131,11 +141,12 @@ def allreduce_async(tensor: torch.Tensor, average: Optional[bool] = None,
     avg = _resolve_average(average, op)
     if _size(group) == 1:
         return Handle(tensor.detach().clone())
-    ctl = _controller(group)
-    if ctl is not None:
-        return ctl.allreduce_async(tensor, average=avg, name=name)
-    out = tensor.detach().clone()
-    return _reduce(out, avg, out, group)
+    with _label("allreduce", name, tensor, group):
+        ctl = _controller(group)
+        if ctl is not None:
+            return ctl.allreduce_async(tensor, average=avg, name=name)
+        out = tensor.detach().clone()
+        return _reduce(out, avg, out, group)
 
 
 def allreduce_async_(tensor: torch.Tensor, average: Optional[bool] = None,
@@ -145,6 +156,14 @@ def allreduce_async_(tensor: torch.Tensor, average: Optional[bool] = None,
     avg = _resolve_average(average, op)
     if _size(group) == 1:
         return Handle(tensor)
+    with _label("allreduce", name, tensor, group):
+        return _allreduce_async_(tensor, avg, name, group)
+
+
+def _allreduce_async_(tensor: torch.Tensor, avg: bool,
+                      name: Optional[str], group=None) -> Handle:
+    """:func:`allreduce_async_` past the size-1 shortcut, unlabelled:
+    ``DistributedOptimizer`` puts its own label around it."""
     ctl = _controller(group)
     if ctl is not None:
         return ctl.allreduce_async(tensor, average=avg, name=name,
@@ -165,8 +184,9 @@ def grouped_allreduce_async(tensors, average: Optional[bool] = None,
         raise TypeError(
             "grouped_allreduce_async expects a list/tuple of tensors")
     avg = _resolve_average(average, op)
-    return [allreduce_async(t, average=avg, name=_member_name(name, i))
-            for i, t in enumerate(tensors)]
+    with _label("grouped_allreduce", name, tensors[0] if tensors else None):
+        return [allreduce_async(t, average=avg, name=_member_name(name, i))
+                for i, t in enumerate(tensors)]
 
 
 def grouped_allreduce(tensors, average: Optional[bool] = None,
@@ -184,8 +204,10 @@ def grouped_allreduce_(tensors, average: Optional[bool] = None,
     if not isinstance(tensors, (list, tuple)):
         raise TypeError("grouped_allreduce_ expects a list/tuple of tensors")
     avg = _resolve_average(average, op)
-    handles = [allreduce_async_(t, average=avg, name=_member_name(name, i))
-               for i, t in enumerate(tensors)]
+    with _label("grouped_allreduce", name, tensors[0] if tensors else None):
+        handles = [allreduce_async_(t, average=avg,
+                                    name=_member_name(name, i))
+                   for i, t in enumerate(tensors)]
     return [h.wait() for h in handles]
 
 
@@ -197,9 +219,16 @@ def allgather_async(tensor: torch.Tensor, name: Optional[str] = None,
     n = _size(group)
     if n == 1:
         return Handle(t.clone(), tensor_sizes=[t.shape[0]])
+    with _label("allgather", name, tensor, group):
+        return _allgather_async(tensor, name, n, group)
+
+
+def _allgather_async(tensor: torch.Tensor, name: Optional[str], n: int,
+                     group) -> Handle:
     ctl = _controller(group)
     if ctl is not None:
         return ctl.allgather_async(tensor, name=name)
+    t = tensor.detach()
     mine = torch.tensor([t.shape[0]], dtype=torch.int64, device=t.device)
     sizes = [torch.empty_like(mine) for _ in range(n)]
     dist.all_gather(sizes, mine, group=group)
@@ -222,11 +251,13 @@ def broadcast_async(tensor: torch.Tensor, root_rank: int,
     _check_root(root_rank)
     if _size() == 1:
         return Handle(tensor.detach().clone())
-    ctl = _controller()
-    if ctl is not None:
-        return ctl.broadcast_async(tensor, root_rank, name=name)
-    out = tensor.detach().clone()
-    return Handle(out, dist.broadcast(out, src=root_rank, async_op=True))
+    with _label("broadcast", name, tensor):
+        ctl = _controller()
+        if ctl is not None:
+            return ctl.broadcast_async(tensor, root_rank, name=name)
+        out = tensor.detach().clone()
+        return Handle(out, dist.broadcast(out, src=root_rank,
+                                          async_op=True))
 
 
 def broadcast_async_(tensor: torch.Tensor, root_rank: int,
@@ -235,12 +266,13 @@ def broadcast_async_(tensor: torch.Tensor, root_rank: int,
     _check_root(root_rank)
     if _size() == 1:
         return Handle(tensor)
-    ctl = _controller()
-    if ctl is not None:
-        return ctl.broadcast_async(tensor, root_rank, name=name,
-                                   inplace=True)
-    return Handle(tensor, dist.broadcast(tensor.detach(), src=root_rank,
-                                         async_op=True))
+    with _label("broadcast", name, tensor):
+        ctl = _controller()
+        if ctl is not None:
+            return ctl.broadcast_async(tensor, root_rank, name=name,
+                                       inplace=True)
+        return Handle(tensor, dist.broadcast(tensor.detach(), src=root_rank,
+                                             async_op=True))
 
 
 def synchronize(handle: Handle) -> torch.Tensor:
@@ -262,12 +294,13 @@ def barrier(name: Optional[str] = None) -> None:
     a 1-byte allreduce, which completes only when every rank joined)."""
     if _size() == 1:
         return
-    ctl = _controller()
-    if ctl is not None:
-        ctl.allreduce(torch.zeros(1, dtype=torch.uint8), average=False,
-                      name=name)
-    else:
-        dist.barrier()
+    with _label("barrier", name, None):
+        ctl = _controller()
+        if ctl is not None:
+            ctl.allreduce(torch.zeros(1, dtype=torch.uint8), average=False,
+                          name=name)
+        else:
+            dist.barrier()
 
 
 # ---------------------------------------------------------------------------
@@ -415,7 +448,8 @@ def reducescatter(tensor: torch.Tensor, average: Optional[bool] = None,
     _require_dim(tensor, "reducescatter")
     if _size(group) == 1:
         return _Identity.apply(tensor)
-    return _ReducescatterFunction.apply(tensor, avg, name, group)
+    with _label("reducescatter", name, tensor, group):
+        return _ReducescatterFunction.apply(tensor, avg, name, group)
 
 
 def _alltoall_splits(tensor: torch.Tensor, group) -> List[int]:
@@ -498,9 +532,10 @@ def alltoall(tensor: torch.Tensor, name: Optional[str] = None,
     size = _size(group)
     if size == 1:
         return _Identity.apply(tensor)
-    if _controller(group) is not None:
-        return _ComposedAlltoallFunction.apply(tensor, name)
-    return _AlltoallFunction.apply(tensor, group, False)
+    with _label("alltoall", name, tensor, group):
+        if _controller(group) is not None:
+            return _ComposedAlltoallFunction.apply(tensor, name)
+        return _AlltoallFunction.apply(tensor, group, False)
 
 
 def _alltoall_equal(tensor: torch.Tensor, group) -> torch.Tensor:
@@ -510,7 +545,8 @@ def _alltoall_equal(tensor: torch.Tensor, group) -> torch.Tensor:
     collective and no host sync per exchange."""
     if dist.get_world_size(group) == 1:
         return _Identity.apply(tensor)
-    return _AlltoallFunction.apply(tensor, group, True)
+    with _label("alltoall", None, tensor, group):
+        return _AlltoallFunction.apply(tensor, group, True)
 
 
 def _byte_tensor(payload: bytes) -> torch.Tensor:

@@ -11,10 +11,12 @@ that axis does the moving.
 ``gather_rows(flat, group)`` gives every member's equal-length flat
 buffer as the rows of one ``(n, L)`` tensor; ``reduce_scatter_rows(rows,
 group)`` sums the ``(n, L)`` buffers of the members and gives this
-member its row. On NCCL they are ``all_gather_into_tensor`` and
-``reduce_scatter_tensor``. gloo has no reduce-scatter, so there it is an
-allreduce of the whole buffer and a row taken, the composition
-``mpi_ops.reducescatter`` uses.
+member its row. On NCCL (and on any backend with tensor collectives,
+such as the fake backend that tests profile) they are
+``all_gather_into_tensor`` and ``reduce_scatter_tensor``. gloo has no
+reduce-scatter, so there it is an allreduce of the whole buffer and a
+row taken, the composition ``mpi_ops.reducescatter`` uses. Each runs
+inside its ``hvd.allgather`` / ``hvd.reducescatter`` profiler label.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 import torch.distributed as dist
 
 from ..parallel.mesh import group_rank, group_size
+from .mpi_ops import _label
 
 
 class PartitionSpec(tuple):
@@ -52,8 +55,12 @@ def spec_axes(spec) -> Tuple[str, ...]:
     return tuple(out)
 
 
-def _nccl(group) -> bool:
-    return dist.get_backend(group) == "nccl"
+def _tensor_collectives(group) -> bool:
+    """Whether the backend has the flat-tensor collectives (gloo has
+    not)."""
+    return dist.get_backend(group) != "gloo"
+
+
 
 
 def gather_rows(flat: torch.Tensor, group=None) -> torch.Tensor:
@@ -64,10 +71,12 @@ def gather_rows(flat: torch.Tensor, group=None) -> torch.Tensor:
     if n == 1:
         return flat[None]
     out = flat.new_empty((n,) + tuple(flat.shape))
-    if _nccl(group):
-        dist.all_gather_into_tensor(out, flat, group=group)
-    else:
-        dist.all_gather(list(out.unbind(0)), flat, group=group)
+    with _label("allgather", None, flat, group):
+        if _tensor_collectives(group):
+            # (1, L) in, (n, L) out: the shapes every backend accepts.
+            dist.all_gather_into_tensor(out, flat[None], group=group)
+        else:
+            dist.all_gather(list(out.unbind(0)), flat, group=group)
     return out
 
 
@@ -78,11 +87,12 @@ def reduce_scatter_rows(rows: torch.Tensor, group=None) -> torch.Tensor:
     if n == 1:
         return rows[0]
     rows = rows.contiguous()
-    if _nccl(group):
-        out = rows.new_empty(tuple(rows.shape[1:]))
-        dist.reduce_scatter_tensor(out, rows, group=group)
-        return out
-    dist.all_reduce(rows, group=group)
+    with _label("reducescatter", None, rows, group):
+        if _tensor_collectives(group):
+            out = rows.new_empty((1,) + tuple(rows.shape[1:]))
+            dist.reduce_scatter_tensor(out, rows, group=group)
+            return out[0]
+        dist.all_reduce(rows, group=group)
     return rows[group_rank(group)]
 
 

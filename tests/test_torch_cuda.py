@@ -564,3 +564,40 @@ def test_decode_kernels_at_tensor_parallel_shard_shapes(cuda_device, dtype,
     assert ops.LAUNCHES == {"decode_attention": 1,
                             "paged_decode_attention": 1}
     torch.testing.assert_close(got_p.float(), want_p.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("temperature", [0.0, 0.8], ids=["greedy", "sampled"])
+def test_engine_decode_graph_equals_the_eager_step(cuda_device, temperature):
+    """The engine's decode step captured as a CUDA graph gives the eager
+    step's tokens (greedy, and sampled from the same seed) and the same
+    paged-kernel launch count (the capture's launches counted at each
+    replay)."""
+    from horovod_tpu_torch import serving
+    from horovod_tpu_torch.serving import engine as engine_mod
+
+    cfg = dataclasses.replace(llama.LLAMA_TINY, dtype=torch.float32)
+    model = llama.LlamaLM(cfg, device=cuda_device, seed=0)
+    scfg = serving.ServingConfig(max_batch=4, block_size=16, num_blocks=0,
+                                 queue_depth=16, max_seq_len=128)
+    rng = np.random.RandomState(5)
+    prompts = [rng.randint(0, cfg.vocab_size, int(rng.randint(8, 40)))
+               for _ in range(6)]
+    runs = {}
+    for graphed in (True, False):
+        if graphed:
+            engine = serving.ServingEngine(model, scfg, seed=3)
+        else:
+            with engine_mod._eager_decode():
+                engine = serving.ServingEngine(model, scfg, seed=3)
+        assert (engine._graphs is not None) == graphed
+        handles = [engine.submit(p, 12, temperature) for p in prompts]
+        ops.reset_launch_counts()
+        engine.run_until_idle()
+        runs[graphed] = ([h.result(timeout=0) for h in handles],
+                         ops.LAUNCHES["paged_decode_attention"],
+                         engine.stats()["steps"])
+        engine.shutdown()
+    assert runs[True] == runs[False]
+    tokens, launches, steps = runs[True]
+    assert launches == cfg.num_layers * steps > 0

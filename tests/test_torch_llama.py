@@ -314,6 +314,15 @@ def test_port_imports_no_jax_or_reference_package():
         "import horovod_tpu_torch.metrics.recorder\n"
         "import horovod_tpu_torch.utils.live_calibration\n"
         "import horovod_tpu_torch.tools.doctor\n"
+        "import horovod_tpu_torch.common.profiler\n"
+        "import horovod_tpu_torch.utils.comm_accounting\n"
+        "import horovod_tpu_torch.utils.hlo_phases\n"
+        "import horovod_tpu_torch.utils.overlap\n"
+        "import horovod_tpu_torch.examples.bert_phase_profile\n"
+        "import horovod_tpu_torch.examples.decode_phase_profile\n"
+        "import horovod_tpu_torch.examples.moe_phase_profile\n"
+        "import horovod_tpu_torch.examples.vit_phase_profile\n"
+        "import horovod_tpu_torch.examples.comm_volume_report\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'horovod_tpu'))\n"
@@ -374,7 +383,15 @@ def test_port_sources_never_name_jax_or_the_reference_package():
                  "doctor/__init__.py", "doctor/evidence.py",
                  "doctor/rules.py", "metrics/exporter.py",
                  "metrics/recorder.py", "utils/live_calibration.py",
-                 "tools/doctor.py"):
+                 "tools/doctor.py",
+                 # The profiler and the trace readers'.
+                 "common/profiler.py", "utils/comm_accounting.py",
+                 "utils/hlo_phases.py", "utils/overlap.py",
+                 "examples/bert_phase_profile.py",
+                 "examples/decode_phase_profile.py",
+                 "examples/moe_phase_profile.py",
+                 "examples/vit_phase_profile.py",
+                 "examples/comm_volume_report.py"):
         assert name in scanned, name
     for path in paths:
         with open(path, encoding="utf-8") as fh:

@@ -186,6 +186,10 @@ def examples(res, specs):
     res["tpd/path"] = np.array(rec["path"])
     res["tpd/parity"] = np.array(rec["token_parity_mismatches"])
     res["tpd/mesh"] = np.array([rec["mesh"]["data"], rec["mesh"]["model"]])
+    res["tpd/markers"] = np.array(
+        [rec["decode_path_markers"][m] for m in (
+            "hvd.decode.kernel_tp", "hvd.decode.einsum",
+            "hvd.decode.kernel")])
 
 
 def main():
@@ -515,3 +519,6 @@ def test_tp_decode_profile_example(ranks):
         assert bool(rank["tpd/ok"]) and str(rank["tpd/path"]) == "kernel_tp"
         assert int(rank["tpd/parity"]) == 0
         assert list(rank["tpd/mesh"]) == [2, 2]
+        # One profiled prefill and two decode steps, two layers: the
+        # shard-local kernel's label at each step and layer, no other.
+        assert list(rank["tpd/markers"]) == [2 * 2, 0, 0]

@@ -2,7 +2,7 @@
 ``horovod_tpu/__init__.py`` binds is on ``horovod_tpu_torch`` after
 ``init``, except an explicit list of JAX-only names and of names whose
 modules are later slices (ROADMAP Queue 1, "No counterpart needed" and
-item 8.7). ``mpi_threads_supported``, ``wait``, ``serving`` and
+item 8.7, since landed). ``mpi_threads_supported``, ``wait``, ``serving`` and
 ``trace`` behave as the JAX root's; ``trace`` carries the JAX package's
 whole ``__all__``; ``HOROVOD_AUTOTUNE`` reaches the port's ``Config``
 and ``horovodrun --trace`` is accepted."""
@@ -19,8 +19,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # No counterpart needed: the traced tier and its helpers, covered by
 # process groups, ``--spmd`` and DistributedOptimizer.
 JAX_ONLY = {"compat", "set_default_spmd_axis", "distributed_value_and_grad"}
-# Later slices: the profiler (8.7).
-LATER = {"profiler"}
+# Later slices: none (the profiler, 8.7, has landed).
+LATER = set()
 
 
 def _jax_root_names():
@@ -51,6 +51,7 @@ print(json.dumps({
     "serving": callable(hvd.serving.stats),
     "trace": hasattr(hvd.trace, "TraceWriter"),
     "trace_all": sorted(hvd.trace.__all__),
+    "profiler_all": sorted(hvd.profiler.__all__),
     "bucket": hvd.BucketScheduler().bucket_bytes,
 }))
 hvd.shutdown()
@@ -73,10 +74,12 @@ def test_port_root_has_the_jax_roots_names():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     got = json.loads(proc.stdout.strip().splitlines()[-1])
     from horovod_tpu import trace as jtrace
+    from horovod_tpu.common import profiler as jprofiler
 
     assert got == {"missing": [], "threads": True, "wait": [1.0, 1.0],
                    "serving": True, "trace": True,
                    "trace_all": sorted(jtrace.__all__),
+                   "profiler_all": sorted(jprofiler.__all__),
                    "bucket": 8 << 20}
 
 
