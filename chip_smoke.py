@@ -318,18 +318,39 @@ on ``cuda``; any failure exits non-zero:
    of the other phases runs its CUDA graph. The training profiles of 9,
    11, 13 and 20 are read by the port's readers
    (``utils/hlo_phases.step_split``).
+37. the last optimizer, flag and example gaps, then the simulated
+   cluster: (a) the training example with ``--optimizer adafactor`` (the
+   port's ``torch/optim.Adafactor``, ``optax.adafactor(3e-4)``) at
+   Llama-300M bf16 seq 1024 b8, 16 layers, 5 timed steps beside phase 9's
+   AdamW (tokens/s, step, peak memory, flash launches), and its float32
+   parity at ``PARITY_LAYERS`` against ``use_flash=False`` (step 0's
+   gradients, then phase 8's tolerance); (b) one float32 step at
+   ``PARITY_LAYERS`` under ``HOROVOD_FLASH_XLA_BWD``: its gradients
+   within TOL of the kernels' backward, kernel 1 launched once a layer
+   and kernels 2 and 3 never (phase 24's parity adds a third step,
+   flagged); (c) Llama-300M
+   bf16 weights saved with ``utils.checkpoint.save_checkpoint`` and
+   decoded through the generation example's ``--checkpoint``: the tokens
+   of ``generate()`` on the saved model, through the contiguous decode
+   kernel; (d) the word2vec example at its defaults: the loss falls,
+   pairs/s by window; (e) host only, in the second lane: the 64-rank
+   seeded storm through ``tools.simcluster``, ``capacity_probe`` at
+   ``PROBE_SMOKE`` and ``tools.capacity --ranks 4096`` over its record,
+   and (after 33 (a)) ``tools.straggler`` over 33 (a)'s trace directory,
+   which gives the job's own report.
 
 The float32 parity runs of phases 24, 25, 27, 28, 30 and 31 build
 Llama-300M at 2 of its 16 layers (``PARITY_LAYERS``), to keep the script
 inside its time limit; their timed runs keep the full depth.
 
-Phases 3-5, 9, 13, 15-18, 20-25, 27, 28, 30-33, 35 and 36 are the main
+Phases 3-5, 9, 13, 15-18, 20-25, 27, 28, 30-33 and 35-37 are the main
 paths: the launch counts in the kernels' JSON line come from them (the flash
 kernels' are the sum of 9, 13, 20, 23's flash run, 24's seq-parallel
 training, 27's and 28's timed training, 30's and 31's (c), 32's
-three processes, 33 (a)'s two and 35 (a)'s three, plus
-the forward-only long-context runs of 24; the contiguous decode
-kernel's of 3, 15, 21 and 25's ``generate()`` and profile, the paged
+three processes, 33 (a)'s two, 35 (a)'s three and 37 (a), plus
+the forward-only long-context runs of 24 and the flagged steps of 24 and
+37 (b); the contiguous decode kernel's of 3, 15, 21, 25's
+``generate()`` and profile and 37 (c), the paged
 one's of 4, 16-18 (each also eager), 22, 25's engine and 36 (c); a
 two-process path's counts are
 its two ranks' sum; each path's on a line of its own). Each phase logs
@@ -338,10 +359,10 @@ its wall time.
 Three lanes share the card and the host. After the kernels' timings
 (2, 6, 14 and 24's ring kernels, alone), a second lane, a thread of this
 process that only starts jobs and reads their files, runs 32's job and
-restore probe, 30, 31 (e) and 33 (b)-(c), and a third one 31 (d)'s job,
-while this lane runs 3-5, 7-13, 15-23 and 34; both are joined before
-32's replay, which runs here, then 24-29, 31 (a)-(c), 33 (a) and 35 (a),
-(c) run alone. The numbers of 3-5, 7-13, 15-23 and of the other lanes'
+restore probe, 30, 31 (e), 33 (b)-(c) and 37 (e), and a third one 31
+(d)'s job, while this lane runs 3-5, 7-13, 15-23, 37 (a)-(d) and 34;
+both are joined before 32's replay, which runs here, then 24-29, 31
+(a)-(c), 33 (a) and 35 (a), (c) run alone. The numbers of 3-5, 7-13, 15-23 and of the other lanes'
 phases are taken with the other lanes' work on the same card and cores;
 those of 31 (c) and 33 (a), compared with each other, are not. A
 failure on any lane stops every job the script started and exits
@@ -1845,6 +1866,353 @@ def run_training_timed(card: str):
     return numbers
 
 
+# ---------------------------------------------------------------------------
+# Phase 37: Adafactor, HOROVOD_FLASH_XLA_BWD, --checkpoint, word2vec, and
+# the simulated cluster's tools
+
+
+class flagged:
+    """``HOROVOD_FLASH_XLA_BWD=1`` inside the block (the port reads it at
+    each backward call)."""
+
+    def __enter__(self):
+        os.environ["HOROVOD_FLASH_XLA_BWD"] = "1"
+
+    def __exit__(self, *exc):
+        os.environ.pop("HOROVOD_FLASH_XLA_BWD", None)
+
+
+def run_adafactor_parity(steps: int = 2):
+    """37 (a) parity: Llama-300M f32 at ``PARITY_LAYERS``, seq 1024, b8,
+    ``steps`` Adafactor steps (``optax.adafactor(3e-4)``) through the flash
+    kernels against as many through ``use_flash=False`` from the same
+    weights and batch: step 0's gradients within TOL (Adafactor's update
+    is normalised per block and moves a weight by about lr * rms(w), under
+    TOL, so the weights alone would hide a gradient off by a scale), the
+    loss to 1e-4 relative, every weight within TOL."""
+    import torch
+
+    from horovod_tpu_torch.examples import llama_training as ex
+    from horovod_tpu_torch.models.llama import LLAMA_300M
+    from horovod_tpu_torch.ops import attention as A
+    from horovod_tpu_torch.torch.optim import Adafactor
+
+    cfg = dataclasses.replace(LLAMA_300M, dtype=torch.float32,
+                              num_layers=PARITY_LAYERS)
+    ids = ex.batch_ids(cfg, 8, 1024, "cuda")
+    loss_fn = ex.make_loss_fn(0)
+    runs, grads0 = {}, {}
+    for use_flash in (True, False):
+        model = ex.make_model(cfg, no_flash=not use_flash, device="cuda")
+        opt = ex.make_optimizer("adafactor", model)
+        if not isinstance(opt, Adafactor):
+            raise AssertionError(f"adafactor: the example built {opt!r}")
+        losses = []
+        for step in range(steps):
+            A.reset_launch_counts()
+            losses.append(float(ex.train_step(model, opt, ids, loss_fn)))
+            if step == 0:
+                grads0[use_flash] = [p.grad.detach().clone()
+                                     for p in model.parameters()]
+            want = PARITY_LAYERS if use_flash else 0
+            if set(A.LAUNCHES.values()) != {want}:
+                raise AssertionError(
+                    f"adafactor step {step} (use_flash={use_flash}): flash "
+                    f"launches {A.LAUNCHES}, expected {want} each")
+        runs[use_flash] = (model, losses)
+        del opt
+    (kmodel, klosses), (pmodel, plosses) = runs[True], runs[False]
+    grad_diff = 0.0
+    for (name, _), gk, gp in zip(kmodel.named_parameters(), grads0[True],
+                                 grads0[False]):
+        grad_diff = max(grad_diff, float((gk - gp).abs().max()))
+        compare(gk, gp, "float32", f"adafactor parity step-0 gradient {name}")
+    del grads0
+    for a, b in zip(klosses, plosses):
+        if not np.isfinite(a) or abs(a - b) > 1e-4 * abs(b):
+            raise AssertionError(
+                f"adafactor parity: losses {klosses} vs {plosses}")
+    worst = 0.0
+    with torch.no_grad():
+        for (name, p), (_, r) in zip(kmodel.named_parameters(),
+                                     pmodel.named_parameters()):
+            worst = max(worst, float((p - r).abs().max()))
+            compare(p, r, "float32", f"adafactor parity weight {name}")
+    log(f"adafactor parity: llama300m f32 ({PARITY_LAYERS} layers) seq 1024 "
+        f"b=8, {steps} Adafactor steps; losses kernel {klosses} vs plain "
+        f"{plosses}; every step-0 gradient (max abs diff {grad_diff:.3g}) "
+        f"and every weight (max abs diff {worst:.3g}) within "
+        f"{TOL['float32']}")
+    del kmodel, pmodel, runs
+    torch.cuda.empty_cache()
+    return {"losses_kernel": klosses, "losses_plain": plosses,
+            "max_abs_grad_diff_step0": grad_diff,
+            "max_abs_weight_diff": worst}
+
+
+def run_adafactor_timed(card: str, adamw):
+    """37 (a): the training example's main path with ``--optimizer
+    adafactor``, bf16, seq 1024, batch 8, all 16 layers, 5 timed steps;
+    its numbers beside phase 9's AdamW run (``adamw``)."""
+    import torch
+
+    from horovod_tpu_torch.examples import llama_training as ex
+    from horovod_tpu_torch.ops import attention as A
+
+    iters = 5
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launch_counts()
+    out = ex.main(["--model", "300m", "--seq-len", "1024", "--batch-size",
+                   "8", "--num-iters", str(iters), "--optimizer",
+                   "adafactor"])
+    torch.cuda.synchronize()
+    launches = dict(A.LAUNCHES)
+    losses = out["losses"]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"adafactor training: loss did not fall: "
+                             f"{losses}")
+    if set(launches.values()) != {LAYERS * (iters + 1)}:
+        raise AssertionError(f"adafactor training: flash launches "
+                             f"{launches}, expected {LAYERS * (iters + 1)} "
+                             "each")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    numbers = {"tokens_per_s": out["tokens_per_s"],
+               "step_ms": out["step_ms"], "losses": losses,
+               "peak_memory_gib": peak, "flash_launches": launches}
+    log(f"training bf16 llama300m seq 1024 b=8 adafactor: "
+        f"{out['tokens_per_s']:.1f} tokens/s, step {out['step_ms']:.3f} ms, "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, peak memory "
+        f"{peak:.2f} GiB, flash launches {launches} over {iters + 1} steps; "
+        f"phase 9's adamw: {adamw['tokens_per_s']:.1f} tokens/s, step "
+        f"{adamw['step_ms']:.3f} ms, peak memory "
+        f"{adamw['peak_memory_gib']:.2f} GiB [{card}]")
+    del out
+    torch.cuda.empty_cache()
+    return numbers
+
+
+def run_flag_step():
+    """37 (b): one f32 step of Llama-300M at ``PARITY_LAYERS`` (seq 1024,
+    b8) under ``HOROVOD_FLASH_XLA_BWD``, against the same step through the
+    kernels' backward: every gradient within TOL; the flagged step
+    launches kernel 1 once a layer and neither kernel 2 nor 3."""
+    import torch
+
+    from horovod_tpu_torch.examples import llama_training as ex
+    from horovod_tpu_torch.models.llama import LLAMA_300M
+    from horovod_tpu_torch.ops import attention as A
+
+    cfg = dataclasses.replace(LLAMA_300M, dtype=torch.float32,
+                              num_layers=PARITY_LAYERS)
+    ids = ex.batch_ids(cfg, 8, 1024, "cuda")
+    loss_fn = ex.make_loss_fn(0)
+    grads, counts, losses = {}, {}, {}
+    for flag in (False, True):
+        model = ex.make_model(cfg, device="cuda")
+        A.reset_launch_counts()
+        if flag:
+            with flagged():
+                loss = loss_fn(model, ids)
+                loss.backward()
+        else:
+            loss = loss_fn(model, ids)
+            loss.backward()
+        torch.cuda.synchronize()
+        counts[flag] = dict(A.LAUNCHES)
+        losses[flag] = float(loss.detach())
+        grads[flag] = {n: p.grad for n, p in model.named_parameters()}
+        del model, loss
+    want = {"flash_forward": PARITY_LAYERS, "flash_backward_dq": 0,
+            "flash_backward_dkdv": 0}
+    if counts[True] != want or set(counts[False].values()) != \
+            {PARITY_LAYERS}:
+        raise AssertionError(f"flagged step launches {counts[True]} "
+                             f"(want {want}); kernel step {counts[False]}")
+    worst = 0.0
+    for name, g in grads[True].items():
+        ref = grads[False][name]
+        worst = max(worst, float((g - ref).abs().max()))
+        compare(g, ref, "float32", f"flagged gradient {name}")
+    log(f"HOROVOD_FLASH_XLA_BWD: llama300m f32 ({PARITY_LAYERS} layers) seq "
+        f"1024 b=8, one step: loss {losses[True]} (kernels "
+        f"{losses[False]}); every gradient within {TOL['float32']} of the "
+        f"kernels' backward (max abs diff {worst:.3g}); launches flagged "
+        f"{counts[True]}, kernels {counts[False]}")
+    del grads
+    torch.cuda.empty_cache()
+    return {"launches": counts[True], "kernel_launches": counts[False],
+            "max_abs_grad_diff": worst}
+
+
+def run_checkpoint_generation(card: str, new: int = 64):
+    """37 (c): Llama-300M bf16 weights (seed 1, not the example's seed 0)
+    saved with ``utils.checkpoint.save_checkpoint`` and decoded by the
+    generation example through ``--checkpoint`` (b8, prompt 128, ``new``
+    tokens): its greedy tokens equal ``generate()`` of the saved model in
+    memory, through the contiguous decode kernel."""
+    import tempfile
+
+    import torch
+
+    from horovod_tpu_torch.examples import llama_generation
+    from horovod_tpu_torch.models.llama import LLAMA_300M, LlamaLM, generate
+    from horovod_tpu_torch.ops import decode_attention as ops
+    from horovod_tpu_torch.utils.checkpoint import save_checkpoint
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        path = os.path.join(out_dir, "llama300m")
+        model = LlamaLM(LLAMA_300M, device="cuda", seed=1)
+        t = time.perf_counter()
+        save_checkpoint(path, model.state_dict())
+        save_s = time.perf_counter() - t
+        prompt = torch.from_numpy(np.random.RandomState(0).randint(
+            0, LLAMA_300M.vocab_size, (8, 128)))
+        want = generate(model, prompt, max_new_tokens=new).cpu()
+        del model
+        torch.cuda.empty_cache()
+        ops.reset_launch_counts()
+        out = llama_generation.main([
+            "--model", "300m", "--prompt-len", "128", "--max-new-tokens",
+            str(new), "--batch-size", "8", "--checkpoint", path])
+        launches = ops.LAUNCHES["decode_attention"]
+        got = out["out"].cpu()
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    if not torch.equal(got, want):
+        raise AssertionError(
+            f"--checkpoint: {int((got != want).sum())} tokens differ from "
+            "the saved model's generate()")
+    if launches != 2 * LAYERS * (new - 1):
+        raise AssertionError(f"--checkpoint: decode_attention launched "
+                             f"{launches} times, expected "
+                             f"{2 * LAYERS * (new - 1)}")
+    log(f"generation --checkpoint llama-300m bf16 p=128 n={new} b=8: tokens "
+        f"equal the saved model's generate(); {out['tokens_per_s']:.1f} "
+        f"decode tokens/s; save {save_s:.2f} s; decode_attention launches "
+        f"{launches} [{card}]")
+    return {"tokens_per_s": out["tokens_per_s"], "save_s": save_s,
+            "launches": launches}
+
+
+def run_word2vec(card: str):
+    """37 (d): the word2vec example at its defaults (vocab 10,000, dim 128,
+    batch 1024, 8 negatives, 200 steps of Adagrad) on the card: the loss
+    falls; pairs/s of each 50-step window."""
+    import torch
+
+    from horovod_tpu_torch.examples import word2vec
+
+    t = time.perf_counter()
+    out = word2vec.main([])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    losses = out["losses"]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"word2vec: loss did not fall: {losses[0]} -> "
+                             f"{losses[-1]}")
+    rates = out["pairs_per_s"]
+    log(f"word2vec defaults (vocab 10000, dim 128, b1024, 8 negatives, 200 "
+        f"Adagrad steps): loss {losses[0]:.4f} -> {losses[-1]:.4f}; pairs/s "
+        f"by 50-step window {[round(r) for r in rates]}; {wall:.1f} s "
+        f"[{card}]")
+    return {"loss_first": losses[0], "loss_last": losses[-1],
+            "pairs_per_s": rates, "seconds": wall}
+
+
+SIM_STORM_PLAN = {"seed": 13, "faults": [
+    {"site": "cycle", "action": "delay", "rank": 5, "at": 1, "times": 30,
+     "seconds": 0.03},
+    {"site": "cycle", "action": "kill", "rank": 9, "at": 6},
+    {"site": "cycle", "action": "leave", "rank": 20, "at": 10},
+    {"site": "cycle", "action": "group_kill", "ranks": [40, 41, 42, 43],
+     "at": 14},
+    {"site": "cycle", "action": "join", "rank": 1, "at": 16},
+    {"site": "cycle", "action": "join", "rank": 1, "at": 18},
+    {"site": "cycle", "action": "kill", "rank": 9, "at": 22},
+]}
+# capacity_probe at reduced settings (the committed calibration's are in
+# horovod_tpu_torch/calibration/capacity_port.json): every size on the
+# serial driver, 128 again on the threaded one.
+PROBE_SMOKE = ["--sizes", "8,16,32,64,128", "--threaded-sizes", "",
+               "--driver-check", "128", "--cycles", "5", "--repeats", "1"]
+
+
+def _tool(args, timeout: float) -> subprocess.CompletedProcess:
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("HOROVOD_", "OMPI_", "PMI_"))}
+    env["PYTHONPATH"] = here
+    res = run_child([sys.executable, "-m", *args], timeout, cwd=here,
+                    env=env, stdout=subprocess.PIPE,
+                    stderr=subprocess.PIPE, text=True)
+    if res.returncode != 0:
+        raise AssertionError(f"{args[0]} exited {res.returncode}: "
+                             f"{res.stdout[-2000:]} {res.stderr[-2000:]}")
+    return res
+
+
+def run_sim_tools(card: str):
+    """37 (e), host only (the second lane): the 64-rank seeded storm
+    through ``tools.simcluster`` (exit 0: consistent collectives, zero
+    protocol violations, the doctor naming straggler 5 and the
+    most-departed rank 9); ``capacity_probe`` at ``PROBE_SMOKE``, then
+    ``tools.capacity --ranks 4096`` over its record, which names a first
+    bottleneck."""
+    import tempfile
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_sim_")
+    try:
+        plan = os.path.join(out_dir, "storm.json")
+        with open(plan, "w") as f:
+            json.dump(SIM_STORM_PLAN, f)
+        t = time.perf_counter()
+        res = _tool(["horovod_tpu_torch.tools.simcluster", "--ranks", "64",
+                     "--steps", "34", "--plan", f"@{plan}", "--json"], 300)
+        storm_s = time.perf_counter() - t
+        verdict = json.loads(res.stdout)
+        names = {(f["rule"], f.get("rank")) for f in verdict["findings"]}
+        if verdict["final_size"] != 59 or verdict["problems"] or \
+                verdict["violations"] or \
+                ("persistent_straggler", 5) not in names or \
+                ("membership_churn", 9) not in names:
+            raise AssertionError(f"simcluster storm: {json.dumps(verdict)}")
+        t = time.perf_counter()
+        _tool(["horovod_tpu_torch.examples.capacity_probe", *PROBE_SMOKE,
+               "--card", card, "--out",
+               os.path.join(out_dir, "capacity_port.json")], 600)
+        probe_s = time.perf_counter() - t
+        res = _tool(["horovod_tpu_torch.tools.capacity", "--ranks", "4096",
+                     "--artifacts", out_dir, "--json"], 120)
+        plan_out = json.loads(res.stdout)
+        first = plan_out["first_bottleneck"]
+        if first is None:
+            raise AssertionError(f"capacity: no first bottleneck "
+                                 f"{json.dumps(plan_out)}")
+        with open(os.path.join(out_dir, "capacity_port.json")) as f:
+            record = json.load(f)
+        cal = record["calibration"]
+        check = {key: row["ratio"] for key, row in sorted(
+            record["threaded_driver"]["vs_fit"]["128"].items())}
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    log(f"simcluster storm (64 ranks, 34 steps): epoch "
+        f"{verdict['final_epoch']}, size {verdict['final_size']}, "
+        f"{verdict['transitions']} conformant transitions, 0 violations, "
+        f"doctor {sorted(names, key=str)}; {storm_s:.1f} s. capacity_probe "
+        f"{' '.join(PROBE_SMOKE)}: negotiation "
+        f"{cal['negotiation_per_rank_s'] * 1e6:.2f} us/rank, reshape "
+        f"{cal['reshape_per_rank_s'] * 1e6:.2f} us/rank, 128 ranks on "
+        f"the threaded driver / the serial fit {json.dumps(check)}; "
+        f"{probe_s:.1f} s; tools.capacity --ranks 4096: first bottleneck "
+        f"{first['plane']} [host beside {card}]")
+    return {"storm": {k: verdict[k] for k in ("final_epoch", "final_size",
+                                              "transitions")},
+            "storm_s": storm_s, "probe_s": probe_s, "calibration": cal,
+            "threaded_driver_ratio": check,
+            "first_bottleneck": first["plane"]}
+
+
 # Device-time buckets of a profiled step: (bucket, kernel-name test), the
 # first that matches wins, the rest is "other" (the elementwise tail).
 TRANSFORMER_SPLIT = (
@@ -2771,7 +3139,8 @@ def worker_sp_parity(rank: int, batch: int = 2, steps: int = 2):
     """Phase 24 parity: the pieces of ``llama_training --seq-parallel
     2`` (``make_model`` with ring attention over ``seq``,
     ``make_sp_loss_fn``, ``batch_ids`` and ``train_step``) in float32,
-    SGD, ``steps`` steps, against the single-process run at the same
+    SGD, ``steps`` steps through the kernels' backward and one more under
+    ``HOROVOD_FLASH_XLA_BWD``, against the single-process run at the same
     global batch (rank 0 runs it after, on the full sequence): the loss
     to 1e-4 relative at every step, every weight within TOL."""
     import torch
@@ -2790,10 +3159,23 @@ def worker_sp_parity(rank: int, batch: int = 2, steps: int = 2):
     ring_opt = ex.make_optimizer("sgd", ring, mesh.group("data"))
     sp_loss = ex.make_sp_loss_fn(seq)
     ids = ex.batch_ids(cfg, batch, seq_len, "cuda", mesh)
+    # One more step runs under HOROVOD_FLASH_XLA_BWD on both sides (37 b):
+    # the ring's block pairs and the single process's flash differentiate
+    # their dense forms, and no backward kernel launches.
     losses, counts = _path(lambda: [
         float(ex.train_step(ring, ring_opt, ids, sp_loss, seq))
         for _ in range(steps)])
-    row = {"losses_ring": losses, "launches": counts}
+    with flagged():
+        flagged_loss, flagged_counts = _path(lambda: float(
+            ex.train_step(ring, ring_opt, ids, sp_loss, seq)))
+    losses.append(flagged_loss)
+    if flagged_counts["flash_backward_dq"] or \
+            flagged_counts["flash_backward_dkdv"] or \
+            not flagged_counts["flash_forward"]:
+        raise AssertionError(f"seq-parallel flagged step: launches "
+                             f"{flagged_counts}")
+    row = {"losses_ring": losses, "launches": counts,
+           "flagged": {"launches": flagged_counts}}
     if rank == 0:
         model = ex.make_model(cfg, device="cuda")
         opt = ex.make_optimizer("sgd", model, mesh.group("data"))
@@ -2802,6 +3184,8 @@ def worker_sp_parity(rank: int, batch: int = 2, steps: int = 2):
         loss_fn = ex.make_loss_fn(0)
         ref = [float(ex.train_step(model, opt, ids, loss_fn))
                for _ in range(steps)]
+        with flagged():
+            ref.append(float(ex.train_step(model, opt, ids, loss_fn)))
         for a, b in zip(losses, ref):
             if not np.isfinite(a) or abs(a - b) > 1e-4 * abs(b):
                 raise AssertionError(f"seq-parallel parity: losses "
@@ -3670,10 +4054,10 @@ def run_parallel_phases(card: str):
     shutil.rmtree(out_dir, ignore_errors=True)
     sp = results["24 sp parity"]
     log(f"seq-parallel parity: llama300m f32 ({PARITY_LAYERS} layers) seq "
-        f"2048 sp 2 b=2, 2 SGD "
-        f"steps; losses ring {sp['losses_ring']} vs single process "
-        f"{sp['losses_single']}; every weight within {TOL['float32']} "
-        f"(max abs diff {sp['max_abs_weight_diff']:.3g})")
+        f"2048 sp 2 b=2, 2 SGD steps through the kernels' backward and "
+        f"one under HOROVOD_FLASH_XLA_BWD; losses ring {sp['losses_ring']} "
+        f"vs single process {sp['losses_single']}; every weight within "
+        f"{TOL['float32']} (max abs diff {sp['max_abs_weight_diff']:.3g})")
     timed = results["24 sp timed"]
     log(f"seq-parallel training bf16 llama300m seq 2048 sp 2 b=4 (two "
         f"ranks sharing one card): {timed['tokens_per_s']:.1f} tokens/s, "
@@ -4740,6 +5124,25 @@ def check_trace(trace_dir: str, gradients):
         "seq_ids_per_gradient": len(seqs[0][gradients[0]])}
 
 
+def run_tools_straggler(trace_dir: str, report):
+    """37 (e): ``tools.straggler`` over 33 (a)'s trace directory
+    (``--remerge``, no report file written): exit 0 and the job's own
+    attribution (``report``: :func:`check_trace`'s keys) again."""
+    t = time.perf_counter()
+    res = _tool(["horovod_tpu_torch.tools.straggler", trace_dir,
+                 "--remerge", "--no-report-file"], 120)
+    seconds = time.perf_counter() - t
+    got = json.loads(res.stdout)
+    if {k: got[k] for k in report} != report:
+        raise AssertionError(f"tools.straggler: {json.dumps(got)} against "
+                             f"the job's {json.dumps(report)}")
+    log(f"tools.straggler over 33 (a)'s trace: {got['collectives']} "
+        f"collectives, worst rank {got['worst_rank']}, as the job's own "
+        f"report; {seconds:.1f} s")
+    return {"collectives": got["collectives"],
+            "worst_rank": got["worst_rank"], "seconds": seconds}
+
+
 def scored_rows(path: str):
     with open(path) as f:
         lines = [ln for ln in f.read().splitlines()
@@ -4780,6 +5183,8 @@ def run_tune_phase(card: str, untuned_tok_s: float):
                 raise AssertionError(f"(a) rank {r}: flash launches "
                                      f"{rec['launches']}")
         trace = check_trace(os.path.join(out_dir, "trace"), r0["gradients"])
+        trace["tools_straggler"] = run_tools_straggler(
+            os.path.join(out_dir, "trace"), trace["report"])
         tuner = r0["tuner"]
         a = {"tokens_per_s": r0["tokens_per_s"], "step_ms": r0["step_ms"],
              "losses": r0["losses"], "scored": len(rows),
@@ -5475,7 +5880,9 @@ def main() -> int:
                  ("31 (e) two-level plane (four ranks, horovodrun)",
                   run_two_level_phase),
                  ("33 (b)-(c) tuned parity and overlap probe",
-                  run_tune_checks, card)])
+                  run_tune_checks, card),
+                 ("37 (e) simulated cluster and its tools",
+                  run_sim_tools, card)])
     # A third lane, one job: 31 (d)'s checks do not depend on timing.
     int8_lane = Lane([("31 (d) int8 wire (horovodrun)", run_int8_phase,
                        card)], "third lane")
@@ -5535,6 +5942,16 @@ def main() -> int:
     parity = phase("8 training parity", run_training_parity)
     training = phase("9 training example", run_training_timed, card)
     torch.cuda.empty_cache()
+    phase37 = {"a_parity": phase("37 (a) adafactor parity",
+                                 run_adafactor_parity),
+               "a": phase("37 (a) adafactor training example",
+                          run_adafactor_timed, card, training),
+               "b": phase("37 (b) HOROVOD_FLASH_XLA_BWD step",
+                          run_flag_step),
+               "c": phase("37 (c) generation --checkpoint",
+                          run_checkpoint_generation, card),
+               "d": phase("37 (d) word2vec", run_word2vec, card)}
+    torch.cuda.empty_cache()
 
     moe_parity = phase("19 moe parity", run_moe_parity)
     moe_training = phase("20 moe training example", run_moe_training_timed,
@@ -5578,6 +5995,7 @@ def main() -> int:
             **second["33 (b)-(c) tuned parity and overlap probe"]}
     doctor = phase("35 cluster doctor (horovodrun -np 3 under a delay, "
                    "a postmortem)", run_doctor_phase, card)
+    phase37["e"] = second["37 (e) simulated cluster and its tools"]
 
     # The two ranks' counts of each parallel path, summed.
     by_rank = parallel["counts_by_rank"]
@@ -5587,6 +6005,8 @@ def main() -> int:
 
     flash_names = list(flash_ops.LAUNCHES)
     flash_paths = {"llama300m training (9)": training["flash_launches"],
+                   "llama300m adafactor training (37 a)":
+                       phase37["a"]["flash_launches"],
                    "bert-base training (13)": bert["flash_launches"],
                    "moe-small training (20)": moe_training["flash_launches"],
                    "vit-s16 --attention flash (23)":
@@ -5618,9 +6038,16 @@ def main() -> int:
     forward_only = {f"long context ring {layout} (24)": both(
         "24 sp timed", f"long_context_{layout}", "flash_forward")
         for layout in ("contiguous", "zigzag")}
+    # Under the flag a step's backward runs no kernel: its forwards only.
+    forward_only["HOROVOD_FLASH_XLA_BWD step (37 b)"] = \
+        phase37["b"]["launches"]["flash_forward"]
+    forward_only["seq-parallel parity, HOROVOD_FLASH_XLA_BWD step (24)"] = \
+        both("24 sp parity", "flagged", "flash_forward")
     log(f"flash launches by main path: {json.dumps(flash_paths)}")
     decode_paths = {"generate (3)": gen_launches,
                     "generation example (15)": example_launches,
+                    "generation example --checkpoint (37 c)":
+                        phase37["c"]["launches"],
                     "moe-small generate (21)": moe_gen_launches,
                     "moe-small generation example (21)":
                         moe_example_launches,
@@ -5699,6 +6126,7 @@ def main() -> int:
     log(f"tuning and tracing: {json.dumps(tune)}")
     log(f"static gates: {json.dumps(gates)}")
     log(f"cluster doctor: {json.dumps(doctor)}")
+    log(f"phase 37: {json.dumps(phase37)}")
     log(f"ring kernels: {json.dumps({f'{k[0]} {k[1]}': v for k, v in ring_flash.items()})}")
     log(f"wall time: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

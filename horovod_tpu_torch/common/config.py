@@ -404,6 +404,16 @@ def cpu_ops() -> str:
     return os.environ.get("HOROVOD_CPU_OPS", "ring")
 
 
+def flash_xla_bwd() -> bool:
+    """``HOROVOD_FLASH_XLA_BWD``: differentiate flash attention's plain
+    version (O(S^2) memory) instead of running the two backward kernels.
+    Raw truthiness, as the JAX package reads it: any non-empty value,
+    ``"0"`` included, switches it on. Both consumers
+    (``ops/attention.py``, ``parallel/sequence.py``) read it at each
+    backward call, where the JAX package reads it once at trace time."""
+    return bool(os.environ.get("HOROVOD_FLASH_XLA_BWD"))
+
+
 def selected_engine() -> str:
     """The eager tier's engine, "native" or "python": ``HOROVOD_ENGINE``
     when set, else native whenever :func:`ring_data_plane_enabled`."""

@@ -290,8 +290,7 @@ class Wire:
         view = _as_bytes_view(payload)
         header = self._header(kind, view)
         with self._send_lock:
-            self._sendall(header)
-            self._sendall(view)
+            self._sendall(header, view)
         self._count_sent(kind, view.nbytes)
 
     def _try_send_frame(self, kind: int, payload: bytes) -> bool:
@@ -354,18 +353,26 @@ class Wire:
         except Exception:
             pass
 
-    def _sendall(self, data) -> None:
-        """sendall that tolerates the recv deadline: ``settimeout`` applies
-        to sends too, and a send that raised after one timeout would be a
-        spurious failure (a full buffer is flow control) and a stream
-        desync. Timed-out sends keep going until the stall bound."""
-        view = _as_bytes_view(data)
-        sent = 0
+    def _sendall(self, *parts) -> None:
+        """sendall of ``parts`` back to back, each attempt one ``sendmsg``
+        over what is left: a frame's header and payload leave in one call,
+        as the JAX package's one concatenated send does, so a peer that
+        already closed fails the frame's next recv (which still reads what
+        the peer sent before closing, an ABORT say) rather than the
+        payload's send. It tolerates the recv deadline: ``settimeout``
+        applies to sends too, and a send that raised after one timeout
+        would be a spurious failure (a full buffer is flow control) and a
+        stream desync. Timed-out sends keep going until the stall bound."""
+        views = [v for v in map(_as_bytes_view, parts) if v.nbytes]
         stalled = 0.0
-        while sent < view.nbytes:
+        while views:
             try:
-                sent += self._sock.send(view[sent:])
+                sent = self._sock.sendmsg(views)
                 stalled = 0.0  # progress resets the stall clock
+                while views and sent >= views[0].nbytes:
+                    sent -= views.pop(0).nbytes
+                if sent:
+                    views[0] = views[0][sent:]
             except socket.timeout:
                 deadline = self._first_deadline or self._deadline
                 stalled += deadline or 0.0

@@ -718,8 +718,16 @@ class Controller:
                     if delay > 0 and not self._shutdown_requested:
                         time.sleep(delay)
         except Exception as exc:  # transport failure: fail all pending work
-            logging.error("controller loop failed: %s", exc)
-            self._fail_all(self._diagnose_failure(exc))
+            if (self._shutdown_requested and self._client is not None
+                    and isinstance(exc, (ConnectionError, OSError))):
+                # Teardown race, worker side: the coordinator closed on
+                # its own flag before this worker's flag reached it.
+                logging.debug("shutdown: the coordinator closed before "
+                              "the final echo (%s)", exc)
+                self._fail_all(ShutdownError("Horovod has been shut down"))
+            else:
+                logging.error("controller loop failed: %s", exc)
+                self._fail_all(self._diagnose_failure(exc))
         finally:
             self._closed.set()
             if self._trace_enabled:
@@ -1259,9 +1267,14 @@ class Controller:
 
         # A traced job keeps cycling until the shutdown flag came back
         # echoed: the trace exchange needs every rank in lockstep on the
-        # same cycle, wires still up.
+        # same cycle, wires still up. A worker always does: a flag set
+        # while its tick was in flight has not reached the coordinator,
+        # and closing on it would drop the wire under a coordinator that
+        # never heard of the shutdown, which an elastic one re-forms as a
+        # departure (the JAX package closes at once here).
         if rlist.shutdown or (self._shutdown_requested
-                              and not self._trace_enabled):
+                              and not self._trace_enabled
+                              and self._client is None):
             if rlist.shutdown and self._trace_enabled:
                 self._finalize_trace()
             # Close before failing: once _fail_all empties the table, a

@@ -352,12 +352,15 @@ class CoordinatorService(_HeartbeatMixin):
             for old_rank in sorted(self.wires):
                 if old_rank in dead:
                     lost.append(old_rank)
-                    try:
-                        self.wires[old_rank].close()
-                    except Exception:
-                        pass
                 else:
                     members.append((old_rank, self.wires[old_rank]))
+            dead_wires = [self.wires[r] for r in lost]
+        # Closed outside the membership lock: a socket's close is I/O.
+        for wire in dead_wires:
+            try:
+                wire.close()
+            except Exception:
+                pass
         joined = 0
         while True:
             capacity = (max_ranks - 1 - len(members)) if max_ranks else None

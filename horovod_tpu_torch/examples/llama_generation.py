@@ -14,9 +14,12 @@ there. Runs on ``cuda`` unless given ``--device cpu``.
 
 The MoE choices (``moe-tiny``, ``moe-small``) decode ``MoeLM`` through
 the same ``generate()`` (no-drop expert capacity) and print the model's
-name without the ``llama-`` prefix, as the JAX example does. Not ported
-yet: ``--checkpoint`` (it waits for the port of the checkpoint
-utilities).
+name without the ``llama-`` prefix, as the JAX example does.
+
+``--checkpoint PATH`` decodes from a model ``state_dict()`` saved by
+``utils.checkpoint.save_checkpoint`` (the port's own format; the JAX
+example reads an orbax directory instead). The names and shapes must be
+the model's, or it raises before decoding.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import torch
 from horovod_tpu_torch.models.llama import (LLAMA_1B, LLAMA_8B, LLAMA_300M,
                                             LLAMA_TINY, LlamaLM, generate)
 from horovod_tpu_torch.models.moe_lm import MOE_SMALL, MOE_TINY, MoeLM
+from horovod_tpu_torch.utils.checkpoint import restore_checkpoint
 
 CONFIGS = {"tiny": (LlamaLM, LLAMA_TINY), "300m": (LlamaLM, LLAMA_300M),
            "1b": (LlamaLM, LLAMA_1B), "8b": (LlamaLM, LLAMA_8B),
@@ -46,7 +50,31 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     parser.add_argument("--temperature", type=float, default=0.0)
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
+    parser.add_argument("--checkpoint", default=None,
+                        help="checkpoint of the model's state_dict, as "
+                             "utils.checkpoint.save_checkpoint writes it")
     return parser.parse_args(argv)
+
+
+def load_checkpoint(model: torch.nn.Module, path: str) -> None:
+    """Load the ``state_dict`` saved at ``path`` into ``model`` after
+    checking that it holds exactly the model's names and shapes."""
+    state = restore_checkpoint(path, broadcast=False)
+    want = model.state_dict()
+    if not isinstance(state, dict):
+        raise ValueError(f"checkpoint {path} holds a {type(state).__name__},"
+                         " not a model state_dict")
+    missing = sorted(set(want) - set(state))
+    extra = sorted(set(state) - set(want))
+    shapes = sorted(name for name in set(want) & set(state)
+                    if tuple(state[name].shape) != tuple(want[name].shape))
+    if missing or extra or shapes:
+        raise ValueError(
+            f"checkpoint {path} does not fit the model: missing {missing}, "
+            f"unexpected {extra}, wrong shapes " + ", ".join(
+                f"{n} {tuple(state[n].shape)} != {tuple(want[n].shape)}"
+                for n in shapes))
+    model.load_state_dict(state)
 
 
 def _sync(device: torch.device) -> None:
@@ -61,6 +89,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     on_card = device.type == "cuda"
     held_before = torch.cuda.memory_allocated(device) if on_card else 0
     model = model_cls(cfg, device=device, seed=0)
+    if args.checkpoint:
+        load_checkpoint(model, args.checkpoint)
     rng = np.random.RandomState(0)
     prompt = torch.from_numpy(rng.randint(
         0, cfg.vocab_size, (args.batch_size, args.prompt_len)))

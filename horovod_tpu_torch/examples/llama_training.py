@@ -20,7 +20,8 @@ next-token loss shift crosses shard boundaries with one exchange
 (``sp_causal_lm_loss``). Each seq rank's gradients are its share of the
 global loss's: they are summed over ``seq`` after the backward, and
 ``DistributedOptimizer`` averages over ``data`` only (the two commute).
-``--optimizer adafactor`` of the JAX example is not ported.
+``--optimizer adafactor`` is ``optax.adafactor(3e-4)`` through the port's
+own ``torch.optim.Adafactor`` (``horovod_tpu_torch/torch/optim.py``).
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ from horovod_tpu_torch.models.llama import (LLAMA_1B, LLAMA_8B, LLAMA_300M,
 from horovod_tpu_torch.ops.attention import make_attention_fn
 from horovod_tpu_torch.parallel import make_mesh
 from horovod_tpu_torch.parallel.sequence import ring_attention
+from horovod_tpu_torch.torch.optim import Adafactor
 
 CONFIGS = {"tiny": LLAMA_TINY, "300m": LLAMA_300M,
            "1b": LLAMA_1B, "8b": LLAMA_8B}
@@ -59,7 +61,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     parser.add_argument("--remat", action="store_true",
                         help="checkpoint each block: O(1)-layers live "
                              "activations for ~1/3 extra FLOPs")
-    parser.add_argument("--optimizer", choices=["adamw", "sgd"],
+    parser.add_argument("--optimizer", choices=["adamw", "sgd", "adafactor"],
                         default="adamw")
     parser.add_argument("--chunked-loss", type=int, default=0, metavar="K",
                         help="apply the lm_head + loss in K sequence "
@@ -100,8 +102,10 @@ def make_model(cfg: LlamaConfig, no_flash: bool = False,
 
 def make_inner_optimizer(name: str, params) -> torch.optim.Optimizer:
     """The JAX example's optax optimizers in torch: ``optax.adamw(3e-4)``
-    (whose weight decay defaults to 1e-4) and ``optax.sgd(0.1,
-    momentum=0.9)``."""
+    (whose weight decay defaults to 1e-4), ``optax.sgd(0.1,
+    momentum=0.9)`` and ``optax.adafactor(3e-4)``."""
+    if name == "adafactor":
+        return Adafactor(params, lr=3e-4)
     if name == "adamw":
         return torch.optim.AdamW(params, lr=3e-4, betas=(0.9, 0.999),
                                  eps=1e-8, weight_decay=1e-4)

@@ -24,13 +24,18 @@ row i attends keys ``<= i + Sk - Sq``); rows with no allowed key give
 zeros (and zero gradients), not ``reference_attention``'s mean(v). Any
 Sq and Sk work without padding: the kernels bounds-check, which gives what
 the JAX package's auto-pad path gives. ``HOROVOD_FLASH_XLA_BWD`` (the JAX
-package's rematerialised backward) is not ported. The JAX package's
-``block_q``/``block_k`` (tiles chosen for TPU VMEM) have no counterpart:
-the kernels fix their own tiles. The three bfloat16 kernels are Hopper
-kernels (TMA loads, wgmma) that read q/k/v/dO through tensor maps, so
-their operands must be contiguous and 16-byte aligned, as the wrappers
-check; the float32 kernels, and both types at head_dim 256, stream 32-row
-tiles through FMA loops.
+package's rematerialised backward) swaps kernels 2 and 3 for the autograd
+of kernel 1's plain version recomputed from q, k, v and the mask; its rows
+with no allowed key are zero, as the JAX package zeroes them in
+``reference_attention`` before differentiating, so they leak no cotangent
+into dk and dv. The forward still runs kernel 1. The flag is read at each
+backward call (the JAX package reads it when it traces the step). The JAX
+package's ``block_q``/``block_k`` (tiles chosen for TPU VMEM) have no
+counterpart: the kernels fix their own tiles. The three bfloat16 kernels
+are Hopper kernels (TMA loads, wgmma) that read q/k/v/dO through tensor
+maps, so their operands must be contiguous and 16-byte aligned, as the
+wrappers check; the float32 kernels, and both types at head_dim 256,
+stream 32-row tiles through FMA loops.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from typing import Dict, Optional
 import torch
 
 from . import _build
+from ..common import config
 
 NEG_INF = -1e30
 
@@ -476,10 +482,24 @@ class _Flash(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, key_mask, out, lse = ctx.saved_tensors
-        dq, dk, dv = _flash_backward(q, k, v, key_mask, out, lse,
-                                     g.contiguous(), ctx.causal,
-                                     ctx.sm_scale)
+        if config.flash_xla_bwd():
+            dq, dk, dv = _dense_vjp(
+                lambda q_, k_, v_: flash_attention_forward_plain(
+                    q_, k_, v_, key_mask, ctx.causal, ctx.sm_scale)[:1],
+                (q, k, v), (g,))
+        else:
+            dq, dk, dv = _flash_backward(q, k, v, key_mask, out, lse,
+                                         g.contiguous(), ctx.causal,
+                                         ctx.sm_scale)
         return dq, dk, dv, None, None, None
+
+
+def _dense_vjp(fn, inputs, cotangents):
+    """The gradients at ``inputs`` of ``fn``'s tuple of outputs against
+    ``cotangents``, recomputed densely (``HOROVOD_FLASH_XLA_BWD``)."""
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_(True) for x in inputs]
+        return torch.autograd.grad(fn(*leaves), leaves, cotangents)
 
 
 def flash_attention(q, k, v, key_mask=None, causal: bool = False,

@@ -26,8 +26,11 @@ kernels 2 and 3 backward, with the cotangent of ``lse`` folded into
 delta (``ops.attention.flash_delta``). Where the JAX block pair passes an
 all-true mask for "no mask", this one passes none: a mask pointer sends
 every tile of the kernels down their byte-by-byte mask branch.
-``HOROVOD_FLASH_XLA_BWD`` (the JAX escape hatch to a dense backward) is
-not ported.
+``HOROVOD_FLASH_XLA_BWD`` (the JAX escape hatch to a dense backward) makes
+the block pair's backward differentiate the dense ``(out, lse)`` pair of
+kernel 1's plain version (``flash_attention_forward_plain``) instead of
+running kernels 2 and 3, the cotangent of ``lse`` included. It is read at
+each backward call (the JAX package reads it when it traces the step).
 """
 
 from __future__ import annotations
@@ -36,11 +39,14 @@ from typing import Optional
 
 import torch
 
+from ..common import config
 from ..ops.attention import (
     FLASH_AUTO_MIN_SEQ,
     _check_gqa_heads,
+    _dense_vjp,
     _flash_backward,
     _flash_forward,
+    flash_attention_forward_plain,
     make_attention_fn,
     repeat_kv,
 )
@@ -193,9 +199,15 @@ class _FlashBlockPair(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do, dlse):
         q, k, v, mask, out, lse = ctx.saved_tensors
-        dq, dk, dv = _flash_backward(q, k, v, mask, out, lse,
-                                     do.contiguous(), ctx.causal, ctx.scale,
-                                     dlse=dlse)
+        if config.flash_xla_bwd():
+            dq, dk, dv = _dense_vjp(
+                lambda q_, k_, v_: flash_attention_forward_plain(
+                    q_, k_, v_, mask, ctx.causal, ctx.scale),
+                (q, k, v), (do, dlse))
+        else:
+            dq, dk, dv = _flash_backward(q, k, v, mask, out, lse,
+                                         do.contiguous(), ctx.causal,
+                                         ctx.scale, dlse=dlse)
         return dq, dk, dv, None, None, None
 
 

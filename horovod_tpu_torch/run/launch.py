@@ -19,9 +19,16 @@ JAX package's meaning), and ``HOROVOD_SPMD_COORDINATOR``, the
 ``TCPStore`` of the ``torch.distributed`` process group. The JAX launcher
 exports the star alone in eager mode; the port also needs its process
 group beside the controller (``group=`` collectives, the parallel modes,
-ZeRO and FSDP run on it), so this is the one place the two launchers
-differ. ``--spmd`` exports the store's address only: no controller
-starts, and every collective runs on the process group.
+ZeRO and FSDP run on it), so this is one of the two places the two
+launchers differ. ``--spmd`` exports the store's address only: no
+controller starts, and every collective runs on the process group.
+
+The other is the teardown of a fixed-size job after a rank fails. The
+JAX launcher terminates the other ranks at once, which can kill a
+survivor while it writes its flight-recorder postmortem (the survivor
+sees the failure on its wire, aborts and dumps). The port's launcher
+gives them :data:`TEARDOWN_GRACE_S` to exit on their own and then
+terminates those still running.
 
 Eager mode also exports the native ring data plane's per-rank addresses
 (``HOROVOD_RING_ADDRS``) and, for layouts of several equal host groups,
@@ -114,6 +121,10 @@ def parse_hosts(hosts: Optional[str], np_: int) -> List[Tuple[str, int]]:
 
 # The lowest port the launcher hands out, and the ports it handed out
 # (one process never gives one twice).
+# Seconds a fixed-size job's ranks get to exit on their own after a rank
+# fails, before they are terminated.
+TEARDOWN_GRACE_S = 5.0
+
 _PORT_FLOOR = 10000
 _ports_given: set = set()
 
@@ -689,7 +700,11 @@ def _run_attempt(args: argparse.Namespace, restart_epoch: int = 0,
             spawn(*a)
         pending = [(a[0], procs[i]) for i, a in enumerate(assignments)]
         done = False
+        teardown_at = None
         while pending and not done:
+            if teardown_at is not None and time.monotonic() >= teardown_at:
+                teardown_at = None
+                _terminate_all()
             for rank_id, p in list(pending):
                 rc = p.poll()
                 if rc is None:
@@ -700,8 +715,9 @@ def _run_attempt(args: argparse.Namespace, restart_epoch: int = 0,
                         exit_code = rc
                         sys.stderr.write(
                             f"horovodrun: rank {rank_id} exited with code "
-                            f"{rc}; terminating remaining ranks\n")
-                        _terminate_all()
+                            f"{rc}; terminating remaining ranks that have "
+                            f"not exited in {TEARDOWN_GRACE_S:g} s\n")
+                        teardown_at = time.monotonic() + TEARDOWN_GRACE_S
                     continue
                 if rank_id == 0:
                     # The coordinator is the job in elastic mode: its

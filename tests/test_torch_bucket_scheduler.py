@@ -182,3 +182,38 @@ def test_plan_from_a_recorded_backward(bound):
     small = pbs.plan_from_compiled(model, _step(ids), bucket_bytes=bound,
                                    min_bytes=1 << 14)
     assert small.order == [n for n, b in seen if b >= 1 << 14]
+
+
+def _tuned_bucket_push(sim, bs):
+    """The first tune push that carries a bucket size, on 4 logical
+    ranks of ``sim`` under ``HOROVOD_AUTOTUNE=1``: (the step at which
+    every worker had adopted it, the adopted values, rank 0's own
+    value)."""
+    try:
+        with sim.SimCluster(ranks=4, elastic=False,
+                            env={"HOROVOD_AUTOTUNE": "1"}) as c:
+            for k in range(40):
+                c.run_step([sim.allreduce_spec(
+                    f"t.{k}", lambda r: np.ones(256, np.float32))])
+                values = {w.tuned_bucket_bytes
+                          for _, w in sorted(c.workers.items())}
+                if values != {None} and None not in values:
+                    return k, values, bs.current_bucket_bytes()
+            raise AssertionError(
+                "no tune push carried a bucket size within 40 steps")
+    finally:
+        bs.set_autotuned_bucket_bytes(None)
+
+
+def test_tuned_bucket_rides_the_synced_reply_like_jax():
+    """End to end over real wires on each package's simulated cluster:
+    an autotuning coordinator's first scored configuration ships the
+    bucket size in the cycle reply's tune element, every logical rank
+    adopts the same value, and it is rank 0's own live knob, in both
+    packages (the value itself follows each run's cycle timings)."""
+    import horovod_tpu.sim as jsim
+    import horovod_tpu_torch.sim as tsim
+
+    for sim, bs in ((jsim, jbs), (tsim, pbs)):
+        _, values, own = _tuned_bucket_push(sim, bs)
+        assert len(values) == 1 and own in values, (sim.__name__, values)

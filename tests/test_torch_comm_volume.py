@@ -28,6 +28,9 @@ from horovod_tpu.utils import comm_accounting as jca
 
 from horovod_tpu_torch.utils import comm_accounting as tca
 from horovod_tpu_torch.utils.hlo_phases import Timeline
+from torch_threads import one_torch_thread  # noqa: F401 (fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N = 8

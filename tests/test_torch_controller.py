@@ -316,6 +316,30 @@ def test_wires_read_each_others_frames(sender, receiver):
         b.close()
 
 
+@pytest.mark.parametrize("mod", [jwire, twire], ids=["jax", "port"])
+def test_a_frame_to_a_peer_that_aborted_and_closed_leaves_whole(mod):
+    """A coordinator that sent ABORT and closed its end: the worker's next
+    frame (a tick) leaves in one send, which a closed peer still takes,
+    and the worker's recv then reads the abort. Sent as two writes, the
+    peer's reset to the first failed the second with EPIPE."""
+    listener = socket.create_server(("127.0.0.1", 0))
+    try:
+        a = socket.create_connection(listener.getsockname())
+        b, _ = listener.accept()
+    finally:
+        listener.close()
+    try:
+        tx, rx = mod.Wire(b, secret=SECRET), mod.Wire(a, secret=SECRET)
+        tx.send_abort("rank 2 died", dead_rank=2, op="x")
+        b.close()
+        rx.send_obj({"rank": 1, "requests": list(range(64))})
+        with pytest.raises(mod.RemoteAbortError, match="rank 2 died") as err:
+            rx.recv_bytes()
+        assert err.value.dead_rank == 2
+    finally:
+        a.close()
+
+
 def test_wire_rejects_a_tampered_frame_and_reserved_kinds():
     a, b = socket.socketpair()
     try:

@@ -18,6 +18,9 @@ import torch
 
 from horovod_tpu.ops import decode_attention as jax_ops
 from horovod_tpu_torch.ops import decode_attention as ops
+from torch_threads import one_torch_thread  # noqa: F401 (fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 # f32: the JAX decode tests' own bar (tests/test_serving.py). Only the
 # reduction order differs between the two (tile order, exp library).

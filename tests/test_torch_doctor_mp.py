@@ -205,8 +205,9 @@ def _doctor_env(root, plan):
 
 
 def _kill_job(root, worker, pkg):
-    """Two ranks spawned directly (a launcher would tear rank 0 down
-    when rank 1 dies, before its postmortem is written)."""
+    """Two ranks spawned directly (the JAX package's launcher would
+    tear rank 0 down when rank 1 dies, before its postmortem is
+    written; both packages' jobs start the same way)."""
     root.mkdir(parents=True, exist_ok=True)
     script = root / "worker.py"
     script.write_text(worker)

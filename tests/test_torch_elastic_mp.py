@@ -143,6 +143,18 @@ def train(state):
 
 
 train(state)
+counters = None
+if hvd.rank() == 0:
+    # Read before the final allgather: past it a member may shut down,
+    # and the JAX package's coordinator can re-form a worker's teardown
+    # as a departure (see test_worker_shutdown_is_not_a_departure).
+    snap = hvd.metrics.snapshot()
+    counters = {
+        name: {(tuple(labels)[0] if labels else ""): value
+               for labels, value in (snap.get(name) or {}).get("values", [])}
+        for name in ("hvd_membership_transitions_total",
+                     "hvd_membership_rank_departures_total",
+                     "hvd_membership_epoch", "hvd_membership_size")}
 final = hvd.allgather_object(
     (arr(state.w).tobytes().hex(), arr(state.n).tolist(),
      arr(state.series).tolist()), name="el.final")
@@ -150,14 +162,8 @@ record = {"role": role, "rank": hvd.rank(), "size": hvd.size(),
           "epoch": hvd.elastic.epoch(), "final": final,
           "w": arr(state.w).tolist(), "n": arr(state.n).tolist(),
           "series": arr(state.series).tolist()}
-if hvd.rank() == 0:
-    snap = hvd.metrics.snapshot()
-    record["counters"] = {
-        name: {(tuple(labels)[0] if labels else ""): value
-               for labels, value in (snap.get(name) or {}).get("values", [])}
-        for name in ("hvd_membership_transitions_total",
-                     "hvd_membership_rank_departures_total",
-                     "hvd_membership_epoch", "hvd_membership_size")}
+if counters is not None:
+    record["counters"] = counters
 with open(f"{OUT}.{role}.json", "w") as f:
     json.dump(record, f)
 print(f"{role} ok", flush=True)
@@ -309,24 +315,90 @@ def test_elastic_scenario_matches_jax(tmp_path, scen, restore):
     for pkg, recs in sorted(results.items()):
         for role, rec in sorted(recs.items()):
             assert rec["series"] == series, (pkg, role, rec["series"])
-            assert (rec["epoch"], rec["size"]) == (int(epoch), int(size))
+            assert (rec["epoch"], rec["size"]) == (int(epoch), int(size)), (
+                pkg, role, rec["epoch"], rec["size"])
             # Every member's final state, bit for bit (the float32 bytes).
             assert all(f == rec["final"][0] for f in rec["final"]), (
                 pkg, role)
-            assert len(rec["final"]) == size
-            assert rec["n"] == [sum(r[3] for r in series)] * 3
+            assert len(rec["final"]) == size, (pkg, role, rec["final"])
+            assert rec["n"] == [sum(r[3] for r in series)] * 3, (
+                pkg, role, rec["n"])
         counters = recs["rank0"]["counters"]
-        assert counters["hvd_membership_transitions_total"] == transitions
+        assert counters["hvd_membership_transitions_total"] == \
+            transitions, (pkg, "rank0", counters)
         assert counters["hvd_membership_rank_departures_total"] == \
-            departures
-        assert counters["hvd_membership_epoch"] == {"": epoch}
-        assert counters["hvd_membership_size"] == {"": size}
+            departures, (pkg, "rank0", counters)
+        assert counters["hvd_membership_epoch"] == {"": epoch}, (
+            pkg, "rank0", counters)
+        assert counters["hvd_membership_size"] == {"": size}, (
+            pkg, "rank0", counters)
     for role in results["port"]:
         jrec, trec = results["jax"][role], results["port"][role]
-        assert trec["final"] == jrec["final"]
-        assert trec["w"] == jrec["w"] and trec["n"] == jrec["n"]
+        assert trec["final"] == jrec["final"], role
+        assert trec["w"] == jrec["w"] and trec["n"] == jrec["n"], role
     assert results["port"]["rank0"]["counters"] == \
         results["jax"]["rank0"]["counters"]
+
+
+SHUTDOWN_WORKER = r'''
+import json
+import sys
+import time
+
+import torch
+import horovod_tpu_torch as hvd
+from horovod_tpu_torch.common import basics
+
+OUT = sys.argv[1]
+hvd.init(device="cpu")
+hvd.allreduce(torch.ones(2), name="pin.0")
+ctl = basics.controller()
+if hvd.rank() == 1:
+    build = ctl._build_tick
+
+    def build_then_shut_down():
+        # The user's shutdown lands while this tick is in flight: the
+        # tick carries no flag, the reply echoes none.
+        tick = build()
+        with ctl._lock:
+            ctl._shutdown_requested = True
+        return tick
+
+    ctl._build_tick = build_then_shut_down
+    hvd.shutdown()
+else:
+    deadline = time.monotonic() + 20.0
+    while not ctl._closed.is_set() and time.monotonic() < deadline:
+        time.sleep(0.05)
+    snap = hvd.metrics.snapshot()
+    with open(OUT, "w") as f:
+        json.dump({"closed": ctl._closed.is_set(),
+                   "epoch": hvd.elastic.epoch(),
+                   "transitions": (snap.get(
+                       "hvd_membership_transitions_total") or {}).get(
+                           "values", [])}, f)
+    hvd.shutdown()
+'''
+
+
+def test_worker_shutdown_is_not_a_departure(tmp_path):
+    """A worker whose shutdown lands while its tick is in flight keeps
+    cycling until its flag has ridden a tick: the coordinator then ends
+    the job with the echo, and records no shrink. (The JAX package's
+    worker closes its wire at once, and its elastic coordinator counts
+    a departure: ``ROADMAP.md`` Queue 3.)"""
+    script = tmp_path / "shutdown_worker.py"
+    script.write_text(SHUTDOWN_WORKER)
+    out = tmp_path / "rank0.json"
+    res = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.run", "--elastic", "-np",
+         "2", "--elastic-respawns", "0", sys.executable, str(script),
+         str(out)], cwd=REPO, env=_env("port"), capture_output=True,
+        text=True, timeout=60)
+    assert res.returncode == 0, res.stdout[-4000:] + res.stderr[-4000:]
+    rec = json.loads(out.read_text())
+    assert rec["closed"], rec
+    assert rec["epoch"] == 1 and rec["transitions"] == [], rec
 
 
 # ---------------------------------------------------------------------------

@@ -19,6 +19,9 @@ from horovod_tpu_torch.examples import llama_generation, mnist, vit_training
 from horovod_tpu_torch.models import llama as tllama
 from horovod_tpu_torch.models.moe_lm import MOE_TINY, MoeLM
 from horovod_tpu_torch.ops import attention as tattn
+from torch_threads import one_torch_thread  # noqa: F401 (fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.fixture

@@ -23,6 +23,9 @@ import torch
 
 from horovod_tpu.ops import attention as jattn
 from horovod_tpu_torch.ops import attention as tattn
+from torch_threads import one_torch_thread  # noqa: F401 (fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 B, S, H, D = 2, 64, 2, 16
 F32 = dict(atol=2e-5, rtol=1e-4)

@@ -3,7 +3,8 @@ package's (``horovod_tpu.run``): ``parse_hosts`` and ``build_rank_env``
 agree on the keys both export; the launcher runs a 2-rank job with
 rank-prefixed output, exports the ring data plane's addresses as the
 JAX launcher does (the flat ring, and the hierarchical pair for equal
-host groups), propagates a rank's failure (tearing the others down),
+host groups), propagates a rank's failure (tearing the others down after a grace
+in which a survivor still finishes what it writes on its way out),
 relaunches under ``--max-restarts``, prints its version, refuses
 ``--trace`` (a later slice) by name while the elastic flags parse into
 the launch, and under ``--spmd`` starts no controller while the eager
@@ -157,6 +158,25 @@ def test_a_rank_failure_propagates_and_tears_the_job_down(capsys):
     assert code == 3
     assert "rank 1 exited with code 3; terminating remaining ranks" in err
     assert time.monotonic() - t0 < 30
+
+
+def test_a_survivor_finishes_its_own_exit_before_the_teardown(
+        capsys, tmp_path):
+    # Rank 0 stands for a survivor that sees the failure, writes its
+    # postmortem and exits: the launcher must not terminate it first.
+    out = tmp_path / "postmortem"
+    script = ("import os, sys, time\n"
+              "if os.environ['HOROVOD_RANK'] == '1':\n"
+              "    sys.exit(3)\n"
+              "time.sleep(1.0)\n"
+              f"open({str(out)!r}, 'w').write('dump')\n"
+              "sys.exit(1)\n")
+    t0 = time.monotonic()
+    code, _, err = _run(capsys, "-np", "2", sys.executable, "-c", script)
+    assert code == 3
+    assert "rank 1 exited with code 3; terminating remaining ranks" in err
+    assert out.read_text() == "dump"
+    assert time.monotonic() - t0 < tlaunch.TEARDOWN_GRACE_S + 10
 
 
 def test_max_restarts_relaunches_with_the_epoch(capsys):

@@ -15,8 +15,15 @@ package's, on the CPU.
   observer's gauges and persisted ``capacity_live.json``,
   ``persist_on_shutdown`` and ``reseed_from_live`` agree on the same
   windows.
-
-The JAX drift drive on ``SimCluster`` waits for the port's ``sim/``."""
+* **The drift drive** on the port's ``SimCluster`` (4 logical ranks, the
+  JAX test's drive): a healthy phase calibrates, a 150 ms tick delay of
+  rank 1 makes ``calibration_drift`` name the negotiation plane within 3
+  windows, the drifted ``capacity_live.json`` loads through the planner's
+  loader, healthy windows heal the finding, and the silent twin stays
+  silent over 20 windows. Every window is one the test rolls
+  (``HOROVOD_METRICS_WINDOW_SECONDS`` is an hour, so the roller thread
+  rolls none on its own under a slow run): the windows are judged by
+  their count and their steps, not by wall time."""
 
 import copy
 import json
@@ -535,3 +542,106 @@ def test_reseed_from_live_without_data_or_tuner():
     pm = tglue.make_parameter_manager(TConfig.from_env(), tune_bucket=True,
                                       world_size=64)
     assert tglue.reseed_from_live(pm, 64) is None
+
+
+# ---------------------------------------------------------------------------
+# The drift drive on the port's simulated cluster
+
+# No window rolls on its own within a test: each is one the test closes.
+TEST_WINDOWS = {"HOROVOD_METRICS_WINDOW_SECONDS": "3600"}
+
+
+def _spec(name):
+    from horovod_tpu_torch.sim import allreduce_spec
+
+    return allreduce_spec(name, lambda r: np.ones(4, np.float32))
+
+
+def _drift(c):
+    return [f for f in c.doctor_report()["findings"]
+            if f["rule"] == "calibration_drift"]
+
+
+def test_live_drift_drive_fires_heals_and_persists(tmp_path, monkeypatch):
+    from horovod_tpu_torch.sim import SimCluster
+    from horovod_tpu_torch.utils import scaling_model as tsm
+
+    live_dir = tmp_path / "live"
+    committed_path = tmp_path / "committed.json"
+    step = 0
+    cluster = SimCluster(ranks=4, elastic=True, protocheck=True,
+                         env={"HOROVOD_CAPACITY_LIVE_DIR": str(live_dir),
+                              **TEST_WINDOWS})
+    with cluster as c:
+        for _ in range(3):
+            for _ in range(8):
+                c.run_step([_spec(f"s.{step}")])
+                step += 1
+            assert c.roll_window() is not None
+        healthy = tlc.get().refit()
+        assert healthy is not None
+        committed_path.write_text(json.dumps(healthy))
+        monkeypatch.setenv("HOROVOD_CAPACITY_CALIBRATION",
+                           str(committed_path))
+        baseline = tsm.control_plane_from_artifact(
+            healthy).negotiation_per_rank_s
+        assert not _drift(c)
+        finding = None
+        for _ in range(3):
+            for _ in range(2):
+                c.run_step([_spec(f"s.{step}")], delays={1: 0.15})
+                step += 1
+            c.roll_window()
+            drift = _drift(c)
+            if drift:
+                finding = drift[0]
+                break
+        assert finding is not None, \
+            "calibration_drift never fired within 3 drifted windows"
+        assert finding["evidence"]["plane"] == "negotiation"
+        assert finding["evidence"]["ratio"] >= \
+            finding["evidence"]["threshold"]
+        drifted_path = tlc.persist(str(live_dir))
+        assert drifted_path is not None
+        with open(drifted_path) as f:
+            drifted = tsm.control_plane_from_artifact(json.load(f))
+        assert drifted.source == "live"
+        assert drifted.negotiation_per_rank_s >= 2 * baseline
+        for _ in range(9):
+            for _ in range(4):
+                c.run_step([_spec(f"s.{step}")])
+                step += 1
+            c.roll_window()
+        assert not _drift(c)
+    final = json.loads((live_dir / "capacity_live.json").read_text())
+    assert final["source"] == "live"
+    assert tsm.control_plane_from_artifact(final).negotiation_per_rank_s \
+        < drifted.negotiation_per_rank_s
+    report = cluster.protocheck_report
+    assert report is not None and not report["violations"]
+
+
+def test_live_drift_twin_stays_silent(tmp_path, monkeypatch):
+    from horovod_tpu_torch.sim import SimCluster
+
+    committed_path = tmp_path / "committed.json"
+    step = 0
+    cluster = SimCluster(ranks=4, elastic=True, protocheck=True,
+                         env=TEST_WINDOWS)
+    with cluster as c:
+        for _ in range(4):
+            for _ in range(3):
+                c.run_step([_spec(f"t.{step}")])
+                step += 1
+            c.roll_window()
+        committed_path.write_text(json.dumps(tlc.get().refit()))
+        monkeypatch.setenv("HOROVOD_CAPACITY_CALIBRATION",
+                           str(committed_path))
+        for window in range(20):
+            for _ in range(3):
+                c.run_step([_spec(f"t.{step}")])
+                step += 1
+            c.roll_window()
+            assert not _drift(c), (window, _drift(c))
+    report = cluster.protocheck_report
+    assert report is not None and not report["violations"]

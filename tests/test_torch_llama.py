@@ -25,6 +25,9 @@ from horovod_tpu_torch.models import llama as tllama
 from horovod_tpu_torch.models.convert import llama_from_flax
 from horovod_tpu_torch.ops import decode_attention as tops
 from horovod_tpu_torch.ops.attention import reference_attention
+from torch_threads import one_torch_thread  # noqa: F401 (fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
@@ -323,6 +326,15 @@ def test_port_imports_no_jax_or_reference_package():
         "import horovod_tpu_torch.examples.moe_phase_profile\n"
         "import horovod_tpu_torch.examples.vit_phase_profile\n"
         "import horovod_tpu_torch.examples.comm_volume_report\n"
+        "import horovod_tpu_torch.torch.optim\n"
+        "import horovod_tpu_torch.examples.word2vec\n"
+        "import horovod_tpu_torch.sim\n"
+        "import horovod_tpu_torch.sim.measure\n"
+        "import horovod_tpu_torch.tools.simcluster\n"
+        "import horovod_tpu_torch.tools.capacity\n"
+        "import horovod_tpu_torch.tools.straggler\n"
+        "import horovod_tpu_torch.examples.simcluster_probe\n"
+        "import horovod_tpu_torch.examples.capacity_probe\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'horovod_tpu'))\n"
@@ -391,7 +403,15 @@ def test_port_sources_never_name_jax_or_the_reference_package():
                  "examples/decode_phase_profile.py",
                  "examples/moe_phase_profile.py",
                  "examples/vit_phase_profile.py",
-                 "examples/comm_volume_report.py"):
+                 "examples/comm_volume_report.py",
+                 # The optimizer, flag and example gaps; the simulated
+                 # cluster and its tools.
+                 "torch/optim.py", "examples/word2vec.py",
+                 "sim/__init__.py", "sim/cluster.py", "sim/worker.py",
+                 "sim/faults.py", "sim/scenario.py", "sim/measure.py",
+                 "tools/simcluster.py", "tools/capacity.py",
+                 "tools/straggler.py", "examples/simcluster_probe.py",
+                 "examples/capacity_probe.py"):
         assert name in scanned, name
     for path in paths:
         with open(path, encoding="utf-8") as fh:

@@ -33,6 +33,9 @@ from horovod_tpu_torch import models as tm
 from horovod_tpu_torch.models import convert
 from horovod_tpu_torch.models.layers import Conv, same_padding
 from horovod_tpu_torch.ops import attention as tattn
+from torch_threads import one_torch_thread  # noqa: F401 (fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 TOL = dict(atol=2e-5, rtol=1e-4)
 GRAD_ATOL, GRAD_RTOL = 1e-5, 1e-4
@@ -205,19 +208,49 @@ def test_vgg_dropout_draws_from_the_model_generator():
     assert torch.equal(model(x, train=False), model(x, train=False))
 
 
+AUX_MODULES = ("ConvBN_5", "ConvBN_6", "aux_head")
+
+
+def _drawn_like(tree, rng, path=()):
+    """numpy draws in the shape of an abstract flax variable tree:
+    kernels N(0, 1/fan_in), BatchNorm scales 1 + N(0, 0.1^2), biases and
+    running means N(0, 0.1^2), running variances 1 + U(0, 0.2)."""
+    if isinstance(tree, dict):
+        return {k: _drawn_like(v, rng, path + (k,))
+                for k, v in sorted(tree.items())}
+    name, shape = path[-1], tree.shape
+    if name == "kernel":
+        fan_in = int(np.prod(shape[:-1]))
+        x = rng.randn(*shape) / np.sqrt(fan_in)
+    elif name == "scale":
+        x = 1.0 + 0.1 * rng.randn(*shape)
+    elif name == "var":
+        x = 1.0 + 0.2 * rng.rand(*shape)
+    else:
+        x = 0.1 * rng.randn(*shape)
+    return x.astype(np.float32)
+
+
 @pytest.fixture(scope="module")
 def inception_variables():
-    """One init with the aux head; the model without it takes the same
-    tree less the aux modules."""
+    """One tree with the aux head, in the structure the JAX module's init
+    gives (``jax.eval_shape``: its trace, without compiling the init),
+    drawn from numpy (``_drawn_like``); the model without the aux head
+    takes the same tree less the aux modules."""
     jmodel = jm.InceptionV3(num_classes=7, aux_logits=True, dropout_rate=0.0,
                             dtype=jnp.float32)
-    return _init(jmodel, _images(0, 1, 75), train=True)
+    shapes = jax.eval_shape(lambda: jmodel.init(
+        KEYS, jnp.asarray(_images(0, 1, 75)), train=True))
+    return _drawn_like(shapes, np.random.RandomState(0))
+
+
+def _without_aux(tree):
+    return {k: v for k, v in sorted(tree.items()) if k not in AUX_MODULES}
 
 
 def _inception_pair(variables, aux, jdtype, tdtype):
     if not aux:
-        variables = {col: {k: v for k, v in sorted(tree.items())
-                           if k not in ("ConvBN_5", "ConvBN_6", "aux_head")}
+        variables = {col: _without_aux(tree)
                      for col, tree in sorted(variables.items())}
     jmodel = jm.InceptionV3(num_classes=7, aux_logits=aux, dropout_rate=0.0,
                             dtype=jdtype)
@@ -227,20 +260,65 @@ def _inception_pair(variables, aux, jdtype, tdtype):
     return jmodel, tmodel, variables
 
 
+@pytest.fixture(scope="module")
+def inception_train_reference(inception_variables):
+    """The JAX model with the aux head in train mode, float64, compiled
+    once: ``(loss, (outputs, new statistics)), gradients`` of
+    ``sum(main * w_main) + sum(aux * w_aux)`` with the cotangents as
+    arguments. At ``w_aux = 0`` this is the model without the aux head:
+    the main head reads nothing of the aux branch, so its output, its
+    parameters' gradients and its statistics are that model's."""
+    x = _images(3, 2, 75)
+    with jax.enable_x64(True):
+        jmodel, _, variables = _inception_pair(
+            inception_variables, True, jnp.float64, torch.float64)
+
+        def loss_fn(p, ws):
+            out, new = jmodel.apply({**variables, "params": p},
+                                    jnp.asarray(x), train=True,
+                                    mutable=["batch_stats"])
+            return sum((o * w).sum() for o, w in zip(out, ws)), (out, new)
+
+        fn = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
+        shapes = jax.eval_shape(lambda: jmodel.apply(
+            variables, jnp.asarray(x), train=True,
+            mutable=["batch_stats"])[0])
+    return fn, variables, x, [o.shape for o in shapes]
+
+
 @pytest.mark.parametrize("aux", [True, False], ids=["aux", "no_aux"])
-def test_inception_v3_train_mode_matches_jax(inception_variables, aux):
+def test_inception_v3_train_mode_matches_jax(inception_variables,
+                                             inception_train_reference, aux):
     """Train mode runs float64 activations on both sides (parameters,
     statistics and the float32 heads as in float32 runs). At 75² the
     last blocks' BatchNorms normalise over 2 (a 1x1 grid) to 18 values
     (3x3) per channel, which amplify rounding by orders of magnitude: a
     float32 run of either package lands visibly off a float64 run at the
     head, each differently, so only wider activations compare the two at
-    ``TOL``."""
+    ``TOL``. Both cases read the JAX reference of one compile
+    (``inception_train_reference``): the model without the aux head
+    against it at ``w_aux = 0``."""
+    fn, variables, x, shapes = inception_train_reference
+    ws = [_weights(10, shapes[0]),
+          _weights(11, shapes[1]) if aux
+          else np.zeros(shapes[1], np.float32)]
     with jax.enable_x64(True):
-        jmodel, tmodel, variables = _inception_pair(
-            inception_variables, aux, jnp.float64, torch.float64)
-        _train_check(jmodel, tmodel, variables, _images(3, 2, 75),
-                     n_out=2 if aux else 1, train=True)
+        (_, (jout, jnew)), jgrads = fn(variables["params"],
+                                       [jnp.asarray(w) for w in ws])
+        _, tmodel, _ = _inception_pair(inception_variables, aux,
+                                       jnp.float64, torch.float64)
+    jout = jout if aux else jout[:1]
+    jstats = jnew["batch_stats"]
+    if not aux:
+        jgrads, jstats = _without_aux(jgrads), _without_aux(jstats)
+    tout = tmodel(torch.from_numpy(x), train=True)
+    tout = tout if aux else (tout,)
+    sum((o * torch.from_numpy(w)).sum() for o, w in zip(tout, ws)).backward()
+    for got, want in zip(tout, jout):
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                                   **TOL)
+    _assert_grads(tmodel, jgrads)
+    _assert_stats(tmodel, jstats)
 
 
 def test_inception_v3_eval_mode_matches_jax_in_float32(inception_variables):

@@ -26,6 +26,9 @@ import torch
 
 from horovod_tpu.parallel import moe as jmoe
 from horovod_tpu_torch.parallel import moe as tmoe
+from torch_threads import one_torch_thread  # noqa: F401 (fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = dict(atol=2e-5, rtol=1e-4)

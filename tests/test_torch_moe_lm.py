@@ -36,6 +36,9 @@ from horovod_tpu_torch.models import moe_lm as tmoe_lm
 from horovod_tpu_torch.models.convert import moe_from_flax, moe_to_flax
 from horovod_tpu_torch.ops import attention as tattn
 from horovod_tpu_torch.serving import ServingConfig, ServingEngine
+from torch_threads import one_torch_thread  # noqa: F401 (fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 JCFG = dataclasses.replace(J_MOE_TINY, dtype=jnp.float32)
 TCFG = dataclasses.replace(tmoe_lm.MOE_TINY, dtype=torch.float32)

@@ -28,6 +28,9 @@ from horovod_tpu.parallel import sequence as jseq
 from horovod_tpu_torch.parallel import sequence as tseq
 
 from torch_gloo import WORKER_HEAD, run_job
+from torch_threads import one_torch_thread  # noqa: F401 (fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 TOL = dict(atol=2e-5, rtol=1e-4)
 B, S, D = 2, 32, 8

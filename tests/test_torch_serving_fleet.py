@@ -36,6 +36,9 @@ from horovod_tpu_torch.serving import (
     ServingConfig,
     ServingEngine,
 )
+from torch_threads import one_torch_thread  # noqa: F401 (fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 JCFG = dataclasses.replace(jllama.LLAMA_TINY, dtype=jnp.float32,
                            max_seq_len=64)

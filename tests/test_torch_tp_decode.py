@@ -30,6 +30,9 @@ from horovod_tpu.serving import ServingConfig as JServingConfig
 from horovod_tpu.serving.engine import ServingEngine as JServingEngine
 
 from torch_gloo import WORKER_HEAD, run_job
+from torch_threads import one_torch_thread  # noqa: F401 (fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 TOL = dict(atol=2e-5, rtol=1e-4)
 JCFG = dataclasses.replace(jllama.LLAMA_TINY, dtype=jnp.float32,

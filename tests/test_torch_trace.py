@@ -241,3 +241,37 @@ def test_engine_tracing_entries_are_bound():
         assert bindings.engine_stats() == (0, 0, 0.0)
         assert list(bindings.drain_engine_spans()) == []
     assert bindings.NATIVE_SPAN_OP_BYTES == 64
+
+
+@pytest.mark.parametrize("ranks,seed", [(2, 3), (4, 4)])
+def test_tools_straggler_reports_equal_the_jax_tool(tmp_path, monkeypatch,
+                                                    capsys, ranks, seed):
+    """The same per-rank trace files through both packages'
+    ``tools.straggler``: the same merge (written by the tool), the same
+    report on stdout and in ``straggler_report.json``, as data; a
+    directory without trace files exits 2 in both."""
+    from horovod_tpu.tools import straggler as jtool
+    from horovod_tpu_torch.tools import straggler as ptool
+
+    out = {}
+    for name, pkg, tool in (("jax", jtrace, jtool), ("port", ptrace, ptool)):
+        trace_dir = str(tmp_path / name)
+        _write_rank_files(trace_dir, pkg, ranks, seed, monkeypatch)
+        clock = pkg.ClockSync(ranks)
+        for sample in _series(seed, ranks, 20):
+            clock.observe(*sample)
+        clock.write(os.path.join(trace_dir, pkg.OFFSETS_FILE))
+        assert tool.main([trace_dir]) == 0
+        printed = json.loads(capsys.readouterr().out)
+        with open(os.path.join(trace_dir, pkg.REPORT_FILE)) as f:
+            written = json.load(f)
+        with open(os.path.join(trace_dir, pkg.MERGED_TRACE_FILE)) as f:
+            merged = json.load(f)
+        assert printed == written
+        out[name] = (printed, merged)
+        empty = tmp_path / f"{name}_empty"
+        empty.mkdir()
+        assert tool.main([str(empty)]) == 2
+        capsys.readouterr()
+    assert out["port"] == out["jax"]
+    assert out["port"][0]["collectives"] == 40

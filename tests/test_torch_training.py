@@ -28,6 +28,9 @@ from horovod_tpu_torch.examples import llama_training
 from horovod_tpu_torch.models import llama as tllama
 from horovod_tpu_torch.models.convert import llama_from_flax, llama_to_flax
 from horovod_tpu_torch.ops import attention as tattn
+from torch_threads import one_torch_thread  # noqa: F401 (fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 JCFG = dataclasses.replace(jllama.LLAMA_TINY, dtype=jnp.float32)
 TCFG = dataclasses.replace(tllama.LLAMA_TINY, dtype=torch.float32)

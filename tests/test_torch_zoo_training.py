@@ -35,6 +35,9 @@ from horovod_tpu import models as jm
 from horovod_tpu_torch import models as tm
 from horovod_tpu_torch.examples import bert_pretraining, synthetic_benchmark
 from horovod_tpu_torch.models import convert
+from torch_threads import one_torch_thread  # noqa: F401 (fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = dict(atol=2e-5, rtol=1e-4)
