@@ -337,7 +337,23 @@ on ``cuda``; any failure exits non-zero:
    seeded storm through ``tools.simcluster``, ``capacity_probe`` at
    ``PROBE_SMOKE`` and ``tools.capacity --ranks 4096`` over its record,
    and (after 33 (a)) ``tools.straggler`` over 33 (a)'s trace directory,
-   which gives the job's own report.
+   which gives the job's own report;
+38. the probe examples: (a) ``flash_attention_benchmark`` at the kernel
+   table's shape (b8 S1024 H16/8 D64 causal, bf16): ``fwd_ms``,
+   ``train_ms`` and SDPA's row, kernels 1-3 launched, and
+   ``flash_attention(block_q=, block_k=)`` at the compiled pair bit-equal
+   to the call without it; (b) ``headpack_probe`` parts A and F: the
+   K=64 / K=128 GEMM ratio and the H8/D64 against H4/D128 flash ratios,
+   kernels 1-3 launched; (c) ``decode_floor_probe`` at Llama-300M bf16
+   b8, prompt 128, 64 new tokens: the empty loop eager and as one CUDA
+   graph, ``generate(unroll=1)`` and ``unroll=4`` (four steps a graph
+   replay) with equal tokens, the contiguous decode kernel launched, the
+   weights-plus-cache roofline share; (d) ``resnet50_roofline`` over 2
+   traced steps of the ImageNet example's ResNet-50 b128 bf16 step: the
+   aggregate ratio in (0, 1] and no op over 1.05 of its ideal; (e) host
+   only, in the third lane: ``wire_bandwidth_probe`` at 2 ranks (4 MiB,
+   each wire dtype), ``autotune_efficacy`` A and C at 2 ranks for one
+   window, ``scaling_efficiency`` on gloo ranks 1 and 2 with the MLP.
 
 The float32 parity runs of phases 24, 25, 27, 28, 30 and 31 build
 Llama-300M at 2 of its 16 layers (``PARITY_LAYERS``), to keep the script
@@ -347,10 +363,10 @@ Phases 3-5, 9, 13, 15-18, 20-25, 27, 28, 30-33 and 35-37 are the main
 paths: the launch counts in the kernels' JSON line come from them (the flash
 kernels' are the sum of 9, 13, 20, 23's flash run, 24's seq-parallel
 training, 27's and 28's timed training, 30's and 31's (c), 32's
-three processes, 33 (a)'s two, 35 (a)'s three and 37 (a), plus
-the forward-only long-context runs of 24 and the flagged steps of 24 and
-37 (b); the contiguous decode kernel's of 3, 15, 21, 25's
-``generate()`` and profile and 37 (c), the paged
+three processes, 33 (a)'s two, 35 (a)'s three, 37 (a) and 38 (a)-(b),
+plus the forward-only long-context runs of 24 and the flagged steps of
+24 and 37 (b); the contiguous decode kernel's of 3, 15, 21, 25's
+``generate()`` and profile, 37 (c) and 38 (c), the paged
 one's of 4, 16-18 (each also eager), 22, 25's engine and 36 (c); a
 two-process path's counts are
 its two ranks' sum; each path's on a line of its own). Each phase logs
@@ -360,7 +376,8 @@ Three lanes share the card and the host. After the kernels' timings
 (2, 6, 14 and 24's ring kernels, alone), a second lane, a thread of this
 process that only starts jobs and reads their files, runs 32's job and
 restore probe, 30, 31 (e), 33 (b)-(c) and 37 (e), and a third one 31
-(d)'s job, while this lane runs 3-5, 7-13, 15-23, 37 (a)-(d) and 34;
+(d)'s job, 38 (e) and 34, while this lane runs 3-5, 7-13, 15-23, 37
+(a)-(d) and 38 (a)-(d);
 both are joined before 32's replay, which runs here, then 24-29, 31
 (a)-(c), 33 (a) and 35 (a), (c) run alone. The numbers of 3-5, 7-13, 15-23 and of the other lanes'
 phases are taken with the other lanes' work on the same card and cores;
@@ -2268,6 +2285,143 @@ def trace_dir(what: str) -> str:
     import tempfile
 
     return os.path.join(tempfile.gettempdir(), f"chip_smoke_traces_{what}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 38: the probe examples
+
+PROBE_FLASH = ["--batch", "8", "--seq-len", "1024", "--heads", "16",
+               "--kv-heads", "8", "--head-dim", "64", "--iters", "25"]
+PROBE_DECODE = ["--model", "300m", "--batch-size", "8", "--prompt-len",
+                "128", "--max-new-tokens", "64", "--unrolls", "1,4",
+                "--reps", "2"]
+PROBE_HOST = {
+    "wire": ["horovod_tpu_torch.examples.wire_bandwidth_probe", "--ranks",
+             "2", "--sizes-mib", "4", "--chunks-kib", "1024", "--reps",
+             "3"],
+    "autotune": ["horovod_tpu_torch.examples.autotune_efficacy", "--runs",
+                 "A,C", "--steps", "10", "--window", "10"],
+    "scaling": ["horovod_tpu_torch.examples.scaling_efficiency", "--sizes",
+                "1,2", "--steps", "10", "--warmup", "2"],
+}
+
+
+def _delta(counts, before):
+    return {k: counts[k] - before[k] for k in before}
+
+
+def run_probe_phase(card: str):
+    """38 (a)-(d) on the main lane: the probes' own ``main`` in this
+    process, each path's launch counts taken around it."""
+    import torch
+
+    from horovod_tpu_torch.examples import (decode_floor_probe,
+                                            flash_attention_benchmark,
+                                            headpack_probe,
+                                            resnet50_roofline)
+    from horovod_tpu_torch.ops import attention as flash_ops
+    from horovod_tpu_torch.ops import decode_attention as decode_ops
+
+    out = {}
+    before = dict(flash_ops.LAUNCHES)
+    rows = flash_attention_benchmark.main(PROBE_FLASH)
+    out["a_launches"] = _delta(flash_ops.LAUNCHES, before)
+    out["a"] = {r["metric"]: {k: r[k] for k in ("fwd_ms", "train_ms")}
+                for r in rows}
+    tile = flash_ops.flash_tiles(torch.bfloat16, 64)["forward"]
+    q, k, v = flash_attention_benchmark.make_qkv(8, 1024, 16, 8, 64,
+                                                 torch.bfloat16, "cuda")
+    out["a_blocks_bit_equal"] = torch.equal(
+        flash_ops.flash_attention(q, k, v, causal=True),
+        flash_ops.flash_attention(q, k, v, causal=True, block_q=tile[0],
+                                  block_k=tile[1]))
+    del q, k, v
+    if not out["a_blocks_bit_equal"]:
+        raise AssertionError(f"38 (a): flash_attention(block_q={tile[0]}, "
+                             f"block_k={tile[1]}) differs from the default")
+    before = dict(flash_ops.LAUNCHES)
+    head = headpack_probe.main(["--parts", "AF", "--iters", "25"])
+    out["b_launches"] = _delta(flash_ops.LAUNCHES, before)
+    out["b"] = {k: v for k, v in head.items() if k != "rows"}
+    out["b_rows"] = [{k: r[k] for k in r if k not in ("device", "launches")}
+                     for r in head["rows"]]
+    before = dict(decode_ops.LAUNCHES)
+    floor = decode_floor_probe.main(PROBE_DECODE)
+    out["c_launches"] = _delta(decode_ops.LAUNCHES, before)[
+        "decode_attention"]
+    out["c"] = {k: floor[k] for k in (
+        "empty_loop", "decode_tok_s", "decode_launches", "tokens_equal",
+        "roofline_bytes_per_step", "roofline_tok_s", "pct_of_roofline")}
+    if not floor["tokens_equal"] or min(
+            floor["decode_launches"].values()) <= 0:
+        raise AssertionError(f"38 (c): unroll 1 and 4 tokens equal "
+                             f"{floor['tokens_equal']}, launches "
+                             f"{floor['decode_launches']}")
+    torch.cuda.empty_cache()
+    roof = resnet50_roofline.main(["--steps", "2", "--trace-dir",
+                                   trace_dir("resnet50_roofline")])
+    result = roof["roofline"]
+    out["d"] = {k: result[k] for k in (
+        "measured_ms_per_step", "max_bound_ms_per_step", "max_bound_ratio",
+        "sum_bound_ratio", "max_bound_ratio_all_bytes_hbm",
+        "unattributed_ms_per_step", "by_kind", "ops_over_max_ratio",
+        "worst_ops")}
+    out["d"]["capture_img_s"] = roof["capture_img_s"]
+    shutil.rmtree(trace_dir("resnet50_roofline"), ignore_errors=True)
+    ratio = result["max_bound_ratio"]
+    if not (ratio and 0 < ratio <= 1) or result["ops_over_max_ratio"]:
+        raise AssertionError(f"38 (d): aggregate ratio {ratio}, ops over "
+                             f"1.05: {result['ops_over_max_ratio']}")
+    for key in ("a_launches", "b_launches"):
+        if min(out[key].values()) <= 0:
+            raise AssertionError(f"38: a flash kernel never ran: {out}")
+    log(f"38 (a) flash fwd {out['a']['flash_fwd_ms']['fwd_ms']:.5f} ms, "
+        f"train {out['a']['flash_fwd_ms']['train_ms']:.5f} ms (SDPA "
+        f"{out['a']['sdpa_fwd_ms']['fwd_ms']:.5f} / "
+        f"{out['a']['sdpa_fwd_ms']['train_ms']:.5f}); (b) A K64/K128 "
+        f"{out['b']['A_k64_over_k128_ms']:.4f}, F D64/D128 fwd "
+        f"{out['b']['F_d64_over_d128_fwd']:.4f} train "
+        f"{out['b']['F_d64_over_d128_train']:.4f}; (c) "
+        f"{json.dumps(out['c']['decode_tok_s'])} tok/s, "
+        f"{json.dumps(out['c']['pct_of_roofline'])} % of the roofline; "
+        f"(d) ratio {ratio:.4f} [{card}]")
+    return out
+
+
+def _probe_record(args, timeout: float) -> dict:
+    res = _tool(args, timeout)
+    lines = [ln for ln in res.stdout.splitlines() if ln.startswith("{")]
+    return {"last": json.loads(lines[-1]),
+            "lines": [json.loads(ln) for ln in lines[:-1]]}
+
+
+def run_host_probes(card: str):
+    """38 (e), host only (the second lane): the wire probe, autotune
+    efficacy A and C and scaling efficiency (MLP), three jobs at once."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(PROBE_HOST)) as pool:
+        futures = {name: pool.submit(_probe_record, args, 300.0)
+                   for name, args in sorted(PROBE_HOST.items())}
+        out = {name: f.result() for name, f in sorted(futures.items())}
+    wire = out["wire"]["last"]
+    if wire["wire_stats_rank0"]["tx_bytes"]["int8"] <= 0:
+        raise AssertionError(f"38 (e): no int8 wire bytes: {wire}")
+    scaling = out["scaling"]["last"]
+    if scaling["efficiency"]["1"] != 1.0 or scaling["sizes"] != [1, 2]:
+        raise AssertionError(f"38 (e): scaling record {scaling}")
+    runs = [r for r in out["autotune"]["lines"] if "run" in r]
+    if [r["run"] for r in runs] != ["A", "C"] or not runs[1]["autotune"]:
+        raise AssertionError(f"38 (e): autotune runs {runs}")
+    log(f"38 (e) wire {json.dumps(wire['best_by_size_and_wire'])}; "
+        f"autotune last windows {json.dumps(out['autotune']['last'])}; "
+        f"scaling {json.dumps(scaling['efficiency'])} [{card}]")
+    return {"wire": {k: wire[k] for k in ("best_by_size_and_wire",
+                                          "speedup_vs_none_at_best_chunk")},
+            "wire_int8_tx_bytes": wire["wire_stats_rank0"]["tx_bytes"][
+                "int8"],
+            "autotune": out["autotune"]["last"],
+            "scaling": {k: scaling[k] for k in ("img_sec", "efficiency")}}
 
 
 # ---------------------------------------------------------------------------
@@ -5883,8 +6037,14 @@ def main() -> int:
                   run_tune_checks, card),
                  ("37 (e) simulated cluster and its tools",
                   run_sim_tools, card)])
-    # A third lane, one job: 31 (d)'s checks do not depend on timing.
+    # A third lane: 31 (d)'s job (its checks do not depend on timing),
+    # then host-only work that reads no timing of the card: 38 (e)'s
+    # probes and the static gates.
     int8_lane = Lane([("31 (d) int8 wire (horovodrun)", run_int8_phase,
+                       card),
+                      ("38 (e) host probes (wire, autotune, scaling)",
+                       run_host_probes, card),
+                      ("34 static gates (tools.check)", run_static_gates,
                        card)], "third lane")
 
     phase("7 collectives", run_collectives)
@@ -5971,10 +6131,11 @@ def main() -> int:
            "bert_parity": phase("12 bert parity", run_bert_parity)}
     bert = phase("13 bert example", run_bert_timed, card)
     torch.cuda.empty_cache()
-    # Host-only (static analysis): it fills this lane's wait for the other.
-    gates = phase("34 static gates (tools.check)", run_static_gates, card)
+    probes = phase("38 (a)-(d) probe examples", run_probe_phase, card)
+    torch.cuda.empty_cache()
     t = time.perf_counter()
     second = {**lane.join(), **int8_lane.join()}
+    gates = second["34 static gates (tools.check)"]
     log(f"second and third lanes joined after "
         f"{time.perf_counter() - t:.1f} s")
     controller = second["30 controller (two ranks, horovodrun)"]
@@ -5996,6 +6157,7 @@ def main() -> int:
     doctor = phase("35 cluster doctor (horovodrun -np 3 under a delay, "
                    "a postmortem)", run_doctor_phase, card)
     phase37["e"] = second["37 (e) simulated cluster and its tools"]
+    probes["e"] = second["38 (e) host probes (wire, autotune, scaling)"]
 
     # The two ranks' counts of each parallel path, summed.
     by_rank = parallel["counts_by_rank"]
@@ -6034,7 +6196,9 @@ def main() -> int:
                        for n in flash_names},
                    "llama300m training under the doctor, three ranks (35)": {
                        n: sum(r[n] for r in doctor["a"]["launches"])
-                       for n in flash_names}}
+                       for n in flash_names},
+                   "flash_attention_benchmark (38 a)": probes["a_launches"],
+                   "headpack_probe part F (38 b)": probes["b_launches"]}
     forward_only = {f"long context ring {layout} (24)": both(
         "24 sp timed", f"long_context_{layout}", "flash_forward")
         for layout in ("contiguous", "zigzag")}
@@ -6054,7 +6218,9 @@ def main() -> int:
                     "tp generate, both ranks (25)": both(
                         "25 tp", "generate", "decode_attention"),
                     "tp_decode_profile, both ranks (25)": both(
-                        "25 tp", "profile", "decode_attention")}
+                        "25 tp", "profile", "decode_attention"),
+                    "decode_floor_probe, unroll 1 and 4 (38 c)":
+                        probes["c_launches"]}
     paged_paths = {"engine parity (4)": paged_launches,
                    "fleet parity (17)": fleet_launches,
                    "loadgen llama-300m (16)": loadgen_launches,
@@ -6127,6 +6293,7 @@ def main() -> int:
     log(f"static gates: {json.dumps(gates)}")
     log(f"cluster doctor: {json.dumps(doctor)}")
     log(f"phase 37: {json.dumps(phase37)}")
+    log(f"phase 38: {json.dumps(probes)}")
     log(f"ring kernels: {json.dumps({f'{k[0]} {k[1]}': v for k, v in ring_flash.items()})}")
     log(f"wall time: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

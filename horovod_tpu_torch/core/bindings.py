@@ -179,8 +179,8 @@ def load() -> ctypes.CDLL:
         _c(lib, "hvd_ring_last_error", cp)
         _c(lib, "hvd_ringh_create", vp, i, i, cp, u8p, i)
         _c(lib, "hvd_ringh_set_link", None, vp, i)
-        # The bandwidth cap the JAX package's probes use; declared so the
-        # whole C ABI carries its ctypes signature.
+        # The send cap (RingBackend.set_rate) the wire probe's emulated
+        # cross links use.
         _c(lib, "hvd_ringh_set_rate", None, vp, d)
         _c(lib, "hvd_ringh_allreduce_wire", i, vp, vp, l, i, i, i, vp)
         _c(lib, "hvd_ringh_allgather", i, vp, vp, lp, vp, i)
@@ -416,6 +416,12 @@ class RingBackend:
         if rc != 0:
             raise RuntimeError(f"ring broadcast failed: {self._last_error()}")
         return t
+
+    def set_rate(self, bytes_per_s: float) -> None:
+        """Cap this ring's sends at ``bytes_per_s`` per connection (a
+        token bucket; 0 lifts it): an emulated slow link for the wire
+        probe's two-level layout on one host."""
+        self._lib.hvd_ringh_set_rate(self._handle, float(bytes_per_s))
 
     def set_link(self, link: str) -> None:
         """Tag this ring's link class (``WIRE_LINK_CODES``) so its

@@ -61,6 +61,7 @@ import dataclasses
 import functools
 import math
 import threading
+import weakref
 from typing import Callable, Optional
 
 import numpy as np
@@ -732,7 +733,7 @@ def pick_tokens(logits, temperature: float, generator):
 
 def generate(model: CausalLM, prompt_ids, max_new_tokens: int,
              max_len: Optional[int] = None, temperature: float = 0.0,
-             generator: Optional[torch.Generator] = None):
+             generator: Optional[torch.Generator] = None, unroll: int = 1):
     """Autoregressive decoding with the KV cache: prefill the prompt in
     one call, then single-token steps in a Python loop (the JAX
     package's ``lax.scan``). ``model`` is any causal LM with the cache
@@ -741,10 +742,21 @@ def generate(model: CausalLM, prompt_ids, max_new_tokens: int,
     device). Returns ``(B, prompt + max_new_tokens)`` int64 ids, prompt
     included, on the model's device.
 
+    ``unroll``: tokens decoded per loop iteration (the JAX package's
+    ``lax.scan(..., unroll=k)``). On a card, k > 1 captures each
+    iteration's k steps as one CUDA graph (:class:`_UnrolledDecode`):
+    one replay from the host instead of k steps of launches. The graphs
+    and their cache are kept for the next call with the same model,
+    shapes and sampling, as a compiled program is; the first call
+    captures them. On the CPU an iteration runs its k steps in turn.
+    The tokens are the same at any ``unroll``, greedy or sampled from
+    one generator.
+
     The path follows :func:`classify_decode_sharding`. A tensor-parallel
     model runs on every rank of its axis with the same prompt (and the
     same generator seed when sampling): the gathered logits are the same
-    bytes on every rank, so every rank picks the same tokens."""
+    bytes on every rank, so every rank picks the same tokens; its steps
+    hold collectives, so it takes no ``unroll`` above 1 on a card."""
     global LAST_DECODE_PATH
     cfg = model.config
     device = model.device
@@ -761,6 +773,13 @@ def generate(model: CausalLM, prompt_ids, max_new_tokens: int,
             f"cache window max_len={max_len}")
     if temperature > 0.0 and generator is None:
         raise ValueError("temperature sampling needs a torch.Generator")
+    if int(unroll) != unroll or unroll < 1:
+        raise ValueError(f"unroll must be a positive int, got {unroll!r}")
+    graphed = unroll > 1 and device.type == "cuda"
+    if graphed and getattr(model, "tp", None) is not None:
+        raise ValueError(
+            "generate(unroll > 1) captures CUDA graphs; a tensor-parallel "
+            "model's steps hold collectives, which a graph cannot replay")
     if max_new_tokens <= 0:
         return prompt
     info = classify_decode_sharding(model, prompt, cfg.num_kv_heads)
@@ -768,20 +787,128 @@ def generate(model: CausalLM, prompt_ids, max_new_tokens: int,
         info = DecodePath("einsum", "decode_kernel_disabled()")
     LAST_DECODE_PATH = info
     with torch.inference_mode(), decode_path_context(info.path):
+        if graphed and max_new_tokens > 1:
+            return _unrolled_decode(model, b, s, max_len, max_new_tokens,
+                                    int(unroll), temperature, generator,
+                                    info.path).run(prompt)
         cache = init_kv_cache(cfg, b, max_len, device=device,
                               kv_heads=model.kv_heads)
         with named_scope("prefill"):
             logits, cache = model(prompt, cache=cache, cache_index=0)
             token = pick_tokens(logits[:, -1], temperature, generator)
         new = [token]
-        for i in range(max_new_tokens - 1):
-            # The profiler scope of one step of the JAX package's scan.
-            with named_scope("decode_step"):
-                logits, cache = model(token[:, None], cache=cache,
-                                      cache_index=s + i)
-                token = pick_tokens(logits[:, -1], temperature, generator)
-            new.append(token)
+        for start in range(0, max_new_tokens - 1, unroll):
+            for i in range(start, min(start + unroll, max_new_tokens - 1)):
+                # The profiler scope of one step of the JAX package's scan.
+                with named_scope("decode_step"):
+                    logits, cache = model(token[:, None], cache=cache,
+                                          cache_index=s + i)
+                    token = pick_tokens(logits[:, -1], temperature,
+                                        generator)
+                new.append(token)
         return torch.cat([prompt, torch.stack(new, dim=1)], dim=1)
+
+
+class _UnrolledDecode:
+    """``generate(unroll=k)`` on a card: the decode loop's iterations,
+    each of k steps (the last one the remainder), captured as CUDA
+    graphs over one cache and one token buffer that this object keeps.
+
+    A graph bakes its launches' arguments, and the contiguous decode
+    kernel takes its position as an argument, so each iteration has a
+    graph of its own; all share one memory pool and replay in the order
+    they were captured. One greedy step runs on the capture stream first,
+    so that lazy state (library handles, the kernels' loaded modules) is
+    made outside the graphs; it draws no random number. The sampled
+    graphs register the generator, so a replay draws what the eager
+    steps would. Each replay adds the decode kernel launches its capture
+    recorded (``decode_ops.count_replay``)."""
+
+    def __init__(self, model, b: int, s: int, max_len: int, new: int,
+                 unroll: int, temperature: float, generator):
+        from ..ops import decode_attention as decode_ops
+
+        self.model, self.s, self.temperature = model, s, temperature
+        self.generator = generator
+        self.params = _param_ptrs(model)
+        dev = model.device
+        self.cache = init_kv_cache(model.config, b, max_len, device=dev,
+                                   kv_heads=model.kv_heads)
+        self.token = torch.zeros((b,), dtype=torch.int64, device=dev)
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        pool = torch.cuda.graph_pool_handle()
+        self.graphs = []
+        with torch.cuda.stream(stream):
+            self._steps(s, 1, 0.0, None)
+            for start in range(0, new - 1, unroll):
+                count = min(unroll, new - 1 - start)
+                graph = torch.cuda.CUDAGraph()
+                if temperature > 0.0:
+                    graph.register_generator_state(generator)
+                with decode_ops.recording_launches() as launches, \
+                        torch.cuda.graph(graph, pool=pool, stream=stream,
+                                         capture_error_mode="thread_local"):
+                    out = self._steps(s + start, count, temperature,
+                                      generator)
+                self.graphs.append((graph, out, dict(launches)))
+        torch.cuda.current_stream(dev).wait_stream(stream)
+
+    def _steps(self, index: int, count: int, temperature: float,
+               generator):
+        """``count`` decode steps from position ``index`` that read and
+        leave the last token in ``self.token``: the (B, count) tokens."""
+        token, picked = self.token, []
+        for i in range(count):
+            with named_scope("decode_step"):
+                logits, _ = self.model(token[:, None], cache=self.cache,
+                                       cache_index=index + i)
+                token = pick_tokens(logits[:, -1], temperature, generator)
+            picked.append(token)
+        self.token.copy_(token)
+        return torch.stack(picked, dim=1)
+
+    def matches(self, model, generator) -> bool:
+        return (self.generator is generator
+                and self.params == _param_ptrs(model))
+
+    def run(self, prompt):
+        from ..ops import decode_attention as decode_ops
+
+        with named_scope("prefill"):
+            logits, _ = self.model(prompt, cache=self.cache, cache_index=0)
+            self.token.copy_(pick_tokens(logits[:, -1], self.temperature,
+                                         self.generator))
+        new = [self.token[:, None].clone()]
+        for graph, out, launches in self.graphs:
+            graph.replay()
+            decode_ops.count_replay(launches)
+            new.append(out)
+        return torch.cat([prompt] + new, dim=1)
+
+
+def _param_ptrs(model):
+    return tuple(p.data_ptr() for p in model.parameters())
+
+
+# generate(unroll > 1)'s captured loops, by model and then by shapes and
+# sampling: reused while the model's parameters stay where they are. A
+# model's graphs replay from one thread at a time, as its steps run.
+_UNROLLED = weakref.WeakKeyDictionary()
+
+
+def _unrolled_decode(model, b: int, s: int, max_len: int, new: int,
+                     unroll: int, temperature: float, generator,
+                     path: str) -> _UnrolledDecode:
+    key = (b, s, max_len, new, unroll, float(temperature), path)
+    entries = _UNROLLED.setdefault(model, {})
+    entry = entries.get(key)
+    if entry is None or not entry.matches(model, generator):
+        entries.pop(key, None)
+        entry = _UnrolledDecode(model, b, s, max_len, new, unroll,
+                                temperature, generator)
+        entries[key] = entry
+    return entry
 
 
 def token_nll(logits, targets):

@@ -30,8 +30,11 @@ with no allowed key are zero, as the JAX package zeroes them in
 ``reference_attention`` before differentiating, so they leak no cotangent
 into dk and dv. The forward still runs kernel 1. The flag is read at each
 backward call (the JAX package reads it when it traces the step). The JAX
-package's ``block_q``/``block_k`` (tiles chosen for TPU VMEM) have no
-counterpart: the kernels fix their own tiles. The three bfloat16 kernels
+package's ``block_q``/``block_k`` choose tiles for TPU VMEM; here they name
+the forward's tile (query rows x keys a block), and the kernels compile
+one tile per dtype and head width (:data:`FLASH_TILES`, the constants of
+``csrc/flash_attention.cu``): the compiled pair selects it, any other pair
+raises and names the pairs there are. The three bfloat16 kernels
 are Hopper kernels (TMA loads, wgmma) that read q/k/v/dO through tensor
 maps, so their operands must be contiguous and 16-byte aligned, as the
 wrappers check; the float32 kernels, and both types at head_dim 256,
@@ -344,6 +347,65 @@ def dkdv_in_range(backward_dkdv, q, k, v, key_mask, g, lse, delta,
 
 
 # ---------------------------------------------------------------------------
+# The kernels' tiles
+#
+# ``csrc/flash_attention.cu`` compiles one tile shape per (dtype, head
+# width) and kernel: (query rows, keys) a block. bfloat16 at 64 and 128
+# runs the TMA + wgmma family (``FwdTiles``/``DqTiles``/``DkdvTiles``: 64
+# rows per consumer warpgroup, ``kWgs`` consumers); float32, and both
+# types at 256, the FMA family (``Geo``: 16 rows per warp, 32-row
+# streamed tiles). dk/dv owns a block of keys and streams query rows, so
+# its pair is (rows streamed, keys owned). ``tests/test_torch_probes.py``
+# holds this table against the source's constants.
+
+FLASH_TILES: Dict[tuple, Dict[str, tuple]] = {
+    ("bfloat16", 64): {"forward": (192, 128), "backward_dq": (192, 64),
+                       "backward_dkdv": (64, 128)},
+    ("bfloat16", 128): {"forward": (128, 128), "backward_dq": (128, 64),
+                        "backward_dkdv": (64, 128)},
+    ("bfloat16", 256): {"forward": (32, 32), "backward_dq": (32, 32),
+                        "backward_dkdv": (32, 32)},
+    ("float32", 64): {"forward": (64, 32), "backward_dq": (64, 32),
+                      "backward_dkdv": (32, 64)},
+    ("float32", 128): {"forward": (64, 32), "backward_dq": (64, 32),
+                       "backward_dkdv": (32, 64)},
+    ("float32", 256): {"forward": (32, 32), "backward_dq": (32, 32),
+                       "backward_dkdv": (32, 32)},
+}
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).rpartition(".")[2]
+
+
+def flash_tiles(dtype: torch.dtype, head_dim: int) -> Dict[str, tuple]:
+    """The three kernels' compiled tiles for ``dtype`` at ``head_dim``
+    (taken at its kernel width)."""
+    key = (_dtype_name(dtype), kernel_width(head_dim))
+    if key not in FLASH_TILES:
+        raise TypeError(f"flash_attention: the kernels take float32 or "
+                        f"bfloat16, got {dtype}")
+    return FLASH_TILES[key]
+
+
+def check_blocks(dtype: torch.dtype, head_dim: int,
+                 block_q: Optional[int], block_k: Optional[int]) -> None:
+    """``block_q``/``block_k`` name the forward's tile; both None take
+    the compiled one. A pair the kernels do not compile raises."""
+    if block_q is None and block_k is None:
+        return
+    tile = flash_tiles(dtype, head_dim)["forward"]
+    if (block_q, block_k) != tile:
+        pairs = ", ".join(f"{d} D{w}: {t['forward']}"
+                          for (d, w), t in sorted(FLASH_TILES.items()))
+        raise ValueError(
+            f"flash_attention: block_q={block_q}, block_k={block_k} is not "
+            f"a tile the kernels compile; {_dtype_name(dtype)} at head_dim "
+            f"{head_dim} runs block_q={tile[0]}, block_k={tile[1]} "
+            f"(compiled (block_q, block_k) pairs: {pairs})")
+
+
+# ---------------------------------------------------------------------------
 # Kernel wrappers
 
 
@@ -503,9 +565,14 @@ def _dense_vjp(fn, inputs, cotangents):
 
 
 def flash_attention(q, k, v, key_mask=None, causal: bool = False,
-                    sm_scale: Optional[float] = None):
-    """Flash attention with its flash backward (see the module doc)."""
+                    sm_scale: Optional[float] = None,
+                    block_q: Optional[int] = None,
+                    block_k: Optional[int] = None):
+    """Flash attention with its flash backward (see the module doc).
+    ``block_q``/``block_k``: the forward's tile, None or the compiled
+    pair (:func:`check_blocks`)."""
     _check_gqa_heads(q, k, v, "flash_attention")
+    check_blocks(q.dtype, q.shape[-1], block_q, block_k)
     return _Flash.apply(q, k, v, key_mask, causal, sm_scale)
 
 

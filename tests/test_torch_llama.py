@@ -335,6 +335,21 @@ def test_port_imports_no_jax_or_reference_package():
         "import horovod_tpu_torch.tools.straggler\n"
         "import horovod_tpu_torch.examples.simcluster_probe\n"
         "import horovod_tpu_torch.examples.capacity_probe\n"
+        "import horovod_tpu_torch.utils.timing\n"
+        "import horovod_tpu_torch.examples.flash_attention_benchmark\n"
+        "import horovod_tpu_torch.examples.headpack_probe\n"
+        "import horovod_tpu_torch.examples.decode_floor_probe\n"
+        "import horovod_tpu_torch.examples.resnet50_roofline\n"
+        "import horovod_tpu_torch.examples.allreduce_benchmark\n"
+        "import horovod_tpu_torch.examples.wire_bandwidth_probe\n"
+        "import horovod_tpu_torch.examples.scaling_efficiency\n"
+        "import horovod_tpu_torch.examples.scaling_projection\n"
+        "import horovod_tpu_torch.examples.autotune_efficacy\n"
+        "import horovod_tpu_torch.spark\n"
+        "import horovod_tpu_torch.spark.driver\n"
+        "import horovod_tpu_torch.examples.mxnet_mnist\n"
+        "import horovod_tpu_torch.examples.mxnet_imagenet_resnet50\n"
+        "import horovod_tpu_torch.examples.spark_mnist\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'horovod_tpu'))\n"
@@ -411,13 +426,28 @@ def test_port_sources_never_name_jax_or_the_reference_package():
                  "sim/faults.py", "sim/scenario.py", "sim/measure.py",
                  "tools/simcluster.py", "tools/capacity.py",
                  "tools/straggler.py", "examples/simcluster_probe.py",
-                 "examples/capacity_probe.py"):
+                 "examples/capacity_probe.py",
+                 # The probes, the MXNet and Spark front ends.
+                 "utils/timing.py", "examples/flash_attention_benchmark.py",
+                 "examples/headpack_probe.py",
+                 "examples/decode_floor_probe.py",
+                 "examples/resnet50_roofline.py",
+                 "examples/allreduce_benchmark.py",
+                 "examples/wire_bandwidth_probe.py",
+                 "examples/scaling_efficiency.py",
+                 "examples/scaling_projection.py",
+                 "examples/autotune_efficacy.py", "mxnet/__init__.py",
+                 "mxnet/mpi_ops.py", "spark/__init__.py", "spark/driver.py",
+                 "examples/mxnet_mnist.py",
+                 "examples/mxnet_imagenet_resnet50.py",
+                 "examples/spark_mnist.py"):
         assert name in scanned, name
     for path in paths:
         with open(path, encoding="utf-8") as fh:
             text = fh.read()
         for needle in ("import jax", "from jax", "import flax",
-                       "import optax", "import orbax", "horovod_tpu."):
+                       "import optax", "import orbax", "horovod_tpu.",
+                       "import fake_", "from fake_"):
             if needle in text:
                 offenders.append(f"{os.path.relpath(path, REPO)}: "
                                  f"{needle!r}")
