@@ -354,6 +354,16 @@ on ``cuda``; any failure exits non-zero:
    only, in the third lane: ``wire_bandwidth_probe`` at 2 ranks (4 MiB,
    each wire dtype), ``autotune_efficacy`` A and C at 2 ranks for one
    window, ``scaling_efficiency`` on gloo ranks 1 and 2 with the MLP.
+39. the TensorFlow and Keras front ends, host only, in the third lane: in
+   a child process, ``horovod_tpu_torch.tensorflow`` and
+   ``horovod_tpu_torch.keras`` imported and the nine TF and Keras
+   examples launched through ``runpy`` with their smallest flags. Where
+   tensorflow is absent (the card machine) each must fail with its
+   front end's own message naming tensorflow; where it is present, the
+   custom op's size-1 allreduce and broadcast on the port's native engine
+   must return their inputs. The branch that ran and the phase's time
+   are logged. No CUDA kernel lies on these paths: TF tensors stay in
+   host memory.
 
 The float32 parity runs of phases 24, 25, 27, 28, 30 and 31 build
 Llama-300M at 2 of its 16 layers (``PARITY_LAYERS``), to keep the script
@@ -376,7 +386,7 @@ Three lanes share the card and the host. After the kernels' timings
 (2, 6, 14 and 24's ring kernels, alone), a second lane, a thread of this
 process that only starts jobs and reads their files, runs 32's job and
 restore probe, 30, 31 (e), 33 (b)-(c) and 37 (e), and a third one 31
-(d)'s job, 38 (e) and 34, while this lane runs 3-5, 7-13, 15-23, 37
+(d)'s job, 38 (e), 39 and 34, while this lane runs 3-5, 7-13, 15-23, 37
 (a)-(d) and 38 (a)-(d);
 both are joined before 32's replay, which runs here, then 24-29, 31
 (a)-(c), 33 (a) and 35 (a), (c) run alone. The numbers of 3-5, 7-13, 15-23 and of the other lanes'
@@ -2422,6 +2432,118 @@ def run_host_probes(card: str):
                 "int8"],
             "autotune": out["autotune"]["last"],
             "scaling": {k: scaling[k] for k in ("img_sec", "efficiency")}}
+
+
+# ---------------------------------------------------------------------------
+# Phase 39: the TensorFlow and Keras front ends
+
+# The nine examples and their smallest flags (those of their tests).
+TF_EXAMPLES = {
+    "tensorflow_mnist": ["--epochs", "1", "--batch-size", "256"],
+    "tensorflow_mnist_eager": ["--steps", "5", "--batch-size", "32"],
+    "tensorflow_keras_mnist": ["--epochs", "1", "--batch-size", "256"],
+    "tensorflow_synthetic_benchmark": [
+        "--model", "MobileNetV2", "--batch-size", "4", "--image-size", "32",
+        "--num-classes", "10", "--num-warmup-batches", "1",
+        "--num-batches-per-iter", "2", "--num-iters", "2"],
+    "tensorflow_word2vec": ["--steps", "10", "--batch-size", "64",
+                            "--vocab-size", "500", "--embedding-dim", "16"],
+    "keras_mnist": ["--epochs", "1", "--batch-size", "256"],
+    "keras_mnist_advanced": ["--epochs", "2", "--batch-size", "256",
+                             "--warmup-epochs", "1"],
+    "keras_imagenet_resnet50": ["--epochs", "1", "--steps-per-epoch", "2",
+                                "--batch-size", "2", "--image-size", "32",
+                                "--num-classes", "10"],
+    "keras_spark_rossmann": ["--epochs", "1", "--rows", "1024"],
+}
+
+# The child of phase 39: prints one JSON line.
+TF_PHASE_CHILD = r"""
+import ctypes
+import json
+import runpy
+import sys
+
+examples = json.loads(sys.argv[1])
+try:
+    import tensorflow  # noqa: F401
+except ImportError:
+    out = {"branch": "absent", "errors": {}}
+    for name in ("tensorflow", "keras"):
+        try:
+            __import__("horovod_tpu_torch." + name)
+            out["errors"][name] = None
+        except ImportError as exc:
+            out["errors"][name] = str(exc)
+    for name, flags in sorted(examples.items()):
+        sys.argv = [name] + flags
+        try:
+            runpy.run_module("horovod_tpu_torch.examples." + name,
+                             run_name="__main__", alter_sys=True)
+            out["errors"][name] = None
+        except ImportError as exc:
+            out["errors"][name] = str(exc)
+    print(json.dumps(out), flush=True)
+    sys.exit(0)
+
+import numpy as np
+
+from horovod_tpu_torch.core import bindings
+from horovod_tpu_torch.tensorflow import tf_ops
+
+lib = bindings.load()
+key = (ctypes.c_uint8 * 32).from_buffer_copy(b"\x01" * 32)
+if lib.hvd_eng_init(0, 1, b"", key, 32, 1.0, 1 << 20, 64, 1, 60.0, -1.0,
+                    b"", 0, 0, 0, 0, 1) != 0:
+    raise SystemExit(lib.hvd_eng_last_error().decode())
+x = tensorflow.constant(np.arange(6, dtype=np.float32) - 2.5)
+summed = tf_ops.allreduce_sum(x, name="chip.tf.ar").numpy().tolist()
+root = tf_ops.broadcast(x, root_rank=0, name="chip.tf.bc").numpy().tolist()
+lib.hvd_eng_shutdown()
+print(json.dumps({"branch": "present", "allreduce": summed,
+                  "broadcast": root, "want": x.numpy().tolist()}),
+      flush=True)
+"""
+
+
+def run_tf_front_ends(card: str):
+    """Phase 39 (third lane, host only): see the module docstring."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("HOROVOD_", "OMPI_", "PMI_"))}
+    env["PYTHONPATH"] = here
+    t = time.perf_counter()
+    proc = run_child([sys.executable, "-c", TF_PHASE_CHILD,
+                      json.dumps(TF_EXAMPLES)], 300, cwd=here, env=env,
+                     stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                     text=True)
+    seconds = time.perf_counter() - t
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"39: the child exited {proc.returncode}: "
+                             f"{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+    out = json.loads(lines[-1])
+    if out["branch"] == "absent":
+        wrong = {}
+        for name, msg in sorted(out["errors"].items()):
+            front = "keras" if name.startswith("keras") else "tensorflow"
+            if not (msg or "").startswith(
+                    f"horovod_tpu_torch.{front} requires the 'tensorflow' "
+                    "package"):
+                wrong[name] = msg
+        if wrong or len(out["errors"]) != len(TF_EXAMPLES) + 2:
+            raise AssertionError(f"39: without tensorflow, not the front "
+                                 f"ends' messages: {wrong or out}")
+        detail = (f"the two front ends and the {len(TF_EXAMPLES)} examples "
+                  "failed with their front end's message")
+    else:
+        if not out["allreduce"] == out["broadcast"] == out["want"]:
+            raise AssertionError(f"39: size-1 custom op: {out}")
+        detail = "the size-1 custom-op allreduce and broadcast returned " \
+                 "their inputs on the native engine"
+    log(f"39 TF and Keras front ends: tensorflow {out['branch']}; {detail}; "
+        f"{seconds:.1f} s [{card}]")
+    return {"branch": out["branch"], "seconds": seconds}
 
 
 # ---------------------------------------------------------------------------
@@ -6044,6 +6166,8 @@ def main() -> int:
                        card),
                       ("38 (e) host probes (wire, autotune, scaling)",
                        run_host_probes, card),
+                      ("39 TF and Keras front ends", run_tf_front_ends,
+                       card),
                       ("34 static gates (tools.check)", run_static_gates,
                        card)], "third lane")
 
@@ -6158,6 +6282,7 @@ def main() -> int:
                    "a postmortem)", run_doctor_phase, card)
     phase37["e"] = second["37 (e) simulated cluster and its tools"]
     probes["e"] = second["38 (e) host probes (wire, autotune, scaling)"]
+    tf_front_ends = second["39 TF and Keras front ends"]
 
     # The two ranks' counts of each parallel path, summed.
     by_rank = parallel["counts_by_rank"]
@@ -6294,6 +6419,7 @@ def main() -> int:
     log(f"cluster doctor: {json.dumps(doctor)}")
     log(f"phase 37: {json.dumps(phase37)}")
     log(f"phase 38: {json.dumps(probes)}")
+    log(f"phase 39: {json.dumps(tf_front_ends)}")
     log(f"ring kernels: {json.dumps({f'{k[0]} {k[1]}': v for k, v in ring_flash.items()})}")
     log(f"wall time: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

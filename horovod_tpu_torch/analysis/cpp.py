@@ -30,11 +30,12 @@ and the ``lockorder.static_graph()`` join):
 What the port does differently: its bindings declare each function
 through one ``_c(lib, "name", restype, *argtypes)`` call over local
 ctypes aliases, which :func:`parse_bindings` reads beside the JAX
-package's ``lib.NAME.argtypes = [...]`` form; the TensorFlow op library
-(``tf_ops.cc`` and its ``CoreApi`` table) is not ported, so it is listed
-under ``absent`` in :func:`run_checks` and checks nothing; and an export
-counts as consumed by a test only in the port's own test files
-(``tests/test_torch_*.py``, ``tests/torch_*.py``).
+package's ``lib.NAME.argtypes = [...]`` form; the TensorFlow op
+library's ``CoreApi`` fn-pointer table is the port's own
+(``tensorflow/src/tf_ops.cc``), checked against the port's
+``engine.cc`` exports; and an export counts as consumed by a test only
+in the port's own test files (``tests/test_torch_*.py``,
+``tests/torch_*.py``).
 
 Everything here is stdlib-only and parses sources as text; in
 particular ``bindings.py`` is read via ``ast``, never imported (it pulls
@@ -61,7 +62,6 @@ CPP_SOURCES: Tuple[Tuple[str, str], ...] = (
     ("ring", "horovod_tpu_torch/core/src/ring.cc"),
     ("shm", "horovod_tpu_torch/core/src/shm.cc"),
     ("timeline", "horovod_tpu_torch/core/src/timeline.h"),
-    # Not ported: reported under "absent" by run_checks, never a finding.
     ("tf_ops", "horovod_tpu_torch/tensorflow/src/tf_ops.cc"),
 )
 
@@ -1591,8 +1591,8 @@ def run_checks(root: Optional[str] = None,
                with_manifest: bool = True) -> dict:
     """All hvdabi checkers in one pass.  Returns ``{findings, coverage,
     lock_graph, manifest, absent}``; ``findings`` is the flat list every
-    CLI renders, ``absent`` the C++ sources not in this tree (the
-    unported ``tf_ops.cc``)."""
+    CLI renders, ``absent`` the C++ sources missing from this tree (none
+    in a whole checkout)."""
     root = root or _REPO_DIR
     sources = load_sources(root)
     bindings = parse_bindings(_read(root, BINDINGS_PATH))

@@ -235,6 +235,16 @@ def restart_epoch() -> int:
         return 0
 
 
+def tensorflow_custom_op_enabled() -> bool:
+    """``HOROVOD_TENSORFLOW_CUSTOM_OP``: opt-out knob for the native TF
+    custom-op data path. Historical semantics kept exactly: only the
+    explicit negatives disable; unset and even empty mean enabled (NOT
+    the ``_env_bool`` convention — existing launch scripts rely on
+    it)."""
+    return os.environ.get("HOROVOD_TENSORFLOW_CUSTOM_OP", "1") \
+        .strip().lower() not in ("0", "false", "no", "off")
+
+
 def elastic_enabled() -> bool:
     """``HOROVOD_ELASTIC``: opt-in elastic membership. When set, a dead
     rank triggers a coordinator-led reshape (survivors re-form at a

@@ -4,11 +4,10 @@ Static ABI/counter/frame-kind conformance of the port's C++ core against
 its Python planes (``analysis/cpp.py``). No compiler, no rebuild: the
 ``extern "C"`` signatures, counter-slot enum, frame-kind anchors and
 mutex regions are parsed out of ``core/src/{engine.cc,ring.cc,shm.cc,
-timeline.h}`` and joined with ``core/bindings.py``, the metrics mirror
-(``metrics/__init__.py``) and the known-series pin
-(``tests/test_torch_metrics_lint.py``). The TensorFlow op library
-(``tf_ops.cc``) is not ported: it is reported as absent, not as a
-finding.
+timeline.h}`` and ``tensorflow/src/tf_ops.cc`` and joined with
+``core/bindings.py``, the TF op library's ``CoreApi`` fn-pointer table,
+the metrics mirror (``metrics/__init__.py``) and the known-series pin
+(``tests/test_torch_metrics_lint.py``).
 
 * default run — all checkers (ABI bijection, counter/metrics parity,
   native frame-kind coverage, C++ lock-graph acyclicity) plus a diff of
@@ -78,6 +77,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             "lock_graph": report["lock_graph"],
             "exports": len(report["manifest"]["exports"]),
             "counter_slots": report["manifest"]["counters"]["n_slots"],
+            "core_api": len(report["manifest"]["core_api"]),
             "absent": report["absent"],
         }
         sys.stdout.write(json.dumps(out, indent=1, sort_keys=True) + "\n")
@@ -89,11 +89,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         by_check[f["check"]] = by_check.get(f["check"], 0) + 1
     detail = ", ".join(f"{k}={v}" for k, v in sorted(by_check.items())) \
         or "abi, counters, native-frames, locks, manifest all clean"
+    absent = (f"; absent: {', '.join(report['absent'])}"
+              if report["absent"] else "")
     print(f"abicheck: {len(findings)} finding(s) "
           f"({detail}; {len(report['manifest']['exports'])} exports, "
-          f"{report['manifest']['counters']['n_slots']} counter slots, "
-          f"{len(report['lock_graph']['edges'])} C++ lock edge(s); absent, "
-          f"not ported: {', '.join(report['absent']) or '-'})")
+          f"{len(report['manifest']['core_api'])} tf_ops.cc CoreApi "
+          f"field(s), {report['manifest']['counters']['n_slots']} counter "
+          f"slots, {len(report['lock_graph']['edges'])} C++ lock "
+          f"edge(s){absent})")
     return rc
 
 

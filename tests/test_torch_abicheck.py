@@ -6,12 +6,15 @@
   frame anchors, mutexes and the lock graph; its bindings parser reads
   the JAX ``bindings.py`` as the JAX one does, and the port's ``_c(lib,
   "name", restype, *argtypes)`` declarations besides.
-* On the port's own tree: no findings, ``tf_ops.cc`` reported absent,
-  the committed manifest golden, every gate of ``check`` passing.
+* On the port's own tree: no findings, the TF op library's ``CoreApi``
+  fn-pointer table (``tensorflow/src/tf_ops.cc``) parsed and matching the
+  port's ``engine.cc`` exports, the committed manifest golden, every gate
+  of ``check`` passing.
 * A seeded-drift matrix in a temporary clone of the port: an arg count,
   a dropped frame anchor, a renamed counter slot, a C++ and a Python
-  lock inversion and an off-spec handler each fail their gate, and
-  ``check`` exits 1 with all of them seeded."""
+  lock inversion, an off-spec handler and a ``CoreApi`` fn-pointer type
+  each fail their gate, and ``check`` exits 1 with all of them
+  seeded."""
 
 import json
 import os
@@ -101,7 +104,21 @@ def test_port_tree_has_no_findings():
     assert report["findings"] == [], "\n".join(
         "%(path)s:%(line)s [%(check)s] %(message)s" % f
         for f in report["findings"])
-    assert report["absent"] == [f"{PORT}/tensorflow/src/tf_ops.cc"]
+    assert report["absent"] == []
+    # The CoreApi table: every field resolved by sym("...") to an engine
+    # export of the same signature (a mismatch would be a finding above).
+    core_api = report["manifest"]["core_api"]
+    assert len(core_api) == 10
+    assert core_api["enqueue"] == {
+        "symbol": "hvd_eng_enqueue", "ret": "long long",
+        "args": ["int", "const char *", "void *", "const long long *",
+                 "int", "int", "int", "void *", "int"]}
+    exports = report["manifest"]["exports"]
+    for field, meta in sorted(core_api.items()):
+        c = exports[meta["symbol"]]
+        assert c["tag"] == "engine", field
+        assert [a["type"] for a in c["args"]] == meta["args"], field
+        assert c["ret"] == meta["ret"], field
     assert report["coverage"]["data"] == {"status": "handled",
                                           "via": "recv_frame"}
     assert report["manifest"]["counters"]["n_slots"] == 65
@@ -124,10 +141,12 @@ def test_manifest_pin_is_golden(capsys):
 def test_cli_clean_exits_zero(capsys):
     assert abicheck.main([]) == 0
     out = capsys.readouterr().out
-    assert "abicheck: 0 finding(s)" in out and "tf_ops.cc" in out
+    assert "abicheck: 0 finding(s)" in out
+    assert "10 tf_ops.cc CoreApi field(s)" in out and "absent" not in out
     assert abicheck.main(["--format", "json"]) == 0
     payload = json.loads(capsys.readouterr().out)
     assert payload["findings"] == [] and payload["exports"] == 60
+    assert payload["core_api"] == 10 and payload["absent"] == []
 
 
 def test_check_passes_on_the_port(capsys):
@@ -181,7 +200,12 @@ def _mutate(root, rel, old, new):
 
 
 ENGINE = f"{PORT}/core/src/engine.cc"
+TF_OPS = f"{PORT}/tensorflow/src/tf_ops.cc"
 DRIFTS = {
+    # A stale fn-pointer type in the TF op library's CoreApi table: the
+    # kernels would call hvd_eng_wait with the wrong argument.
+    "coreapi_pointer": (TF_OPS, "int (*wait)(long long) = nullptr;",
+                        "int (*wait)(int) = nullptr;"),
     "argcount": (cpp.BINDINGS_PATH, '_c(lib, "hvd_eng_wait", i, ll)',
                  '_c(lib, "hvd_eng_wait", i, ll, i)'),
     "dropped_anchor": (ENGINE, "// hvdabi:frame-kind kind=heartbeat "
@@ -224,6 +248,8 @@ def test_seeded_abi_drift_fails_hvdabi(clone, name):
     _mutate(clone, rel, old, new)
     findings = cpp.run_checks(with_manifest=False)["findings"]
     want = {"argcount": ("abi", "hvd_eng_wait argtypes has 2 entries"),
+            "coreapi_pointer": ("abi", "CoreApi field wait (-> hvd_eng_wait) "
+                                "argument types (int) do not match"),
             "dropped_anchor": ("native-frames", "'heartbeat'"),
             "renamed_slot": ("counters", "pipeline_stall_us")}[name]
     assert findings and all(f["check"] == want[0] for f in findings)
@@ -255,8 +281,8 @@ def test_check_exits_one_on_every_seeded_drift(clone, capsys):
         assert not payload[gate]["ok"], gate
     assert payload["aux-lint"]["ok"]
     detail = "\n".join(payload["hvdabi"]["detail"])
-    for needle in ("hvd_eng_wait argtypes", "'heartbeat'",
-                   "pipeline_stall_us", "lock-order cycle"):
+    for needle in ("hvd_eng_wait argtypes", "CoreApi field wait",
+                   "'heartbeat'", "pipeline_stall_us", "lock-order cycle"):
         assert needle in detail, needle
     assert any("recv_hello" in line
                for line in payload["protocheck"]["detail"])

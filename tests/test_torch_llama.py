@@ -353,8 +353,24 @@ def test_port_imports_no_jax_or_reference_package():
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'horovod_tpu'))\n"
-        "print(bad)\n"
-        "sys.exit(1 if bad else 0)\n")
+        # ``import tensorflow`` loads jax by itself where jax is installed,
+        # so the TF and Keras front ends and their examples are held by
+        # the guard: no import of jax or the JAX package from the port.
+        "sys.path.insert(0, 'tests')\n"
+        "import torch_import_guard\n"
+        "offenders = torch_import_guard.install('horovod_tpu_torch')\n"
+        "import horovod_tpu_torch.tensorflow\n"
+        "import horovod_tpu_torch.tensorflow.tf_ops\n"
+        "import horovod_tpu_torch.tensorflow.keras\n"
+        "import horovod_tpu_torch.keras\n"
+        "import horovod_tpu_torch.keras.callbacks\n"
+        + "".join(f"import horovod_tpu_torch.examples.{name}\n" for name in (
+            "tensorflow_mnist", "tensorflow_mnist_eager",
+            "tensorflow_keras_mnist", "tensorflow_synthetic_benchmark",
+            "tensorflow_word2vec", "keras_mnist", "keras_mnist_advanced",
+            "keras_imagenet_resnet50", "keras_spark_rossmann")) +
+        "print(bad, offenders)\n"
+        "sys.exit(1 if bad or offenders else 0)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
@@ -440,7 +456,19 @@ def test_port_sources_never_name_jax_or_the_reference_package():
                  "mxnet/mpi_ops.py", "spark/__init__.py", "spark/driver.py",
                  "examples/mxnet_mnist.py",
                  "examples/mxnet_imagenet_resnet50.py",
-                 "examples/spark_mnist.py"):
+                 "examples/spark_mnist.py",
+                 # The TensorFlow and Keras front ends.
+                 "tensorflow/__init__.py", "tensorflow/compression.py",
+                 "tensorflow/tf_ops.py", "tensorflow/src/tf_ops.cc",
+                 "tensorflow/keras/__init__.py", "keras/__init__.py",
+                 "keras/callbacks.py", "examples/tensorflow_mnist.py",
+                 "examples/tensorflow_mnist_eager.py",
+                 "examples/tensorflow_keras_mnist.py",
+                 "examples/tensorflow_synthetic_benchmark.py",
+                 "examples/tensorflow_word2vec.py", "examples/keras_mnist.py",
+                 "examples/keras_mnist_advanced.py",
+                 "examples/keras_imagenet_resnet50.py",
+                 "examples/keras_spark_rossmann.py"):
         assert name in scanned, name
     for path in paths:
         with open(path, encoding="utf-8") as fh:

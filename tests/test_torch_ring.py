@@ -17,16 +17,22 @@ package's (``horovod_tpu/core``), on the CPU.
   dtype, equal to the JAX package's and to the two-level transcript.
 
 Every rank is a process of its own (this file run as a script); the jobs
-of both packages start together in one module fixture.
+start in one module fixture, the port's and then the JAX package's, each
+job with a secret of its own (a ring of another job cannot authenticate:
+a mis-dialed connection fails the job loudly) and every port drawn below
+the kernel's ephemeral range (where no outgoing connection can take it
+between the draw and the child's bind). Each rank saves its result arrays
+beside its digests, so a failing comparison names the rank, the key, the
+count of differing elements and the first of them.
 """
 
 import ctypes
 import hashlib
 import json
 import os
-import socket
 import subprocess
 import sys
+import threading
 
 import ml_dtypes
 import numpy as np
@@ -45,9 +51,12 @@ QUANT_BLOCK = 4096  # kQuantBlock in ring.cc
 
 
 def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    """The launcher's draw: below the ephemeral range, never twice
+    (imported here, so that a child rank, which runs this file, does not
+    import the launcher)."""
+    from horovod_tpu_torch.run import launch
+
+    return launch._free_port()
 
 
 def _input(rank, count, dtype, seed=0):
@@ -148,6 +157,8 @@ class _Port:
         return hashlib.sha256(raw.tobytes()).hexdigest()
 
     def numpy(self, t):
+        if t.dtype == self.torch.bfloat16:
+            return t.view(self.torch.uint16).numpy().view(ml_dtypes.bfloat16)
         return t.numpy()
 
 
@@ -173,36 +184,62 @@ class _Jax:
         return a
 
 
+class _Results(dict):
+    """A rank's results: each array's sha256 under its key, the array
+    itself saved beside (``<dir>/rank<r>.<key>.npy``) for the parent's
+    element-wise diagnosis."""
+
+    def __init__(self, P, rank):
+        super().__init__()
+        self.P, self.rank = P, rank
+        self.dir = os.environ["HVD_TEST_SAVE_DIR"]
+
+    def put(self, key, t):
+        self[key] = self.P.digest(t)
+        np.save(os.path.join(self.dir, f"rank{self.rank}.{key}.npy"),
+                _savable(self.P.numpy(t)))
+
+
+def _savable(a):
+    # np.save cannot name ml_dtypes' bfloat16: keep its bits.
+    return a.view(np.uint16) if a.dtype == ml_dtypes.bfloat16 else a
+
+
+def _secret(role):
+    """This job's secret for one of its rings."""
+    return f"{os.environ['HVD_TEST_JOB']}:{role}".encode()
+
+
 def _child_flat(pkg, rank, size, addrs):
     P = _Port() if pkg == "port" else _Jax()
-    ring = P.bindings.RingBackend(rank, size, addrs, b"ring-test")
+    ring = P.bindings.RingBackend(rank, size, addrs, _secret("flat"))
     P.bindings.set_chunk_bytes(64 * 1024)  # several chunks a segment
-    out = {}
+    out = _Results(P, rank)
     x = _rank_input(rank, FLAT_COUNT)
     for wire in WIRES:
         buf = P.tensor(x, "float32")
         residual = P.zeros(FLAT_COUNT) if wire == "int8" else None
         ring.allreduce_(buf, False, wire_dtype=P.bindings.WIRE_DTYPE_CODES[
             wire], residual=residual)
-        out[f"f32.{wire}"] = P.digest(buf)
+        out.put(f"f32.{wire}", buf)
         if residual is not None:
-            out["f32.int8.residual"] = P.digest(residual)
+            out.put("f32.int8.residual", residual)
     for dt in DTYPES:
         buf = P.tensor(_input(rank, 4099, dt), dt)
         ring.allreduce_(buf, False)
-        out[dt] = P.digest(buf)
+        out.put(dt, buf)
     counts = [3 + 7 * r for r in range(size)]
     for dt in ("float32", "int32", "bfloat16"):
         mine = P.tensor(_input(rank, counts[rank], dt, seed=1), dt)
-        out[f"allgather.{dt}"] = P.digest(ring.allgather(mine, counts))
+        out.put(f"allgather.{dt}", ring.allgather(mine, counts))
     for dt, root in (("float32", size - 1), ("bfloat16", 0)):
         buf = P.tensor(_input(rank, 1001, dt, seed=2), dt)
         ring.broadcast_(buf, root)
-        out[f"broadcast.{dt}"] = P.digest(buf)
+        out.put(f"broadcast.{dt}", buf)
     if pkg == "port":
         out.update(_ef_contract(P, ring, size))
     ring.shutdown()
-    return out
+    return dict(out)
 
 
 def _ef_contract(P, ring, size):
@@ -241,15 +278,15 @@ def _child_hier(pkg, rank, size, addrs):
     group, local = rank // 2, rank % 2
     local_ring = P.bindings.RingBackend(
         local, 2, os.environ["HVD_TEST_LOCAL_ADDRS"].split(";")[group],
-        b"hier-test")
+        _secret(f"local{group}"))
     local_ring.set_link("local")
     cross = None
     if local == 0:
         cross = P.bindings.RingBackend(
-            group, 2, os.environ["HVD_TEST_CROSS_ADDRS"], b"hier-test")
+            group, 2, os.environ["HVD_TEST_CROSS_ADDRS"], _secret("cross"))
         cross.set_link("cross")
     x = _rank_input(rank, HIER_COUNT)
-    out = {}
+    out = _Results(P, rank)
     for wire in WIRES:
         buf = P.tensor(x, "float32")
         residual = P.zeros(HIER_COUNT) if wire == "int8" else None
@@ -258,11 +295,11 @@ def _child_hier(pkg, rank, size, addrs):
             cross.allreduce_(buf, False, wire_dtype=P.bindings.
                              WIRE_DTYPE_CODES[wire], residual=residual)
         local_ring.broadcast_(buf, 0)
-        out[wire] = P.digest(buf)
+        out.put(wire, buf)
     if cross is not None:
         cross.shutdown()
     local_ring.shutdown()
-    return out
+    return dict(out)
 
 
 def _child_main(argv):
@@ -274,10 +311,12 @@ def _child_main(argv):
 
 # ------------------------------------------------------------------ jobs
 
-def _start(pkg, scenario, size, env=None):
+def _start(pkg, scenario, size, save_dir, env=None):
     addrs = ",".join(f"127.0.0.1:{_free_port()}" for _ in range(size))
     child_env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + HERE,
-                     OMP_NUM_THREADS="1", JAX_PLATFORMS="cpu", **(env or {}))
+                     OMP_NUM_THREADS="1", JAX_PLATFORMS="cpu",
+                     HVD_TEST_SAVE_DIR=str(save_dir),
+                     HVD_TEST_JOB=f"{pkg}-{scenario}-{size}", **(env or {}))
     return [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), pkg, scenario,
          str(rank), str(size), addrs],
@@ -303,33 +342,70 @@ def _collect(key, procs, timeout=240):
     return results
 
 
-@pytest.fixture(scope="module")
-def jobs():
-    local = ";".join(",".join(f"127.0.0.1:{_free_port()}" for _ in range(2))
-                     for _ in range(2))
-    cross = ",".join(f"127.0.0.1:{_free_port()}" for _ in range(2))
-    hier_env = {"HVD_TEST_LOCAL_ADDRS": local, "HVD_TEST_CROSS_ADDRS": cross}
-    started = {}
-    for pkg in ("port", "jax"):
-        for size in (2, 3):
-            started[(pkg, "flat", size)] = _start(pkg, "flat", size)
-    for pkg in ("port", "jax"):
-        # The JAX job gets ports of its own: two jobs cannot bind one.
-        env = hier_env if pkg == "port" else {
-            "HVD_TEST_LOCAL_ADDRS": ";".join(
+class _Jobs(dict):
+    """(pkg, scenario, size) -> each rank's results; ``dirs`` holds where
+    each job's ranks saved their arrays."""
+
+    def array(self, job, rank, key):
+        a = np.load(os.path.join(self.dirs[job], f"rank{rank}.{key}.npy"))
+        return a.view(ml_dtypes.bfloat16) if "bfloat16" in key else a
+
+
+def _hier_env():
+    return {"HVD_TEST_LOCAL_ADDRS": ";".join(
                 ",".join(f"127.0.0.1:{_free_port()}" for _ in range(2))
                 for _ in range(2)),
             "HVD_TEST_CROSS_ADDRS": ",".join(
                 f"127.0.0.1:{_free_port()}" for _ in range(2))}
-        started[(pkg, "hier", 4)] = _start(pkg, "hier", 4, env)
-    try:
-        return {key: _collect(key, procs)
-                for key, procs in sorted(started.items())}
-    finally:
-        for _, procs in sorted(started.items()):
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
+
+
+@pytest.fixture(scope="module")
+def jobs(tmp_path_factory):
+    root = tmp_path_factory.mktemp("ring")
+    out, dirs = _Jobs(), {}
+    # One package's three jobs (9 ranks) at a time: half the processes,
+    # and half the memory, of starting both packages' at once.
+    for pkg in ("port", "jax"):
+        started = {}
+        for scenario, size in (("flat", 2), ("flat", 3), ("hier", 4)):
+            key = (pkg, scenario, size)
+            dirs[key] = root / f"{pkg}-{scenario}-{size}"
+            dirs[key].mkdir()
+            started[key] = _start(pkg, scenario, size, dirs[key],
+                                  _hier_env() if scenario == "hier" else None)
+        try:
+            out.update((key, _collect(key, procs))
+                       for key, procs in sorted(started.items()))
+        finally:
+            for _, procs in sorted(started.items()):
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+    out.dirs = dirs
+    return out
+
+
+def _bits(a):
+    """Each element's bytes as one unsigned integer (NaN-safe, bitwise)."""
+    a = np.ascontiguousarray(a).reshape(-1)
+    return a.view({1: np.uint8, 2: np.uint16, 4: np.uint32,
+                   8: np.uint64}[a.dtype.itemsize])
+
+
+def _diff(what, rank, key, got, want):
+    """Why ``got`` is not ``want``: which comparison, the rank and key,
+    how many elements differ and the first of them with both values."""
+    got, want = np.asarray(got), np.asarray(want)
+    head = f"{what}: rank {rank}, key {key!r}"
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return (f"{head}: {got.dtype}{list(got.shape)} against "
+                f"{want.dtype}{list(want.shape)}")
+    bad = np.flatnonzero(_bits(got) != _bits(want))
+    if bad.size == 0:
+        return f"{head}: the arrays are equal, the digests are not"
+    i = int(bad[0])
+    return (f"{head}: {bad.size} of {got.size} elements differ; first at "
+            f"[{i}]: {got.reshape(-1)[i]!r} against {want.reshape(-1)[i]!r}")
 
 
 # ------------------------------------------------------------------ tests
@@ -393,44 +469,100 @@ def test_half_scale_matches_ieee(lib, dtype, code):
 
 @pytest.mark.parametrize("size", [2, 3])
 def test_ring_results_equal_the_jax_rings_bitwise(jobs, size):
-    port, ref = jobs[("port", "flat", size)], jobs[("jax", "flat", size)]
+    pj, jj = ("port", "flat", size), ("jax", "flat", size)
+    port, ref = jobs[pj], jobs[jj]
     for rank in range(size):
         keys = sorted(ref[rank])
         assert len(keys) == len(WIRES) + 1 + len(DTYPES) + 5
         for key in keys:
-            assert port[rank][key] == ref[rank][key], (rank, key)
+            assert port[rank][key] == ref[rank][key], _diff(
+                "port vs JAX", rank, key, jobs.array(pj, rank, key),
+                jobs.array(jj, rank, key))
     # Every rank holds the same bytes (the residual is each rank's own).
     for key in ref[0]:
         if key != "f32.int8.residual":
-            assert len({r[key] for r in port}) == 1, key
+            for rank in range(1, size):
+                assert port[rank][key] == port[0][key], _diff(
+                    "port rank vs port rank 0", rank, key,
+                    jobs.array(pj, rank, key), jobs.array(pj, 0, key))
 
 
 @pytest.mark.parametrize("size", [2, 3])
 @pytest.mark.parametrize("wire", WIRES)
 def test_ring_wires_equal_the_numpy_transcript(jobs, size, wire):
     xs = [_rank_input(r, FLAT_COUNT) for r in range(size)]
-    want = hashlib.sha256(
-        _simulate_ring(xs, wire).tobytes()).hexdigest()
-    for res in jobs[("port", "flat", size)]:
-        assert res[f"f32.{wire}"] == want
+    transcript = _simulate_ring(xs, wire)
+    want = hashlib.sha256(transcript.tobytes()).hexdigest()
+    key, job = f"f32.{wire}", ("port", "flat", size)
+    for rank, res in enumerate(jobs[job]):
+        assert res[key] == want, _diff(
+            "port vs transcript", rank, key, jobs.array(job, rank, key),
+            transcript)
 
 
 @pytest.mark.parametrize("size", [2, 3])
 def test_int8_error_feedback_converges_to_exact_mean(jobs, size):
-    for res in jobs[("port", "flat", size)]:
-        assert res["ef_rel_err"] < 3.0 * res["single_rel_err"] / EF_T, res
-        assert res["noef_rel_err"] > 10 * res["ef_rel_err"], res
-        assert res["residual_max"] <= res["quant_step_bound"], res
+    for rank, res in enumerate(jobs[("port", "flat", size)]):
+        assert res["ef_rel_err"] < 3.0 * res["single_rel_err"] / EF_T, \
+            (rank, res)
+        assert res["noef_rel_err"] > 10 * res["ef_rel_err"], (rank, res)
+        assert res["residual_max"] <= res["quant_step_bound"], (rank, res)
 
 
 @pytest.mark.parametrize("wire", WIRES)
 def test_two_level_2x2_equals_jax_and_transcript(jobs, wire):
     xs = [_rank_input(r, HIER_COUNT) for r in range(4)]
-    want = hashlib.sha256(
-        _simulate_two_level(xs, wire).tobytes()).hexdigest()
-    for rank, (got, ref) in enumerate(zip(jobs[("port", "hier", 4)],
-                                          jobs[("jax", "hier", 4)])):
-        assert got[wire] == ref[wire] == want, (rank, wire)
+    transcript = _simulate_two_level(xs, wire)
+    want = hashlib.sha256(transcript.tobytes()).hexdigest()
+    pj, jj = ("port", "hier", 4), ("jax", "hier", 4)
+    for rank, (got, ref) in enumerate(zip(jobs[pj], jobs[jj])):
+        assert got[wire] == ref[wire], _diff(
+            "port vs JAX", rank, wire, jobs.array(pj, rank, wire),
+            jobs.array(jj, rank, wire))
+        assert ref[wire] == want, _diff(
+            "JAX vs transcript", rank, wire, jobs.array(jj, rank, wire),
+            transcript)
+
+
+def _two_ring_ranks(secrets):
+    """Rank 0 and rank 1 of one 2-rank port ring in two threads, each
+    with its own secret; each rank's error, or None."""
+    import torch
+
+    from horovod_tpu_torch.core import bindings
+
+    addrs = ",".join(f"127.0.0.1:{_free_port()}" for _ in range(2))
+    errors = [None, None]
+
+    def rank(r):
+        try:
+            ring = bindings.RingBackend(r, 2, addrs, secrets[r])
+            buf = torch.ones(5)
+            ring.allreduce_(buf, False)
+            assert buf.tolist() == [2.0] * 5
+            ring.shutdown()
+        except Exception as exc:  # noqa: BLE001 — reported below
+            errors[r] = str(exc)
+
+    threads = [threading.Thread(target=rank, args=(r,), name=f"hvd-ring-{r}",
+                                daemon=True) for r in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+    assert not any(t.is_alive() for t in threads), "a rank hung"
+    return errors
+
+
+def test_a_rank_of_another_job_cannot_join_a_ring():
+    """The jobs above run side by side on one host, every one with a
+    secret of its own: a rank that reaches another job's ring (a port
+    drawn twice, a mis-dial) fails that ring's handshake loudly instead of
+    mixing the two jobs' data."""
+    assert _two_ring_ranks([b"job-a:flat", b"job-a:flat"]) == [None, None]
+    errors = _two_ring_ranks([b"job-a:flat", b"job-b:flat"])
+    assert all(e is not None and "authentication failed" in e
+               for e in errors), errors
 
 
 if __name__ == "__main__":
