@@ -34,7 +34,7 @@ on ``cuda``; any failure exits non-zero:
    with the decode step as the engine's CUDA graph and as the eager step
    in turns; then 36 (b);
 6. the three flash-attention kernels (forward, dq, dk/dv) against their
-   plain versions in float32 and bfloat16 on ten cases: the training
+   plain versions in float32 and bfloat16 on thirteen cases: the training
    slice's shape (b=8, S=1024, H=16, Hkv=8, D=64, causal), a key-masked
    causal case at an awkward length with a fully masked row, causal with
    sq=256 < sk=1024, Llama-8B's width (b=1, S=4096, H=32, Hkv=8, D=128),
@@ -45,7 +45,16 @@ on ``cuda``; any failure exits non-zero:
    every other sequence), the same without the mask, and ViT-B/16's
    (b=8, S=197, no mask); then the MoE LM's training shape (MOE_SMALL:
    b=8, S=1024, H=12, Hkv=6, D=64, causal) and ViT-S/16's at batch 64
-   (S=197, H=Hkv=6, D=64, non-causal). float32 at TOL;
+   (S=197, H=Hkv=6, D=64, non-causal). The key-mask path: each masked
+   case's bitmap (``flash_mask_words``, built once and read by all three
+   kernels) bitwise against its plain version, and its kernel timed
+   alone; ``bert_alltrue`` (BERT's shape, an all-true mask) bitwise
+   equal to the kernels without a mask; ``bert_padded`` (lengths drawn
+   from 64-512, sequence 1 fully padded: zeros) and, in bfloat16, NaN in
+   K and V at every key of a fully masked 128-key tile, which must leave
+   out, lse, dq and the allowed keys' dk, dv bitwise the clean run's (0
+   at the masked keys); ``masked_causal_tiles`` (b4 S1024 H16/8 causal,
+   whole 64- and 128-key tiles out). float32 at TOL;
    bfloat16 at SCALED_TOL (each output held to its own magnitude), and
    faults planted in the plain outputs (the last key or query tile
    skipped; causal at the slice, non-causal at BERT's) must fail that
@@ -74,11 +83,14 @@ on ``cuda``; any failure exits non-zero:
    then ResNet-101, Inception V3 (299²) and VGG-16, 3 steps each;
 12. BERT-base in float32 at seq 512, batch 4, padded-tail key mask: two
    SGD steps through ``make_attention_fn()`` (the flash kernels,
-   non-causal) against ``use_flash=False``, 12 launches per kernel per
-   step;
+   non-causal) against ``use_flash=False``, 12 launches per kernel and
+   12 mask bitmaps per step (phase 8's Llama steps: none);
 13. the BERT example (``examples.bert_pretraining``), base, bf16, seq
    512, batch 32, AdamW, 10 timed steps: sequences/s, step ms, falling
-   loss, peak memory, the dense-peak share and a profiled step's split.
+   loss, peak memory, the dense-peak share and a profiled step's split,
+   one mask bitmap a flash forward (``BertEncoder``'s all-true mask);
+   then 10 timed steps of the same model over ``bert_padded``'s mask:
+   sequences/s and the profiled flash ms a step.
 
 14. the kernels' operand range: the decode kernels (contiguous and
    paged) at Llama-tiny's heads (H=4, Hkv=2, D=16), at D=32, at group
@@ -431,6 +443,7 @@ SOURCES = {
     "flash_forward": "horovod_tpu_torch/csrc/flash_attention.cu",
     "flash_backward_dq": "horovod_tpu_torch/csrc/flash_attention.cu",
     "flash_backward_dkdv": "horovod_tpu_torch/csrc/flash_attention.cu",
+    "flash_mask_words": "horovod_tpu_torch/csrc/flash_attention.cu",
 }
 REPLACES = {
     "decode_attention": "horovod_tpu/ops/decode_attention.py:47",
@@ -438,6 +451,9 @@ REPLACES = {
     "flash_forward": "horovod_tpu/ops/attention.py:125",
     "flash_backward_dq": "horovod_tpu/ops/attention.py:296",
     "flash_backward_dkdv": "horovod_tpu/ops/attention.py:343",
+    # No Pallas kernel: the JAX package's per-call mask conversion in
+    # ``_fold_heads`` (an XLA op), which its three kernels read.
+    "flash_mask_words": "horovod_tpu/ops/attention.py:216",
 }
 LAYERS = 16                          # Llama-300M
 # The float32 parity runs of the two-process paths (24, 25, 27, 28, 30,
@@ -446,7 +462,8 @@ LAYERS = 16                          # Llama-300M
 # 16 layers.
 PARITY_LAYERS = 2
 # Kernel names as ptxas and the profiler report them.
-FLASH_KERNELS = r"(?:bf16|fma)_(?:fwd|dq|dkdv)(?:_tma)?_kernel"
+FLASH_KERNELS = (r"(?:(?:bf16|fma)_(?:fwd|dq|dkdv)(?:_tma)?|flash_mask_words)"
+                 r"_kernel")
 DECODE_KERNELS = r"decode_(?:combine_)?kernel"
 
 
@@ -1082,7 +1099,7 @@ def ptxas_report(name: str):
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
             mangled = entry.group(1)
-            kernel = re.search(f"({FLASH_KERNELS}|{DECODE_KERNELS})I",
+            kernel = re.search(f"({FLASH_KERNELS}|{DECODE_KERNELS})[IE]",
                                mangled)
             dtype = "bf16" if "__nv_bfloat16" in mangled else "f32"
             ints = re.findall(r"Li(\d+)E", mangled)
@@ -1102,9 +1119,12 @@ def ptxas_report(name: str):
 
 def flash_cases():
     """(label, b, sq, sk, h, hkv, d, mask, causal). ``mask``: None, a
-    random key mask with a fully masked row (``"random"``), or BERT's
+    random key mask with a fully masked row (``"random"``), BERT's
     padded tails, the last quarter of the keys masked in every other
-    sequence (``"tail"``)."""
+    sequence (``"tail"``), all true (``"alltrue"``, what ``BertEncoder``
+    passes when its caller gives none), real padding (``"padded"``,
+    :func:`padded_mask`) or whole key tiles masked (``"tiles"``,
+    :func:`tile_mask`)."""
     return [("slice", 8, 1024, 1024, 16, 8, 64, None, True),
             ("masked", 2, 333, 333, 16, 8, 64, "random", True),
             ("sq256_sk1024", 8, 256, 1024, 16, 8, 64, None, True),
@@ -1113,6 +1133,12 @@ def flash_cases():
             ("bert", 32, 512, 512, 12, 12, 64, "tail", False),
             # BERT's shape without the mask: what the key mask costs.
             ("bert_nomask", 32, 512, 512, 12, 12, 64, None, False),
+            # The key-mask path: all true, bitwise equal to
+            # bert_nomask; real padding; whole tiles out under causal.
+            ("bert_alltrue", 32, 512, 512, 12, 12, 64, "alltrue", False),
+            ("bert_padded", 32, 512, 512, 12, 12, 64, "padded", False),
+            ("masked_causal_tiles", 4, 1024, 1024, 16, 8, 64, "tiles",
+             True),
             ("vit", 8, 197, 197, 12, 12, 64, None, False),
             # The MoE LM's training shape (MOE_SMALL, seq 1024, b8) and
             # ViT-S/16's at the JAX row's batch of 64.
@@ -1128,6 +1154,54 @@ def tail_mask(b: int, s: int, device):
     mask = torch.ones(b, s, dtype=torch.bool, device=device)
     mask[::2, s - s // 4:] = False
     return mask
+
+
+PADDED_SEED = 20
+
+
+def padded_mask(b: int, s: int, device):
+    """Real padding: each sequence's length drawn uniformly from 64..s
+    (a generator seeded with ``PADDED_SEED``), sequence 1 fully padded."""
+    import torch
+
+    gen = torch.Generator().manual_seed(PADDED_SEED)
+    lengths = torch.randint(64, s + 1, (b,), generator=gen)
+    lengths[1] = 0
+    mask = torch.arange(s)[None, :] < lengths[:, None]
+    return mask.to(device)
+
+
+def tile_mask(b: int, s: int, device):
+    """Whole key tiles out (causal, so sequence 3's first 128 rows have no
+    allowed key): sequence 1 keys 128-255 and 512-639 (two forward
+    tiles), sequence 2 keys 320-383 (a dq tile inside a mixed forward
+    tile), sequence 3 keys 0-127; sequence 0 all true."""
+    import torch
+
+    mask = torch.ones(b, s, dtype=torch.bool, device=device)
+    mask[1, 128:256] = False
+    mask[1, 512:640] = False
+    mask[2, 320:384] = False
+    mask[3, :128] = False
+    return mask
+
+
+def nan_skipped_tiles(k, v, mask, tile=128):
+    """K and V with NaN at the keys of every ``tile``-key tile the mask
+    wholly leaves out, and that key mask (B, Sk): a kernel that reads
+    such a tile turns its outputs NaN."""
+    import torch
+
+    b, sk = mask.shape
+    tiles = -(-sk // tile)
+    padded = torch.zeros(b, tiles * tile, dtype=torch.bool,
+                         device=mask.device)
+    padded[:, :sk] = mask
+    empty = ~padded.view(b, tiles, tile).any(-1)
+    keys = empty[:, :, None].expand(b, tiles, tile).reshape(b, -1)[:, :sk]
+    nan = float("nan")
+    return (k.masked_fill(keys[:, :, None, None], nan),
+            v.masked_fill(keys[:, :, None, None], nan), keys)
 
 
 def planted_faults(A, label, q, k, v, mask, causal, g, p_lse, delta, got,
@@ -1164,6 +1238,56 @@ def planted_faults(A, label, q, k, v, mask, causal, g, p_lse, delta, got,
         f"{'causal' if causal else 'non-causal'}) fail the check: worst "
         f"error/limit {json.dumps(worst)}")
     return worst
+
+
+def same_as_unmasked(A, q, k, v, g, p_lse, delta, causal, got, what):
+    """An all-true key mask costs nothing and changes nothing: the kernels'
+    out, lse, dq, dk and dv without a mask, bit for bit."""
+    import torch
+
+    out, lse = A._flash_forward(q, k, v, None, causal)
+    dq = A.flash_backward_dq(q, k, v, None, g, p_lse, delta, causal)
+    dk, dv = A.flash_backward_dkdv(q, k, v, None, g, p_lse, delta, causal)
+    torch.cuda.synchronize()
+    want = {"out": out, "lse": lse, "dq": dq, "dk": dk, "dv": dv}
+    differ = [key for key in want if not torch.equal(got[key], want[key])]
+    if differ:
+        raise AssertionError(f"{what}: an all-true mask changes {differ} "
+                             "against no mask")
+    log(f"{what}: out, lse, dq, dk and dv bitwise equal to no mask")
+
+
+def skipped_tiles_unread(A, q, k, v, mask, words, g, p_lse, delta, got,
+                         what):
+    """The key tiles the mask wholly leaves out are never read: with NaN
+    in K and V at their keys, out, lse and dq are bitwise the clean run's,
+    and so are dk and dv at the allowed keys; at the masked keys dk and dv
+    are exactly 0. Returns the count of NaN keys."""
+    import torch
+
+    k_nan, v_nan, keys = nan_skipped_tiles(k, v, mask)
+    out, lse = A._flash_forward(q, k_nan, v_nan, mask, False, words=words)
+    dq = A.flash_backward_dq(q, k_nan, v_nan, mask, g, p_lse, delta, False,
+                             words=words)
+    dk, dv = A.flash_backward_dkdv(q, k_nan, v_nan, mask, g, p_lse, delta,
+                                   False, words=words)
+    torch.cuda.synchronize()
+    bad = [key for key, x in (("out", out), ("lse", lse), ("dq", dq))
+           if not torch.equal(x, got[key])]
+    for key, x in (("dk", dk), ("dv", dv)):
+        if not torch.equal(x[mask], got[key][mask]):
+            bad.append(f"{key} at allowed keys")
+        if bool(x[~mask].ne(0).any()):
+            bad.append(f"{key} at masked keys not 0")
+    n_nan = int(keys.sum())
+    if n_nan == 0 or bad:
+        raise AssertionError(
+            f"{what}: NaN in {n_nan} keys of fully masked tiles reached "
+            f"{bad or 'nothing (no tile to skip)'}")
+    log(f"{what}: NaN K/V at the {n_nan} keys of fully masked 128-key "
+        f"tiles; every output bitwise the clean run's, dk/dv 0 at masked "
+        f"keys")
+    return n_nan
 
 
 def ring_flash_cases():
@@ -1211,18 +1335,30 @@ def check_flash(device, flush, cases=None, with_dlse: bool = False):
                 mask[:, 0] = True
                 # Query row 0 of batch 0 attends keys <= sk - sq: none.
                 mask[0, :sk - sq + 1] = False
-            elif mask_kind == "tail":
-                mask = tail_mask(b, sk, device)
+            elif mask_kind is not None:
+                mask = {"tail": tail_mask, "padded": padded_mask,
+                        "tiles": tile_mask,
+                        "alltrue": lambda *a: torch.ones(
+                            *a[:2], dtype=torch.bool, device=device)}[
+                    mask_kind](b, sk, device)
             what = f"flash {label} {dname}"
-            out, lse = A._flash_forward(q, k, v, mask, causal)
+            # One bitmap a call, as ``_Flash`` builds it: the three
+            # kernels read the same words.
+            words = None if mask is None else A.flash_mask_words(mask)
+            if words is not None and not torch.equal(
+                    words, A.mask_words_plain(mask)):
+                raise AssertionError(f"{what}: the mask's words differ from "
+                                     "mask_words_plain's (bitwise)")
+            out, lse = A._flash_forward(q, k, v, mask, causal, words=words)
             p_out, p_lse = A.flash_attention_forward_plain(q, k, v, mask,
                                                            causal)
             dlse = (torch.randn(b * h, 1, sq, generator=gen, device=device)
                     if with_dlse else None)
             delta = A.flash_delta(p_out, g, dlse)
-            dq = A.flash_backward_dq(q, k, v, mask, g, p_lse, delta, causal)
+            dq = A.flash_backward_dq(q, k, v, mask, g, p_lse, delta, causal,
+                                     words=words)
             dk, dv = A.flash_backward_dkdv(q, k, v, mask, g, p_lse, delta,
-                                           causal)
+                                           causal, words=words)
             p_dq = A.flash_backward_dq_plain(q, k, v, mask, g, p_lse, delta,
                                              causal)
             p_dk, p_dv = A.flash_backward_dkdv_plain(q, k, v, mask, g, p_lse,
@@ -1250,6 +1386,21 @@ def check_flash(device, flush, cases=None, with_dlse: bool = False):
                 raise AssertionError(
                     f"{what}: the fully masked row is not zero "
                     f"(lse {float(lse[0, 0, 0])})")
+            if mask_kind == "padded" and (
+                    any(bool(x[1].ne(0).any()) for x in (out, dq, dk, dv))
+                    or float(lse[h:2 * h].max()) > -1e29):
+                raise AssertionError(
+                    f"{what}: the fully padded sequence is not zero")
+            kernel_out = {"out": out, "lse": lse, "dq": dq, "dk": dk,
+                          "dv": dv}
+            if mask_kind == "alltrue":
+                same_as_unmasked(A, q, k, v, g, p_lse, delta, causal,
+                                 kernel_out, what)
+            unread = None
+            if mask_kind == "padded" and dtype == torch.bfloat16:
+                unread = skipped_tiles_unread(A, q, k, v, mask, words, g,
+                                              p_lse, delta, kernel_out,
+                                              what)
 
             # The work this run's data needs: allowed (query, key) pairs.
             allowed = torch.ones(1, sq, sk, dtype=torch.bool, device=device)
@@ -1262,7 +1413,7 @@ def check_flash(device, flush, cases=None, with_dlse: bool = False):
             pairs = int(allowed.expand(b, sq, sk).sum()) * h
             q_bytes, kv_bytes = q.numel() * item, k.numel() * item
             stats = 4 * b * h * sq
-            extra = 0 if mask is None else mask.numel()
+            extra = 0 if words is None else words.numel() * 8
             fwd_bound = bound(2 * q_bytes + 2 * kv_bytes + stats + extra,
                               4 * d * pairs, dname)
             dq_bound = bound(3 * q_bytes + 2 * kv_bytes + 2 * stats + extra,
@@ -1271,13 +1422,27 @@ def check_flash(device, flush, cases=None, with_dlse: bool = False):
                                + extra, 8 * d * pairs, dname)
             times = {
                 "flash_forward": time_ms(
-                    lambda: A._flash_forward(q, k, v, mask, causal), flush),
+                    lambda: A._flash_forward(q, k, v, mask, causal,
+                                             words=words), flush),
                 "flash_backward_dq": time_ms(
                     lambda: A.flash_backward_dq(q, k, v, mask, g, p_lse,
-                                                delta, causal), flush),
+                                                delta, causal, words=words),
+                    flush),
                 "flash_backward_dkdv": time_ms(
                     lambda: A.flash_backward_dkdv(q, k, v, mask, g, p_lse,
-                                                  delta, causal), flush)}
+                                                  delta, causal, words=words),
+                    flush)}
+            mask_words = None
+            if words is not None:
+                # The bitmap's own kernel: B * Sk bytes in, its words out.
+                words_bound = bound(mask.numel() + words.numel() * 8, 0,
+                                    dname)
+                mask_words = {
+                    "max_abs_err": 0.0,   # bitwise equal, checked above
+                    "ms": time_ms(lambda: A.flash_mask_words(mask), flush),
+                    "plain_ms": time_ms(lambda: A.mask_words_plain(mask),
+                                        flush, repeats=10),
+                    "bound_ms": words_bound[0], "bound_by": words_bound[1]}
             plain = {
                 "flash_forward": time_ms(
                     lambda: A.flash_attention_forward_plain(q, k, v, mask,
@@ -1302,10 +1467,14 @@ def check_flash(device, flush, cases=None, with_dlse: bool = False):
                 qr, kr, vr = (x.detach().requires_grad_()
                               for x in (qt, kt, vt))
                 attn_mask = None if mask is None else mask[:, None, None, :]
+                is_causal = causal
+                if mask is not None and causal:
+                    # SDPA takes a mask or is_causal, not both.
+                    attn_mask, is_causal = allowed[:, None], False
 
                 def sdpa(qs=qt, ks=kt, vs=vt):
                     return F.scaled_dot_product_attention(
-                        qs, ks, vs, attn_mask=attn_mask, is_causal=causal,
+                        qs, ks, vs, attn_mask=attn_mask, is_causal=is_causal,
                         enable_gqa=True)
 
                 o_saved = sdpa(qr, kr, vr)
@@ -1331,10 +1500,12 @@ def check_flash(device, flush, cases=None, with_dlse: bool = False):
                        bound_by={"flash_forward": fwd_bound[1],
                                  "flash_backward_dq": dq_bound[1],
                                  "flash_backward_dkdv": dkdv_bound[1]},
-                       sdpa_fwd_ms=sdpa_fwd, sdpa_bwd_ms=sdpa_bwd)
+                       sdpa_fwd_ms=sdpa_fwd, sdpa_bwd_ms=sdpa_bwd,
+                       mask_words=mask_words, skipped_tiles_unread=unread)
             log(f"flash {json.dumps(row)}")
             results[(label, dname)] = row
             del q, k, v, g, out, lse, p_out, p_lse, dq, dk, dv, got
+            del kernel_out, words
             torch.cuda.empty_cache()
     return results
 
@@ -1833,10 +2004,12 @@ def run_training_parity(steps: int = 2):
             A.reset_launch_counts()
             losses.append(float(ex.train_step(model, opt, ids, loss_fn)))
             want = LAYERS if use_flash else 0
-            if set(A.LAUNCHES.values()) != {want}:
+            if set(A.LAUNCHES.values()) != {want} or \
+                    A.MASK_LAUNCHES["flash_mask_words"]:
                 raise AssertionError(
                     f"training step {step} (use_flash={use_flash}): flash "
-                    f"launches {A.LAUNCHES}, expected {want} each")
+                    f"launches {A.LAUNCHES}, expected {want} each; mask "
+                    f"bitmaps {A.MASK_LAUNCHES}, expected 0 (no key mask)")
         runs[use_flash] = (model, losses)
         del opt
     (kmodel, klosses), (pmodel, plosses) = runs[True], runs[False]
@@ -2745,10 +2918,13 @@ def run_bert_parity(steps: int = 2, batch: int = 4, seq: int = 512):
             opt.step()
             losses.append(float(loss))
             want = cfg.num_layers if use_flash else 0
-            if set(A.LAUNCHES.values()) != {want}:
+            # One bitmap a layer's forward, read by its three kernels.
+            if set(A.LAUNCHES.values()) != {want} or \
+                    A.MASK_LAUNCHES["flash_mask_words"] != want:
                 raise AssertionError(
                     f"bert step {step} (use_flash={use_flash}): flash "
-                    f"launches {A.LAUNCHES}, expected {want} each")
+                    f"launches {A.LAUNCHES}, mask bitmaps "
+                    f"{A.MASK_LAUNCHES}, expected {want} each")
         runs[use_flash] = (model, losses)
         del opt
     (kmodel, klosses), (pmodel, plosses) = runs["auto"], runs[False]
@@ -2765,7 +2941,8 @@ def run_bert_parity(steps: int = 2, batch: int = 4, seq: int = 512):
         f"the last quarter masked in every other row, {steps} SGD steps; "
         f"losses flash {klosses} vs plain {plosses}; every weight within "
         f"{TOL['float32']} (max abs diff {worst:.3g}); flash launches "
-        f"{cfg.num_layers} per kernel per step")
+        f"{cfg.num_layers} per kernel and mask bitmaps {cfg.num_layers} per "
+        f"step")
     del kmodel, pmodel, runs
     torch.cuda.empty_cache()
     return {"losses_flash": klosses, "losses_plain": plosses,
@@ -2776,7 +2953,10 @@ def run_bert_timed(card: str):
     """The BERT example's main path: base, bf16, seq 512, batch 32, AdamW,
     10 timed steps; sequences/s, step ms, falling loss, peak memory, the
     step's share of the bf16 dense peak and one profiled step's device
-    split. Returns its numbers and the flash launch counts of the run."""
+    split. Returns its numbers and the flash launch counts of the run
+    (the example passes no mask, so ``BertEncoder``'s all-true one: a
+    bitmap a layer's forward). Then :func:`run_bert_padded` over real
+    padding."""
     import torch
 
     from horovod_tpu_torch.examples import bert_pretraining as ex
@@ -2789,6 +2969,11 @@ def run_bert_timed(card: str):
                    "32", "--num-iters", "10"])
     torch.cuda.synchronize()
     launches = dict(A.LAUNCHES)
+    mask_launches = A.MASK_LAUNCHES["flash_mask_words"]
+    if mask_launches != launches["flash_forward"]:
+        raise AssertionError(
+            f"bert training: {mask_launches} mask bitmaps for "
+            f"{launches['flash_forward']} flash forwards (one each)")
     losses = out["losses"]
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"bert training: loss did not fall: {losses}")
@@ -2805,6 +2990,7 @@ def run_bert_timed(card: str):
     numbers = {"sequences_per_s": out["sequences_per_s"],
                "step_ms": out["step_ms"], "losses": losses,
                "peak_memory_gib": peak, "flash_launches": launches,
+               "mask_launches": mask_launches,
                "dense_params": dense, "tflop_per_step": flops / 1e12,
                "bound_ms": bound_ms,
                "dense_peak_share": bound_ms / out["step_ms"]}
@@ -2819,8 +3005,60 @@ def run_bert_timed(card: str):
         lambda: ex.train_step(out["model"], out["optimizer"], out["ids"],
                               out["mlm"]),
         out["step_ms"], TRANSFORMER_SPLIT, "flash", "bert-base")
+    numbers["padded"] = run_bert_padded(out, card)
     del out
     torch.cuda.empty_cache()
+    return numbers
+
+
+def run_bert_padded(out, card: str, steps: int = 10):
+    """BERT-base bf16 steps over real padding (:func:`padded_mask`, the
+    ``bert_padded`` case's mask) through the example's model, optimizer
+    and batch: one warm-up step, ``steps`` timed, sequences/s, and the
+    profiled flash ms a step. One bitmap and one launch of each flash
+    kernel a layer a step."""
+    import torch
+
+    from horovod_tpu_torch.models.bert import mlm_loss
+    from horovod_tpu_torch.ops import attention as A
+
+    model, opt, ids, mlm = (out[key] for key in ("model", "optimizer",
+                                                   "ids", "mlm"))
+    b, s = ids.shape
+    padded = padded_mask(b, s, ids.device)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = mlm_loss(model(ids, attention_mask=padded,
+                              deterministic=True), ids, mlm)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    float(step())
+    A.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = [step() for _ in range(steps)]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    launches = {**A.LAUNCHES, **A.MASK_LAUNCHES}
+    want = model.config.num_layers * steps
+    if set(launches.values()) != {want}:
+        raise AssertionError(f"bert padded steps: launches {launches}, "
+                             f"expected {want} each")
+    losses = [float(x) for x in losses]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"bert padded steps: losses {losses}")
+    allowed = int(padded.sum())
+    numbers = {"sequences_per_s": b * 1e3 / step_ms, "step_ms": step_ms,
+               "losses": losses, "launches": launches,
+               "allowed_keys": allowed, "keys": padded.numel()}
+    log(f"bert padded steps bf16 base seq {s} b={b} adamw ({allowed} of "
+        f"{padded.numel()} keys allowed): {numbers['sequences_per_s']:.1f} "
+        f"sequences/s, step {step_ms:.3f} ms, launches {launches} over "
+        f"{steps} steps [{card}]")
+    numbers["step_profile"] = profile_step(
+        step, step_ms, TRANSFORMER_SPLIT, "flash", "bert-base padded")
     return numbers
 
 
@@ -6373,8 +6611,16 @@ def main() -> int:
                 **{name: sum(path[name] for path in flash_paths.values())
                    for name in flash_names}}
     launches["flash_forward"] += sum(forward_only.values())
+    # The key mask's bitmap: one a masked flash forward, on BERT's paths.
+    mask_paths = {"bert-base training (13)": bert["mask_launches"],
+                  "bert-base padded steps (13)":
+                      bert["padded"]["launches"]["flash_mask_words"]}
+    log(f"flash_mask_words launches by main path: {json.dumps(mask_paths)}")
+    launches["flash_mask_words"] = sum(mask_paths.values())
     never = [f"{path}: {name}" for path, counts in flash_paths.items()
              for name, n in counts.items() if n <= 0]
+    never += [f"{path}: flash_mask_words"
+              for path, n in mask_paths.items() if n <= 0]
     if min(launches.values()) <= 0 or never:
         raise AssertionError(f"a kernel of the main paths never ran: "
                              f"{launches}; {never}")
@@ -6402,6 +6648,17 @@ def main() -> int:
             "bound_by": row["bound_by"][name],
             "library_ms": (row["sdpa_fwd_ms"] if name == "flash_forward"
                            else None)})
+    # The bitmap's kernel at BERT-base's shape (no one PyTorch call packs
+    # bits).
+    words = flash_results[("bert", "bfloat16")]["mask_words"]
+    kernels.append({
+        "name": "flash_mask_words", "route": "cuda",
+        "source": SOURCES["flash_mask_words"],
+        "replaces": REPLACES["flash_mask_words"],
+        "launches": launches["flash_mask_words"],
+        "max_abs_err": words["max_abs_err"], "ms": words["ms"],
+        "plain_ms": words["plain_ms"], "bound_ms": words["bound_ms"],
+        "bound_by": words["bound_by"], "library_ms": None})
     log(f"serving: {json.dumps(serving_numbers)}")
     log(f"operand range: {json.dumps(operand)}")
     log(f"fleet: {json.dumps({'parity': fleet_parity, 'generation': generation, 'loadgen_300m': loadgen_300m, 'fleet_tiny': {k: v[0] for k, v in fleet_rows.items()}, 'eager_step': {k: v[0] for k, v in loadgen_eager.items()}})}")

@@ -22,6 +22,19 @@
 // gradients are zero. Any Sq and Sk work without padding. Key (or query)
 // tiles wholly on the far side of the causal diagonal are skipped.
 //
+// The key mask reaches every kernel as bits (hvd_flash_mask_words, built once
+// a call by flash_mask_words_kernel): word w of sequence b holds keys 64 w ..
+// 64 w + 63, bit j set when key 64 w + j is allowed; a row has nw = 2 *
+// ceil(Sk / 128) words, so a 128-key tile's pair is one aligned 16-byte load,
+// and bits at or past Sk are 0. The bf16 forward and dq classify each key
+// tile from its words: every key allowed (no per-score test: the unmasked
+// branch), none allowed (never loaded nor multiplied: the producer issues
+// no TMA for it, and the ring's stage and phase advance only on loaded
+// tiles), or mixed (a shift and test of the thread's bits per column).
+// dk/dv writes zeros for a 128-key block with no allowed key and reads
+// nothing else; the FMA family tests bits where it tested bytes. A skipped
+// tile's p would be exactly 0, so skipping changes no output bit.
+//
 // What bounds them: at the training slice's shape (bf16, B=8, S=1024, H=16,
 // Hkv=8, D=64, causal) the work is ~4, ~6 and ~8 * D operations per allowed
 // (query, key) pair for forward, dq and dkdv: 17-34 GFLOP against ~50 MB of
@@ -40,7 +53,8 @@
 // dS.K, P^T.dO, dS^T.Q), B read MN-major. Accumulators live in registers
 // the producer gave up (setmaxnreg). The softmax runs in one FFMA and one
 // ex2 per score, log2(e) folded into the scale; masking runs only on the
-// tiles that need it (a key mask, the diagonal, the ragged last key tile).
+// tiles that need it (one the key mask does not wholly allow, the diagonal,
+// the ragged last key tile).
 // Forward: 192 query rows per block at D = 64 (three consumers, which the
 // exponentials need), 128 at D = 128, 128-key K/V tiles, the longest causal
 // query tiles launched first. dq: 192 query rows per block at D = 64
@@ -90,6 +104,90 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 __host__ __device__ constexpr size_t align128(size_t n) { return (n + 127) / 128 * 128; }
+
+// Words of the key bitmap a sequence (see the file's head).
+__host__ __device__ constexpr int mask_words_per_row(int sk) { return 2 * ((sk + 127) / 128); }
+
+__device__ __forceinline__ uint64_t ld_word(const uint64_t* p) {
+  return __ldg(reinterpret_cast<const unsigned long long*>(p));
+}
+
+// Bits 0 .. n - 1 set, n clamped to [0, 64].
+__device__ __forceinline__ uint64_t low_bits(int n) {
+  return n >= 64 ? ~0ull : n <= 0 ? 0ull : (1ull << n) - 1;
+}
+
+// The allowed keys among k0 .. k0 + 64 W - 1 of sequence b (k0 a multiple of
+// 64 W), word by word: the key mask's bits, or, without one, every key
+// before sk. W = 2 is one 16-byte read-only load.
+template <int W>
+__device__ __forceinline__ void tile_bits(uint64_t (&bits)[W], const uint64_t* __restrict__ words,
+                                          int nw, int b, int k0, int sk) {
+  static_assert(W == 1 || W == 2, "a tile is 64 or 128 keys");
+  if (words == nullptr) {
+#pragma unroll
+    for (int i = 0; i < W; ++i) bits[i] = low_bits(sk - k0 - 64 * i);
+    return;
+  }
+  const uint64_t* at = words + (size_t)b * nw + k0 / 64;
+  if constexpr (W == 2) {
+    const ulonglong2 pair = __ldg(reinterpret_cast<const ulonglong2*>(at));
+    bits[0] = pair.x;
+    bits[1] = pair.y;
+  } else {
+    bits[0] = ld_word(at);
+  }
+}
+
+template <int W>
+__device__ __forceinline__ bool none_allowed(const uint64_t (&bits)[W]) {
+  uint64_t any = 0;
+#pragma unroll
+  for (int i = 0; i < W; ++i) any |= bits[i];
+  return any == 0;
+}
+
+template <int W>
+__device__ __forceinline__ bool all_allowed(const uint64_t (&bits)[W]) {
+  uint64_t all = ~0ull;
+#pragma unroll
+  for (int i = 0; i < W; ++i) all &= bits[i];
+  return all == ~0ull;
+}
+
+// The FMA family's keys from key0 (a multiple of 16) to the end of their
+// mask word, at most 32, as the low bits: bit j is key key0 + j. Without a
+// key mask every bit is set (the kernels test the key against sk
+// themselves).
+__device__ __forceinline__ uint32_t fma_key_bits(const uint64_t* __restrict__ words, int nw,
+                                                 int b, int key0) {
+  return words == nullptr
+             ? ~0u
+             : static_cast<uint32_t>(ld_word(words + (size_t)b * nw + key0 / 64) >> (key0 % 64));
+}
+
+// The key mask (B, Sk), bytes nonzero where allowed (torch bool or uint8),
+// packed into words (B, nw) as the file's head says. Replaces no TPU kernel:
+// the Pallas kernels read a block of the (B, Sk) mask beside each key tile.
+// One warp a word: two coalesced 32-byte reads of the row and two ballots.
+// It moves B * Sk bytes in and B * Sk / 8 out, a few microseconds of
+// launch at BERT's shape, and runs once a flash call (the forward, dq and
+// dk/dv of a layer read the same words).
+__global__ void __launch_bounds__(256)
+flash_mask_words_kernel(const uint8_t* __restrict__ mask, uint64_t* __restrict__ words, int b,
+                        int sk, int nw) {
+  const int lane = threadIdx.x % 32;
+  const long long w = (long long)blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+  if (w >= (long long)b * nw) return;   // the whole warp
+  const int row = (int)(w / nw);
+  const int key0 = (int)(w % nw) * 64;
+  const uint8_t* m = mask + (size_t)row * sk;
+  const int c0 = key0 + lane;
+  const int c1 = c0 + 32;
+  const uint32_t lo = __ballot_sync(0xffffffffu, c0 < sk && m[c0] != 0);
+  const uint32_t hi = __ballot_sync(0xffffffffu, c1 < sk && m[c1] != 0);
+  if (lane == 0) words[w] = (uint64_t)hi << 32 | lo;
+}
 
 // The FMA family's tile geometry: W warps, 16 rows each, so a block owns
 // R = 16 W rows (4 warps at D = 64 and 128; 2 at D = 256, whose footprints
@@ -209,7 +307,7 @@ __device__ __forceinline__ int live_key_tiles(int q0, int rows, int tile, int sk
 template <typename T, int D, int W>
 __global__ void __launch_bounds__(32 * W)
 fma_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, const uint8_t* __restrict__ mask,
+               const T* __restrict__ v, const uint64_t* __restrict__ words, int nw,
                T* __restrict__ out, float* __restrict__ lse, int sq, int sk, int h, int hkv,
                float scale, int causal) {
   using G = Geo<D, W>;
@@ -262,11 +360,13 @@ fma_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     warp_mm<BN, D, true>(Qw, G::LDT, sK, G::LDT, sS, G::LDS, false);
     __syncwarp();
 
+    static_assert(NJ == 1, "a streamed key tile lies in one mask word");
+    const uint32_t bits = fma_key_bits(words, nw, b, k0);
     bool key_ok[NJ];
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int c = k0 + lane + 32 * j;
-      key_ok[j] = c < sk && (mask == nullptr || mask[(size_t)b * sk + c]);
+      key_ok[j] = c < sk && ((bits >> (lane + 32 * j)) & 1);
     }
     float pr[16][NJ];
     float alpha[16];
@@ -321,7 +421,7 @@ fma_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D, int W>
 __global__ void __launch_bounds__(32 * W)
 fma_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const uint8_t* __restrict__ mask,
+              const T* __restrict__ v, const uint64_t* __restrict__ words, int nw,
               const T* __restrict__ dout, const float* __restrict__ lse,
               const float* __restrict__ delta, T* __restrict__ dq, int sq, int sk, int h,
               int hkv, float scale, int causal) {
@@ -384,11 +484,13 @@ fma_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     warp_mm<BN, D, true>(dOw, G::LDT, sV, G::LDT, sdP, G::LDS, false);
     __syncwarp();
 
+    static_assert(NJ == 1, "a streamed key tile lies in one mask word");
+    const uint32_t bits = fma_key_bits(words, nw, b, k0);
     bool key_ok[NJ];
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int c = k0 + lane + 32 * j;
-      key_ok[j] = c < sk && (mask == nullptr || mask[(size_t)b * sk + c]);
+      key_ok[j] = c < sk && ((bits >> (lane + 32 * j)) & 1);
     }
     float ds[16][NJ];
 #pragma unroll
@@ -428,7 +530,7 @@ fma_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D, int W>
 __global__ void __launch_bounds__(32 * W)
 fma_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const uint8_t* __restrict__ mask,
+                const T* __restrict__ v, const uint64_t* __restrict__ words, int nw,
                 const T* __restrict__ dout, const float* __restrict__ lse,
                 const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
                 int sq, int sk, int h, int hkv, float scale, int causal) {
@@ -481,11 +583,13 @@ fma_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* dKw = sdK + warp * 16 * G::LDO;
   float* dVw = sdV + warp * 16 * G::LDO;
 
+  // This warp's 16 keys lie in one mask word (kRows <= 64 divides 64).
+  const uint32_t bits = fma_key_bits(words, nw, b, k0 + warp * 16);
   bool key_ok[16];
 #pragma unroll
   for (int r = 0; r < 16; ++r) {
     const int kr = k0 + warp * 16 + r;
-    key_ok[r] = kr < sk && (mask == nullptr || mask[(size_t)b * sk + kr]);
+    key_ok[r] = kr < sk && ((bits >> r) & 1);
   }
 
   // Query tiles whose last row reaches this key tile's first key under
@@ -632,14 +736,15 @@ __device__ __forceinline__ void issue_values(float (&o)[D / 2], const uint32_t (
 // k0 + BN - 1 become p = exp2(s * scale_log2 - m) against the rows' new
 // running max m (log2 units), one FFMA and one exp2 each; l gains this
 // thread's share of their sum and `alpha` is the factor that rescales the
-// rows' earlier sums. Masking runs only where some entry is disallowed: a
-// key mask, the ragged last tile (its zero-filled keys), the tiles on the
-// diagonal. Disallowed p are exactly 0.
+// rows' earlier sums. `bits`: the tile's allowed keys (tile_bits). Masking
+// runs only where some entry is disallowed: a key the mask leaves out, the
+// ragged last tile (its zero-filled keys), the tiles on the diagonal.
+// Disallowed p are exactly 0.
 template <int BN>
 __device__ __forceinline__ void online_softmax(float (&sc)[BN / 2], float (&m)[2], float (&l)[2],
                                                float (&alpha)[2], float scale_log2, int k0,
-                                               const uint8_t* __restrict__ mask, int b, int sk,
-                                               int row_lo, int off, int causal, int r0) {
+                                               const uint64_t (&bits)[BN / 64], int row_lo,
+                                               int off, int causal, int r0) {
   const int lane = threadIdx.x % 32;
   // With c = |scale_log2| the max of s * c is c times the max of s; a
   // negative scale flips the scores first.
@@ -648,13 +753,17 @@ __device__ __forceinline__ void online_softmax(float (&sc)[BN / 2], float (&m)[2
     for (int i = 0; i < BN / 2; ++i) sc[i] = -sc[i];
   }
   const float c = fabsf(scale_log2);
-  if (mask != nullptr || k0 + BN > sk || (causal && k0 + BN - 1 > r0 + off)) {
+  if (!all_allowed(bits) || (causal && k0 + BN - 1 > r0 + off)) {
+    // This thread's columns 8 j + 2 (lane % 4) + cc: its bits shifted once.
+    uint64_t mine[BN / 64];
+#pragma unroll
+    for (int i = 0; i < BN / 64; ++i) mine[i] = bits[i] >> (2 * (lane % 4));
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
 #pragma unroll
       for (int cc = 0; cc < 2; ++cc) {
         const int col = k0 + 8 * j + 2 * (lane % 4) + cc;
-        const bool key_ok = col < sk && (mask == nullptr || mask[(size_t)b * sk + col]);
+        const bool key_ok = (mine[j / 8] >> (8 * (j % 8) + cc)) & 1;
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           if (!key_ok || (causal && col > row_lo + 8 * i + off)) {
@@ -694,12 +803,15 @@ __device__ __forceinline__ void online_softmax(float (&sc)[BN / 2], float (&m)[2
 
 // One block per (b * h, 64 * kWgs query rows), the last query tiles first: under
 // causal they have the most key tiles, so the grid's tail is the short ones.
+// The producer and every consumer thread classify each key tile from the
+// same words; a tile with no allowed key is neither loaded nor visited, and
+// `n`, the count of tiles loaded so far, places a tile in the ring.
 template <int D>
 __global__ void __launch_bounds__(FwdTiles<D>::kThreads, 1)
 bf16_fwd_tma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                    const __grid_constant__ CUtensorMap tv, const uint8_t* __restrict__ mask,
-                    __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int sq, int sk,
-                    int h, int hkv, float scale_log2, int causal) {
+                    const __grid_constant__ CUtensorMap tv, const uint64_t* __restrict__ words,
+                    int nw, __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int sq,
+                    int sk, int h, int hkv, float scale_log2, int causal) {
   using T = FwdTiles<D>;
   constexpr int BM = T::kRows;
   constexpr int BN = T::kKeys;
@@ -740,9 +852,13 @@ bf16_fwd_tma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
       for (int c = 0; c < D / 64; ++c) {
         sm90::tma_load_4d(smem + c * BM * 128, &tq, q_full, 64 * c, head, q0, b);
       }
-      for (int t = 0; t < tiles; ++t) {
-        const int s = t % S;
-        sm90::mbar_wait(&empty[s], ((t / S) & 1) ^ 1);
+      for (int t = 0, n = 0; t < tiles; ++t) {
+        uint64_t bits[BN / 64];
+        tile_bits(bits, words, nw, b, t * BN, sk);
+        if (none_allowed(bits)) continue;
+        const int s = n % S;
+        sm90::mbar_wait(&empty[s], ((n / S) & 1) ^ 1);
+        ++n;
         sm90::mbar_arrive_expect_tx(&full[s], 2 * T::kKVBytes);
 #pragma unroll
         for (int c = 0; c < D / 64; ++c) {
@@ -766,10 +882,14 @@ bf16_fwd_tma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
 
     const uint32_t q_addr = base + wg * 64 * 128;
     sm90::mbar_wait(q_full, 0);
-    for (int t = 0; t < tiles; ++t) {
-      const int s = t % S;
+    for (int t = 0, n = 0; t < tiles; ++t) {
       const int k0 = t * BN;
-      sm90::mbar_wait(&full[s], (t / S) & 1);
+      uint64_t bits[BN / 64];
+      tile_bits(bits, words, nw, b, k0, sk);
+      if (none_allowed(bits)) continue;   // never loaded: p would be 0
+      const int s = n % S;
+      sm90::mbar_wait(&full[s], (n / S) & 1);
+      ++n;
       // A tile wholly above this warpgroup's diagonal adds nothing.
       if (!causal || k0 <= r0 + 63 + off) {
         float sc[BN / 2], alpha[2];
@@ -778,7 +898,7 @@ bf16_fwd_tma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
         sm90::wgmma_commit();
         sm90::wgmma_wait<0>();
         sm90::fence_regs(sc);
-        online_softmax<BN>(sc, m, l, alpha, scale_log2, k0, mask, b, sk, row_lo, off, causal, r0);
+        online_softmax<BN>(sc, m, l, alpha, scale_log2, k0, bits, row_lo, off, causal, r0);
 #pragma unroll
         for (int j = 0; j < D / 8; ++j) {
 #pragma unroll
@@ -838,13 +958,14 @@ struct DkdvTiles {
 
 // One block per (b, kv head, 128 keys), sweeping every query head of the
 // group and every query tile that reaches its keys, in a fixed order: dk and
-// dv are summed in wgmma accumulators and written once, no atomics.
+// dv are summed in wgmma accumulators and written once, no atomics. A block
+// whose keys the mask wholly leaves out writes zeros and reads nothing else.
 template <int D>
 __global__ void __launch_bounds__(DkdvTiles<D>::kThreads, 1)
 bf16_dkdv_tma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv,
-                     const __grid_constant__ CUtensorMap tdo, const uint8_t* __restrict__ mask,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     const __grid_constant__ CUtensorMap tdo, const uint64_t* __restrict__ words,
+                     int nw, const float* __restrict__ lse, const float* __restrict__ delta,
                      __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int sq,
                      int sk, int h, int hkv, float scale, int causal) {
   using T = DkdvTiles<D>;
@@ -872,6 +993,19 @@ bf16_dkdv_tma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
   const int per_head = q_tiles - qt_first;
   const int iters = group * per_head;
   const int wg = threadIdx.x / 128;
+  uint64_t bits[BN / 64];   // the block's keys: 64 a consumer
+  tile_bits(bits, words, nw, b, k0, sk);
+  if (words != nullptr && none_allowed(bits)) {
+    constexpr int kChunks = D / 8;   // 16 bytes each
+    for (int i = threadIdx.x; i < BN * kChunks; i += T::kThreads) {
+      const int key = k0 + i / kChunks;
+      if (key >= sk) continue;
+      const size_t at = (((size_t)b * sk + key) * hkv + kvh) * D + 8 * (i % kChunks);
+      *reinterpret_cast<uint4*>(dk + at) = make_uint4(0u, 0u, 0u, 0u);
+      *reinterpret_cast<uint4*>(dv + at) = make_uint4(0u, 0u, 0u, 0u);
+    }
+    return;
+  }
 
   if (threadIdx.x == 0) {
     sm90::tma_prefetch(&tq);
@@ -936,13 +1070,14 @@ bf16_dkdv_tma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
     const uint32_t base = sm90::smem_u32(smem);
     const uint32_t k_addr = base + wg * 64 * 128;
     const uint32_t v_addr = k_addr + T::kKVBytes;
-    bool key_ok[2] = {true, true};
-    if (mask != nullptr) {
+    // Without a key mask keys past sk count as allowed: their rows are
+    // never written.
+    static_assert(BN / 64 == 2, "two consumers, a word each");
+    const uint64_t mine = words == nullptr ? ~0ull : wg == 0 ? bits[0] : bits[1];
+    const bool some_masked = words != nullptr && mine != ~0ull;
+    bool key_ok[2];
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        key_ok[i] = key_lo + 8 * i < sk && mask[(size_t)b * sk + key_lo + 8 * i];
-      }
-    }
+    for (int i = 0; i < 2; ++i) key_ok[i] = (mine >> (key_lo + 8 * i - kw)) & 1;
     float acc_k[D / 2], acc_v[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
@@ -980,7 +1115,7 @@ bf16_dkdv_tma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
         sm90::fence_regs(st);
         sm90::fence_regs(dpt);
 
-        const bool masked = mask != nullptr || (causal && kw + 63 > q0 + off);
+        const bool masked = some_masked || (causal && kw + 63 > q0 + off);
 #pragma unroll
         for (int j = 0; j < BM / 8; ++j) {
 #pragma unroll
@@ -1065,15 +1200,17 @@ struct DqTiles {
 // live K/V tiles; each consumer, per tile: S = Q K^T and dP = dO V^T by
 // wgmma, p = exp2(S * scale * log2 e - lse * log2 e) (one FFMA and one
 // ex2), dS = p (dP - delta), then dQ += dS K with dS as the register A
-// operand and K read MN-major. Masking runs only on the tiles that need it
-// (the forward's test), as a select: a row with no allowed key has lse =
-// -1e30 + log(1e-30), so its p is +inf before the select.
+// operand and K read MN-major. Each 64-key tile is classified from its
+// word as in the forward: none allowed (never loaded, no wgmma), all allowed
+// (no test), or mixed. Masking runs only on the tiles that need it, as a
+// select: a row with no allowed key has lse = -1e30 + log(1e-30), so its p
+// is +inf before the select.
 template <int D>
 __global__ void __launch_bounds__(DqTiles<D>::kThreads, 1)
 bf16_dq_tma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
-                   const __grid_constant__ CUtensorMap tdo, const uint8_t* __restrict__ mask,
-                   const float* __restrict__ lse, const float* __restrict__ delta,
+                   const __grid_constant__ CUtensorMap tdo, const uint64_t* __restrict__ words,
+                   int nw, const float* __restrict__ lse, const float* __restrict__ delta,
                    __nv_bfloat16* __restrict__ dq, int sq, int sk, int h, int hkv, float scale,
                    int causal) {
   using T = DqTiles<D>;
@@ -1118,9 +1255,13 @@ bf16_dq_tma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
         sm90::tma_load_4d(smem + c * BM * 128, &tq, q_full, 64 * c, head, q0, b);
         sm90::tma_load_4d(smem + T::kQBytes + c * BM * 128, &tdo, q_full, 64 * c, head, q0, b);
       }
-      for (int t = 0; t < tiles; ++t) {
-        const int s = t % S;
-        sm90::mbar_wait(&empty[s], ((t / S) & 1) ^ 1);
+      for (int t = 0, n = 0; t < tiles; ++t) {
+        uint64_t bits[1];
+        tile_bits(bits, words, nw, b, t * BN, sk);
+        if (none_allowed(bits)) continue;
+        const int s = n % S;
+        sm90::mbar_wait(&empty[s], ((n / S) & 1) ^ 1);
+        ++n;
         sm90::mbar_arrive_expect_tx(&full[s], 2 * T::kKVBytes);
 #pragma unroll
         for (int c = 0; c < D / 64; ++c) {
@@ -1153,10 +1294,14 @@ bf16_dq_tma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
     for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 
     sm90::mbar_wait(q_full, 0);
-    for (int t = 0; t < tiles; ++t) {
-      const int s = t % S;
+    for (int t = 0, n = 0; t < tiles; ++t) {
       const int k0 = t * BN;
-      sm90::mbar_wait(&full[s], (t / S) & 1);
+      uint64_t bits[1];
+      tile_bits(bits, words, nw, b, k0, sk);
+      if (none_allowed(bits)) continue;   // never loaded: ds would be 0
+      const int s = n % S;
+      sm90::mbar_wait(&full[s], (n / S) & 1);
+      ++n;
       // A tile wholly above this warpgroup's diagonal adds nothing.
       if (!causal || k0 <= r0 + 63 + off) {
         const uint32_t k_addr = base + T::k(s);
@@ -1168,17 +1313,16 @@ bf16_dq_tma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
         sm90::wgmma_wait<0>();
         sm90::fence_regs(sc);
         sm90::fence_regs(dp);
-        // Some entry is disallowed: a key mask, the ragged last tile (its
-        // zero-filled keys), the tiles on the diagonal.
-        const bool masked =
-            mask != nullptr || k0 + BN > sk || (causal && k0 + BN - 1 > r0 + off);
+        // Some entry is disallowed: a key the mask leaves out, the ragged
+        // last tile (its zero-filled keys), the tiles on the diagonal.
+        const bool masked = !all_allowed(bits) || (causal && k0 + BN - 1 > r0 + off);
+        const uint64_t mine = bits[0] >> (2 * (lane % 4));   // this thread's columns
 #pragma unroll
         for (int j = 0; j < BN / 8; ++j) {
 #pragma unroll
           for (int cc = 0; cc < 2; ++cc) {
             const int col = k0 + 8 * j + 2 * (lane % 4) + cc;
-            const bool key_ok =
-                !masked || (col < sk && (mask == nullptr || mask[(size_t)b * sk + col]));
+            const bool key_ok = !masked || ((mine >> (8 * j + cc)) & 1);
 #pragma unroll
             for (int i = 0; i < 2; ++i) {
               const int e = 4 * j + 2 * i + cc;
@@ -1217,7 +1361,8 @@ struct Args {
   const void* q;
   const void* k;
   const void* v;
-  const uint8_t* mask;
+  const uint64_t* words;   // the key mask's bits (B, nw), or null
+  int nw;
   const void* dout;
   const float* lse_in;
   const float* delta;
@@ -1251,21 +1396,21 @@ cudaError_t launch_fma(Kind kind, const Args& a, cudaStream_t stream) {
     if ((err = prepare(fma_fwd_kernel<T, D, W>, bytes)) != cudaSuccess) return err;
     const dim3 grid((a.sq + G::R - 1) / G::R, a.b * a.h);
     fma_fwd_kernel<T, D, W><<<grid, G::NT, bytes, stream>>>(
-        q, k, v, a.mask, static_cast<T*>(a.out0), a.lse_out, a.sq, a.sk, a.h, a.hkv, a.scale,
-        a.causal);
+        q, k, v, a.words, a.nw, static_cast<T*>(a.out0), a.lse_out, a.sq, a.sk, a.h, a.hkv,
+        a.scale, a.causal);
   } else if (kind == kDq) {
     const size_t bytes = G::dq_bytes();
     if ((err = prepare(fma_dq_kernel<T, D, W>, bytes)) != cudaSuccess) return err;
     const dim3 grid((a.sq + G::R - 1) / G::R, a.b * a.h);
     fma_dq_kernel<T, D, W><<<grid, G::NT, bytes, stream>>>(
-        q, k, v, a.mask, dout, a.lse_in, a.delta, static_cast<T*>(a.out0), a.sq, a.sk, a.h,
-        a.hkv, a.scale, a.causal);
+        q, k, v, a.words, a.nw, dout, a.lse_in, a.delta, static_cast<T*>(a.out0), a.sq, a.sk,
+        a.h, a.hkv, a.scale, a.causal);
   } else {
     const size_t bytes = G::dkdv_bytes();
     if ((err = prepare(fma_dkdv_kernel<T, D, W>, bytes)) != cudaSuccess) return err;
     const dim3 grid((a.sk + G::R - 1) / G::R, a.b * a.hkv);
     fma_dkdv_kernel<T, D, W><<<grid, G::NT, bytes, stream>>>(
-        q, k, v, a.mask, dout, a.lse_in, a.delta, static_cast<T*>(a.out0),
+        q, k, v, a.words, a.nw, dout, a.lse_in, a.delta, static_cast<T*>(a.out0),
         static_cast<T*>(a.out1), a.sq, a.sk, a.h, a.hkv, a.scale, a.causal);
   }
   return cudaGetLastError();
@@ -1324,8 +1469,8 @@ cudaError_t launch_bf16(Kind kind, const Args& a, cudaStream_t stream) {
     }
     if ((err = prepare(bf16_fwd_tma_kernel<D>, T::kSmem)) != cudaSuccess) return err;
     bf16_fwd_tma_kernel<D><<<grid, T::kThreads, T::kSmem, stream>>>(
-        tq, tk, tv, a.mask, static_cast<bf16*>(a.out0), a.lse_out, a.sq, a.sk, a.h, a.hkv,
-        a.scale * kLog2e, a.causal);
+        tq, tk, tv, a.words, a.nw, static_cast<bf16*>(a.out0), a.lse_out, a.sq, a.sk, a.h,
+        a.hkv, a.scale * kLog2e, a.causal);
   } else if (kind == kDq) {
     using T = DqTiles<D>;
     const dim3 grid(a.b * a.h, (a.sq + T::kRows - 1) / T::kRows);
@@ -1338,8 +1483,8 @@ cudaError_t launch_bf16(Kind kind, const Args& a, cudaStream_t stream) {
     }
     if ((err = prepare(bf16_dq_tma_kernel<D>, T::kSmem)) != cudaSuccess) return err;
     bf16_dq_tma_kernel<D><<<grid, T::kThreads, T::kSmem, stream>>>(
-        tq, tk, tv, tdo, a.mask, a.lse_in, a.delta, static_cast<bf16*>(a.out0), a.sq, a.sk,
-        a.h, a.hkv, a.scale, a.causal);
+        tq, tk, tv, tdo, a.words, a.nw, a.lse_in, a.delta, static_cast<bf16*>(a.out0), a.sq,
+        a.sk, a.h, a.hkv, a.scale, a.causal);
   } else {
     using T = DkdvTiles<D>;
     const dim3 grid(a.b * a.hkv, (a.sk + T::kKeys - 1) / T::kKeys);
@@ -1352,7 +1497,7 @@ cudaError_t launch_bf16(Kind kind, const Args& a, cudaStream_t stream) {
     }
     if ((err = prepare(bf16_dkdv_tma_kernel<D>, T::kSmem)) != cudaSuccess) return err;
     bf16_dkdv_tma_kernel<D><<<grid, T::kThreads, T::kSmem, stream>>>(
-        tq, tk, tv, tdo, a.mask, a.lse_in, a.delta, static_cast<bf16*>(a.out0),
+        tq, tk, tv, tdo, a.words, a.nw, a.lse_in, a.delta, static_cast<bf16*>(a.out0),
         static_cast<bf16*>(a.out1), a.sq, a.sk, a.h, a.hkv, a.scale, a.causal);
   }
   return cudaGetLastError();
@@ -1363,6 +1508,10 @@ cudaError_t launch_bf16(Kind kind, const Args& a, cudaStream_t stream) {
 // loop over the group at run time.
 cudaError_t dispatch(Kind kind, int dtype, int d, const Args& a, cudaStream_t stream) {
   if (a.b <= 0 || a.sq <= 0 || a.sk <= 0 || a.hkv <= 0 || a.h % a.hkv) {
+    return cudaErrorInvalidValue;
+  }
+  if (a.words != nullptr &&
+      (a.nw != mask_words_per_row(a.sk) || reinterpret_cast<uintptr_t>(a.words) % 16)) {
     return cudaErrorInvalidValue;
   }
   if (a.b * (kind == kDkdv ? a.hkv : a.h) > 65535) return cudaErrorInvalidValue;
@@ -1384,33 +1533,48 @@ extern "C" const char* hvd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// mask: (B, Sk) uint8, or null for no key mask. lse: (B*H, Sq) f32, written.
-extern "C" int hvd_flash_forward(const void* q, const void* k, const void* v, const void* mask,
-                                 void* out, void* lse, int b, int sq, int sk, int h, int hkv,
-                                 int d, float scale, int causal, int dtype, void* stream) {
-  Args a{q,       k,      v,  static_cast<const uint8_t*>(mask), nullptr, nullptr, nullptr,
-         out,     nullptr, static_cast<float*>(lse), b, sq, sk, h, hkv, causal, scale};
+// mask: (B, Sk) bytes, nonzero where a key is allowed; words: (B, nw)
+// uint64, 16-byte aligned, nw = 2 * ceil(Sk / 128), written.
+extern "C" int hvd_flash_mask_words(const void* mask, void* words, int b, int sk, int nw,
+                                    void* stream) {
+  if (b <= 0 || sk <= 0 || nw != mask_words_per_row(sk)) return cudaErrorInvalidValue;
+  const long long total = (long long)b * nw;
+  const long long blocks = (total + 7) / 8;   // a warp a word, 8 warps a block
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  flash_mask_words_kernel<<<(unsigned)blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(mask), static_cast<uint64_t*>(words), b, sk, nw);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// words: the key mask's bits (hvd_flash_mask_words), or null for no key
+// mask; nw its words a row. lse: (B*H, Sq) f32, written.
+extern "C" int hvd_flash_forward(const void* q, const void* k, const void* v, const void* words,
+                                 int nw, void* out, void* lse, int b, int sq, int sk, int h,
+                                 int hkv, int d, float scale, int causal, int dtype,
+                                 void* stream) {
+  Args a{q,       k,       v,       static_cast<const uint64_t*>(words), nw, nullptr, nullptr,
+         nullptr, out,     nullptr, static_cast<float*>(lse), b, sq, sk, h, hkv, causal, scale};
   return static_cast<int>(dispatch(kForward, dtype, d, a, static_cast<cudaStream_t>(stream)));
 }
 
 // lse, delta: (B*H, Sq) f32, delta = rowsum(dO * O) - dlse.
 extern "C" int hvd_flash_backward_dq(const void* q, const void* k, const void* v,
-                                     const void* mask, const void* dout, const void* lse,
+                                     const void* words, int nw, const void* dout, const void* lse,
                                      const void* delta, void* dq, int b, int sq, int sk, int h,
                                      int hkv, int d, float scale, int causal, int dtype,
                                      void* stream) {
-  Args a{q,  k,       v,       static_cast<const uint8_t*>(mask), dout,
+  Args a{q,  k,  v,  static_cast<const uint64_t*>(words), nw, dout,
          static_cast<const float*>(lse), static_cast<const float*>(delta), dq, nullptr, nullptr,
-         b,  sq,      sk,      h,  hkv, causal, scale};
+         b,  sq, sk, h, hkv, causal, scale};
   return static_cast<int>(dispatch(kDq, dtype, d, a, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int hvd_flash_backward_dkdv(const void* q, const void* k, const void* v,
-                                       const void* mask, const void* dout, const void* lse,
-                                       const void* delta, void* dk, void* dv, int b, int sq,
-                                       int sk, int h, int hkv, int d, float scale, int causal,
-                                       int dtype, void* stream) {
-  Args a{q,  k,  v,  static_cast<const uint8_t*>(mask), dout,
+                                       const void* words, int nw, const void* dout,
+                                       const void* lse, const void* delta, void* dk, void* dv,
+                                       int b, int sq, int sk, int h, int hkv, int d, float scale,
+                                       int causal, int dtype, void* stream) {
+  Args a{q,  k,  v,  static_cast<const uint64_t*>(words), nw, dout,
          static_cast<const float*>(lse), static_cast<const float*>(delta), dk, dv, nullptr,
          b,  sq, sk, h, hkv, causal, scale};
   return static_cast<int>(dispatch(kDkdv, dtype, d, a, static_cast<cudaStream_t>(stream)));

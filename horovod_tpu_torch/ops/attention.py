@@ -17,6 +17,15 @@ tensors take the plain versions (``flash_attention_forward_plain``,
 the kernels' arithmetic with explicit formulas. ``LAUNCHES`` counts kernel
 launches per wrapper.
 
+The key mask reaches the kernels as a bitmap (:func:`flash_mask_words`,
+its own small kernel, counted in ``MASK_LAUNCHES``): (B, 2·ceil(Sk/128))
+64-bit words, bit j of word w set when key 64·w + j is allowed. ``_Flash``
+builds it once in the forward and hands the same words to kernels 1, 2
+and 3; the public wrappers take the bool mask and build the words
+themselves unless given them (``words=``). The kernels run the unmasked
+code on key tiles the mask wholly allows and never load one it wholly
+leaves out. The plain versions take the bool mask.
+
 Semantics kept from the JAX package: q ``(B, Sq, H, D)``, k/v
 ``(B, Sk, Hkv, D)`` with query head h reading K/V head ``h // (H/Hkv)``;
 an optional ``(B, Sk)`` key mask; causal in the decode convention (query
@@ -59,36 +68,42 @@ FLASH_AUTO_MIN_SEQ = 512
 #: Kernel launches per wrapper since the last :func:`reset_launch_counts`.
 LAUNCHES: Dict[str, int] = {"flash_forward": 0, "flash_backward_dq": 0,
                             "flash_backward_dkdv": 0}
+#: Launches of the key-mask bitmap's kernel (one a masked flash call).
+MASK_LAUNCHES: Dict[str, int] = {"flash_mask_words": 0}
 _launch_lock = threading.Lock()
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # q, k, v, mask, out, lse, b, sq, sk, h, hkv, d, scale, causal, dtype,
-    # stream
-    "hvd_flash_forward": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                          _F, _I, _I, _P),
-    # q, k, v, mask, dout, lse, delta, dq, b, sq, sk, h, hkv, d, scale,
-    # causal, dtype, stream
-    "hvd_flash_backward_dq": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                              _I, _I, _I, _F, _I, _I, _P),
-    # q, k, v, mask, dout, lse, delta, dk, dv, b, sq, sk, h, hkv, d, scale,
-    # causal, dtype, stream
-    "hvd_flash_backward_dkdv": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                _I, _I, _I, _I, _F, _I, _I, _P),
+    # mask, words, b, sk, nw, stream
+    "hvd_flash_mask_words": (_P, _P, _I, _I, _I, _P),
+    # q, k, v, words, nw, out, lse, b, sq, sk, h, hkv, d, scale, causal,
+    # dtype, stream
+    "hvd_flash_forward": (_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
+                          _I, _F, _I, _I, _P),
+    # q, k, v, words, nw, dout, lse, delta, dq, b, sq, sk, h, hkv, d,
+    # scale, causal, dtype, stream
+    "hvd_flash_backward_dq": (_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I,
+                              _I, _I, _I, _I, _F, _I, _I, _P),
+    # q, k, v, words, nw, dout, lse, delta, dk, dv, b, sq, sk, h, hkv, d,
+    # scale, causal, dtype, stream
+    "hvd_flash_backward_dkdv": (_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I,
+                                _I, _I, _I, _I, _I, _F, _I, _I, _P),
 }
 
 
 def reset_launch_counts() -> None:
     with _launch_lock:
-        for key in LAUNCHES:
-            LAUNCHES[key] = 0
+        for counts in (LAUNCHES, MASK_LAUNCHES):
+            for key in counts:
+                counts[key] = 0
 
 
 def _count_launch(name: str) -> None:
     """One launch of ``name``'s kernel. Under a lock: several serving
     loops (fleet replicas) launch from their own threads."""
     with _launch_lock:
-        LAUNCHES[name] += 1
+        counts = MASK_LAUNCHES if name in MASK_LAUNCHES else LAUNCHES
+        counts[name] += 1
 
 
 def _check_gqa_heads(q, k, v, name: str) -> None:
@@ -248,6 +263,27 @@ def flash_backward_dkdv_plain(q, k, v, key_mask, g, lse, delta,
             dv.permute(0, 2, 1, 3).to(v.dtype).contiguous())
 
 
+def mask_words_count(sk: int) -> int:
+    """Words of the key bitmap a sequence: two a 128-key tile, so the
+    bf16 forward reads a tile's pair as one aligned 16-byte load."""
+    return 2 * ((sk + 127) // 128)
+
+
+def mask_words_plain(key_mask):
+    """Plain version of the bitmap kernel: the (B, Sk) bool or uint8 key
+    mask (nonzero = allowed) as (B, :func:`mask_words_count`) int64, bit j
+    of word w set when key 64·w + j is allowed; bits at or past Sk are 0.
+    Disjoint bits sum to their OR (bit 63 is int64's sign)."""
+    b, sk = key_mask.shape
+    nw = mask_words_count(sk)
+    bits = torch.zeros(b, nw * 64, dtype=torch.int64, device=key_mask.device)
+    bits[:, :sk] = key_mask != 0
+    weights = torch.ones(64, dtype=torch.int64,
+                         device=key_mask.device) << torch.arange(
+                             64, device=key_mask.device)
+    return (bits.view(b, nw, 64) * weights).sum(-1)
+
+
 def flash_delta(out, g, dlse=None):
     """delta = rowsum(dO · O) in f32, minus ``dlse`` when the lse output
     has a cotangent (ring attention's merge): (B*H, 1, Sq) f32."""
@@ -282,7 +318,8 @@ def flash_attention_backward_plain(q, k, v, key_mask, out, lse, g,
 # dk and dv, which are sliced back; lse and delta (a row sum of dO·O) are
 # unchanged. The transforms are plain functions around any
 # implementation of the kernels' signatures, so the CPU tests drive them
-# around the plain versions.
+# around the plain versions; the mask argument passes through untouched
+# (the bool mask to a plain version, its bitmap to a kernel).
 
 
 def kernel_width(d: int) -> int:
@@ -409,45 +446,88 @@ def check_blocks(dtype: torch.dtype, head_dim: int,
 # Kernel wrappers
 
 
-def _kernel_args(name, q, k, v, key_mask, **more):
+def flash_mask_words(key_mask):
+    """The key mask (B, Sk), bool or uint8, as the kernels' bitmap
+    (:func:`mask_words_plain`'s words), built by the bitmap kernel on a
+    CUDA tensor and by the plain version on a CPU one."""
+    if key_mask.dim() != 2 or key_mask.dtype not in (torch.bool,
+                                                     torch.uint8):
+        raise TypeError(
+            f"flash_mask_words: the key mask is (B, Sk) bool or uint8, got "
+            f"{key_mask.dtype} {tuple(key_mask.shape)}")
+    if not _build.on_card("flash_mask_words", key_mask):
+        return mask_words_plain(key_mask)
+    mask = key_mask.contiguous().view(torch.uint8)
+    b, sk = mask.shape
+    nw = mask_words_count(sk)
+    words = torch.empty((b, nw), dtype=torch.int64, device=mask.device)
+    lib = _build.library("flash_attention", _SIGNATURES)
+    code = lib.hvd_flash_mask_words(mask.data_ptr(), words.data_ptr(), b, sk,
+                                    nw, _build.stream(mask.device))
+    _build.check(lib, "hvd_flash_mask_words", code)
+    _count_launch("flash_mask_words")
+    return words
+
+
+def flash_call_words(q, key_mask, words=None):
+    """The bitmap a flash call's kernels read: ``words`` if given, else
+    built once from ``key_mask`` on the card; None on the CPU (the plain
+    versions read the bool mask) or without a mask (the unmasked
+    kernels)."""
+    if words is not None or key_mask is None \
+            or not _build.on_card("flash attention", q, key_mask):
+        return words
+    return flash_mask_words(key_mask)
+
+
+def _kernel_args(name, q, k, v, words, **more):
+    """Check a kernel's operands; return its bitmap arguments (the words'
+    pointer or None, words a row) and dims (b, sq, sk, h, hkv, d)."""
     _build.check_operands(name, _build.FLASH_WIDTHS, q=q, k=k, v=v, **more)
-    mask = None
-    if key_mask is not None:
-        mask = key_mask.to(torch.uint8).contiguous()
     b, sq, h, d = q.shape
-    return mask, (b, sq, k.shape[1], h, k.shape[2], d)
+    sk = k.shape[1]
+    nw = mask_words_count(sk)
+    if words is not None and (
+            words.dtype != torch.int64 or tuple(words.shape) != (b, nw)
+            or not words.is_contiguous() or words.data_ptr() % 16
+            or words.device != q.device):
+        raise ValueError(
+            f"{name}: the key mask's words must be contiguous int64 of shape "
+            f"{(b, nw)} on {q.device} (flash_mask_words), got {words.dtype} "
+            f"{tuple(words.shape)} on {words.device}")
+    ptr = None if words is None else words.data_ptr()
+    return (ptr, nw), (b, sq, sk, h, k.shape[2], d)
 
 
-def _mask_ptr(mask):
-    return None if mask is None else mask.data_ptr()
-
-
-def _forward_kernel(q, k, v, key_mask, causal, sm_scale):
-    """Launch kernel 1 on operands in its range."""
-    mask, dims = _kernel_args("flash_forward", q, k, v, key_mask)
+def _forward_kernel(q, k, v, words, causal, sm_scale):
+    """Launch kernel 1 on operands in its range (``words``: the key mask's
+    bitmap or None)."""
+    bitmap, dims = _kernel_args("flash_forward", q, k, v, words)
     b, sq, sk, h, hkv, d = dims
     out = torch.empty_like(q)
     lse = torch.empty((b * h, 1, sq), dtype=torch.float32, device=q.device)
     lib = _build.library("flash_attention", _SIGNATURES)
     code = lib.hvd_flash_forward(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), _mask_ptr(mask),
-        out.data_ptr(), lse.data_ptr(), *dims, float(_scale(q, sm_scale)),
-        int(causal), _build.KERNEL_DTYPES[q.dtype], _build.stream(q.device))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), *bitmap, out.data_ptr(),
+        lse.data_ptr(), *dims, float(_scale(q, sm_scale)), int(causal),
+        _build.KERNEL_DTYPES[q.dtype], _build.stream(q.device))
     _build.check(lib, "hvd_flash_forward", code)
     _count_launch("flash_forward")
     return out, lse
 
 
 def _flash_forward(q, k, v, key_mask=None, causal: bool = False,
-                   sm_scale: Optional[float] = None):
+                   sm_scale: Optional[float] = None, words=None):
     """Kernel 1 (``_flash_kernel``'s counterpart): ``(out, lse)`` as
-    :func:`flash_attention_forward_plain` returns them."""
+    :func:`flash_attention_forward_plain` returns them. ``words``: the key
+    mask's bitmap (:func:`flash_mask_words`), built here when None."""
     _check_gqa_heads(q, k, v, "flash_attention")
     tensors = (q, k, v) + (() if key_mask is None else (key_mask,))
     if not _build.on_card("flash attention", *tensors):
         return flash_attention_forward_plain(q, k, v, key_mask, causal,
                                              sm_scale)
-    return forward_in_range(_forward_kernel, q, k, v, key_mask, causal,
+    return forward_in_range(_forward_kernel, q, k, v,
+                            flash_call_words(q, key_mask, words), causal,
                             sm_scale)
 
 
@@ -461,16 +541,16 @@ def _check_stats(q, lse, delta):
                 f"shape {want}, got {t.dtype} {tuple(t.shape)}")
 
 
-def _dq_kernel(q, k, v, key_mask, g, lse, delta, causal, sm_scale):
+def _dq_kernel(q, k, v, words, g, lse, delta, causal, sm_scale):
     """Launch kernel 2 on operands in its range."""
-    mask, dims = _kernel_args("flash_backward_dq", q, k, v, key_mask, g=g)
+    bitmap, dims = _kernel_args("flash_backward_dq", q, k, v, words, g=g)
     _check_stats(q, lse, delta)
     dq = torch.empty_like(q)
     lib = _build.library("flash_attention", _SIGNATURES)
     code = lib.hvd_flash_backward_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), _mask_ptr(mask),
-        g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        *dims, float(_scale(q, sm_scale)), int(causal),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), *bitmap, g.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *dims,
+        float(_scale(q, sm_scale)), int(causal),
         _build.KERNEL_DTYPES[q.dtype], _build.stream(q.device))
     _build.check(lib, "hvd_flash_backward_dq", code)
     _count_launch("flash_backward_dq")
@@ -478,28 +558,30 @@ def _dq_kernel(q, k, v, key_mask, g, lse, delta, causal, sm_scale):
 
 
 def flash_backward_dq(q, k, v, key_mask, g, lse, delta, causal=False,
-                      sm_scale=None):
-    """Kernel 2 (``_flash_bwd_dq_kernel``'s counterpart): dq."""
+                      sm_scale=None, words=None):
+    """Kernel 2 (``_flash_bwd_dq_kernel``'s counterpart): dq. ``words``:
+    as :func:`_flash_forward`'s."""
     tensors = (q, k, v, g, lse, delta) + (
         () if key_mask is None else (key_mask,))
     if not _build.on_card("flash attention", *tensors):
         return flash_backward_dq_plain(q, k, v, key_mask, g, lse, delta,
                                        causal, sm_scale)
-    return dq_in_range(_dq_kernel, q, k, v, key_mask, g, lse, delta, causal,
-                       sm_scale)
+    return dq_in_range(_dq_kernel, q, k, v,
+                       flash_call_words(q, key_mask, words), g, lse, delta,
+                       causal, sm_scale)
 
 
-def _dkdv_kernel(q, k, v, key_mask, g, lse, delta, causal, sm_scale):
+def _dkdv_kernel(q, k, v, words, g, lse, delta, causal, sm_scale):
     """Launch kernel 3 on operands in its range."""
-    mask, dims = _kernel_args("flash_backward_dkdv", q, k, v, key_mask, g=g)
+    bitmap, dims = _kernel_args("flash_backward_dkdv", q, k, v, words, g=g)
     _check_stats(q, lse, delta)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     lib = _build.library("flash_attention", _SIGNATURES)
     code = lib.hvd_flash_backward_dkdv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), _mask_ptr(mask),
-        g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), *dims, float(_scale(q, sm_scale)), int(causal),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), *bitmap, g.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *dims, float(_scale(q, sm_scale)), int(causal),
         _build.KERNEL_DTYPES[q.dtype], _build.stream(q.device))
     _build.check(lib, "hvd_flash_backward_dkdv", code)
     _count_launch("flash_backward_dkdv")
@@ -507,28 +589,32 @@ def _dkdv_kernel(q, k, v, key_mask, g, lse, delta, causal, sm_scale):
 
 
 def flash_backward_dkdv(q, k, v, key_mask, g, lse, delta, causal=False,
-                        sm_scale=None):
+                        sm_scale=None, words=None):
     """Kernel 3 (``_flash_bwd_dkdv_kernel``'s counterpart): ``(dk, dv)``,
     one block per (batch, K/V head, key tile) sweeping its whole query
-    group — deterministic, no atomics."""
+    group — deterministic, no atomics. ``words``: as
+    :func:`_flash_forward`'s."""
     tensors = (q, k, v, g, lse, delta) + (
         () if key_mask is None else (key_mask,))
     if not _build.on_card("flash attention", *tensors):
         return flash_backward_dkdv_plain(q, k, v, key_mask, g, lse, delta,
                                          causal, sm_scale)
-    return dkdv_in_range(_dkdv_kernel, q, k, v, key_mask, g, lse, delta,
+    return dkdv_in_range(_dkdv_kernel, q, k, v,
+                         flash_call_words(q, key_mask, words), g, lse, delta,
                          causal, sm_scale)
 
 
 def _flash_backward(q, k, v, key_mask, out, lse, g, causal: bool = False,
-                    sm_scale: Optional[float] = None, dlse=None):
+                    sm_scale: Optional[float] = None, dlse=None, words=None):
     """The backward of :func:`_flash_forward`: delta in plain torch, then
-    kernels 2 and 3. ``dlse``: a cotangent on lse (a shift of delta)."""
+    kernels 2 and 3, both reading ``words`` (built once here when None).
+    ``dlse``: a cotangent on lse (a shift of delta)."""
     delta = flash_delta(out, g, dlse)
+    words = flash_call_words(q, key_mask, words)
     dq = flash_backward_dq(q, k, v, key_mask, g, lse, delta, causal,
-                           sm_scale)
+                           sm_scale, words)
     dk, dv = flash_backward_dkdv(q, k, v, key_mask, g, lse, delta, causal,
-                                 sm_scale)
+                                 sm_scale, words)
     return dq, dk, dv
 
 
@@ -536,14 +622,15 @@ class _Flash(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, key_mask, causal, sm_scale):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        out, lse = _flash_forward(q, k, v, key_mask, causal, sm_scale)
-        ctx.save_for_backward(q, k, v, key_mask, out, lse)
+        words = flash_call_words(q, key_mask)
+        out, lse = _flash_forward(q, k, v, key_mask, causal, sm_scale, words)
+        ctx.save_for_backward(q, k, v, key_mask, words, out, lse)
         ctx.causal, ctx.sm_scale = causal, sm_scale
         return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, key_mask, out, lse = ctx.saved_tensors
+        q, k, v, key_mask, words, out, lse = ctx.saved_tensors
         if config.flash_xla_bwd():
             dq, dk, dv = _dense_vjp(
                 lambda q_, k_, v_: flash_attention_forward_plain(
@@ -552,7 +639,7 @@ class _Flash(torch.autograd.Function):
         else:
             dq, dk, dv = _flash_backward(q, k, v, key_mask, out, lse,
                                          g.contiguous(), ctx.causal,
-                                         ctx.sm_scale)
+                                         ctx.sm_scale, words=words)
         return dq, dk, dv, None, None, None
 
 

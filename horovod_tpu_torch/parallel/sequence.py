@@ -47,6 +47,7 @@ from ..ops.attention import (
     _flash_backward,
     _flash_forward,
     flash_attention_forward_plain,
+    flash_call_words,
     make_attention_fn,
     repeat_kv,
 )
@@ -191,14 +192,15 @@ class _FlashBlockPair(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, mask, causal, scale):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        out, lse = _flash_forward(q, k, v, mask, causal, scale)
-        ctx.save_for_backward(q, k, v, mask, out, lse)
+        words = flash_call_words(q, mask)
+        out, lse = _flash_forward(q, k, v, mask, causal, scale, words)
+        ctx.save_for_backward(q, k, v, mask, words, out, lse)
         ctx.causal, ctx.scale = causal, scale
         return out, lse
 
     @staticmethod
     def backward(ctx, do, dlse):
-        q, k, v, mask, out, lse = ctx.saved_tensors
+        q, k, v, mask, words, out, lse = ctx.saved_tensors
         if config.flash_xla_bwd():
             dq, dk, dv = _dense_vjp(
                 lambda q_, k_, v_: flash_attention_forward_plain(
@@ -207,7 +209,7 @@ class _FlashBlockPair(torch.autograd.Function):
         else:
             dq, dk, dv = _flash_backward(q, k, v, mask, out, lse,
                                          do.contiguous(), ctx.causal,
-                                         ctx.scale, dlse=dlse)
+                                         ctx.scale, dlse=dlse, words=words)
         return dq, dk, dv, None, None, None
 
 

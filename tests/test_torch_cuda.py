@@ -314,6 +314,63 @@ def test_flash_kernels_match_plain(cuda_device, dtype, b, sq, sk, h, hkv, d,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("sk", [1, 63, 64, 65, 197, 512])
+def test_flash_mask_words_kernel_matches_plain(cuda_device, sk):
+    gen = torch.Generator(device=cuda_device).manual_seed(sk)
+    mask = torch.rand(5, sk, generator=gen, device=cuda_device) > 0.4
+    mask[1] = True
+    mask[2] = False
+    flash.reset_launch_counts()
+    for m in (mask, mask.to(torch.uint8)):
+        words = flash.flash_mask_words(m)
+        torch.cuda.synchronize()
+        assert torch.equal(words, flash.mask_words_plain(m))
+    assert flash.MASK_LAUNCHES == {"flash_mask_words": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_never_reads_fully_masked_key_tiles(cuda_device, causal):
+    """bf16 (the TMA kernels): NaN in K and V at every key of a 128-key
+    tile the mask wholly leaves out reaches no output, and dk, dv are 0
+    at the masked keys."""
+    b, s, h, hkv, d = 3, 640, 4, 2, 64
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    q, k, v, g = (_randn(gen, cuda_device, torch.bfloat16, b, s, n, d)
+                  for n in (h, hkv, hkv, h))
+    mask = torch.ones(b, s, dtype=torch.bool, device=cuda_device)
+    mask[0, 128:384] = False           # two forward tiles
+    mask[1, 300:] = False              # padding: tiles 3 and 4 out
+    mask[2] = False                    # a fully padded sequence
+    out, lse = flash.flash_attention_forward_plain(q, k, v, mask, causal)
+    delta = flash.flash_delta(out, g)
+
+    def run(k_, v_):
+        o, l_ = flash._flash_forward(q, k_, v_, mask, causal)
+        return (o, l_,
+                flash.flash_backward_dq(q, k_, v_, mask, g, lse, delta,
+                                        causal),
+                *flash.flash_backward_dkdv(q, k_, v_, mask, g, lse, delta,
+                                           causal))
+
+    clean = run(k, v)
+    skipped = torch.zeros_like(mask)
+    skipped[0, 128:384] = True
+    skipped[1, 384:] = True
+    skipped[2] = True
+    nan = (k.masked_fill(skipped[:, :, None, None], float("nan")),
+           v.masked_fill(skipped[:, :, None, None], float("nan")))
+    dirty = run(*nan)
+    torch.cuda.synchronize()
+    for a, b_ in zip(clean[:3], dirty[:3]):
+        assert torch.equal(a, b_)
+    for a, b_ in zip(clean[3:], dirty[3:]):
+        assert torch.equal(a[mask], b_[mask])
+        assert not bool(b_[~mask].ne(0).any())
+    _assert_flash_close(clean[0], out, torch.bfloat16)
+
+
+@pytest.mark.cuda
 def test_flash_wrappers_refuse_what_the_kernels_cannot_take(cuda_device):
     q = torch.zeros((1, 8, 4, 288), device=cuda_device)      # D=288
     with pytest.raises(ValueError, match="head_dim"):
